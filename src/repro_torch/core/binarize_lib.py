@@ -1,0 +1,354 @@
+"""Recurrent binarization module (BEBR §3.2.1), eval mode, in PyTorch.
+
+Ports ``repro/core/binarize_lib.py``: the code arithmetic (affine
+constants, the SDC epilogue, code and nibble packing) and the eval-mode
+recurrent binarizer
+
+    b_0   = sign(W_0(f))
+    f̂_t   = normalize(R_t(b_t))
+    r_t   = sign(W_{t+1}(f - f̂_t))
+    b_t+1 = b_t + 2^{-(t+1)} r_t
+
+with ``W_*``/``R_*`` the MLPs linear -> batchnorm -> ReLU -> linear. The
+reference holds its weights as a pytree of ``(d_in, d_out)`` matrices;
+here they are ``nn.Linear`` modules, which store ``w.T``, and
+``binarizer_from_numpy`` / ``load_checkpoint`` transpose on the way in.
+Batch norm keeps the reference's op order (explicit ``bn_mean``/
+``bn_var`` buffers, not ``nn.BatchNorm1d``) and every matrix product
+runs in full float32, as the reference does. Training (the STE
+gradient, running-stat updates) is not ported yet: ``ste_sign`` is the
+forward ``where(x > 0, 1, -1)`` only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import full_fp32_matmul, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class BinarizerConfig:
+    """Configuration of the recurrent binarization module.
+
+    Attributes:
+      input_dim: dimension d of the incoming float embeddings.
+      code_dim: m, output dimension of each binarization block.
+      n_levels: u + 1 total binary vectors (base + u residual loops).
+      hidden_dim: width of the MLP hidden layer (0 => single linear).
+      bn_momentum: batch-norm running-stat momentum (training only).
+      input_map: learnable input-alignment map P (identity-initialised).
+    """
+
+    input_dim: int
+    code_dim: int
+    n_levels: int = 4
+    hidden_dim: int = 0
+    bn_momentum: float = 0.9
+    input_map: bool = False
+
+    @property
+    def total_bits(self) -> int:
+        return self.code_dim * self.n_levels
+
+    @property
+    def u(self) -> int:
+        return self.n_levels - 1
+
+
+# ---------------------------------------------------------------------------
+# Code arithmetic.
+#
+# bits[-1/+1] per level  <->  integer codes in [0, 2^n_levels)  <->  values.
+# value = a * code + beta with a = 2^(2 - n_levels), beta = -(2 - 2^(1 - n_levels)).
+# ---------------------------------------------------------------------------
+
+
+def code_affine_constants(n_levels: int) -> Tuple[float, float]:
+    u = n_levels - 1
+    a = 2.0 ** (1 - u)
+    beta = -(2.0 - 2.0 ** (-u))
+    return a, beta
+
+
+# Sentinel for "excluded from ranking", shared by every SDC scoring path.
+SDC_NEG_INF = -1e30
+
+
+def sdc_affine_epilogue(dot, code_sums, *, dim: int, n_levels: int, inv_norm=None):
+    """Integer-code partial sums -> SDC scores (float32).
+
+        <v(q), v(d)> = a^2 (c_q . c_d) + a*beta*(sum c_q + sum c_d) + D*beta^2
+
+    The float op order is the reference's: mul, mul, add, add, then
+    times ``inv_norm``. The CUDA kernel repeats it with round-to-nearest
+    intrinsics, so every path gives the same bits.
+    """
+    a, beta = code_affine_constants(n_levels)
+    scores = (
+        (a * a) * dot.to(torch.float32)
+        + (a * beta) * code_sums.to(torch.float32)
+        + dim * (beta * beta)
+    )
+    if inv_norm is not None:
+        scores = scores * inv_norm
+    return scores
+
+
+def pack_codes(bits: torch.Tensor) -> torch.Tensor:
+    """[-1,+1] bits [..., n_levels, m] -> integer codes [..., m] (int8).
+
+    Level 0 (the base vector) is the MSB so that the affine identity holds.
+    """
+    n = bits.shape[-2]
+    weights = 2 ** torch.arange(n - 1, -1, -1, dtype=torch.int32, device=bits.device)
+    zo = ((bits + 1.0) * 0.5).to(torch.int32)  # {0,1}
+    codes = (zo.transpose(-1, -2) * weights).sum(-1, dtype=torch.int32)
+    return codes.to(torch.int8)
+
+
+def coarse_codes(codes: torch.Tensor, n_levels: int, coarse_levels: int) -> torch.Tensor:
+    """Keep the first ``coarse_levels`` levels of an ``n_levels`` code (a right shift)."""
+    if not 1 <= coarse_levels <= n_levels:
+        raise ValueError(f"coarse_levels must be in [1, {n_levels}], got {coarse_levels}")
+    shift = n_levels - coarse_levels
+    if shift == 0:
+        return codes
+    return (codes >> shift).to(codes.dtype)
+
+
+def unpack_codes(codes: torch.Tensor, n_levels: int) -> torch.Tensor:
+    """Integer codes [..., m] -> bits [..., n_levels, m] in {-1, +1}."""
+    c = codes.to(torch.int32)
+    shifts = torch.arange(n_levels - 1, -1, -1, dtype=torch.int32, device=codes.device)
+    planes = (c[..., None, :] >> shifts[:, None]) & 1
+    return (planes * 2 - 1).to(torch.float32)
+
+
+def codes_to_values(codes: torch.Tensor, n_levels: int) -> torch.Tensor:
+    """Integer codes -> recurrent binary grid values b_u (float32)."""
+    a, beta = code_affine_constants(n_levels)
+    return codes.to(torch.float32) * a + beta
+
+
+def values_to_codes(values: torch.Tensor, n_levels: int) -> torch.Tensor:
+    """Grid values b_u -> integer codes (exact for on-grid values)."""
+    a, beta = code_affine_constants(n_levels)
+    return torch.round((values - beta) / a).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# int4 nibble packing: byte j holds dim 2j (low nibble) and dim 2j+1 (high).
+# ---------------------------------------------------------------------------
+
+
+def pack_codes_nibbles(codes: torch.Tensor) -> torch.Tensor:
+    """Integer codes [..., D] (values < 16, D even) -> packed uint8 [..., D//2]."""
+    D = codes.shape[-1]
+    if D % 2 != 0:
+        raise ValueError(f"code dim {D} must be even to nibble-pack")
+    c = codes.to(torch.uint8)
+    return c[..., 0::2] | (c[..., 1::2] << 4)
+
+
+def unpack_nibble_planes(packed: torch.Tensor):
+    """Packed uint8 [..., D//2] -> (lo, hi) uint8 planes: even dims, odd dims."""
+    p = packed.to(torch.uint8)
+    return p & 0xF, (p >> 4) & 0xF
+
+
+def unpack_codes_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """Packed uint8 [..., D//2] -> integer codes [..., D] (int8)."""
+    lo, hi = unpack_nibble_planes(packed)
+    out = torch.stack([lo, hi], dim=-1)
+    return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# Eval-mode recurrent binarizer.
+# ---------------------------------------------------------------------------
+
+
+def ste_sign(x: torch.Tensor) -> torch.Tensor:
+    """sign(x) in {-1, +1} (forward only; the STE gradient comes with training)."""
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return torch.where(x > 0, one, -one)
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    # Product then bias, as the reference's ``x @ w + b``: ``nn.Linear``'s
+    # fused addmm would fold the bias into the accumulation.
+    return torch.matmul(x, layer.weight.t()) + layer.bias
+
+
+class MLP(nn.Module):
+    """linear -> eval batch norm -> ReLU -> linear (hidden 0: one linear)."""
+
+    def __init__(self, d_in: int, d_hidden: int, d_out: int, device=None):
+        super().__init__()
+        self.hidden = d_hidden
+        if d_hidden > 0:
+            self.inp = nn.Linear(d_in, d_hidden, device=device)
+            self.bn_scale = nn.Parameter(torch.ones(d_hidden, device=device))
+            self.bn_bias = nn.Parameter(torch.zeros(d_hidden, device=device))
+            self.register_buffer("bn_mean", torch.zeros(d_hidden, device=device))
+            self.register_buffer("bn_var", torch.ones(d_hidden, device=device))
+            self.out = nn.Linear(d_hidden, d_out, device=device)
+        else:
+            self.out = nn.Linear(d_in, d_out, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.hidden <= 0:
+            return _linear(self.out, x)
+        h = _linear(self.inp, x)
+        h = (h - self.bn_mean) * torch.rsqrt(self.bn_var + 1e-5)
+        h = h * self.bn_scale + self.bn_bias
+        h = torch.relu(h)
+        return _linear(self.out, h)
+
+
+class RecurrentBinarizer(nn.Module):
+    """``W[t]``: binarization MLP t (d -> m), t in [0, n_levels);
+    ``R[t]``: reconstruction MLP t (m -> d), t in [0, n_levels - 1);
+    ``P``: the optional input-alignment map (``cfg.input_map``)."""
+
+    def __init__(self, cfg: BinarizerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        n, h = cfg.n_levels, cfg.hidden_dim
+        self.W = nn.ModuleList(
+            [MLP(cfg.input_dim, h, cfg.code_dim, device) for _ in range(n)]
+        )
+        self.R = nn.ModuleList(
+            [MLP(cfg.code_dim, h, cfg.input_dim, device) for _ in range(n - 1)]
+        )
+        self.P: Optional[nn.Parameter] = None
+        if cfg.input_map:
+            self.P = nn.Parameter(torch.eye(cfg.input_dim, device=device))
+
+
+def init_binarizer(
+    cfg: BinarizerConfig, generator: torch.Generator, device="cuda"
+) -> RecurrentBinarizer:
+    """A binarizer with the reference's initialisation, drawn from ``generator``.
+
+    Weights ~ N(0, 1) * sqrt(2 / d_in), biases 0, BN scale 1 / bias 0,
+    running mean 0 / var 1. The reference draws from ``jax.random``, so
+    the numbers differ; to hold the two against each other, convert the
+    reference's weights with ``binarizer_from_numpy``. ``generator``
+    must live on ``device``.
+    """
+    device = resolve_device(device)
+    model = RecurrentBinarizer(cfg, device)
+    with torch.no_grad():
+        for mlp in list(model.W) + list(model.R):
+            for lin in ([mlp.inp] if mlp.hidden > 0 else []) + [mlp.out]:
+                d_out, d_in = lin.weight.shape
+                w = torch.randn(d_in, d_out, generator=generator, device=device)
+                lin.weight.copy_((w * float(np.sqrt(2.0 / d_in))).t())
+                lin.bias.zero_()
+    return model.eval()
+
+
+def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x * torch.rsqrt(torch.sum(x * x, dim=-1, keepdim=True) + eps)
+
+
+@torch.no_grad()
+def binarize(model: RecurrentBinarizer, f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode recurrent binarization of ``f`` [batch, input_dim].
+
+    Returns (bits [batch, n_levels, code_dim] in {-1, +1}, b_u [batch,
+    code_dim] the recurrent binary embedding). Products run in full
+    float32 (TF32 is switched off for the process).
+    """
+    full_fp32_matmul()
+    n = model.cfg.n_levels
+    if model.P is not None:
+        f = _l2norm(f @ model.P)
+    b = ste_sign(model.W[0](f))
+    levels: List[torch.Tensor] = [b]
+    acc = b
+    for t in range(n - 1):
+        recon = _l2norm(model.R[t](acc))
+        resid = _l2norm(f) - recon
+        r = ste_sign(model.W[t + 1](resid))
+        levels.append(r)
+        acc = acc + (2.0 ** -(t + 1)) * r
+    return torch.stack(levels, dim=-2), acc
+
+
+def binarize_eval(model: RecurrentBinarizer, f: torch.Tensor) -> torch.Tensor:
+    """Inference helper: returns only the recurrent binary embedding b_u."""
+    return binarize(model, f)[1]
+
+
+def make_encode_fn(model: RecurrentBinarizer):
+    """Serving ``EncodeFn``: float embeddings [B, dim] -> codes [B, code_dim] int8.
+
+    Accepts numpy arrays or tensors; the batch is moved to the model's
+    device, so the codes come back there.
+    """
+    device = next(model.parameters()).device
+
+    def encode(e):
+        x = torch.as_tensor(e, dtype=torch.float32, device=device)
+        return pack_codes(binarize(model, x)[0])
+
+    return encode
+
+
+# ---------------------------------------------------------------------------
+# Weight conversion from the reference's (params, bn_state) pytree.
+# ---------------------------------------------------------------------------
+
+
+def _load_mlp(mlp: MLP, params: Dict[str, Any], state: Dict[str, Any]) -> None:
+    def put(dst: torch.Tensor, src, transpose=False):
+        t = torch.from_numpy(np.array(src, dtype=np.float32))
+        t = t.t() if transpose else t
+        if tuple(t.shape) != tuple(dst.shape):
+            raise ValueError(f"weight shape {tuple(t.shape)} != {tuple(dst.shape)}")
+        dst.copy_(t)
+
+    if mlp.hidden > 0:
+        put(mlp.inp.weight, params["in"]["w"], transpose=True)
+        put(mlp.inp.bias, params["in"]["b"])
+        put(mlp.bn_scale, params["bn_scale"])
+        put(mlp.bn_bias, params["bn_bias"])
+        put(mlp.bn_mean, state["bn_mean"])
+        put(mlp.bn_var, state["bn_var"])
+    elif "in" in params:
+        raise ValueError("checkpoint has a hidden layer but cfg.hidden_dim == 0")
+    put(mlp.out.weight, params["out"]["w"], transpose=True)
+    put(mlp.out.bias, params["out"]["b"])
+
+
+def binarizer_from_numpy(
+    params: Dict[str, Any], state: Dict[str, Any], cfg: BinarizerConfig, device="cuda"
+) -> RecurrentBinarizer:
+    """The reference's ``(params, bn_state)`` tree, as nested numpy arrays,
+    -> an eval-mode ``RecurrentBinarizer`` on ``device``.
+
+    ``params = {"W": [mlp, ...], "R": [mlp, ...] (, "P": [d, d])}`` with
+    ``mlp = {"in": {"w", "b"}, "bn_scale", "bn_bias", "out": {"w", "b"}}``
+    and ``state = {"W": [{"bn_mean", "bn_var"}, ...], "R": [...]}``.
+    Linear weights arrive as ``(d_in, d_out)`` and are transposed.
+    """
+    device = resolve_device(device)
+    model = RecurrentBinarizer(cfg, device)
+    if len(params["W"]) != cfg.n_levels or len(params["R"]) != cfg.n_levels - 1:
+        raise ValueError("params do not match cfg.n_levels")
+    with torch.no_grad():
+        for mlp, p, s in zip(model.W, params["W"], state["W"]):
+            _load_mlp(mlp, p, s)
+        for mlp, p, s in zip(model.R, params["R"], state["R"]):
+            _load_mlp(mlp, p, s)
+        if cfg.input_map:
+            model.P.copy_(torch.from_numpy(np.array(params["P"], dtype=np.float32)))
+    return model.eval()

@@ -1,0 +1,84 @@
+"""Clustered embedding corpora (ports ``repro/data/synthetic.py::clustered_corpus``).
+
+``clustered_corpus`` is the reference's numpy generator, verbatim, so the
+same seed gives the same corpus bit for bit. ``clustered_corpus_torch``
+follows the same recipe with a ``torch.Generator`` on the card, for
+corpora whose float64 numpy intermediates would not fit in host memory
+(ten million 256-dim documents); its numbers differ from the numpy ones.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def clustered_corpus(
+    seed: int,
+    n_docs: int,
+    n_queries: int,
+    dim: int,
+    n_clusters: int = 64,
+    noise: float = 0.25,
+    query_noise: float = 0.15,
+    spectrum: float = 0.0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Synthetic EBR corpus with cluster structure + query/doc positives.
+
+    Returns (doc_emb [N, dim], query_emb [Q, dim], gt [Q] index of the
+    positive doc for each query). Queries are noisy views of their
+    positive document. ``spectrum`` > 0 applies a decaying per-axis scale
+    followed by a random rotation.
+    """
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clusters, dim)).astype(np.float32)
+    assign = rng.integers(0, n_clusters, n_docs)
+    docs = centers[assign] + noise * rng.normal(size=(n_docs, dim)).astype(np.float32)
+    gt = rng.choice(n_docs, size=n_queries, replace=False)
+    queries = docs[gt] + query_noise * rng.normal(size=(n_queries, dim)).astype(np.float32)
+    if spectrum > 0:
+        scales = (1.0 / (1.0 + np.arange(dim)) ** spectrum).astype(np.float32)
+        rot, _ = np.linalg.qr(rng.normal(size=(dim, dim)).astype(np.float32))
+        docs = (docs * scales) @ rot
+        queries = (queries * scales) @ rot
+    docs /= np.linalg.norm(docs, axis=-1, keepdims=True) + 1e-12
+    queries /= np.linalg.norm(queries, axis=-1, keepdims=True) + 1e-12
+    return docs, queries, gt
+
+
+def clustered_corpus_torch(
+    seed: int,
+    n_docs: int,
+    n_queries: int,
+    dim: int,
+    n_clusters: int = 64,
+    noise: float = 0.25,
+    query_noise: float = 0.15,
+    device="cuda",
+    chunk: int = 1 << 20,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``clustered_corpus``'s recipe (isotropic) drawn on ``device``.
+
+    Returns (docs [N, dim] f32, queries [Q, dim] f32, gt [Q] int64), all
+    unit-norm rows, made ``chunk`` documents at a time so that only the
+    float corpus itself is resident.
+    """
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn(n_clusters, dim, generator=g, device=dev)
+    docs = torch.empty(n_docs, dim, device=dev)
+    for s in range(0, n_docs, chunk):
+        e = min(n_docs, s + chunk)
+        assign = torch.randint(0, n_clusters, (e - s,), generator=g, device=dev)
+        docs[s:e] = centers[assign] + noise * torch.randn(e - s, dim, generator=g, device=dev)
+    gt = torch.randperm(n_docs, generator=g, device=dev)[:n_queries]
+    queries = docs[gt] + query_noise * torch.randn(n_queries, dim, generator=g, device=dev)
+    for s in range(0, n_docs, chunk):
+        blk = docs[s:s + chunk]
+        blk /= torch.linalg.vector_norm(blk, dim=-1, keepdim=True) + 1e-12
+    queries /= torch.linalg.vector_norm(queries, dim=-1, keepdim=True) + 1e-12
+    return docs, queries, gt

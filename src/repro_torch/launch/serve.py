@@ -1,0 +1,166 @@
+"""BEBR serving launcher, flat index (ports the ``--index flat`` path of
+``repro/launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --index flat --docs 20000 --queries 64
+
+End to end on the card: a clustered synthetic corpus -> eval-mode
+recurrent binarizer -> integer codes (nibble-packed with ``--packed``)
+-> ``FlatSDC`` scanned by the CUDA ``sdc_topk`` kernel, served through
+``ServingPipeline``; recall@k against the float-embedding exhaustive
+baseline, index bytes, and sequential vs pipelined ms/batch. Training is
+not ported yet: ``--ckpt`` loads a checkpoint written by the reference,
+and without it the binarizer has seeded random weights (recall is then
+low; the run says so). ``--device cpu`` runs the plain scoring path on
+the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, List
+
+import numpy as np
+import torch
+
+from repro_torch.core.binarize_lib import (
+    BinarizerConfig,
+    RecurrentBinarizer,
+    init_binarizer,
+    make_encode_fn,
+)
+from repro_torch.data import synthetic
+from repro_torch.device import resolve_device
+from repro_torch.index.flat import FlatFloat, FlatSDC
+from repro_torch.launch import binarizer_cache, serving
+
+
+def encode_codes(model: RecurrentBinarizer, emb, batch: int = 4096) -> torch.Tensor:
+    """Integer codes [N, code_dim] int8 of embeddings [N, dim], ``batch`` rows at a time."""
+    encode = make_encode_fn(model)
+    return torch.cat([encode(emb[i:i + batch]) for i in range(0, emb.shape[0], batch)], 0)
+
+
+def device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
+
+
+def serve_pipelined(encode_fn, search_fn, stream: List[Any], config: serving.ServingConfig):
+    """Run ``stream`` through one ``ServingPipeline`` under ``config``'s policy.
+
+    With the shed policy a rejected submit waits for the oldest
+    outstanding request and is tried again. Returns (results in
+    submission order, pipeline stats, number of sheds).
+    """
+    pipe = serving.ServingPipeline(encode_fn, search_fn, config=config)
+    tickets, sheds = [], 0
+    try:
+        for b in stream:
+            while True:
+                try:
+                    tickets.append(pipe.submit(b))
+                    break
+                except serving.RequestShed:
+                    sheds += 1
+                    pending = [t for t in tickets if not t.done()]
+                    if pending:
+                        pending[0].result()
+        results = [t.result() for t in tickets]
+    finally:
+        pipe.close()
+    return results, pipe.stats(), sheds
+
+
+def recall_at_k(ids: torch.Tensor, gt) -> float:
+    gt_t = torch.as_tensor(np.asarray(gt), device=ids.device).reshape(-1, 1)
+    return float((ids.to(torch.int64) == gt_t).any(-1).float().mean())
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--index", choices=["flat"], default="flat",
+                    help="index family (this port serves the flat index)")
+    ap.add_argument("--docs", type=int, default=20000)
+    ap.add_argument("--queries", type=int, default=64)
+    ap.add_argument("--dim", type=int, default=256)
+    ap.add_argument("--code-dim", type=int, default=128)
+    ap.add_argument("--levels", type=int, default=4)
+    ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--packed", action="store_true",
+                    help="int4 nibble-packed code storage (2 dims/byte; "
+                         "halves scan bytes, bit-identical scores)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="serving batch size (0: all queries in one batch)")
+    ap.add_argument("--rounds", type=int, default=4,
+                    help="times the query stream is replayed for timing")
+    ap.add_argument("--queue-depth", type=int, default=8,
+                    help="admission-queue depth (requests)")
+    ap.add_argument("--policy", choices=["block", "shed"], default="block",
+                    help="admission policy when the queue is full")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="corpus seed, and the weight seed without --ckpt")
+    ap.add_argument("--ckpt", default=None, metavar="PATH",
+                    help="binarizer checkpoint written by the reference "
+                         "(repro.launch.binarizer_cache); default: seeded "
+                         "untrained weights")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    where = device_name(device)
+
+    print(f"[data] {args.docs} docs, {args.queries} queries, dim={args.dim}")
+    docs, queries, gt = synthetic.clustered_corpus(args.seed, args.docs, args.queries, args.dim)
+
+    bcfg = BinarizerConfig(input_dim=args.dim, code_dim=args.code_dim,
+                           n_levels=args.levels, hidden_dim=2 * args.dim)
+    if args.ckpt:
+        model = binarizer_cache.load_checkpoint(args.ckpt, bcfg, device)
+        print(f"[binarizer] {bcfg.total_bits} bits, loaded {args.ckpt}")
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        model = init_binarizer(bcfg, gen, device)
+        print(f"[binarizer] {bcfg.total_bits} bits, weights UNTRAINED (seed "
+              f"{args.seed}; training is not ported yet, pass --ckpt for "
+              "trained weights): recall is not meaningful")
+
+    d_codes = encode_codes(model, docs)
+    flat_float = FlatFloat.build(docs, device=device)
+    index = FlatSDC.build(d_codes, bcfg.n_levels, packed=args.packed, device=device)
+    nbytes, float_bytes = index.nbytes(), flat_float.nbytes()
+    print(f"[index] {args.index}: {nbytes/2**20:.2f} MiB "
+          f"(float flat: {float_bytes/2**20:.2f} MiB, "
+          f"saving {100*(1-nbytes/float_bytes):.1f}%)")
+
+    _, idx_f = flat_float.search(queries, args.k)
+    encode = make_encode_fn(model)
+    search = lambda q: index.search(q, args.k)  # noqa: E731
+    batch = args.batch or args.queries
+    batches = [queries[i:i + batch] for i in range(0, args.queries, batch)]
+    stream = batches * args.rounds
+    n_q = args.queries * args.rounds
+
+    serving.warmup(encode, search, batches)
+    t0 = time.perf_counter()
+    serving.serve_sequential(encode, search, stream)
+    dt_seq = time.perf_counter() - t0
+
+    pcfg = serving.ServingConfig(queue_depth=args.queue_depth, policy=args.policy)
+    t0 = time.perf_counter()
+    results, stats, sheds = serve_pipelined(encode, search, stream, pcfg)
+    dt_pipe = time.perf_counter() - t0
+
+    idx_b = torch.cat([ids for _, ids in results[: len(batches)]], 0)
+    print(f"[serve] recall@{args.k}: float={recall_at_k(idx_f, gt):.4f} "
+          f"BEBR={recall_at_k(idx_b, gt):.4f}")
+    print(f"[serve] sequential: {1e3 * dt_seq / len(stream):.3f} ms/batch "
+          f"({n_q / dt_seq:.0f} QPS on {where}, warmed)")
+    shed = f", {sheds} shed" if sheds else ""
+    print(f"[serve] pipelined: {1e3 * dt_pipe / len(stream):.3f} ms/batch "
+          f"({n_q / dt_pipe:.0f} QPS on {where}; "
+          f"p50={stats['latency_p50_ms']:.3f} ms p99={stats['latency_p99_ms']:.3f} ms, "
+          f"scan stage idle {100 * stats['device_idle_frac']:.0f}%{shed})")
+
+
+if __name__ == "__main__":
+    main()

@@ -16,3 +16,7 @@ jax.config.update("jax_enable_x64", False)
 @pytest.fixture(scope="session")
 def rng_key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")

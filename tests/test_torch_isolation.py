@@ -1,0 +1,115 @@
+"""The PyTorch port stands alone and runs on the card unless asked otherwise.
+
+Importing every module of ``repro_torch`` must load neither ``jax`` nor
+the reference package ``repro``; entry points default to the card and
+raise when there is none (no silent fall back to the CPU).
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.core import binarize_lib as PB  # noqa: E402
+from repro_torch.data import synthetic as PS  # noqa: E402
+from repro_torch.index.flat import FlatFloat, FlatSDC  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), "modules;", "foreign:", bad)
+assert not bad, bad
+assert len(names) >= 12, names
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC
+    return env
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "foreign: []" in out.stdout
+
+
+def test_chip_smoke_imports_no_jax_and_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py runs for real there")
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['chip_smoke.py']\n"
+        "try:\n"
+        "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    code = e.code\n"
+        "else:\n"
+        "    code = 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "sys.exit(code)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode not in (0, None), out.stdout + out.stderr
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_entry_points_default_to_the_card():
+    codes = np.random.default_rng(0).integers(0, 16, (50, 32)).astype(np.int8)
+    cfg = PB.BinarizerConfig(input_dim=16, code_dim=8, n_levels=2, hidden_dim=8)
+    if torch.cuda.is_available():
+        index = FlatSDC.build(codes, 4)
+        assert index.codes.device.type == "cuda" and index.inv_norm.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FlatSDC.build(codes, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FlatFloat.build(codes.astype(np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PB.init_binarizer(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PS.clustered_corpus_torch(0, 10, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--docs", "10"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PB.binarizer_from_numpy({"W": [], "R": []}, {"W": [], "R": []}, cfg)
+
+
+def test_cpu_only_when_asked():
+    codes = np.random.default_rng(0).integers(0, 16, (50, 32)).astype(np.int8)
+    index = FlatSDC.build(codes, 4, device="cpu")
+    assert index.codes.device.type == "cpu"
+    v, i = index.search(codes[:3], 5)
+    assert i.device.type == "cpu" and (i[:, 0] >= 0).all()
+    docs, queries, gt = PS.clustered_corpus_torch(0, 100, 4, 8, device="cpu")
+    assert docs.shape == (100, 8) and queries.shape == (4, 8) and gt.shape == (4,)
+    assert torch.allclose(docs.norm(dim=-1), torch.ones(100), atol=1e-5)
