@@ -21,7 +21,25 @@ that fails:
      through the kernel (launch counts are zeroed just before and read
      just after each run);
   4. times the kernel, its plain version, the HBM bound and a library
-     yardstick at the main path's shapes, and the serving drivers.
+     yardstick at the main path's shapes, and the serving drivers;
+  5. holds the gather kernel (int8, packed, masked) and the unfused
+     sdc_scores kernel against their plain versions, exactly, in their
+     edge cases: padded lists, probes out of range, k > nprobe * L, masks
+     leaving fewer than k or no live slots, equal scores across lists,
+     lists of 17 and of 150,001 rows, k = 1024, Q a multiple of no tile,
+     and nprobe = nlist against sdc_topk over the same documents;
+  6. drives the IVF serving path over phase 3's codes: build_ivf on the
+     card (nlist 64, 20 k-means iterations, seed 1), twice, checked
+     identical, int8 and packed; 8 requests of 64 queries at nprobe 32
+     and under the probe budget 2,080 (the masked kernel), each checked
+     against serve_sequential, the plain version and the other form, with
+     launch counts zeroed just before and read just after every run; the
+     budget 32 * 64 against nprobe 32; the unfused flat search
+     (ops.sdc_search(fused=False)) of one request against the fused one;
+  7. times the new kernels, their plain versions, bounds and yardsticks at
+     the main path's shapes, the IVF build and the IVF serving drivers,
+     and holds the whole sdc_scores matrix at those shapes (int8 and
+     packed) against its plain version, exactly.
 
 Its last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``. The binarizer's weights are seeded and
@@ -46,8 +64,13 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, NVIDIA data sheet
 SERVE_Q, SERVE_REQUESTS, K = 64, 8, 10
 DIM, CODE_DIM, LEVELS = 256, 128, 4
 SOURCE = "src/repro_torch/kernels/sdc/csrc/sdc_topk.cu"
+GATHER_SOURCE = "src/repro_torch/kernels/sdc/csrc/gather_topk.cu"
+SCORES_SOURCE = "src/repro_torch/kernels/sdc/csrc/sdc_scores.cu"
 DEVICE = "cuda:0"
 REPLACES = {False: "src/repro/kernels/sdc/sdc.py:318", True: "src/repro/kernels/sdc/sdc.py:303"}
+GATHER_REPLACES = "src/repro/kernels/sdc/gather.py:176"
+SCORES_REPLACES = {False: "src/repro/kernels/sdc/sdc.py:195", True: "src/repro/kernels/sdc/sdc.py:183"}
+PROBE_BUDGET = 2080  # not a multiple of nlist = 64: runs the masked kernel
 
 
 def fail(msg: str) -> None:
@@ -120,6 +143,151 @@ def edge_cases(device, gen) -> int:
     return len(cases) + 4
 
 
+def gather_edge_cases(device, gen) -> int:
+    """Gather kernel vs plain version, exactly, in its edge cases. Returns the case count."""
+    import torch
+
+    from repro_torch.core.binarize_lib import pack_codes_nibbles
+    from repro_torch.kernels.sdc import gather as gather_mod
+    from repro_torch.kernels.sdc import sdc as sdc_mod
+    from repro_torch.kernels.sdc.ref import doc_inv_norms
+
+    def case(Q, nlist, L, D, nl, k, nprobe, packed, mask=None, ties=False, full=False):
+        codes = torch.randint(0, 2**nl, (nlist, L, D), generator=gen, device=device)
+        codes = codes.to(torch.int8)
+        if ties:  # every list a copy of list 0; later lists hold lower ids
+            codes[1:] = codes[0].clone()
+            ids = ((nlist - 1 - torch.arange(nlist, device=device))[:, None] * L
+                   + torch.arange(L, device=device)).to(torch.int32)
+        else:
+            ids = torch.randperm(nlist * L, generator=gen, device=device).to(torch.int32)
+            ids = ids.reshape(nlist, L)
+        inv = doc_inv_norms(codes.reshape(-1, D), nl).reshape(nlist, L)
+        pad = min(3, L - 1)
+        inv[:, L - pad:] = 0
+        ids[:, L - pad:] = -1
+        q = torch.randint(0, 2**nl, (Q, D), generator=gen, device=device).to(torch.int8)
+        if full or ties:
+            probes = torch.stack([torch.randperm(nlist, generator=gen, device=device)[:nprobe]
+                                  for _ in range(Q)])
+        else:  # out of range on both sides: clamped
+            probes = torch.randint(-3, nlist + 3, (Q, nprobe), generator=gen, device=device)
+        probes = probes.to(torch.int32)
+        cand = None
+        if mask in ("few", "half"):
+            keep = 0.995 if mask == "few" else 0.5
+            cand = (torch.rand((Q, nprobe, L), generator=gen, device=device) > keep).float()
+        elif mask == "none":
+            cand = torch.zeros((Q, nprobe, L), device=device)
+        lc = pack_codes_nibbles(codes) if packed else codes
+        v, i = gather_mod.sdc_gather_topk(q, lc, inv, ids, probes, n_levels=nl, k=k,
+                                          packed=packed, cand_mask=cand)
+        pv, pi = gather_mod.sdc_gather_topk_torch(q, lc, inv, ids, probes, n_levels=nl, k=k,
+                                                  packed=packed, cand_mask=cand)
+        what = (f"Q={Q} nlist={nlist} L={L} D={D} n_levels={nl} k={k} nprobe={nprobe} "
+                f"packed={packed} mask={mask} ties={ties}")
+        check(torch.equal(v, pv) and torch.equal(i, pi), f"gather kernel != plain: {what}")
+        live = v > -5e29
+        check(bool((i[~live] == -1).all()), f"gather: empty slots not -1: {what}")
+        if k > nprobe * L:
+            check(bool((i[:, nprobe * L:] == -1).all()), f"gather: tail not -1: {what}")
+        if mask == "few":
+            check(bool((live.sum(1) < k).any()), f"gather: the mask left k live slots: {what}")
+        if mask == "none":
+            check(not bool(live.any()), f"gather: a masked slot came back: {what}")
+        if full:  # nprobe = nlist: the same scores as a flat scan of every document
+            keep = (inv > 0) & (ids >= 0)
+            flat_codes = (pack_codes_nibbles(codes[keep]) if packed else codes[keep])
+            fv, _ = sdc_mod.sdc_topk(q, flat_codes.contiguous(), inv[keep].contiguous(),
+                                     n_levels=nl, k=k, packed=packed)
+            check(torch.equal(v, fv), f"gather at nprobe = nlist != sdc_topk scores: {what}")
+        log(f"[gather-edge] ok {what}")
+
+    n = 0
+    for nl in (1, 2, 4):
+        for packed in (False, True):
+            case(37, 16, 3001, 128, nl, K, 8, packed)  # padding, probes out of range
+            n += 1
+    cases = [
+        dict(Q=5, nlist=8, L=17, D=64, nl=4, k=200, nprobe=4, packed=False),  # k > nprobe * L
+        dict(Q=5, nlist=8, L=17, D=64, nl=4, k=200, nprobe=4, packed=True),
+        dict(Q=9, nlist=8, L=500, D=128, nl=4, k=50, nprobe=4, packed=False, mask="few"),
+        dict(Q=9, nlist=8, L=500, D=128, nl=2, k=50, nprobe=4, packed=True, mask="few"),
+        dict(Q=4, nlist=8, L=300, D=64, nl=4, k=10, nprobe=3, packed=False, mask="none"),
+        dict(Q=16, nlist=8, L=2000, D=128, nl=1, k=64, nprobe=8, packed=False, ties=True),
+        dict(Q=16, nlist=8, L=2000, D=256, nl=4, k=64, nprobe=8, packed=True, ties=True),
+        dict(Q=64, nlist=8, L=150_001, D=128, nl=4, k=K, nprobe=4, packed=False),  # large lists
+        dict(Q=64, nlist=8, L=150_001, D=128, nl=4, k=K, nprobe=4, packed=True, mask="half"),
+        dict(Q=130, nlist=64, L=17, D=32, nl=4, k=K, nprobe=16, packed=False),  # small lists
+        dict(Q=64, nlist=16, L=20_000, D=128, nl=4, k=1024, nprobe=8, packed=False),  # k = 1024
+        dict(Q=64, nlist=16, L=20_000, D=128, nl=4, k=1024, nprobe=8, packed=True),
+        dict(Q=33, nlist=12, L=5000, D=128, nl=4, k=100, nprobe=12, packed=False, full=True),
+        dict(Q=33, nlist=12, L=5000, D=128, nl=2, k=100, nprobe=12, packed=True, full=True),
+    ]
+    for c in cases:
+        case(**c)
+    return n + len(cases)
+
+
+def scores_edge_cases(device, gen) -> int:
+    """sdc_scores kernel vs plain version, exactly. Returns the case count."""
+    import torch
+
+    from repro_torch.core.binarize_lib import pack_codes_nibbles
+    from repro_torch.kernels.sdc import sdc as sdc_mod
+    from repro_torch.kernels.sdc.ref import doc_inv_norms
+
+    cases = [(37, 100_003, 128, nl, p) for nl in (1, 2, 4) for p in (False, True)]
+    cases += [(130, 5_001, 64, 2, True), (3, 7, 32, 1, False), (64, 1, 256, 4, True),
+              (65, 30_011, 256, 4, False)]
+    for Q, N, D, nl, packed in cases:
+        q = torch.randint(0, 2**nl, (Q, D), generator=gen, device=device).to(torch.int8)
+        d = torch.randint(0, 2**nl, (N, D), generator=gen, device=device).to(torch.int8)
+        inv = doc_inv_norms(d, nl)
+        inv[::7] = 0  # excluded documents
+        dd = pack_codes_nibbles(d) if packed else d
+        s = sdc_mod.sdc_scores(q, dd, inv, n_levels=nl, packed=packed)
+        ps = sdc_mod.sdc_scores_torch(q, dd, inv, n_levels=nl, packed=packed)
+        what = f"Q={Q} N={N} D={D} n_levels={nl} packed={packed}"
+        check(torch.equal(s, ps), f"sdc_scores kernel != plain: {what}")
+        check(bool((s[:, ::7] == -1e30).all()), f"sdc_scores: excluded docs not -1e30: {what}")
+        log(f"[scores-edge] ok {what}")
+    return len(cases)
+
+
+def serve_checked(tag, encode, search, batches, counter, cfg):
+    """Serve ``batches`` sequentially, then pipelined, each run with the
+    kernel's launch count zeroed just before and read just after; checks
+    that both runs launched once per request and agree. Returns (results,
+    launches, sequential ms/request, pipelined ms/request, stats)."""
+    import torch
+
+    from repro_torch.launch import serving
+    from repro_torch.launch.serve import serve_pipelined
+
+    serving.warmup(encode, search, batches)
+    counter.launches = 0
+    t0 = time.perf_counter()
+    seq = serving.serve_sequential(encode, search, batches)
+    dt_seq = time.perf_counter() - t0
+    check(counter.launches == len(batches),
+          f"{tag}: sequential run launched the kernel {counter.launches} times")
+    counter.launches = 0
+    t0 = time.perf_counter()
+    results, stats, _ = serve_pipelined(encode, search, batches, cfg)
+    dt_pipe = time.perf_counter() - t0
+    launches = counter.launches
+    check(launches == len(batches),
+          f"{tag}: the served requests launched the kernel {launches} times, want {len(batches)}")
+    for (v, i), (sv, si) in zip(results, seq):
+        check(v.shape == (SERVE_Q, K) and i.shape == (SERVE_Q, K), f"{tag}: bad shape")
+        check(bool(torch.isfinite(v).all()), f"{tag}: non-finite scores")
+        check(torch.equal(v, sv) and torch.equal(i, si),
+              f"{tag}: pipelined results differ from serve_sequential")
+    return (results, launches, 1e3 * dt_seq / len(batches), 1e3 * dt_pipe / len(batches),
+            stats)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -155,9 +323,11 @@ def main() -> None:
     for lib in libs:
         kernel = "?"
         for line in lib.with_suffix(".log").read_text().splitlines():
-            m = re.search(r"Compiling entry function '.*?(sdc_(?:scan|merge)_kernel)(?:ILi(\d+)ELb([01]))?", line)
+            m = re.search(r"Compiling entry function '.*?((?:sdc|gather)_(?:scan|merge|scores)_kernel)"
+                          r"(?:ILi(\d+)ELb([01])E(?:Lb([01])E)?)?", line)
             if m:
                 kernel = m.group(1) + (f" D={m.group(2)}{' packed' if m.group(3) == '1' else ''}"
+                                       f"{' masked' if m.group(4) == '1' else ''}"
                                        if m.group(2) else "")
             elif "registers" in line or "spill" in line:
                 log(f"[build]   {kernel}: {line.replace('ptxas info    :', '').strip()}")
@@ -177,6 +347,11 @@ def main() -> None:
     n_cases = edge_cases(device, gen)
     log(f"[edge] {n_cases} cases exactly equal to the plain version "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n_gather = gather_edge_cases(device, gen)
+    n_scores = scores_edge_cases(device, gen)
+    log(f"[gather-edge] {n_gather} gather and {n_scores} sdc_scores cases exactly equal to "
+        f"the plain versions ({time.perf_counter() - t0:.1f} s)")
 
     # -- 3. the main path at full width -----------------------------------
     t0 = time.perf_counter()
@@ -264,6 +439,110 @@ def main() -> None:
         f"only): float={recall_at_k(idx_f, gt.cpu()):.4f} BEBR={recall_at_k(idx_b, gt.cpu()):.4f}")
     del flat_float, idx_f
 
+    # -- 3b. the IVF serving path at full width -----------------------------
+    import numpy as np
+
+    from repro_torch.core.binarize_lib import pack_codes_nibbles
+    from repro_torch.index import ivf
+    from repro_torch.kernels.sdc import gather as gather_mod
+    from repro_torch.kernels.sdc import ops as ops_mod
+    from repro_torch.launch.serve import IVF_KMEANS_ITERS, IVF_NLIST, IVF_NPROBE, IVF_SEED
+
+    def build_ivf(packed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        index = ivf.build_ivf(d_codes, n_levels=LEVELS, nlist=IVF_NLIST,
+                              kmeans_iters=IVF_KMEANS_ITERS, seed=IVF_SEED, packed=packed,
+                              device=device)
+        torch.cuda.synchronize()
+        return index, time.perf_counter() - t
+
+    fields = ("centroids", "centroid_codes", "lists_codes", "lists_inv_norm", "lists_ids")
+    ivfs, build_s = {}, {}
+    ivfs[False], build_s["int8"] = build_ivf(False)
+    again, build_s["int8 again"] = build_ivf(False)
+    for f in fields:
+        check(torch.equal(getattr(ivfs[False], f), getattr(again, f)),
+              f"two IVF builds from the same codes and seed differ in {f}")
+    check(np.array_equal(ivfs[False].list_occupancy, again.list_occupancy),
+          "two IVF builds differ in list occupancy")
+    del again
+    ivfs[True], build_s["packed"] = build_ivf(True)
+    for f in fields:
+        want = getattr(ivfs[False], f)
+        if f == "lists_codes":
+            want = pack_codes_nibbles(want)
+        check(torch.equal(getattr(ivfs[True], f), want), f"packed IVF build differs in {f}")
+    occ = ivfs[False].list_occupancy
+    L_ivf = ivfs[False].lists_ids.shape[1]
+    check(int(occ.sum()) == args.docs, "the IVF build dropped documents")
+    log(f"[ivf] build_ivf nlist={IVF_NLIST} iters={IVF_KMEANS_ITERS} seed={IVF_SEED} on the card: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in build_s.items())
+        + f"; two builds identical, packed = packed(int8); L={L_ivf}, occupancy "
+        f"min {occ.min()} median {int(np.median(occ))} max {occ.max()}; lists int8 "
+        f"{ivfs[False].lists_codes.numel() / 1e9:.2f} GB, packed "
+        f"{ivfs[True].lists_codes.numel() / 1e9:.2f} GB; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+    r = ivf.probe_rank_thresholds(occ, probe_budget=PROBE_BUDGET, nlist=IVF_NLIST)
+    check(r.min() != r.max(), f"budget {PROBE_BUDGET} gives uniform thresholds: no masked run")
+    variants = [("int8", False, None), ("packed", True, None),
+                ("masked", False, PROBE_BUDGET), ("masked packed", True, PROBE_BUDGET)]
+    ivf_served, ivf_report = {}, {}
+    for tag, packed, budget in variants:
+        index = ivfs[packed]
+        if budget:
+            def search(q, index=index, backend="auto"):
+                return ivf.search_budget(index, q, probe_budget=PROBE_BUDGET, k=K,
+                                         backend=backend)
+        else:
+            def search(q, index=index, backend="auto"):
+                return ivf.search(index, q, nprobe=IVF_NPROBE, k=K, backend=backend)
+        results, launches, seq_ms, pipe_ms, stats = serve_checked(
+            f"ivf {tag}", encode, search, batches, gather_mod.sdc_gather_topk, cfg)
+        for v, i in results:
+            check(bool(((i >= 0) & (i < args.docs)).all()), f"ivf {tag}: ids out of range")
+        pv, pi = search(report[packed]["codes"], backend="torch")
+        v0, i0 = results[0]
+        check(torch.equal(v0, pv) and torch.equal(i0, pi),
+              f"ivf {tag}: served search differs from the plain version")
+        ivf_served[tag] = results
+        ivf_report[tag] = dict(launches=launches, err=float((v0 - pv).abs().max()),
+                               seq_ms=seq_ms, pipe_ms=pipe_ms, idle=stats["device_idle_frac"])
+        log(f"[ivf] {tag}: {len(batches)} requests of {SERVE_Q} served"
+            f"{f' under probe budget {PROBE_BUDGET}' if budget else f' at nprobe {IVF_NPROBE}'}, "
+            f"{launches} gather launches, bit-identical to serve_sequential and to the plain "
+            "version")
+    for a, b in (("int8", "packed"), ("masked", "masked packed")):
+        for (v, i), (pv, pi) in zip(ivf_served[a], ivf_served[b]):
+            check(torch.equal(v, pv) and torch.equal(i, pi), f"ivf {a} and {b} results differ")
+    for batch, (v, i) in zip(batches, ivf_served["int8"]):
+        bv, bi = ivf.search_budget(ivfs[False], encode(batch),
+                                   probe_budget=IVF_NPROBE * IVF_NLIST, k=K)
+        check(torch.equal(v, bv) and torch.equal(i, bi),
+              "probe budget nprobe * nlist differs from flat nprobe")
+    log("[ivf] packed = int8 under nprobe and under the budget; budget "
+        f"{IVF_NPROBE * IVF_NLIST} = nprobe {IVF_NPROBE}, bit for bit")
+
+    # the unfused flat search of one request against the fused one
+    scores_launches = {}
+    for packed, index in indexes.items():
+        sdc_mod.sdc_scores.launches = 0
+        uv, ui = ops_mod.sdc_search(report[packed]["codes"], index.codes, index.inv_norm,
+                                    n_levels=LEVELS, k=K, packed=packed, fused=False)
+        scores_launches[packed] = sdc_mod.sdc_scores.launches
+        check(scores_launches[packed] == 1,
+              f"the unfused search launched sdc_scores {scores_launches[packed]} times")
+        v0, i0 = served[packed][0]
+        check(torch.equal(uv, v0) and torch.equal(ui, i0),
+              f"unfused search (packed={packed}) differs from the fused one")
+    log("[ivf] ops.sdc_search(fused=False) = fused, int8 and packed, one request of "
+        f"{args.docs} documents")
+    idx_ivf = torch.cat([i for _, i in ivf_served["int8"]], 0)
+    log(f"[ivf] recall@{K} against the positive doc (untrained weights, information only): "
+        f"flat BEBR={recall_at_k(idx_b, gt.cpu()):.4f} IVF nprobe {IVF_NPROBE}="
+        f"{recall_at_k(idx_ivf, gt.cpu()):.4f}")
+
     # -- 4. times ----------------------------------------------------------
     kernels = []
     for packed, index in indexes.items():
@@ -308,6 +587,104 @@ def main() -> None:
         log(f"[time] serving {tag}: sequential {rep['seq_ms']:.3f} ms/batch, pipelined "
             f"{rep['pipe_ms']:.3f} ms/batch (scan stage idle {100 * rep['idle']:.0f}%), "
             f"{SERVE_REQUESTS} requests of {SERVE_Q} on {name} ({smi})")
+
+    # -- 7. the new kernels at the main path's shapes ------------------------
+    q = report[False]["codes"]
+    for tag, packed, budget in (("int8", False, None), ("packed", True, None),
+                                ("masked", False, PROBE_BUDGET)):
+        index = ivfs[packed]
+        if budget:
+            r = ivf.probe_rank_thresholds(index.list_occupancy, probe_budget=budget,
+                                          nlist=index.nlist)
+            probes = ivf.coarse_probes(q, index.centroids, index.centroid_codes,
+                                       nprobe=int(r.max()), n_levels=LEVELS)
+            cols = torch.arange(probes.shape[1], device=device)
+            live = cols[None, :] < torch.as_tensor(r, device=device)[probes.long()]
+            mask = live[:, :, None].float().expand(-1, -1, L_ivf)
+        else:
+            probes = ivf.coarse_probes(q, index.centroids, index.centroid_codes,
+                                       nprobe=IVF_NPROBE, n_levels=LEVELS)
+            live = torch.ones(probes.shape, dtype=torch.bool, device=device)
+            mask = None
+        gargs = (q, index.lists_codes, index.lists_inv_norm, index.lists_ids, probes)
+        gkw = dict(n_levels=LEVELS, k=K, packed=packed, cand_mask=mask)
+        ms = cuda_ms(lambda: gather_mod.sdc_gather_topk(*gargs, **gkw), 10)
+        plain_ms = cuda_ms(lambda: gather_mod.sdc_gather_topk_torch(*gargs, **gkw), 1)
+        occ_t = torch.as_tensor(index.list_occupancy, device=device).long()
+        probed = probes.long()[live]
+        rows = int(occ_t[torch.unique(probed)].sum())  # distinct probed lists, read once
+        rows_pairs = int(occ_t[probed].sum())  # every (query, probe) pair's list
+        row_bytes = index.lists_codes.shape[-1] + 8
+        nbytes = rows * row_bytes + q.numel() + probes.numel() * 4 + q.shape[0] * K * 8
+        ops = 2 * rows_pairs * CODE_DIM
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT8_OPS_PER_S
+        rep = ivf_report[tag]
+        kernels.append(dict(
+            name=f"sdc_gather_topk_{tag}", route="cuda", source=GATHER_SOURCE,
+            replaces=GATHER_REPLACES, launches=rep["launches"], max_abs_err=rep["err"], ms=ms,
+            plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None,
+        ))
+        log(f"[time] sdc_gather_topk {tag} Q={q.shape[0]} nprobe={probes.shape[1]} "
+            f"({int(live.sum())} live pairs) L={L_ivf} D={CODE_DIM} k={K} on {name} ({smi}): "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.3f} ms "
+            f"(HBM {bytes_ms:.3f} ms for {nbytes / 1e9:.3f} GB: "
+            f"{int(torch.unique(probed).numel())} distinct lists, {rows} rows, read once; "
+            f"int8 ops {ops_ms:.4f} ms); no-reuse bytes {rows_pairs * row_bytes / 1e9:.3f} GB "
+            f"({1e3 * rows_pairs * row_bytes / HBM_BYTES_PER_S:.3f} ms), padded-L bytes "
+            f"{int(torch.unique(probed).numel()) * L_ivf * row_bytes / 1e9:.3f} GB; library none; "
+            f"kernel share of a sequential request {ms / rep['seq_ms']:.2f}")
+        log(f"[time] IVF serving {tag}: sequential {rep['seq_ms']:.3f} ms/batch, pipelined "
+            f"{rep['pipe_ms']:.3f} ms/batch (scan stage idle {100 * rep['idle']:.0f}%), "
+            f"{SERVE_REQUESTS} requests of {SERVE_Q} on {name} ({smi})")
+    log(f"[time] build_ivf (k-means + bucketing) N={args.docs} nlist={IVF_NLIST} "
+        f"iters={IVF_KMEANS_ITERS}: " + ", ".join(f"{k} {v:.3f} s" for k, v in build_s.items())
+        + f" on {name} ({smi})")
+
+    for packed, index in indexes.items():
+        tag = "packed" if packed else "int8"
+        sargs = (q, index.codes, index.inv_norm)
+        skw = dict(n_levels=LEVELS, packed=packed)
+        n = index.codes.shape[0]
+        # the whole [Q, N] matrix at the main path's shapes, exactly
+        s, ps = sdc_mod.sdc_scores(*sargs, **skw), sdc_mod.sdc_scores_torch(*sargs, **skw)
+        check(s.shape == (q.shape[0], n) and torch.equal(s, ps),
+              f"sdc_scores {tag} Q={q.shape[0]} N={n}: kernel != plain")
+        err = float((s - ps).abs().max())
+        del s, ps
+        log(f"[scores] {tag}: the full [{q.shape[0]}, {n}] score matrix exactly equal to the "
+            "plain version")
+        ms = cuda_ms(lambda: sdc_mod.sdc_scores(*sargs, **skw), 5)
+        plain_ms = cuda_ms(lambda: sdc_mod.sdc_scores_torch(*sargs, **skw), 1)
+        nbytes = n * (index.codes.shape[1] + 4) + q.numel() + q.shape[0] * n * 4
+        ops = 2 * q.shape[0] * n * CODE_DIM
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT8_OPS_PER_S
+        library_ms = None
+        if not packed:
+            # yardstick only: cuBLASLt int8 product + epilogue on N - N % 8 documents
+            n8 = n - n % 8
+            d8, inv8 = index.codes[:n8], index.inv_norm[:n8]
+            sq = q.to(torch.int32).sum(-1, keepdim=True)
+            sd = d8.to(torch.int32).sum(-1)[None, :]
+
+            def library():
+                from repro_torch.core.binarize_lib import sdc_affine_epilogue
+                return sdc_affine_epilogue(torch._int_mm(q, d8.t()), sq + sd, dim=CODE_DIM,
+                                           n_levels=LEVELS, inv_norm=inv8[None, :])
+
+            library_ms = cuda_ms(library, 3)
+        kernels.append(dict(
+            name=f"sdc_scores_{tag}", route="cuda", source=SCORES_SOURCE,
+            replaces=SCORES_REPLACES[packed], launches=scores_launches[packed],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=library_ms,
+        ))
+        log(f"[time] sdc_scores {tag} Q={q.shape[0]} N={n} D={CODE_DIM} on {name} ({smi}): "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, HBM bound {bytes_ms:.3f} ms "
+            f"({nbytes / 1e9:.2f} GB, the [Q, N] f32 output included), int8 op bound "
+            f"{ops_ms:.4f} ms, library "
+            f"{'n/a' if library_ms is None else f'{library_ms:.3f} ms'}")
+
     log("kernels: " + ", ".join(f"{k['name']} matched, launches={k['launches']}"
                                 for k in kernels))
     log(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")

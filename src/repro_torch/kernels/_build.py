@@ -25,8 +25,11 @@ from typing import Dict, List, Sequence
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 
-# Every CUDA source of the port, built together by ``build(SOURCES)``.
-SOURCES: List[Path] = [_KERNELS / "sdc" / "csrc" / "sdc_topk.cu"]
+# Every CUDA source of the port, built together by ``build(SOURCES)``. Code
+# shared between sources lives in headers beside them (``*.cuh``), which
+# ``library_path`` hashes with the sources.
+_SDC = _KERNELS / "sdc" / "csrc"
+SOURCES: List[Path] = [_SDC / "sdc_topk.cu", _SDC / "gather_topk.cu", _SDC / "sdc_scores.cu"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,12 +1,14 @@
-"""Public wrappers around the SDC kernel: top-k search and backend
-selection (ports ``repro/kernels/sdc/ops.py``).
+"""Public wrappers around the SDC kernels: top-k search, gather search
+and backend selection (ports ``repro/kernels/sdc/ops.py``).
 
-Backends:
+Backends, the same for the flat scan and the gather of probed lists:
 
-  * "cuda"  — the hand-written Hopper kernel (``sdc.sdc_topk``); CUDA
+  * "cuda"  — the hand-written Hopper kernels (``sdc.sdc_topk``,
+              ``sdc.sdc_scores``, ``gather.sdc_gather_topk``); CUDA
               tensors only.
-  * "torch" — the plain PyTorch twin (``sdc_search_torch``), the
-              counterpart of the reference's "xla"; any device.
+  * "torch" — the plain PyTorch twins (``sdc_search_torch``,
+              ``gather.sdc_gather_topk_torch``), the counterpart of the
+              reference's "xla"; any device.
   * "auto"  — follows the device of the tensors: "cuda" for CUDA
               tensors, "torch" for CPU tensors. It never switches a CUDA
               tensor to the plain version.
@@ -23,7 +25,8 @@ import torch
 
 from repro_torch.core.binarize_lib import SDC_NEG_INF
 from repro_torch.kernels.sdc.defaults import BLOCK_N, BLOCK_Q, BlockPlan
-from repro_torch.kernels.sdc.sdc import sdc_topk, sdc_topk_torch
+from repro_torch.kernels.sdc.gather import sdc_gather_topk, sdc_gather_topk_torch
+from repro_torch.kernels.sdc.sdc import sdc_scores, sdc_scores_torch, sdc_topk, sdc_topk_torch
 
 NEG_INF = SDC_NEG_INF
 BACKENDS = ("auto", "cuda", "torch")
@@ -53,6 +56,7 @@ def sdc_search(
     block_q: int = BLOCK_Q,
     block_n: int = BLOCK_N,
     packed: bool = False,
+    fused: bool = True,
 ):
     """Top-k SDC search of queries against a code corpus.
 
@@ -61,18 +65,46 @@ def sdc_search(
       d_codes: [N, D] int8 codes of documents, or nibble-packed uint8
         [N, D//2] when ``packed=True``.
       d_inv_norm: [N] f32 reciprocal doc-value norms (0 => excluded).
-      block_q, block_n: the reference's tile shapes; the kernel sizes its
-        own grid, so they change nothing here (checked, then unused).
+      block_q, block_n: the reference's tile shapes; the kernels size their
+        own grids, so they change nothing here (checked, then unused).
+      fused: the fused scan + top-k kernel; False writes the [Q, N] score
+        matrix (``sdc_scores``) and selects from it.
 
     Returns:
       (scores [Q, k], indices [Q, k]); slots with no valid candidate
       (excluded docs, k > N) come back as (SDC_NEG_INF, -1). ``k > N``
-      is legal. The fused kernel on CUDA tensors, the plain version on
-      CPU tensors.
+      is legal. The kernels on CUDA tensors, the plain versions on CPU
+      tensors.
     """
     if block_q < 1 or block_n < 1:
         raise ValueError(f"blocks must be >= 1, got ({block_q}, {block_n})")
-    return sdc_topk(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k, packed=packed)
+    return _search(sdc_topk, sdc_scores, q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
+                   packed=packed, fused=fused)
+
+
+def _search(topk_fn, scores_fn, q_codes, d_codes, d_inv_norm, *, n_levels, k, packed, fused):
+    """The fused top-k ``topk_fn``, or with ``fused=False`` the score matrix
+    of ``scores_fn`` and ``select_topk`` of it."""
+    if fused:
+        return topk_fn(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k, packed=packed)
+    return select_topk(scores_fn(q_codes, d_codes, d_inv_norm, n_levels=n_levels,
+                                 packed=packed), k)
+
+
+def select_topk(scores: torch.Tensor, k: int):
+    """Top-k of a score matrix [Q, N] in ``jax.lax.top_k``'s order.
+
+    A stable descending sort, so ties go to the lower index
+    (``torch.topk`` orders them otherwise); ``k > N`` pads with
+    SDC_NEG_INF, and every slot scoring SDC_NEG_INF gets id -1.
+    """
+    Q, N = scores.shape
+    if k > N:
+        pad = torch.full((Q, k - N), NEG_INF, dtype=scores.dtype, device=scores.device)
+        scores = torch.cat([scores, pad], 1)
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k].to(torch.int32)
+    return vals, torch.where(vals > NEG_INF / 2, idx, -1)
 
 
 def sdc_search_torch(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int,
@@ -91,19 +123,33 @@ def sdc_search_torch(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int,
 def sdc_search_backend(
     q_codes, d_codes, d_inv_norm, *, n_levels, k, backend="auto",
     block_q=BLOCK_Q, block_n=BLOCK_N, packed=False,
-    block_plan: BlockPlan | None = None,
+    block_plan: BlockPlan | None = None, fused: bool = True,
 ):
     """Dispatch a top-k SDC search to the resolved backend.
 
     ``block_plan`` overrides ``block_q``/``block_n`` when given. Blocks
-    never change scores or ids.
+    never change scores or ids, and neither does ``fused``.
     """
     backend = resolve_backend(backend, q_codes.device)
     if block_plan is not None:
         block_q, block_n = block_plan.block_q, block_plan.block_n
     if backend == "torch":
-        return sdc_search_torch(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
-                                packed=packed)
+        return _search(sdc_topk_torch, sdc_scores_torch, q_codes, d_codes, d_inv_norm,
+                       n_levels=n_levels, k=k, packed=packed, fused=fused)
     return sdc_search(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
-                      block_q=block_q, block_n=block_n, packed=packed)
+                      block_q=block_q, block_n=block_n, packed=packed, fused=fused)
+
+
+def sdc_gather_backend(q_codes, lists_codes, lists_inv_norm, lists_ids, probes, *,
+                       n_levels, k, backend="auto", packed=False, cand_mask=None):
+    """Dispatch a gather search of probed lists to the resolved backend.
+
+    "cuda" runs ``gather.sdc_gather_topk`` (the kernel), "torch" its plain
+    twin ``sdc_gather_topk_torch`` (the reference's
+    ``sdc_gather_topk_xla``); both give the same bits.
+    """
+    backend = resolve_backend(backend, q_codes.device)
+    fn = sdc_gather_topk_torch if backend == "torch" else sdc_gather_topk
+    return fn(q_codes, lists_codes, lists_inv_norm, lists_ids, probes, n_levels=n_levels,
+              k=k, packed=packed, cand_mask=cand_mask)
 

@@ -1,12 +1,15 @@
-"""BEBR serving launcher, flat index (ports the ``--index flat`` path of
-``repro/launch/serve.py``).
+"""BEBR serving launcher, flat and IVF indexes (ports the ``--index flat``
+and ``--index ivf`` paths of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --index flat --docs 20000 --queries 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --index ivf [--probe-budget 2080]
 
 End to end on the card: a clustered synthetic corpus -> eval-mode
 recurrent binarizer -> integer codes (nibble-packed with ``--packed``)
--> ``FlatSDC`` scanned by the CUDA ``sdc_topk`` kernel, served through
-``ServingPipeline``; recall@k against the float-embedding exhaustive
+-> ``FlatSDC`` scanned by the CUDA ``sdc_topk`` kernel, or an IVF index
+(nlist 64, nprobe 32, k-means seed 1, the reference CLI's parameters)
+whose probed lists the CUDA ``sdc_gather_topk`` kernel scans, served
+through ``ServingPipeline``; recall@k against the float-embedding exhaustive
 baseline, index bytes, and sequential vs pipelined ms/batch. Training is
 not ported yet: ``--ckpt`` loads a checkpoint written by the reference,
 and without it the binarizer has seeded random weights (recall is then
@@ -31,8 +34,13 @@ from repro_torch.core.binarize_lib import (
 )
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.index import ivf
 from repro_torch.index.flat import FlatFloat, FlatSDC
 from repro_torch.launch import binarizer_cache, serving
+
+# The reference CLI's IVF parameters (``lifecycle.IVFBuilder`` as
+# ``repro/launch/serve.py`` builds it).
+IVF_NLIST, IVF_NPROBE, IVF_SEED, IVF_KMEANS_ITERS = 64, 32, 1, 20
 
 
 def encode_codes(model: RecurrentBinarizer, emb, batch: int = 4096) -> torch.Tensor:
@@ -78,8 +86,8 @@ def recall_at_k(ids: torch.Tensor, gt) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--index", choices=["flat"], default="flat",
-                    help="index family (this port serves the flat index)")
+    ap.add_argument("--index", choices=["flat", "ivf"], default="flat",
+                    help="index family (this port serves flat and IVF)")
     ap.add_argument("--docs", type=int, default=20000)
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--dim", type=int, default=256)
@@ -89,6 +97,14 @@ def main(argv=None):
     ap.add_argument("--packed", action="store_true",
                     help="int4 nibble-packed code storage (2 dims/byte; "
                          "halves scan bytes, bit-identical scores)")
+    ap.add_argument("--probe-budget", type=int, default=0, metavar="B",
+                    help="ivf: occupancy-weighted probe allocation — B "
+                         "per-centroid rank slots are split across the "
+                         "coarse centroids in proportion to list "
+                         "occupancy instead of a flat per-query "
+                         "nprobe; B = nprobe*nlist costs the same "
+                         "scans as flat nprobe (and is bit-identical at "
+                         "exact multiples); 0 disables")
     ap.add_argument("--batch", type=int, default=0,
                     help="serving batch size (0: all queries in one batch)")
     ap.add_argument("--rounds", type=int, default=4,
@@ -106,6 +122,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
+    if args.probe_budget and args.index != "ivf":
+        ap.error("--probe-budget only applies to --index ivf")
     device = resolve_device(args.device)
     where = device_name(device)
 
@@ -126,7 +144,18 @@ def main(argv=None):
 
     d_codes = encode_codes(model, docs)
     flat_float = FlatFloat.build(docs, device=device)
-    index = FlatSDC.build(d_codes, bcfg.n_levels, packed=args.packed, device=device)
+    if args.index == "flat":
+        index = FlatSDC.build(d_codes, bcfg.n_levels, packed=args.packed, device=device)
+        search = lambda q: index.search(q, args.k)  # noqa: E731
+    else:
+        index = ivf.build_ivf(d_codes, n_levels=bcfg.n_levels, nlist=IVF_NLIST,
+                              kmeans_iters=IVF_KMEANS_ITERS, packed=args.packed,
+                              seed=IVF_SEED, device=device)
+        if args.probe_budget:
+            search = lambda q: ivf.search_budget(  # noqa: E731
+                index, q, probe_budget=args.probe_budget, k=args.k)
+        else:
+            search = lambda q: ivf.search(index, q, nprobe=IVF_NPROBE, k=args.k)  # noqa: E731
     nbytes, float_bytes = index.nbytes(), flat_float.nbytes()
     print(f"[index] {args.index}: {nbytes/2**20:.2f} MiB "
           f"(float flat: {float_bytes/2**20:.2f} MiB, "
@@ -134,7 +163,6 @@ def main(argv=None):
 
     _, idx_f = flat_float.search(queries, args.k)
     encode = make_encode_fn(model)
-    search = lambda q: index.search(q, args.k)  # noqa: E731
     batch = args.batch or args.queries
     batches = [queries[i:i + batch] for i in range(0, args.queries, batch)]
     stream = batches * args.rounds

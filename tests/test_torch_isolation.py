@@ -18,7 +18,10 @@ import numpy as np  # noqa: E402
 
 from repro_torch.core import binarize_lib as PB  # noqa: E402
 from repro_torch.data import synthetic as PS  # noqa: E402
+from repro_torch.index import ivf as PI  # noqa: E402
+from repro_torch.index import kmeans as PK  # noqa: E402
 from repro_torch.index.flat import FlatFloat, FlatSDC  # noqa: E402
+from repro_torch.kernels.sdc import gather as PG  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -102,6 +105,36 @@ def test_entry_points_default_to_the_card():
         serve.main(["--docs", "10"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PB.binarizer_from_numpy({"W": [], "R": []}, {"W": [], "R": []}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PI.build_ivf(codes, n_levels=4, nlist=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PK.kmeans(codes.astype(np.float32), k=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--index", "ivf", "--docs", "10"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+def test_gather_on_card_never_reaches_the_plain_version(monkeypatch, masked):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(PG, "sdc_gather_topk_torch", plain)
+    dev = torch.device("cuda")
+    lists = torch.randint(0, 16, (4, 300, 64), device=dev).to(torch.int8)
+    inv = torch.ones((4, 300), device=dev)
+    ids = torch.arange(1200, dtype=torch.int32, device=dev).reshape(4, 300)
+    q = torch.randint(0, 16, (3, 64), device=dev).to(torch.int8)
+    probes = torch.tensor([[0, 1], [2, 3], [3, 0]], dtype=torch.int32, device=dev)
+    mask = torch.ones((3, 2, 300), device=dev) if masked else None
+    before = PG.sdc_gather_topk.launches
+    v, i = PG.sdc_gather_topk(q, lists, inv, ids, probes, n_levels=4, k=5, cand_mask=mask)
+    torch.cuda.synchronize()
+    assert PG.sdc_gather_topk.launches == before + 1
+    assert v.device.type == "cuda" and (i >= 0).all()
 
 
 def test_cpu_only_when_asked():

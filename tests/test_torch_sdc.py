@@ -5,8 +5,11 @@ version; fed the reference's inverse norms they must give bit-identical
 scores and ids to the reference's Pallas kernel (interpret mode) and to
 its ``sdc_search_xla``, across n_levels {1, 2, 4}, int8 and nibble-packed
 codes, a corpus that is a multiple of no block, k > N, excluded
-documents and ties. The CUDA kernel itself is held against the plain
-version by the ``gpu`` tests (on the card only) and by ``chip_smoke.py``.
+documents and ties. The unfused search (``fused=False``: the score
+matrix of ``sdc_scores``, then a stable top-k) must give the same bits
+as the reference's unfused search and as the port's fused one. The CUDA
+kernels themselves are held against the plain versions by the ``gpu``
+tests (on the card only) and by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import binarize_lib as RB  # noqa: E402
 from repro.kernels.sdc import ops as RO  # noqa: E402
 from repro.kernels.sdc import ref as RR  # noqa: E402
+from repro.kernels.sdc import sdc as RS  # noqa: E402
 from repro_torch.core.binarize_lib import pack_codes_nibbles  # noqa: E402
 from repro_torch.kernels.sdc import ops as PO  # noqa: E402
 from repro_torch.kernels.sdc import sdc as PS  # noqa: E402
@@ -77,6 +81,40 @@ def test_sdc_search_bit_identical_to_reference(case, packed, n_levels):
         assert (v[:, CASES[case][1]:] == RB.SDC_NEG_INF).all()
     if case == "excluded":
         assert not np.isin(i.numpy(), np.flatnonzero(inv == 0)).any()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("n_levels", [1, 4])
+def test_unfused_search_bit_identical_to_reference_and_fused(case, packed, n_levels):
+    q, dd, inv, k = _inputs(case, n_levels, packed)
+    args = (torch.from_numpy(q), torch.from_numpy(dd), torch.from_numpy(inv))
+    before = PS.sdc_scores.launches
+    got = PO.sdc_search(*args, n_levels=n_levels, k=k, packed=packed, fused=False)
+    assert PS.sdc_scores.launches == before  # the CPU path launches no kernel
+    ref = RO.sdc_search(jnp.asarray(q), jnp.asarray(dd), jnp.asarray(inv), n_levels=n_levels,
+                        k=k, block_q=8, block_n=64, interpret=True, fused=False, packed=packed)
+    _same(ref, got)
+    fused = PO.sdc_search(*args, n_levels=n_levels, k=k, packed=packed)
+    assert torch.equal(fused[0], got[0]) and torch.equal(fused[1], got[1])
+    via = PO.sdc_search_backend(*args, n_levels=n_levels, k=k, packed=packed, fused=False,
+                                backend="torch")
+    assert torch.equal(via[0], got[0]) and torch.equal(via[1], got[1])
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_score_matrix_bit_identical_to_reference(packed):
+    q, dd, inv, _ = _inputs("excluded", 4, packed)
+    q, dd, inv = q[:4], dd[:192], inv[:192]  # whole tiles for the reference kernel
+    ref = RS.sdc_scores(jnp.asarray(q), jnp.asarray(dd), jnp.asarray(inv), n_levels=4,
+                        block_q=4, block_n=64, interpret=True, packed=packed)
+    got = PS.sdc_scores(torch.from_numpy(q), torch.from_numpy(dd), torch.from_numpy(inv),
+                        n_levels=4, packed=packed)
+    assert np.array_equal(np.asarray(ref).view(np.uint32), got.numpy().view(np.uint32))
+    assert (got.numpy()[:, inv == 0] == RB.SDC_NEG_INF).all()
+    part = PS.sdc_scores_torch(torch.from_numpy(q), torch.from_numpy(dd),
+                               torch.from_numpy(inv), n_levels=4, packed=packed, chunk=50)
+    assert torch.equal(got, part)
 
 
 @pytest.mark.parametrize("packed", [False, True])
