@@ -39,7 +39,23 @@ that fails:
   7. times the new kernels, their plain versions, bounds and yardsticks at
      the main path's shapes, the IVF build and the IVF serving drivers,
      and holds the whole sdc_scores matrix at those shapes (int8 and
-     packed) against its plain version, exactly.
+     packed) against its plain version, exactly;
+  8. drives the bitwise baseline over phase 3's codes: FlatBitwise (the
+     codes' bit planes, xor + popcount in the binary_dot kernel) serves
+     the 8 requests of 64 queries, checked against serve_sequential and
+     the plain search, with launch counts zeroed just before and read
+     just after; holds the whole [64, N] binary_dot matrix against its
+     plain version, exactly; times the kernel at n_levels 1, 2 and 4
+     (planes of coarse_codes) beside sdc_scores, its plain version and
+     its popcount bound;
+  9. drives the dlrm-rm2 serving forward at full width (26 tables of
+     1,048,576 x 64 float32, 6.98 GB, seeded): dlrm_serve_step on 3
+     batches each at B = 512 and B = 262,144, with the dot_interact
+     launch count zeroed just before and read just after; holds the
+     kernel against its plain version on every batch, exactly, and the
+     logits against forwards with the plain interaction (exactly) and with
+     the Gram-matrix formulation (within float32 rounding); times the
+     kernel, its plain version, its bound and the torch.bmm yardstick.
 
 Its last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``. The binarizer's weights are seeded and
@@ -61,11 +77,22 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
+# __popc results per SM per clock, compute capability 9.0 (CUDA C++
+# Programming Guide, throughput of native arithmetic instructions); times
+# the SM count and the maximum SM clock that nvidia-smi reports.
+POPC_PER_SM_CLOCK = 16
 SERVE_Q, SERVE_REQUESTS, K = 64, 8, 10
 DIM, CODE_DIM, LEVELS = 256, 128, 4
 SOURCE = "src/repro_torch/kernels/sdc/csrc/sdc_topk.cu"
 GATHER_SOURCE = "src/repro_torch/kernels/sdc/csrc/gather_topk.cu"
 SCORES_SOURCE = "src/repro_torch/kernels/sdc/csrc/sdc_scores.cu"
+BINARY_DOT_SOURCE = "src/repro_torch/kernels/binary_dot/csrc/binary_dot.cu"
+DOT_INTERACT_SOURCE = "src/repro_torch/kernels/dot_interact/csrc/dot_interact.cu"
+BINARY_DOT_REPLACES = "src/repro/kernels/binary_dot/kernel.py:61"
+DOT_INTERACT_REPLACES = "src/repro/kernels/dot_interact/kernel.py:50"
+DLRM_SHAPES = (("serve_p99", 512), ("serve_bulk", 262_144))  # repro/configs/cells.py RS_SHAPES
+DLRM_BATCHES = 3
 DEVICE = "cuda:0"
 REPLACES = {False: "src/repro/kernels/sdc/sdc.py:318", True: "src/repro/kernels/sdc/sdc.py:303"}
 GATHER_REPLACES = "src/repro/kernels/sdc/gather.py:176"
@@ -288,6 +315,180 @@ def serve_checked(tag, encode, search, batches, counter, cfg):
             stats)
 
 
+def bitwise_phase(d_codes, encode, batches, cfg, device, name, smi, sm_clock_mhz, sdc_ms):
+    """Phase 8: FlatBitwise over the corpus codes. Returns the kernel's JSON row."""
+    import torch
+
+    from repro_torch.core.binarize_lib import coarse_codes, pack_code_planes
+    from repro_torch.index.flat import FlatBitwise
+    from repro_torch.kernels.binary_dot import kernel as bd_mod
+    from repro_torch.kernels.binary_dot.ops import binary_dot_search_torch
+    from repro_torch.kernels.binary_dot.ref import binary_dot_ref
+
+    N = d_codes.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = FlatBitwise.build(d_codes, LEVELS, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(index.packed.shape == (N, LEVELS, CODE_DIM // 32), "bit planes have the wrong shape")
+    check(torch.equal(index.packed[:4096].cpu(), pack_code_planes(d_codes[:4096].cpu(), LEVELS)),
+          "bit planes packed on the card differ from the CPU's")
+    log(f"[bitwise] FlatBitwise.build N={N} n_levels={LEVELS} m={CODE_DIM}: "
+        f"{index.nbytes() / 1e9:.3f} GB of planes in {build_s:.3f} s")
+
+    def search(q):
+        return index.search(q, K)
+
+    results, launches, seq_ms, pipe_ms, stats = serve_checked(
+        "bitwise", encode, search, batches, bd_mod.binary_dot, cfg)
+    for batch, (v, i) in zip(batches, results):
+        check(bool(((i >= 0) & (i < N)).all()), "bitwise: ids out of range")
+        qp = pack_code_planes(encode(batch), LEVELS)
+        pv, pi = binary_dot_search_torch(qp, index.packed, m=CODE_DIM, k=K)
+        check(torch.equal(v, pv) and torch.equal(i, pi),
+              "bitwise: served search differs from the plain search")
+    log(f"[bitwise] {len(batches)} requests of {SERVE_Q} served, {launches} binary_dot launches, "
+        "bit-identical to serve_sequential and to the plain search")
+
+    # the whole [Q, N] matrix at the main path's shapes, exactly
+    qp = pack_code_planes(encode(batches[0]), LEVELS)
+    s = bd_mod.binary_dot(qp, index.packed, m=CODE_DIM)
+    ps = binary_dot_ref(qp, index.packed, CODE_DIM)
+    check(s.shape == (SERVE_Q, N) and torch.equal(s, ps),
+          f"binary_dot Q={SERVE_Q} N={N}: kernel != plain")
+    err = float((s - ps).abs().max())
+    del s, ps
+    log(f"[bitwise] the full [{SERVE_Q}, {N}] binary_dot matrix exactly equal to the plain version")
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    popc_per_s = POPC_PER_SM_CLOCK * sms * sm_clock_mhz * 1e6
+    q_codes = encode(batches[0])
+    row = None
+    for levels in (1, 2, LEVELS):
+        qpl = pack_code_planes(coarse_codes(q_codes, LEVELS, levels), levels)
+        dpl = (index.packed if levels == LEVELS
+               else pack_code_planes(coarse_codes(d_codes, LEVELS, levels), levels))
+        ms = cuda_ms(lambda: bd_mod.binary_dot(qpl, dpl, m=CODE_DIM), 5)
+        words = levels * CODE_DIM // 32
+        popc = SERVE_Q * N * levels * words
+        nbytes = N * words * 4 + SERVE_Q * words * 4 + SERVE_Q * N * 4
+        ops_ms, bytes_ms = 1e3 * popc / popc_per_s, 1e3 * nbytes / HBM_BYTES_PER_S
+        plain = ""
+        if levels == LEVELS:
+            plain_ms = cuda_ms(lambda: binary_dot_ref(qpl, dpl, CODE_DIM), 1)
+            plain = f", plain {plain_ms:.3f} ms"
+            row = dict(
+                name="binary_dot", route="cuda", source=BINARY_DOT_SOURCE,
+                replaces=BINARY_DOT_REPLACES, launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=None,
+            )
+        del dpl
+        log(f"[time] binary_dot n_levels={levels} Q={SERVE_Q} N={N} m={CODE_DIM} on {name} "
+            f"({smi}): kernel {ms:.3f} ms{plain}, popc bound {ops_ms:.3f} ms "
+            f"({popc / 1e9:.2f}e9 popc at {POPC_PER_SM_CLOCK}/SM/clock x {sms} SMs x "
+            f"{sm_clock_mhz:.0f} MHz), HBM bound {bytes_ms:.3f} ms ({nbytes / 1e9:.2f} GB); "
+            f"sdc_scores int8 on the same [{SERVE_Q}, {N}] {sdc_ms:.3f} ms, ratio "
+            f"{ms / sdc_ms:.2f}; library none")
+    log(f"[time] bitwise serving: sequential {seq_ms:.3f} ms/batch, pipelined {pipe_ms:.3f} "
+        f"ms/batch (scan stage idle {100 * stats['device_idle_frac']:.0f}%), "
+        f"{len(batches)} requests of {SERVE_Q} on {name} ({smi})")
+    return row
+
+
+def dlrm_phase(seed, device, name, smi):
+    """Phase 9: the dlrm-rm2 serving forward at full width. Returns the kernel's JSON row."""
+    import torch
+
+    from repro_torch.configs.archs.dlrm_rm2 import CONFIG
+    from repro_torch.data.synthetic import dlrm_batch
+    from repro_torch.kernels.dot_interact import kernel as di_mod
+    from repro_torch.kernels.dot_interact.ref import (
+        dot_interact_ref,
+        dot_interact_torch,
+        tril_indices,
+    )
+    from repro_torch.models.recsys.dlrm import init_dlrm
+    from repro_torch.train.steps import dlrm_serve_step
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_dlrm(CONFIG, torch.Generator(device=device).manual_seed(seed), device)
+    torch.cuda.synchronize()
+    log(f"[dlrm] {CONFIG.name}: {CONFIG.n_sparse} tables of {CONFIG.table_vocab} x "
+        f"{CONFIG.embed_dim} f32 ({model.tables.numel() * 4 / 1e9:.2f} GB), bot {CONFIG.bot_mlp}, "
+        f"top {CONFIG.top_dims}, {CONFIG.param_count()} parameters, made on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    step = dlrm_serve_step(CONFIG)
+    batches = {shape: [dlrm_batch(s, B, CONFIG, device) for s in range(DLRM_BATCHES)]
+               for shape, B in DLRM_SHAPES}
+    for shape, bs in batches.items():
+        step(model, bs[0])  # warm up
+    torch.cuda.synchronize()
+    di_mod.dot_interact.launches = 0
+    logits, step_ms = {}, {}
+    for shape, bs in batches.items():
+        t0 = time.perf_counter()
+        logits[shape] = [step(model, b) for b in bs]
+        torch.cuda.synchronize()
+        step_ms[shape] = 1e3 * (time.perf_counter() - t0) / len(bs)
+    launches = di_mod.dot_interact.launches
+    want = sum(len(bs) for bs in batches.values())
+    check(launches == want, f"dlrm: the served batches launched dot_interact {launches} times, "
+          f"want {want}")
+
+    err = 0.0
+    with torch.no_grad():
+        for shape, B in DLRM_SHAPES:
+            gram_err = 0.0
+            for b, lg in zip(batches[shape], logits[shape]):
+                check(lg.shape == (B,) and bool(torch.isfinite(lg).all()),
+                      f"dlrm {shape}: logits not finite or of the wrong shape")
+                x, feats = model.features(b["dense"], b["sparse_ids"])
+                ker, plain = di_mod.dot_interact(feats), dot_interact_torch(feats)
+                check(torch.equal(ker, plain), f"dlrm {shape}: dot_interact kernel != plain")
+                err = max(err, float((ker - plain).abs().max()))
+                check(torch.equal(lg, model.top_logits(plain, x)),
+                      f"dlrm {shape}: logits differ from the forward with the plain interaction")
+                gram = model(b["dense"], b["sparse_ids"], interact_fn=dot_interact_ref)
+                gram_err = max(gram_err, float((lg - gram).abs().max()))
+                check(gram_err <= 1e-4 * (1 + float(lg.abs().max())),
+                      f"dlrm {shape}: logits differ from the Gram-matrix forward by {gram_err}")
+            log(f"[dlrm] {shape} B={B}: {DLRM_BATCHES} batches served, logits finite; "
+                "dot_interact exactly equal to the plain version and the logits to the forward "
+                f"with the plain interaction; max |logits - Gram-matrix forward| {gram_err:.3g}; "
+                f"{step_ms[shape]:.3f} ms/batch (host clock, synchronised)")
+
+    F, D = CONFIG.n_feat, CONFIG.embed_dim
+    P = F * (F - 1) // 2
+    rows, cols = tril_indices(F, device)
+    row = None
+    for shape, B in DLRM_SHAPES:
+        with torch.no_grad():
+            _, feats = model.features(batches[shape][0]["dense"], batches[shape][0]["sparse_ids"])
+        reps = 20 if B > 4096 else 200
+        ms = cuda_ms(lambda: di_mod.dot_interact(feats), reps)
+        plain_ms = cuda_ms(lambda: dot_interact_torch(feats), 2 if B > 4096 else 20)
+        library_ms = cuda_ms(lambda: torch.bmm(feats, feats.transpose(1, 2))[:, rows, cols],
+                             reps)
+        nbytes = B * F * D * 4 + B * P * 4
+        flops = 2 * B * P * D
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOPS_PER_S
+        if B == max(b for _, b in DLRM_SHAPES):
+            row = dict(
+                name="dot_interact", route="cuda", source=DOT_INTERACT_SOURCE,
+                replaces=DOT_INTERACT_REPLACES, launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=library_ms,
+            )
+        log(f"[time] dot_interact {shape} B={B} F={F} D={D} on {name} ({smi}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, HBM bound {bytes_ms:.4f} ms "
+            f"({nbytes / 1e9:.3f} GB), fp32 op bound {ops_ms:.4f} ms, library (torch.bmm + "
+            f"triangle) {library_ms:.4f} ms{'' if B > 4096 else '; input L2-resident'}")
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -325,10 +526,15 @@ def main() -> None:
         for line in lib.with_suffix(".log").read_text().splitlines():
             m = re.search(r"Compiling entry function '.*?((?:sdc|gather)_(?:scan|merge|scores)_kernel)"
                           r"(?:ILi(\d+)ELb([01])E(?:Lb([01])E)?)?", line)
+            b = re.search(r"Compiling entry function '.*?(binary_dot_kernel)ILi(\d+)ELi(\d+)E"
+                          r"|Compiling entry function '.*?(dot_interact_kernel)", line)
             if m:
                 kernel = m.group(1) + (f" D={m.group(2)}{' packed' if m.group(3) == '1' else ''}"
                                        f"{' masked' if m.group(4) == '1' else ''}"
                                        if m.group(2) else "")
+            elif b:
+                kernel = (f"{b.group(1)} n_levels={b.group(2)} m={32 * int(b.group(3))}"
+                          if b.group(1) else b.group(4))
             elif "registers" in line or "spill" in line:
                 log(f"[build]   {kernel}: {line.replace('ptxas info    :', '').strip()}")
 
@@ -339,7 +545,12 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    log(f"[device] {name} x{count}; {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
+    log(f"[device] {name} x{count}; {smi}; max SM clock {sm_clock_mhz:.0f} MHz; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # -- 2. kernel vs plain, edge cases -----------------------------------
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -684,6 +895,18 @@ def main() -> None:
             f"({nbytes / 1e9:.2f} GB, the [Q, N] f32 output included), int8 op bound "
             f"{ops_ms:.4f} ms, library "
             f"{'n/a' if library_ms is None else f'{library_ms:.3f} ms'}")
+
+    # -- 8. the bitwise baseline over the same codes -------------------------
+    sdc_ms = next(k["ms"] for k in kernels if k["name"] == "sdc_scores_int8")
+    del ivfs
+    kernels.append(bitwise_phase(d_codes, encode, batches, cfg, device, name, smi, sm_clock_mhz,
+                                 sdc_ms))
+
+    # -- 9. the dlrm-rm2 serving forward at full width ------------------------
+    del indexes, d_codes
+    torch.cuda.empty_cache()
+    kernels.append(dlrm_phase(args.seed, device, name, smi))
+    log(f"[smoke] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
     log("kernels: " + ", ".join(f"{k['name']} matched, launches={k['launches']}"
                                 for k in kernels))

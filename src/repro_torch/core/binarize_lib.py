@@ -130,6 +130,69 @@ def unpack_codes(codes: torch.Tensor, n_levels: int) -> torch.Tensor:
     return (planes * 2 - 1).to(torch.float32)
 
 
+# ---------------------------------------------------------------------------
+# Bit planes for the xor+popcount baseline (kernels/binary_dot): plane t of
+# a code is bit n_levels-1-t (as in ``unpack_codes``), and bit j of word w
+# holds dim w*32 + j. The reference keeps the words as uint32; here they are
+# int32 with the same bit pattern, because torch has no popcount and its
+# uint32 shifts do not run on the CPU. Words are built in int64 and cut to
+# their low 32 bits.
+# ---------------------------------------------------------------------------
+
+
+def _low_words(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same low 32 bits."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _pack_bits(zo: torch.Tensor) -> torch.Tensor:
+    """{0, 1} int64 [..., m] -> words [..., m/32] int32, bit j of word w = dim w*32 + j."""
+    m = zo.shape[-1]
+    if m % 32:
+        raise ValueError(f"code_dim {m} must be a multiple of 32")
+    shifts = torch.arange(32, dtype=torch.int64, device=zo.device)
+    words = (zo.reshape(*zo.shape[:-1], m // 32, 32) << shifts).sum(-1)
+    return _low_words(words)
+
+
+def pack_bitplanes(bits: torch.Tensor) -> torch.Tensor:
+    """[-1,+1] bits [..., n_levels, m] -> packed words [..., n_levels, m/32] int32.
+
+    The words hold the reference's uint32 bit pattern (``.view(np.uint32)``
+    of the numpy array gives its words). m must be a multiple of 32.
+    """
+    return _pack_bits(((bits + 1.0) * 0.5).to(torch.int64))
+
+
+def unpack_bitplanes(packed: torch.Tensor, m: int) -> torch.Tensor:
+    """Packed words [..., n_levels, m/32] (int32 or int64) -> bits [..., n_levels, m]."""
+    shifts = torch.arange(32, dtype=torch.int64, device=packed.device)
+    zo = ((packed.to(torch.int64) & 0xFFFFFFFF)[..., None] >> shifts) & 1
+    *lead, n, words, _ = zo.shape
+    return zo.reshape(*lead, n, words * 32)[..., :m].to(torch.float32) * 2 - 1
+
+
+def pack_code_planes(codes: torch.Tensor, n_levels: int, chunk: int = 1 << 20) -> torch.Tensor:
+    """Integer codes [..., m] -> packed bit planes [..., n_levels, m/32] int32.
+
+    Equals ``pack_bitplanes(unpack_codes(codes, n_levels))`` word for word,
+    by shifts on the integer codes, ``chunk`` rows at a time: at ten
+    million 128-dim codes ``unpack_codes`` alone would be a 20 GB float
+    array.
+    """
+    *lead, m = codes.shape
+    if m % 32:
+        raise ValueError(f"code_dim {m} must be a multiple of 32")
+    rows = codes.reshape(-1, m)
+    out = torch.empty((rows.shape[0], n_levels, m // 32), dtype=torch.int32,
+                      device=codes.device)
+    for s in range(0, rows.shape[0], chunk):
+        c = rows[s:s + chunk].to(torch.int64)
+        for t in range(n_levels):
+            out[s:s + chunk, t] = _pack_bits((c >> (n_levels - 1 - t)) & 1)
+    return out.reshape(*lead, n_levels, m // 32)
+
+
 def codes_to_values(codes: torch.Tensor, n_levels: int) -> torch.Tensor:
     """Integer codes -> recurrent binary grid values b_u (float32)."""
     a, beta = code_affine_constants(n_levels)

@@ -1,15 +1,20 @@
-"""Clustered embedding corpora (ports ``repro/data/synthetic.py::clustered_corpus``).
+"""Synthetic data (ports ``repro/data/synthetic.py``: ``clustered_corpus``
+and ``dlrm_batch``).
 
 ``clustered_corpus`` is the reference's numpy generator, verbatim, so the
 same seed gives the same corpus bit for bit. ``clustered_corpus_torch``
 follows the same recipe with a ``torch.Generator`` on the card, for
 corpora whose float64 numpy intermediates would not fit in host memory
 (ten million 256-dim documents); its numbers differ from the numpy ones.
+
+``dlrm_batch`` draws a DLRM batch from a ``torch.Generator`` seeded by the
+step, so a step gives the same batch every time. The reference draws from
+``jax.random``: tests hand its batches over as arrays.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -82,3 +87,22 @@ def clustered_corpus_torch(
         blk /= torch.linalg.vector_norm(blk, dim=-1, keepdim=True) + 1e-12
     queries /= torch.linalg.vector_norm(queries, dim=-1, keepdim=True) + 1e-12
     return docs, queries, gt
+
+
+def _generator(step: int, salt: int, device) -> torch.Generator:
+    """A generator that is a pure function of (step, salt), like the reference's ``_key``."""
+    return torch.Generator(device=device).manual_seed((20230713 + salt) * 1_000_003 + step)
+
+
+def dlrm_batch(step: int, batch: int, cfg, device="cuda") -> Dict[str, torch.Tensor]:
+    """A DLRM batch on ``device``: dense [B, n_dense] ~ N(0, 1), sparse_ids
+    [B, n_sparse] int32 uniform in [0, table_vocab), labels [B] f32 ~
+    Bernoulli(0.25)."""
+    dev = resolve_device(device)
+    g = _generator(step, 2, dev)
+    return {
+        "dense": torch.randn((batch, cfg.n_dense), generator=g, device=dev),
+        "sparse_ids": torch.randint(0, cfg.table_vocab, (batch, cfg.n_sparse), generator=g,
+                                    device=dev, dtype=torch.int32),
+        "labels": (torch.rand((batch,), generator=g, device=dev) < 0.25).to(torch.float32),
+    }

@@ -4,6 +4,8 @@
   * FlatFloat — full-precision cosine (the paper's "float / flat" row), a
                 plain product outside any kernel, as in the reference.
   * FlatSDC   — recurrent binary codes scored by the SDC kernel.
+  * FlatBitwise — the paper's bitwise baseline: the codes' bit planes
+                scored by xor + popcount (the ``binary_dot`` kernel).
 
 Both live on the device they are built on: ``device="cuda"`` by default,
 raising when there is no card; pass ``device="cpu"`` for the plain
@@ -17,8 +19,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.binarize_lib import pack_codes_nibbles
+from repro_torch.core.binarize_lib import pack_code_planes, pack_codes_nibbles
 from repro_torch.device import full_fp32_matmul, resolve_device
+from repro_torch.kernels.binary_dot.ops import binary_dot_search
 from repro_torch.kernels.sdc import ref as sdc_ref
 from repro_torch.kernels.sdc.defaults import BLOCK_N, FLAT_BLOCK_Q, BlockPlan
 from repro_torch.kernels.sdc.ops import sdc_search_backend
@@ -108,3 +111,27 @@ class FlatSDC:
         # 4-bit codes pack two dims per byte on disk; +4B quantised norm.
         packed_codes = (self.code_dim * self.n_levels + 7) // 8
         return self.codes.shape[0] * (packed_codes + 4)
+
+
+@dataclasses.dataclass
+class FlatBitwise:
+    packed: torch.Tensor  # [N, n_levels, m/32] int32 words (the reference's uint32 bits)
+    m: int
+    n_levels: int
+
+    @staticmethod
+    def build(codes, n_levels: int, device="cuda") -> "FlatBitwise":
+        """Pack integer codes [N, m] into bit planes on ``device``."""
+        dev = resolve_device(device)
+        codes = torch.as_tensor(codes).to(dev, torch.int8)
+        return FlatBitwise(packed=pack_code_planes(codes, n_levels), m=codes.shape[1],
+                           n_levels=n_levels)
+
+    def search(self, q_codes, k: int):
+        """Top-k of query codes [Q, m] (moved to the index's device) by xor + popcount."""
+        q = torch.as_tensor(q_codes).to(self.packed.device, torch.int8)
+        return binary_dot_search(pack_code_planes(q, self.n_levels), self.packed, m=self.m,
+                                 k=k)
+
+    def nbytes(self) -> int:
+        return self.packed.numel() * 4

@@ -29,7 +29,10 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 # shared between sources lives in headers beside them (``*.cuh``), which
 # ``library_path`` hashes with the sources.
 _SDC = _KERNELS / "sdc" / "csrc"
-SOURCES: List[Path] = [_SDC / "sdc_topk.cu", _SDC / "gather_topk.cu", _SDC / "sdc_scores.cu"]
+BINARY_DOT = _KERNELS / "binary_dot" / "csrc" / "binary_dot.cu"
+DOT_INTERACT = _KERNELS / "dot_interact" / "csrc" / "dot_interact.cu"
+SOURCES: List[Path] = [_SDC / "sdc_topk.cu", _SDC / "gather_topk.cu", _SDC / "sdc_scores.cu",
+                       BINARY_DOT, DOT_INTERACT]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -18,11 +18,19 @@ import numpy as np  # noqa: E402
 
 from repro_torch.core import binarize_lib as PB  # noqa: E402
 from repro_torch.data import synthetic as PS  # noqa: E402
+from repro_torch.configs.archs import dlrm_rm2  # noqa: E402
 from repro_torch.index import ivf as PI  # noqa: E402
 from repro_torch.index import kmeans as PK  # noqa: E402
-from repro_torch.index.flat import FlatFloat, FlatSDC  # noqa: E402
+from repro_torch.index.flat import FlatBitwise, FlatFloat, FlatSDC  # noqa: E402
+from repro_torch.kernels.binary_dot import kernel as PBD  # noqa: E402
+from repro_torch.kernels.binary_dot import ops as PBO  # noqa: E402
+from repro_torch.kernels.dot_interact import kernel as PDI  # noqa: E402
+from repro_torch.kernels.dot_interact import ops as PDO  # noqa: E402
 from repro_torch.kernels.sdc import gather as PG  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.recsys import dlrm as PD  # noqa: E402
+from repro_torch.models.recsys import embedding as PE  # noqa: E402
+from repro_torch.train import steps as PT  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
@@ -111,6 +119,49 @@ def test_entry_points_default_to_the_card():
         PK.kmeans(codes.astype(np.float32), k=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--index", "ivf", "--docs", "10"])
+
+
+def test_new_entry_points_default_to_the_card():
+    codes = np.random.default_rng(0).integers(0, 16, (50, 32)).astype(np.int8)
+    cfg = dlrm_rm2.SMOKE
+    if torch.cuda.is_available():
+        index = FlatBitwise.build(codes, 4)
+        assert index.packed.device.type == "cuda"
+        assert PS.dlrm_batch(0, 4, cfg)["dense"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FlatBitwise.build(codes, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PD.init_dlrm(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PD.dlrm_from_numpy({"tables": np.zeros((26, 1000, 16), np.float32)}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PS.dlrm_batch(0, 4, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PE.mlp_params(torch.Generator(), (4, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PE.init_table(torch.Generator(), PE.TableConfig(10, 4))
+
+
+@pytest.mark.gpu
+def test_new_kernels_on_card_never_reach_the_plain_versions(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(PBD, "binary_dot_ref", plain)
+    monkeypatch.setattr(PDI, "dot_interact_torch", plain)
+    dev = torch.device("cuda")
+    planes = torch.randint(-2**31, 2**31 - 1, (300, 4, 4), dtype=torch.int32, device=dev)
+    before = PBD.binary_dot.launches, PDI.dot_interact.launches
+    v, i = PBO.binary_dot_search(planes[:5], planes, m=128, k=3)
+    inter = PDO.dot_interaction(torch.randn((9, 27, 64), device=dev))
+    torch.cuda.synchronize()
+    assert (PBD.binary_dot.launches, PDI.dot_interact.launches) == (before[0] + 1, before[1] + 1)
+    assert v.shape == (5, 3) and bool(((i >= 0) & (i < 300)).all())
+    assert inter.shape == (9, 351) and bool(torch.isfinite(inter).all())
 
 
 @pytest.mark.gpu
