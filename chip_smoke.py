@@ -179,7 +179,8 @@ def gather_edge_cases(device, gen) -> int:
     from repro_torch.kernels.sdc import sdc as sdc_mod
     from repro_torch.kernels.sdc.ref import doc_inv_norms
 
-    def case(Q, nlist, L, D, nl, k, nprobe, packed, mask=None, ties=False, full=False):
+    def case(Q, nlist, L, D, nl, k, nprobe, packed, mask=None, ties=False, full=False,
+             holes=False):
         codes = torch.randint(0, 2**nl, (nlist, L, D), generator=gen, device=device)
         codes = codes.to(torch.int8)
         if ties:  # every list a copy of list 0; later lists hold lower ids
@@ -193,6 +194,9 @@ def gather_edge_cases(device, gen) -> int:
         pad = min(3, L - 1)
         inv[:, L - pad:] = 0
         ids[:, L - pad:] = -1
+        if holes:  # -1 ids inside the lists (inv kept), and a run of dead rounds
+            ids[torch.rand((nlist, L), generator=gen, device=device) < 0.1] = -1
+            ids[:, L // 8:L // 8 + 600] = -1
         q = torch.randint(0, 2**nl, (Q, D), generator=gen, device=device).to(torch.int8)
         if full or ties:
             probes = torch.stack([torch.randperm(nlist, generator=gen, device=device)[:nprobe]
@@ -212,7 +216,7 @@ def gather_edge_cases(device, gen) -> int:
         pv, pi = gather_mod.sdc_gather_topk_torch(q, lc, inv, ids, probes, n_levels=nl, k=k,
                                                   packed=packed, cand_mask=cand)
         what = (f"Q={Q} nlist={nlist} L={L} D={D} n_levels={nl} k={k} nprobe={nprobe} "
-                f"packed={packed} mask={mask} ties={ties}")
+                f"packed={packed} mask={mask} ties={ties} holes={holes}")
         check(torch.equal(v, pv) and torch.equal(i, pi), f"gather kernel != plain: {what}")
         live = v > -5e29
         check(bool((i[~live] == -1).all()), f"gather: empty slots not -1: {what}")
@@ -250,6 +254,24 @@ def gather_edge_cases(device, gen) -> int:
         dict(Q=64, nlist=16, L=20_000, D=128, nl=4, k=1024, nprobe=8, packed=True),
         dict(Q=33, nlist=12, L=5000, D=128, nl=4, k=100, nprobe=12, packed=False, full=True),
         dict(Q=33, nlist=12, L=5000, D=128, nl=2, k=100, nprobe=12, packed=True, full=True),
+        # the tile product's edges: 1, 7, 9 and 65 pairs on every list (65: several
+        # units on one list), lengths no multiple of 16 or of the 256-row tile,
+        # -1 ids inside the lists, D = 256, and k = K_MAX (one pair per block)
+        dict(Q=1, nlist=6, L=999, D=128, nl=4, k=K, nprobe=6, packed=False, full=True),
+        dict(Q=7, nlist=6, L=999, D=128, nl=4, k=K, nprobe=6, packed=True, full=True,
+             holes=True),
+        dict(Q=9, nlist=6, L=2049, D=64, nl=2, k=33, nprobe=6, packed=False, full=True,
+             holes=True),
+        dict(Q=65, nlist=6, L=3001, D=128, nl=4, k=K, nprobe=6, packed=False, full=True,
+             holes=True),
+        dict(Q=65, nlist=6, L=3001, D=128, nl=4, k=K, nprobe=6, packed=True, mask="half",
+             holes=True),
+        dict(Q=33, nlist=8, L=5003, D=256, nl=4, k=K, nprobe=4, packed=False, holes=True),
+        dict(Q=33, nlist=8, L=5003, D=256, nl=4, k=K, nprobe=4, packed=True, mask="half"),
+        dict(Q=5, nlist=4, L=3000, D=128, nl=4, k=sdc_mod.K_MAX, nprobe=2, packed=False,
+             holes=True),
+        dict(Q=5, nlist=4, L=3000, D=256, nl=4, k=sdc_mod.K_MAX, nprobe=2, packed=True,
+             mask="half"),
     ]
     for c in cases:
         case(**c)

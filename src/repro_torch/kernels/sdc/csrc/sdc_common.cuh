@@ -1,6 +1,7 @@
 // Device code shared by the SDC kernels (sdc_topk.cu, gather_topk.cu,
 // sdc_scores.cu): the exact integer code product, the uncontracted affine
 // epilogue, the 64-bit ordered keys and the shared-memory top-k selector.
+// The tensor-core tile product and its staging are in tile_mma.cuh.
 //
 // Every source includes this header and is built into its own library, so
 // nothing here needs external linkage. Build with -fmad=false; the epilogue
@@ -114,21 +115,22 @@ __device__ __forceinline__ int row_dot(const unsigned (&a)[RW], const unsigned (
   return acc;
 }
 
-// Copy nq query rows into shared memory (row j from query src(j) of qa/qb)
-// and their code sums into qsum. Called by all threads; ends on a barrier.
-template <int D, bool PACKED, class Src>
+// Copy nq query rows into shared memory (row j from query src(j) of qa/qb,
+// at qs + j * QS words) and their code sums into qsum. Called by all
+// threads; ends on a barrier.
+template <int D, bool PACKED, int QS = Row<D, PACKED>::QSTRIDE, class Src>
 __device__ void load_queries(int* qs, int* qsum, const int* qa, const int* qb, int nq, Src src) {
   using R = Row<D, PACKED>;
   for (int i = threadIdx.x; i < nq * R::RW; i += blockDim.x) {
     const int j = i / R::RW, w = i % R::RW;
     const size_t g = (size_t)src(j) * R::RW + w;
-    qs[j * R::QSTRIDE + w] = qa[g];
-    if constexpr (PACKED) qs[j * R::QSTRIDE + R::RW + w] = qb[g];
+    qs[j * QS + w] = qa[g];
+    if constexpr (PACKED) qs[j * QS + R::RW + w] = qb[g];
   }
   __syncthreads();
   for (int j = threadIdx.x; j < nq; j += blockDim.x) {
     int s = 0;
-    for (int w = 0; w < R::QSTRIDE; ++w) s = __dp4a(qs[j * R::QSTRIDE + w], 0x01010101, s);
+    for (int w = 0; w < R::QSTRIDE; ++w) s = __dp4a(qs[j * QS + w], 0x01010101, s);
     qsum[j] = s;
   }
   __syncthreads();

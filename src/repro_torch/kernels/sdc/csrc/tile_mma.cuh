@@ -1,0 +1,182 @@
+// Exact int8 tensor-core code products for the SDC scans (sm_90a).
+//
+// A scan block scores one round of kThreads document rows, staged in
+// shared memory, against up to 64 query rows held there too, and writes
+// the [query][row] int32 dot tile that its per-row epilogue and selector
+// read. The product is mma.sync.m16n8k32 s8 x s8 -> s32: A is 16 rows x
+// 32 codes of the documents, row-major, and B is 32 codes x 8 queries,
+// column-major, i.e. each query's codes contiguous: both are the rows as
+// they are stored. The int32 accumulator is exact, since codes are
+// 0..2^n - 1 < 2^7 and |dot| <= D * 127^2 < 2^31 for every D the kernels
+// take (28,800 at D = 128 and n = 4).
+//
+// Per lane (g = lane / 4, t = lane % 4) the fragments hold, as bytes of
+// four codes each:
+//   a[0]: row g, k 4t..4t+3    a[1]: row g + 8, k 4t..4t+3
+//   a[2]: row g, k 16+4t..     a[3]: row g + 8, k 16+4t..
+//   b[0]: col g, k 4t..4t+3    b[1]: col g, k 16+4t..
+//   c[0]: (g, 2t)  c[1]: (g, 2t + 1)  c[2]: (g + 8, 2t)  c[3]: (g + 8, 2t + 1)
+// A sum over K does not depend on K's order, so a lane takes whole 32-bit
+// words of a row: int8 rows give a[0] and a[2] words t and 4 + t of each
+// 32-code step. Nibble-packed rows are split as they are loaded: the low
+// nibbles (even dims) of packed word t of a 16-byte step go to a[0] and
+// the high nibbles (odd dims) to a[2], and B takes the same word of the
+// query's even-dim half and of its odd-dim half: the [even | odd] order of
+// the query rows (Row::QSTRIDE), so A and B agree on K. Hopper has no int4
+// tensor-core product; a split costs two ALU operations per word.
+//
+// Shared-memory rows are padded to a stride of 4 (mod 8) words, so the
+// eight rows a fragment load touches fall in distinct banks, and the dot
+// tile's rows to kThreads + 4 words, so its stores are conflict-free and
+// thread r reads its row's dots for every query with one bank each.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sdc_common.cuh"
+
+namespace sdc {
+
+// Words of a shared-memory row of w words (w a multiple of 4), padded.
+__host__ __device__ constexpr int pad_words(int w) { return w + 4 + (w & 4); }
+
+constexpr int kDotStride = kThreads + 4;  // words per query row of the dot tile
+
+template <int D, bool PACKED>
+struct Tile {
+  using R = Row<D, PACKED>;
+  static constexpr int S = pad_words(R::RW);        // words per staged row
+  static constexpr int QS = pad_words(R::QSTRIDE);  // words per query row
+  static constexpr int KSTEPS = D / 32;             // mma k-steps of 32 codes
+  static constexpr int CH = R::ROW_BYTES / 16;      // 16-byte chunks per stored row
+};
+
+// c += a * b for one 16 x 8 x 32 tile, s8 x s8 -> s32.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes from global to shared memory, asynchronously (L2 only).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying the kThreads stored rows at src (row i at src + i *
+// ROW_BYTES) into tile (row i at tile + i * S words). Warp w copies the
+// rows of its own 32 threads, 16 bytes a lane, neighbouring lanes on
+// neighbouring bytes. A row whose bit in `live` (the warp's ballot) is
+// clear is neither read nor written: its slot keeps stale codes, whose
+// dots no one reads. Called by all threads.
+template <int D, bool PACKED>
+__device__ __forceinline__ void stage_rows(unsigned* tile, const uint8_t* src, unsigned live) {
+  using T = Tile<D, PACKED>;
+  constexpr int RPI = 32 / T::CH;  // rows per warp-wide copy
+  const int lane = threadIdx.x & 31, w0 = threadIdx.x & ~31;
+  const int sub = lane / T::CH, ch = lane % T::CH;
+#pragma unroll
+  for (int i = 0; i < T::CH; ++i) {
+    const int row = i * RPI + sub;
+    if ((live >> row) & 1u) {
+      cp_async16(tile + (w0 + row) * T::S + ch * 4,
+                 src + (size_t)(w0 + row) * T::R::ROW_BYTES + ch * 16);
+    }
+  }
+}
+
+// Sum of the codes of one staged row.
+template <int D, bool PACKED>
+__device__ __forceinline__ int staged_row_sum(const unsigned* row) {
+  const uint4* v = reinterpret_cast<const uint4*>(row);
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < Row<D, PACKED>::RW / 4; ++i) {
+    const uint4 x = v[i];
+    const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (PACKED) {
+        s = __dp4a((int)(w[e] & 0x0F0F0F0Fu), 0x01010101, s);
+        s = __dp4a((int)((w[e] >> 4) & 0x0F0F0F0Fu), 0x01010101, s);
+      } else {
+        s = __dp4a((int)w[e], 0x01010101, s);
+      }
+    }
+  }
+  return s;
+}
+
+// dots[j * kDotStride + m] = code product of staged row m with query row j
+// (qs + j * QS words), for every row m < kThreads and every query j below
+// nq rounded up to a multiple of 8 (rows past nq are read and their dots
+// written, never meant to be used). Warp w computes rows 32w..32w+31, one
+// 16-row half at a time: the half's A fragments are loaded once, then each
+// group of 8 queries is KSTEPS products. Called by all threads; the caller
+// puts a barrier between it and the first read of the tile.
+template <int D, bool PACKED>
+__device__ __forceinline__ void tile_dots(const unsigned* tile, const int* qs, int* dots, int nq) {
+  using T = Tile<D, PACKED>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m0 = (threadIdx.x & ~31) + 16 * half;
+    const unsigned* lo = tile + (m0 + g) * T::S;  // row g of the half
+    const unsigned* hi = lo + 8 * T::S;           // row g + 8
+    unsigned a[T::KSTEPS][4];
+#pragma unroll
+    for (int s = 0; s < T::KSTEPS; ++s) {
+      if constexpr (PACKED) {
+        const unsigned x = lo[4 * s + t], y = hi[4 * s + t];
+        a[s][0] = x & 0x0F0F0F0Fu;
+        a[s][1] = y & 0x0F0F0F0Fu;
+        a[s][2] = (x >> 4) & 0x0F0F0F0Fu;
+        a[s][3] = (y >> 4) & 0x0F0F0F0Fu;
+      } else {
+        a[s][0] = lo[8 * s + t];
+        a[s][1] = hi[8 * s + t];
+        a[s][2] = lo[8 * s + 4 + t];
+        a[s][3] = hi[8 * s + 4 + t];
+      }
+    }
+    for (int n = 0; n < nq; n += 8) {
+      const int* q = qs + (n + g) * T::QS;
+      int c[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int s = 0; s < T::KSTEPS; ++s) {
+        unsigned b[2];
+        if constexpr (PACKED) {
+          b[0] = (unsigned)q[4 * s + t];
+          b[1] = (unsigned)q[T::R::RW + 4 * s + t];
+        } else {
+          b[0] = (unsigned)q[8 * s + t];
+          b[1] = (unsigned)q[8 * s + 4 + t];
+        }
+        mma_s8(c, a[s], b);
+      }
+      int* d = dots + (n + 2 * t) * kDotStride + m0 + g;
+      d[0] = c[0];
+      d[kDotStride] = c[1];
+      d[8] = c[2];
+      d[kDotStride + 8] = c[3];
+    }
+  }
+}
+
+}  // namespace sdc

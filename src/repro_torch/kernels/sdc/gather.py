@@ -11,8 +11,12 @@ The kernel replaces the TPU kernel ``sdc_gather_topk``
 (``repro/kernels/sdc/gather.py``), which streams one (query, probe) list
 at a time through VMEM. On the card that order would read each list once
 for every pair that probes it, so the wrapper groups the (query, probe)
-pairs by list (``gather_plan``) and the kernel scans each list once for
-up to 64 of its pairs; ``csrc/gather_topk.cu`` says more.
+pairs by list (``gather_plan``) and a kernel block scans one list for up
+to 16 of its pairs, three blocks to an SM. It stages each round of 256
+rows in shared memory with ``cp.async`` and scores it against all of them
+with one exact int8 tensor-core product (``mma.sync``,
+``csrc/tile_mma.cuh``); the per-pair selector that follows is the shared
+one of ``csrc/sdc_common.cuh``. ``csrc/gather_topk.cu`` says more.
 
 Both versions return the reference's contract: ``(scores [Q, k] f32,
 ids [Q, k] int32)``, best first, ties toward the earlier probe column
@@ -43,14 +47,17 @@ from repro_torch.kernels.sdc.sdc import (
 )
 
 _SOURCE = _build.SOURCES[1]
-_MAX_PAIRS_PER_BLOCK = 64
-_SMEM_BUDGET = 200 * 1024
+_MAX_PAIRS_PER_BLOCK = 16
+_BLOCKS_PER_SM = 3  # the scan kernel's __launch_bounds__ minimum
+# Hopper's shared memory: 228 KB an SM, of which it keeps 1 KB for each
+# block it runs (so one block may take 227 KB).
+_SMEM_SM, _SMEM_RESERVED = 228 * 1024, 1024
 _PARTIAL_BYTES = 1 << 28  # bound on the scan's per-slice partial keys
 # Lists differ in length and in how many pairs probe them, so blocks differ
 # in work: the grid is about this many waves of blocks of at least
 # _MIN_SLICE_ROWS rows, which the card balances, rather than one wave that
 # waits on its largest block.
-_WAVES = 8
+_WAVES = 4
 _MIN_SLICE_ROWS = 2048
 _PLAIN_ELEMS = 1 << 25  # plain version: query x list codes scored at once
 
@@ -164,7 +171,7 @@ def _launch(q, lists, inv, ids, probes, *, n_levels, k, packed, cand_mask):
     lib = _lib()
     cap = cap_for(k)
     P = Q * nprobe
-    qc = max(1, min(P, _MAX_PAIRS_PER_BLOCK, _SMEM_BUDGET // lib.gather_topk_scan_smem(D, cap, 1)))
+    qc = min(P, _pairs_per_block(D, packed, cap))
     order, pair_off, unit_off, max_units = gather_plan(probes, nlist, qc)
     masked = cand_mask is not None
     with torch.cuda.device(q.device):
@@ -203,13 +210,31 @@ def _launch(q, lists, inv, ids, probes, *, n_levels, k, packed, cand_mask):
 
 
 @functools.cache
+def _pairs_per_block(D: int, packed: bool, cap: int) -> int:
+    """The most (query, probe) pairs, up to 16, for one scan block.
+
+    As many as let three blocks share an SM, so that the barriers that end
+    each selector round in one block hide behind the others' work; where
+    not even one pair allows that (large k), two blocks, then one. At k =
+    K_MAX that is 1.
+    """
+    lib = _lib()
+    for blocks in (_BLOCKS_PER_SM, 2, 1):
+        budget = _SMEM_SM // blocks - _SMEM_RESERVED
+        for qc in range(_MAX_PAIRS_PER_BLOCK, 0, -1):
+            if lib.gather_topk_scan_smem(D, int(packed), cap, qc) <= budget:
+                return qc
+    raise RuntimeError(f"sdc_gather_topk: no scan block fits in shared memory (D={D}, cap={cap})")
+
+
+@functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel library (built on first use), its C functions declared."""
     lib = _build.load(_SOURCE)
     P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.gather_topk_launch.argtypes = [P] * 10 + [LL] * 3 + [P] * 3 + [I] * 12 + [F] * 3 + [P]
     lib.gather_topk_launch.restype = I
-    lib.gather_topk_scan_smem.argtypes = [I, I, I]
+    lib.gather_topk_scan_smem.argtypes = [I, I, I, I]
     lib.gather_topk_scan_smem.restype = ctypes.c_size_t
     lib.gather_topk_blocks_per_sm.argtypes = [I, I, I, I, I]
     lib.gather_topk_blocks_per_sm.restype = I

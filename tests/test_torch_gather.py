@@ -202,7 +202,7 @@ def _card():
     return torch.device("cuda")
 
 
-def _card_lists(dev, gen, nlist, L_, D_, n_levels, Q_, nprobe):
+def _card_lists(dev, gen, nlist, L_, D_, n_levels, Q_, nprobe, every=False, holes=False):
     codes = torch.randint(0, 2**n_levels, (nlist, L_, D_), generator=gen, device=dev)
     codes = codes.to(torch.int8)
     codes[1::2] = codes[0::2][: nlist // 2]  # equal scores across lists
@@ -211,21 +211,44 @@ def _card_lists(dev, gen, nlist, L_, D_, n_levels, Q_, nprobe):
     ids = ids.reshape(nlist, L_)
     inv[:, -L_ // 7:] = 0
     ids[:, -L_ // 7:] = -1
+    if holes:  # -1 ids inside the lists (inv kept), and a run of dead rounds
+        ids[torch.rand((nlist, L_), generator=gen, device=dev) < 0.1] = -1
+        ids[:, L_ // 8:L_ // 8 + 600] = -1
     q = torch.randint(0, 2**n_levels, (Q_, D_), generator=gen, device=dev).to(torch.int8)
-    probes = torch.randint(-2, nlist + 2, (Q_, nprobe), generator=gen, device=dev)
+    if every:  # each query probes nprobe distinct lists: nprobe = nlist gives Q_ pairs a list
+        probes = torch.stack([torch.randperm(nlist, generator=gen, device=dev)[:nprobe]
+                              for _ in range(Q_)])
+    else:
+        probes = torch.randint(-2, nlist + 2, (Q_, nprobe), generator=gen, device=dev)
     return q, codes, inv, ids, probes.to(torch.int32)
+
+
+# nlist, L, D, Q, nprobe, k, every, holes: lengths that are no multiple of 16
+# or of the 256-row tile, 1 / 7 / 9 / 65 pairs on every list (65: several units
+# on one list), ids of -1 inside the lists, D = 256 and k = K_MAX (one pair
+# per block).
+CARD_CASES = [(16, 3001, 128, 37, 8, 10, False, False),
+              (8, 17, 64, 5, 8, 100, False, False),
+              (4, 20_000, 32, 64, 4, 1024, False, False),
+              (6, 1000, 128, 1, 6, 10, True, False),
+              (6, 999, 128, 7, 6, 10, True, True),
+              (6, 2049, 64, 9, 6, 33, True, True),
+              (6, 3001, 128, 65, 6, 10, True, True),
+              (8, 5003, 256, 33, 4, 10, False, True),
+              (4, 3000, 128, 5, 2, PS.K_MAX, False, True),
+              (4, 3000, 256, 5, 2, PS.K_MAX, True, False)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["int8", "packed", "masked"])
 @pytest.mark.parametrize("n_levels", [1, 4])
-@pytest.mark.parametrize("nlist,L_,D_,Q_,nprobe,k", [(16, 3001, 128, 37, 8, 10),
-                                                      (8, 17, 64, 5, 8, 100),
-                                                      (4, 20_000, 32, 64, 4, 1024)])
-def test_kernel_matches_plain_on_card(variant, n_levels, nlist, L_, D_, Q_, nprobe, k):
+@pytest.mark.parametrize("nlist,L_,D_,Q_,nprobe,k,every,holes", CARD_CASES)
+def test_kernel_matches_plain_on_card(variant, n_levels, nlist, L_, D_, Q_, nprobe, k, every,
+                                      holes):
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(nlist * L_ + n_levels)
-    q, codes, inv, ids, probes = _card_lists(dev, gen, nlist, L_, D_, n_levels, Q_, nprobe)
+    q, codes, inv, ids, probes = _card_lists(dev, gen, nlist, L_, D_, n_levels, Q_, nprobe,
+                                             every, holes)
     packed = variant == "packed"
     lc = pack_codes_nibbles(codes) if packed else codes
     mask = None
