@@ -10,8 +10,12 @@ that fails:
   1. prints the card, the device count and the card's power limit;
   2. holds every kernel against its plain PyTorch version on the card
      (exactly equal scores and ids) in the edge cases: n_levels 1, 2, 4
-     in int8 and nibble-packed form, k > N, k = 1024, an all-excluded
-     tail, duplicated documents (ties), Q not a multiple of any tile;
+     in int8 and nibble-packed form, k > N, k = 1, 1024 and K_MAX, an
+     all-excluded tail, duplicated documents (ties), Q not a multiple of
+     any tile and cut at every query-chunk edge, N a multiple of neither
+     128 nor 256, code dims 16 and 48 (padded) beside 32 and 256; a flat
+     request at code dim 16 and a search for k = 5000 (sdc_scores and a
+     stable sort) through FlatSDC;
   3. drives the flat serving path at the serving defaults (dim 256,
      code_dim 128, n_levels 4, hidden 512, k 10) over a clustered corpus
      of ten million documents made on the card: encode, build FlatSDC
@@ -144,10 +148,14 @@ def edge_cases(device, gen) -> int:
         if tail:
             inv[-tail:] = 0
         dd = pack_codes_nibbles(d) if packed else d
+        fused = k <= sdc_mod.K_MAX  # past K_MAX: sdc_scores and a stable sort
+        before = (sdc_mod.sdc_topk.launches, sdc_mod.sdc_scores.launches)
         v, i = sdc_mod.sdc_topk(q, dd, inv, n_levels=nl, k=k, packed=packed)
         pv, pi = sdc_mod.sdc_topk_torch(q, dd, inv, n_levels=nl, k=k, packed=packed)
         what = f"Q={Q} N={N} D={D} n_levels={nl} k={k} packed={packed} dup={dup} tail={tail}"
         check(torch.equal(v, pv) and torch.equal(i, pi), f"kernel != plain: {what}")
+        check((sdc_mod.sdc_topk.launches, sdc_mod.sdc_scores.launches)
+              == (before[0] + fused, before[1] + (not fused)), f"wrong kernel launched: {what}")
         if k > N or tail == N:
             check(bool((i[:, N - tail:] == -1).all()), f"empty slots not -1: {what}")
         log(f"[edge] ok {what}")
@@ -161,13 +169,51 @@ def edge_cases(device, gen) -> int:
         (3, 1000, 128, 4, sdc_mod.K_MAX, False),  # the largest k
         (130, 70_001, 64, 2, 33, True),  # Q not a multiple of any tile
     ]
+    # the tile-product scan's edges: query chunks cut at 1, 15, 16, 17, 64 and
+    # 65 queries, N a multiple of neither 128 nor 256, code dims the wrapper
+    # pads with zeros (16, 48), 32 and 256, k = 1 and K_MAX, and k = 5000
+    # (past K_MAX: the sdc_scores kernel and a stable sort)
+    cases += [(Q, 50_003, 128, 4, K, p) for Q in (1, 15, 16, 17, 64, 65) for p in (False, True)]
+    cases += [
+        (7, 20_011, 16, 4, K, False), (7, 20_011, 16, 4, K, True), (9, 20_011, 48, 2, 33, True),
+        (33, 20_011, 32, 4, K, True), (33, 20_011, 256, 4, K, False),
+        (5, 3_001, 128, 4, 1, False), (3, 9_001, 128, 4, sdc_mod.K_MAX, True),
+        (3, 9_001, 16, 4, 5000, False), (3, 9_001, 128, 4, 5000, True),
+    ]
     for c in cases:
         case(*c)
     case(64, 200_003, 128, 4, K, False, tail=5000)  # all-excluded tail
     case(7, 300, 128, 4, K, True, tail=300)  # everything excluded
     case(64, 200_003, 256, 4, K, True, dup=True)  # ties
     case(64, 200_003, 128, 1, K, False, dup=True)
-    return len(cases) + 4
+    case(16, 100_003, 128, 1, 100, True, dup=True)
+    return len(cases) + 5
+
+
+def padded_requests(device, gen) -> None:
+    """A flat request at code dim 16 (padded to 32 on the card) and a search
+    for k = 5000 (past K_MAX), through FlatSDC, each equal to the plain version."""
+    import torch
+
+    from repro_torch.index.flat import FlatSDC
+    from repro_torch.kernels.sdc import sdc as sdc_mod
+    from repro_torch.kernels.sdc.ops import sdc_search_torch
+
+    codes = torch.randint(0, 2**LEVELS, (1_000_003, 16), generator=gen, device=device)
+    q = torch.randint(0, 2**LEVELS, (SERVE_Q, 16), generator=gen, device=device).to(torch.int8)
+    for packed in (False, True):
+        index = FlatSDC.build(codes, LEVELS, packed=packed, device=device)
+        for k, counter in ((K, sdc_mod.sdc_topk), (5000, sdc_mod.sdc_scores)):
+            counter.launches = 0
+            v, i = index.search(q, k)
+            check(counter.launches == 1, f"D=16 k={k}: {counter.__name__} launched "
+                                         f"{counter.launches} times")
+            pv, pi = sdc_search_torch(q, index.codes, index.inv_norm, n_levels=LEVELS, k=k,
+                                      packed=packed)
+            check(torch.equal(v, pv) and torch.equal(i, pi),
+                  f"FlatSDC D=16 k={k} packed={packed}: card != plain")
+            log(f"[edge] ok FlatSDC request Q={SERVE_Q} N={codes.shape[0]} D=16 k={k} "
+                f"packed={packed} through {counter.__name__}")
 
 
 def gather_edge_cases(device, gen) -> int:
@@ -578,6 +624,7 @@ def main() -> None:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
     n_cases = edge_cases(device, gen)
+    padded_requests(device, gen)
     log(f"[edge] {n_cases} cases exactly equal to the plain version "
         f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()

@@ -3,9 +3,10 @@
 ``BlockPlan`` is the autotuner's unit: a kernel kind and its
 ``(block_q, block_n)``. The values are the reference's, kept so that a
 plan tuned for one package reads the same in the other. The CUDA
-``sdc_topk`` sizes its own grid from the card (one slice of the corpus
-per block, every query of the batch held in shared memory), so on this
-port a scan plan shapes nothing and changes no score. The reference's
+``sdc_topk`` sizes its own grid from the card (one wave of blocks, each
+scanning one slice of the corpus for a chunk of up to 16 queries held in
+shared memory), so on this port a scan plan shapes nothing and changes
+no score. The reference's
 TPU roofline constants are not carried over.
 """
 

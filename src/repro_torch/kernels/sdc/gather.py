@@ -18,6 +18,11 @@ with one exact int8 tensor-core product (``mma.sync``,
 ``csrc/tile_mma.cuh``); the per-pair selector that follows is the shared
 one of ``csrc/sdc_common.cuh``. ``csrc/gather_topk.cu`` says more.
 
+The kernel takes code dims up to 256: any dim that is not one of
+``sdc.KERNEL_DIMS`` is padded with zero codes to the next of them, which
+copies the lists once per call (``sdc.kernel_operands``). On the card k
+is at most ``K_MAX``; the plain version takes any k.
+
 Both versions return the reference's contract: ``(scores [Q, k] f32,
 ids [Q, k] int32)``, best first, ties toward the earlier probe column
 and then the lower list position (not the lower doc id), and
@@ -38,20 +43,21 @@ from repro_torch.core.binarize_lib import SDC_NEG_INF, sdc_affine_epilogue, unpa
 from repro_torch.device import full_fp32_matmul
 from repro_torch.kernels import _build
 from repro_torch.kernels.sdc.sdc import (
+    _SMEM_RESERVED,
+    _SMEM_SM,
     _THREADS,
     K_MAX,
     affine_terms,
     cap_for,
-    kernel_queries,
+    check_k,
+    kernel_dim,
+    kernel_operands,
     merge_running_topk,
 )
 
 _SOURCE = _build.SOURCES[1]
 _MAX_PAIRS_PER_BLOCK = 16
 _BLOCKS_PER_SM = 3  # the scan kernel's __launch_bounds__ minimum
-# Hopper's shared memory: 228 KB an SM, of which it keeps 1 KB for each
-# block it runs (so one block may take 227 KB).
-_SMEM_SM, _SMEM_RESERVED = 228 * 1024, 1024
 _PARTIAL_BYTES = 1 << 28  # bound on the scan's per-slice partial keys
 # Lists differ in length and in how many pairs probe them, so blocks differ
 # in work: the grid is about this many waves of blocks of at least
@@ -90,8 +96,7 @@ def _check_inputs(q, lists_codes, lists_inv_norm, lists_ids, probes, k, packed, 
         raise ValueError(f"inputs on different devices: {[str(t.device) for t in tensors]}")
     if nlist < 1:
         raise ValueError("the index has no lists")
-    if k < 1 or k > K_MAX:
-        raise ValueError(f"k must be in [1, {K_MAX}], got {k}")
+    check_k(k)
 
 
 def sdc_gather_topk(q_codes, lists_codes, lists_inv_norm, lists_ids, probes, *,
@@ -111,7 +116,7 @@ def sdc_gather_topk(q_codes, lists_codes, lists_inv_norm, lists_ids, probes, *,
     Returns:
       (scores [Q, k], doc ids [Q, k]); empty slots are (SDC_NEG_INF, -1).
       CUDA tensors run the kernel (``sdc_gather_topk.launches`` counts its
-      launches), CPU tensors the plain version.
+      launches; k at most ``K_MAX``), CPU tensors the plain version (any k).
     """
     _check_inputs(q_codes, lists_codes, lists_inv_norm, lists_ids, probes, k, packed, cand_mask)
     args = (q_codes, lists_codes, lists_inv_norm, lists_ids, probes)
@@ -153,6 +158,8 @@ def _launch(q, lists, inv, ids, probes, *, n_levels, k, packed, cand_mask):
     Q, D = q.shape
     nlist, L = ids.shape
     nprobe = probes.shape[1]
+    if k > K_MAX:
+        raise ValueError(f"the CUDA gather takes k in [1, {K_MAX}], got {k}")
     if nprobe * L >= 2**31:
         raise ValueError(f"nprobe * L = {nprobe * L} slots exceed the kernel's 31-bit slot ids")
     for name, t in (("lists_codes", lists), ("lists_inv_norm", inv), ("lists_ids", ids)):
@@ -165,17 +172,18 @@ def _launch(q, lists, inv, ids, probes, *, n_levels, k, packed, cand_mask):
                 torch.full((Q, k), -1, dtype=torch.int32, device=q.device))
     vals = torch.empty((Q, k), dtype=torch.float32, device=q.device)
     out_ids = torch.empty((Q, k), dtype=torch.int32, device=q.device)
-    qa, qb = kernel_queries(q, packed)
+    qa, qb, lists = kernel_operands(q, lists, packed)
+    W = kernel_dim(D)
     probes = probes.to(torch.int32).contiguous()
 
     lib = _lib()
     cap = cap_for(k)
     P = Q * nprobe
-    qc = min(P, _pairs_per_block(D, packed, cap))
+    qc = min(P, _pairs_per_block(W, packed, cap))
     order, pair_off, unit_off, max_units = gather_plan(probes, nlist, qc)
     masked = cand_mask is not None
     with torch.cuda.device(q.device):
-        per_sm = lib.gather_topk_blocks_per_sm(D, int(packed), int(masked), cap, qc)
+        per_sm = lib.gather_topk_blocks_per_sm(W, int(packed), int(masked), cap, qc)
     if per_sm <= 0:
         msg = lib.gather_topk_error_string(-per_sm).decode() if per_sm < 0 else "no block fits"
         raise RuntimeError(f"sdc_gather_topk cannot be scheduled: {msg}")
@@ -199,7 +207,7 @@ def _launch(q, lists, inv, ids, probes, *, n_levels, k, packed, cand_mask):
             qa.data_ptr(), qb.data_ptr(), lists.data_ptr(), inv.data_ptr(), ids.data_ptr(),
             probes.data_ptr(), order.data_ptr(), pair_off.data_ptr(), unit_off.data_ptr(),
             mask_ptr, *strides, partial.data_ptr(), vals.data_ptr(), out_ids.data_ptr(),
-            Q, nlist, L, D, nprobe, int(packed), k, cap, qc, max_units, n_slices, slice_rows,
+            Q, nlist, L, W, nprobe, int(packed), k, cap, qc, max_units, n_slices, slice_rows,
             c1, c2, c3, stream,
         )
     if err != 0:

@@ -26,7 +26,13 @@ import torch
 from repro_torch.core.binarize_lib import SDC_NEG_INF
 from repro_torch.kernels.sdc.defaults import BLOCK_N, BLOCK_Q, BlockPlan
 from repro_torch.kernels.sdc.gather import sdc_gather_topk, sdc_gather_topk_torch
-from repro_torch.kernels.sdc.sdc import sdc_scores, sdc_scores_torch, sdc_topk, sdc_topk_torch
+from repro_torch.kernels.sdc.sdc import (  # noqa: F401  (select_topk: public here too)
+    sdc_scores,
+    sdc_scores_torch,
+    sdc_topk,
+    sdc_topk_torch,
+    select_topk,
+)
 
 NEG_INF = SDC_NEG_INF
 BACKENDS = ("auto", "cuda", "torch")
@@ -89,22 +95,6 @@ def _search(topk_fn, scores_fn, q_codes, d_codes, d_inv_norm, *, n_levels, k, pa
         return topk_fn(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k, packed=packed)
     return select_topk(scores_fn(q_codes, d_codes, d_inv_norm, n_levels=n_levels,
                                  packed=packed), k)
-
-
-def select_topk(scores: torch.Tensor, k: int):
-    """Top-k of a score matrix [Q, N] in ``jax.lax.top_k``'s order.
-
-    A stable descending sort, so ties go to the lower index
-    (``torch.topk`` orders them otherwise); ``k > N`` pads with
-    SDC_NEG_INF, and every slot scoring SDC_NEG_INF gets id -1.
-    """
-    Q, N = scores.shape
-    if k > N:
-        pad = torch.full((Q, k - N), NEG_INF, dtype=scores.dtype, device=scores.device)
-        scores = torch.cat([scores, pad], 1)
-    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    vals, idx = vals[:, :k], idx[:, :k].to(torch.int32)
-    return vals, torch.where(vals > NEG_INF / 2, idx, -1)
 
 
 def sdc_search_torch(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int,

@@ -10,12 +10,24 @@ call raises.
 The kernel replaces the TPU kernel ``repro/kernels/sdc/sdc.py::sdc_topk``
 (``_sdc_topk_kernel``, ``_sdc_topk_kernel_packed``,
 ``_merge_running_topk``). Its bound at the serving shapes is HBM bytes
-(the corpus, N * (D + 4) bytes, dwarfs everything else), so it reads the
-corpus once per call: each block scans one slice of the documents
-against every query of the batch, held in shared memory, and keeps a
-per-query top-k of its slice; a second kernel merges the slices. This
-first version scores with ``__dp4a`` on the CUDA cores, which is what
-it waits on at Q = 64; the source says more.
+(the corpus, N * (D + 4) bytes, dwarfs everything else). Each block
+scans one slice of the documents against a chunk of up to 16 queries
+held in shared memory; the chunks of one slice run side by side, so the
+slice is read from HBM about once. A round stages 256 rows with
+``cp.async`` and scores them with one exact int8 tensor-core product
+(``mma.sync``, ``csrc/tile_mma.cuh``); each block keeps a per-query
+top-k of its slice in the selector of ``csrc/sdc_common.cuh``, and a
+second kernel merges the slices. The source says more.
+
+The kernels are built for code dims 32, 64, 128 and 256
+(``KERNEL_DIMS``). Any other dim up to 256 runs at the next of them, its
+codes padded with zeros (a code of 0 adds nothing to a product or a code
+sum, and the epilogue keeps the real dim), which copies the corpus once
+per call. A dim above 256 raises on the card. ``sdc_topk`` on the card
+takes k up to ``K_MAX`` in the fused kernel; a larger k runs the
+reference's unfused route, the ``sdc_scores`` kernel and a stable sort
+(``select_topk``), chosen on k before any launch and counted by
+``sdc_scores.launches``. The plain versions take any k.
 
 Both versions return what the reference's ``ops.sdc_search`` returns:
 ``(scores [Q, k] f32, ids [Q, k] int32)``, best first, ties toward the
@@ -44,15 +56,18 @@ from repro_torch.core.binarize_lib import (
 from repro_torch.kernels import _build
 from repro_torch.kernels.sdc.ref import code_dot
 
-# Largest k the kernel takes: a query's candidate buffer holds
+# Largest k the fused kernel takes: a query's candidate buffer holds
 # max(64, next_pow2(2k)) 64-bit keys in shared memory.
 K_MAX = 4096
-# Code dims the kernel is instantiated for.
+# Code dims the kernels are instantiated for; other dims up to the last
+# are padded to the next of them.
 KERNEL_DIMS = (32, 64, 128, 256)
 
 _THREADS = 256  # documents per round, as in the source
-_MAX_QUERIES_PER_BLOCK = 64
-_SMEM_BUDGET = 200 * 1024
+_SCORES_QUERIES_PER_BLOCK = 64  # sdc_scores.cu: every query of a chunk against a row
+# Hopper's shared memory: 228 KB an SM, of which it keeps 1 KB for each
+# block it runs (so one block may take 227 KB).
+_SMEM_SM, _SMEM_RESERVED = 228 * 1024, 1024
 _PLAIN_CHUNK = 1 << 18
 
 _SOURCE, _SCORES_SOURCE = _build.SOURCES[0], _build.SOURCES[2]
@@ -80,9 +95,9 @@ def _check_inputs(q_codes, d_codes, d_inv_norm, packed: bool):
         )
 
 
-def _check_k(k: int) -> None:
-    if k < 1 or k > K_MAX:
-        raise ValueError(f"k must be in [1, {K_MAX}], got {k}")
+def check_k(k: int) -> None:
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
 
 
 def sdc_topk(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int, packed: bool = False):
@@ -92,15 +107,21 @@ def sdc_topk(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int, packed: boo
     uint8 [N, D//2] when ``packed``; ``d_inv_norm`` [N] f32, where a
     value that is not > 0 excludes its document. CUDA tensors run the
     kernel (``sdc_topk.launches`` counts its launches), CPU tensors the
-    plain version.
+    plain version. On CUDA tensors a k above ``K_MAX`` runs the
+    ``sdc_scores`` kernel and ``select_topk`` instead (the same bits;
+    ``sdc_scores.launches`` counts it), and a code dim that is not in
+    ``KERNEL_DIMS`` is padded with zeros, a copy of the corpus.
     """
     _check_inputs(q_codes, d_codes, d_inv_norm, packed)
-    _check_k(k)
+    check_k(k)
     if q_codes.device.type == "cpu":
         return sdc_topk_torch(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
                               packed=packed)
     if q_codes.device.type != "cuda":
         raise ValueError(f"no SDC kernel for device {q_codes.device}")
+    if k > K_MAX:
+        return select_topk(sdc_scores(q_codes, d_codes, d_inv_norm, n_levels=n_levels,
+                                      packed=packed), k)
     return _launch(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k, packed=packed)
 
 
@@ -118,22 +139,44 @@ def affine_terms(n_levels: int, D: int):
     return tuple(float(np.float32(x)) for x in (a * a, a * beta, D * (beta * beta)))
 
 
-def kernel_queries(q: torch.Tensor, packed: bool):
-    """Query codes as the kernels read them: (qa, qb), int8 rows, 4-byte aligned.
+def kernel_dim(D: int) -> int:
+    """The code dim a kernel runs a dim-D search at: the least of ``KERNEL_DIMS`` >= D."""
+    for width in KERNEL_DIMS:
+        if D <= width:
+            return width
+    raise ValueError(
+        f"the CUDA SDC kernels take code dims up to {KERNEL_DIMS[-1]}, got {D}: a 256-row "
+        f"tile of wider rows leaves shared memory for one block an SM at D = 512 (the "
+        f"scans are shaped for three) and for none past about D = 800"
+    )
 
-    Packed corpora are scored against the even and odd dims split
-    beforehand; otherwise both are ``q``. Raises on a code dim no kernel
-    is built for.
+
+def _pad_codes(codes: torch.Tensor, width: int) -> torch.Tensor:
+    """``codes`` [..., w] with zero bytes appended up to ``width`` (a copy)."""
+    if codes.shape[-1] == width:
+        return codes
+    return torch.nn.functional.pad(codes, (0, width - codes.shape[-1]))
+
+
+def kernel_operands(q: torch.Tensor, codes: torch.Tensor, packed: bool):
+    """Queries and corpus as the kernels read them: (qa, qb, codes).
+
+    Query rows are int8, 4-byte aligned; packed corpora are scored against
+    the even and odd dims split beforehand, otherwise ``qa`` and ``qb`` are
+    both the queries. A code dim that is no kernel width is padded with
+    zero codes to ``kernel_dim(D)``: query rows and corpus rows alike (for
+    a packed corpus, zero bytes, two zero codes each), so the corpus is
+    copied. Raises on a code dim above the widest kernel.
     """
     D = q.shape[1]
-    if D not in KERNEL_DIMS:
-        raise ValueError(f"the CUDA SDC kernels take code dims {KERNEL_DIMS}, got {D}")
+    width = kernel_dim(D)
     if packed:
-        return q[:, 0::2].contiguous(), q[:, 1::2].contiguous()
-    q = q.contiguous()
+        qa, qb = (_pad_codes(h, width // 2).contiguous() for h in (q[:, 0::2], q[:, 1::2]))
+        return qa, qb, _pad_codes(codes, width // 2)
+    q = _pad_codes(q, width).contiguous()
     if q.data_ptr() % 4:
         raise ValueError("q_codes must be 4-byte aligned")
-    return q, q
+    return q, q, _pad_codes(codes, width)
 
 
 def _corpus_slices(N: int, blocks_per_sm: int, q_chunks: int, device, rows_min: int):
@@ -161,7 +204,8 @@ def _launch(q, d, inv, *, n_levels, k, packed):
     Q, D = q.shape
     N = d.shape[0]
     _check_corpus(d, inv)
-    qa, qb = kernel_queries(q, packed)
+    qa, qb, d = kernel_operands(q, d, packed)
+    W = kernel_dim(D)
     vals = torch.empty((Q, k), dtype=torch.float32, device=q.device)
     ids = torch.empty((Q, k), dtype=torch.int32, device=q.device)
     if Q == 0:
@@ -169,10 +213,9 @@ def _launch(q, d, inv, *, n_levels, k, packed):
 
     lib = _lib()
     cap = cap_for(k)
-    per_query = lib.sdc_topk_scan_smem(D, int(packed), cap, 1)
-    qc = max(1, min(Q, _MAX_QUERIES_PER_BLOCK, _SMEM_BUDGET // per_query))
+    qc = min(Q, _queries_per_block(W, packed, cap))
     with torch.cuda.device(q.device):
-        per_sm = lib.sdc_topk_blocks_per_sm(D, int(packed), cap, qc)
+        per_sm = lib.sdc_topk_blocks_per_sm(W, int(packed), cap, qc)
     if per_sm <= 0:
         msg = lib.sdc_topk_error_string(-per_sm).decode() if per_sm < 0 else "no block fits"
         raise RuntimeError(f"sdc_topk cannot be scheduled: {msg}")
@@ -185,13 +228,31 @@ def _launch(q, d, inv, *, n_levels, k, packed):
         err = lib.sdc_topk_launch(
             qa.data_ptr(), qb.data_ptr(), d.data_ptr(), inv.data_ptr(),
             partial.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-            Q, N, D, int(packed), k, cap, qc, n_slices, slice_docs, c1, c2, c3, stream,
+            Q, N, W, int(packed), k, cap, qc, n_slices, slice_docs, c1, c2, c3, stream,
         )
     if err != 0:
         msg = lib.sdc_topk_error_string(err).decode()
         raise RuntimeError(f"sdc_topk launch failed: CUDA error {err} ({msg})")
     sdc_topk.launches += 1
     return vals, ids
+
+
+@functools.cache
+def _queries_per_block(D: int, packed: bool, cap: int) -> int:
+    """The most queries, up to the kernel's chunk, for one scan block.
+
+    As many as let the blocks an SM the kernel is shaped for share it, so
+    that the barriers that end each selector round in one block hide
+    behind the others' work; where not even one query allows that (large
+    k), fewer blocks, down to one. At k = K_MAX that is 1.
+    """
+    lib = _lib()
+    for blocks in range(lib.sdc_topk_min_blocks(), 0, -1):
+        budget = _SMEM_SM // blocks - _SMEM_RESERVED
+        for qc in range(lib.sdc_topk_queries_per_block(), 0, -1):
+            if lib.sdc_topk_scan_smem(D, int(packed), cap, qc) <= budget:
+                return qc
+    raise RuntimeError(f"sdc_topk: no scan block fits in shared memory (D={D}, cap={cap})")
 
 
 @functools.cache
@@ -202,6 +263,10 @@ def _lib() -> ctypes.CDLL:
     lib.sdc_topk_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
                                     F, F, F, P]
     lib.sdc_topk_launch.restype = I
+    lib.sdc_topk_queries_per_block.argtypes = []
+    lib.sdc_topk_queries_per_block.restype = I
+    lib.sdc_topk_min_blocks.argtypes = []
+    lib.sdc_topk_min_blocks.restype = I
     lib.sdc_topk_scan_smem.argtypes = [I, I, I, I]
     lib.sdc_topk_scan_smem.restype = ctypes.c_size_t
     lib.sdc_topk_blocks_per_sm.argtypes = [I, I, I, I]
@@ -227,14 +292,15 @@ def sdc_scores(q_codes, d_codes, d_inv_norm, *, n_levels: int, packed: bool = Fa
     Q, D = q_codes.shape
     N = d_codes.shape[0]
     _check_corpus(d_codes, d_inv_norm)
-    qa, qb = kernel_queries(q_codes, packed)
+    qa, qb, d_codes = kernel_operands(q_codes, d_codes, packed)
+    W = kernel_dim(D)
     out = torch.empty((Q, N), dtype=torch.float32, device=q_codes.device)
     if Q == 0 or N == 0:
         return out
     lib = _scores_lib()
-    qc = min(Q, _MAX_QUERIES_PER_BLOCK)
+    qc = min(Q, _SCORES_QUERIES_PER_BLOCK)
     with torch.cuda.device(q_codes.device):
-        per_sm = lib.sdc_scores_blocks_per_sm(D, int(packed), qc)
+        per_sm = lib.sdc_scores_blocks_per_sm(W, int(packed), qc)
     if per_sm <= 0:
         msg = lib.sdc_scores_error_string(-per_sm).decode() if per_sm < 0 else "no block fits"
         raise RuntimeError(f"sdc_scores cannot be scheduled: {msg}")
@@ -244,7 +310,7 @@ def sdc_scores(q_codes, d_codes, d_inv_norm, *, n_levels: int, packed: bool = Fa
         stream = torch.cuda.current_stream(q_codes.device).cuda_stream
         err = lib.sdc_scores_launch(
             qa.data_ptr(), qb.data_ptr(), d_codes.data_ptr(), d_inv_norm.data_ptr(),
-            out.data_ptr(), Q, N, D, int(packed), qc, n_slices, slice_docs, c1, c2, c3, stream,
+            out.data_ptr(), Q, N, W, int(packed), qc, n_slices, slice_docs, c1, c2, c3, stream,
         )
     if err != 0:
         msg = lib.sdc_scores_error_string(err).decode()
@@ -286,6 +352,22 @@ def merge_running_topk(run_v, run_i, vals, ids, k: int):
     cat_i = torch.cat([run_i, ids], dim=1)
     order = torch.sort(cat_v, dim=1, descending=True, stable=True).indices[:, :k]
     return torch.gather(cat_v, 1, order), torch.gather(cat_i, 1, order)
+
+
+def select_topk(scores: torch.Tensor, k: int):
+    """Top-k of a score matrix [Q, N] in ``jax.lax.top_k``'s order.
+
+    A stable descending sort, so ties go to the lower index
+    (``torch.topk`` orders them otherwise); ``k > N`` pads with
+    SDC_NEG_INF, and every slot scoring SDC_NEG_INF gets id -1.
+    """
+    Q, N = scores.shape
+    if k > N:
+        pad = torch.full((Q, k - N), SDC_NEG_INF, dtype=scores.dtype, device=scores.device)
+        scores = torch.cat([scores, pad], 1)
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k].to(torch.int32)
+    return vals, torch.where(vals > SDC_NEG_INF / 2, idx, -1)
 
 
 def _plain_scores(q_codes, sq, d_codes, inv, *, n_levels: int, packed: bool):

@@ -170,9 +170,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     q, lc, inv, ids, probes, _, _ = _inputs("padded_out_of_range", 4, False)
     q, lc, inv, ids, probes = (torch.from_numpy(a) for a in (q, lc, inv, ids, probes))
     kw = dict(n_levels=4, k=5)
-    for k in (0, PS.K_MAX + 1):
-        with pytest.raises(ValueError):
-            PG.sdc_gather_topk(q, lc, inv, ids, probes, n_levels=4, k=k)
+    with pytest.raises(ValueError):
+        PG.sdc_gather_topk(q, lc, inv, ids, probes, n_levels=4, k=0)
     bad = [
         (q.to(torch.int32), lc, inv, ids, probes, {}),
         (q, lc, inv, ids, probes, {"packed": True}),  # int8 lists, packed flag
@@ -194,6 +193,28 @@ def test_largest_k_is_served():
     v, i = _port(q, lc, inv, ids, probes, None, n_levels=4, k=PS.K_MAX)
     assert v.shape == (Q, PS.K_MAX)
     assert (i[:, NPROBE * L:] == -1).all()
+
+
+@pytest.mark.parametrize("D_", [8, 16])
+@pytest.mark.parametrize("packed", [False, True])
+def test_gather_matches_reference_past_k_max_off_kernel_dims(D_, packed):
+    # k = 5000 > K_MAX on CPU tensors, at code dims the card pads to 32
+    rng = np.random.default_rng(D_ + packed)
+    nlist, L_, nprobe, k = 4, 2000, 3, 5000
+    codes = rng.integers(0, 4, (nlist, L_, D_)).astype(np.int8)
+    inv = np.array(RR.doc_inv_norms(jnp.asarray(codes.reshape(-1, D_)), 2)).reshape(nlist, L_)
+    ids = rng.permutation(nlist * L_).astype(np.int32).reshape(nlist, L_)
+    inv[:, -7:] = 0.0
+    ids[:, -7:] = -1
+    q = rng.integers(0, 4, (2, D_)).astype(np.int8)
+    probes = np.array([[0, 2, 3], [3, 1, 1]], np.int32)
+    lc = np.array(RB.pack_codes_nibbles(jnp.asarray(codes))) if packed else codes
+    kw = dict(n_levels=2, k=k, packed=packed)
+    pv, pi = _port(q, lc, inv, ids, probes, None, **kw)
+    xv, xi = _ref(RG.sdc_gather_topk_xla, q, lc, inv, ids, probes, None, **kw)
+    assert pv.shape == (2, k)
+    assert np.array_equal(pv.view(np.uint32), xv.view(np.uint32))
+    assert np.array_equal(pi, xi)
 
 
 def _card():
@@ -225,8 +246,8 @@ def _card_lists(dev, gen, nlist, L_, D_, n_levels, Q_, nprobe, every=False, hole
 
 # nlist, L, D, Q, nprobe, k, every, holes: lengths that are no multiple of 16
 # or of the 256-row tile, 1 / 7 / 9 / 65 pairs on every list (65: several units
-# on one list), ids of -1 inside the lists, D = 256 and k = K_MAX (one pair
-# per block).
+# on one list), ids of -1 inside the lists, D = 256, k = K_MAX (one pair
+# per block), and code dims the wrapper pads.
 CARD_CASES = [(16, 3001, 128, 37, 8, 10, False, False),
               (8, 17, 64, 5, 8, 100, False, False),
               (4, 20_000, 32, 64, 4, 1024, False, False),
@@ -236,7 +257,9 @@ CARD_CASES = [(16, 3001, 128, 37, 8, 10, False, False),
               (6, 3001, 128, 65, 6, 10, True, True),
               (8, 5003, 256, 33, 4, 10, False, True),
               (4, 3000, 128, 5, 2, PS.K_MAX, False, True),
-              (4, 3000, 256, 5, 2, PS.K_MAX, True, False)]
+              (4, 3000, 256, 5, 2, PS.K_MAX, True, False),
+              (6, 999, 16, 7, 6, 10, True, True),  # D = 16, padded to 32
+              (8, 2001, 48, 9, 4, 33, False, False)]  # D = 48, padded to 64
 
 
 @pytest.mark.gpu
@@ -267,7 +290,7 @@ def test_kernel_matches_plain_on_card(variant, n_levels, nlist, L_, D_, Q_, npro
 @pytest.mark.gpu
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("Q_,N,D_,n_levels", [(37, 100_003, 128, 4), (130, 5_001, 64, 2),
-                                               (3, 7, 32, 1)])
+                                               (3, 7, 32, 1), (9, 3_001, 16, 4)])
 def test_scores_kernel_matches_plain_on_card(packed, Q_, N, D_, n_levels):
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(Q_ * N)
@@ -281,3 +304,14 @@ def test_scores_kernel_matches_plain_on_card(packed, Q_, N, D_, n_levels):
     torch.cuda.synchronize()
     assert PS.sdc_scores.launches == before + 1
     assert torch.equal(s, PS.sdc_scores_torch(q, dd, inv, n_levels=n_levels, packed=packed))
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_k_past_k_max_on_card():
+    dev = _card()
+    q, lc, inv, ids, probes, _, _ = _inputs("padded_out_of_range", 4, False)
+    args = [torch.from_numpy(a).to(dev) for a in (q, lc, inv, ids, probes)]
+    before = PG.sdc_gather_topk.launches
+    with pytest.raises(ValueError):
+        PG.sdc_gather_topk(*args, n_levels=4, k=PS.K_MAX + 1)
+    assert PG.sdc_gather_topk.launches == before

@@ -7,9 +7,12 @@ its ``sdc_search_xla``, across n_levels {1, 2, 4}, int8 and nibble-packed
 codes, a corpus that is a multiple of no block, k > N, excluded
 documents and ties. The unfused search (``fused=False``: the score
 matrix of ``sdc_scores``, then a stable top-k) must give the same bits
-as the reference's unfused search and as the port's fused one. The CUDA
-kernels themselves are held against the plain versions by the ``gpu``
-tests (on the card only) and by ``chip_smoke.py``.
+as the reference's unfused search and as the port's fused one. Code dims
+8 and 16 (which the card pads to 32) and k = 5000 (past the fused
+kernel's ``K_MAX``) must give the reference's bits too, through
+``sdc_search`` and ``FlatSDC``: the tolerance is zero throughout. The
+CUDA kernels themselves are held against the plain versions by the
+``gpu`` tests (on the card only) and by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -20,10 +23,12 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import binarize_lib as RB  # noqa: E402
+from repro.index import flat as RF  # noqa: E402
 from repro.kernels.sdc import ops as RO  # noqa: E402
 from repro.kernels.sdc import ref as RR  # noqa: E402
 from repro.kernels.sdc import sdc as RS  # noqa: E402
 from repro_torch.core.binarize_lib import pack_codes_nibbles  # noqa: E402
+from repro_torch.index import flat as PF  # noqa: E402
 from repro_torch.kernels.sdc import ops as PO  # noqa: E402
 from repro_torch.kernels.sdc import sdc as PS  # noqa: E402
 from repro_torch.kernels.sdc.defaults import BlockPlan  # noqa: E402
@@ -156,8 +161,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     d = torch.zeros((10, 64), dtype=torch.int8)
     inv = torch.ones(10)
     with pytest.raises(ValueError):
-        PS.sdc_topk(q, d, inv, n_levels=4, k=PS.K_MAX + 1)
-    with pytest.raises(ValueError):
         PS.sdc_topk(q, d, inv, n_levels=4, k=0)
     with pytest.raises(ValueError):
         PS.sdc_topk(q.to(torch.int32), d, inv, n_levels=4, k=3)
@@ -179,17 +182,85 @@ def test_largest_k_is_served():
     assert (i[:, dd.shape[0]:] == -1).all()
 
 
+# (D, Q, N, k): code dims off the kernel widths, and k past K_MAX.
+SHAPES = {"dim8": (8, 5, 203, 7), "dim16": (16, 6, 311, 12), "k5000": (16, 3, 6007, 5000)}
+
+
+def _shape_inputs(shape, n_levels, packed):
+    D, Q, N, k = SHAPES[shape]
+    rng = np.random.default_rng(1000 + 10 * sorted(SHAPES).index(shape) + packed)
+    q = rng.integers(0, 2**n_levels, (Q, D)).astype(np.int8)
+    d = rng.integers(0, 2**n_levels, (N, D)).astype(np.int8)
+    d[N // 2:N // 2 + 40] = d[:40]  # equal scores
+    inv = np.array(RR.doc_inv_norms(jnp.asarray(d), n_levels))
+    inv[::11] = 0.0
+    dd = np.array(RB.pack_codes_nibbles(jnp.asarray(d))) if packed else d
+    return q, d, dd, inv, k
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("packed", [False, True])
+def test_search_matches_reference_off_kernel_dims_and_past_k_max(shape, packed):
+    n_levels = 2
+    q, d, dd, inv, k = _shape_inputs(shape, n_levels, packed)
+    ref = RO.sdc_search_backend(jnp.asarray(q), jnp.asarray(dd), jnp.asarray(inv),
+                                n_levels=n_levels, k=k, packed=packed, backend="xla")
+    args = (torch.from_numpy(q), torch.from_numpy(dd), torch.from_numpy(inv))
+    before = PS.sdc_topk.launches
+    _same(ref, PO.sdc_search(*args, n_levels=n_levels, k=k, packed=packed))
+    _same(ref, PO.sdc_search_backend(*args, n_levels=n_levels, k=k, packed=packed))
+    assert PS.sdc_topk.launches == before  # the CPU path launches no kernel
+    # FlatSDC with the reference's inverse norms handed over
+    ref_index = RF.FlatSDC.build(jnp.asarray(d), n_levels, packed=packed, backend="xla")
+    index = PF.FlatSDC(codes=torch.from_numpy(np.array(ref_index.codes)),
+                       inv_norm=torch.from_numpy(np.array(ref_index.inv_norm)),
+                       n_levels=n_levels, packed=packed)
+    _same(ref_index.search(jnp.asarray(q), k), index.search(torch.from_numpy(q), k))
+
+
+def test_kernel_dim_pads_to_the_next_width():
+    assert [PS.kernel_dim(D) for D in (1, 8, 16, 32, 48, 64, 96, 128, 200, 256)] == \
+        [32, 32, 32, 32, 64, 64, 128, 128, 256, 256]
+    with pytest.raises(ValueError):
+        PS.kernel_dim(264)
+    q = torch.arange(2 * 10, dtype=torch.int8).reshape(2, 10) % 16
+    d = q[[1, 0, 1]]
+    qa, qb, dk = PS.kernel_operands(q, d, packed=False)
+    assert qa.shape == (2, 32) and qb is qa and dk.shape == (3, 32)
+    assert torch.equal(qa[:, :10], q) and not qa[:, 10:].any() and not dk[:, 10:].any()
+    pd = pack_codes_nibbles(d)
+    qa, qb, pk = PS.kernel_operands(q, pd, packed=True)
+    assert qa.shape == qb.shape == (2, 16) and pk.shape == (3, 16)
+    assert torch.equal(qa[:, :5], q[:, 0::2]) and torch.equal(qb[:, :5], q[:, 1::2])
+    assert not qa[:, 5:].any() and not qb[:, 5:].any() and not pk[:, 5:].any()
+    q32 = torch.zeros((2, 32), dtype=torch.int8)
+    d32 = torch.zeros((3, 32), dtype=torch.int8)
+    qa, _, dk = PS.kernel_operands(q32, d32, packed=False)
+    assert dk is d32  # a kernel width takes no copy
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
 
 
+# Q, N, D, k: query chunks of either block shape cut at 1, 15, 16, 17, 64 and
+# 65 queries, N a multiple of neither 128 nor 256, code dims the wrapper pads
+# (16, 48) beside 32 and 256, k = 1 and K_MAX, and k = 5000 (past K_MAX: the
+# sdc_scores kernel and a stable sort).
+CARD_CASES = [(37, 100_003, 128, 10), (5, 50, 64, 100), (64, 30_011, 128, 1024),
+              (3, 900, 32, PS.K_MAX), (1, 10_007, 128, 10), (15, 10_007, 128, 10),
+              (16, 33_001, 128, 10), (17, 33_001, 64, 10), (64, 50_003, 128, 10),
+              (65, 50_003, 128, 10), (7, 20_011, 16, 10), (9, 20_011, 48, 33),
+              (33, 20_011, 32, 10), (33, 20_011, 256, 10), (5, 3_001, 128, 1),
+              (3, 9_001, 128, PS.K_MAX), (3, 9_001, 16, 5000)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("n_levels", [1, 2, 4])
-@pytest.mark.parametrize("Q,N,D,k", [(37, 100_003, 128, 10), (5, 50, 64, 100),
-                                     (64, 30_011, 128, 1024), (3, 900, 32, PS.K_MAX)])
+@pytest.mark.parametrize("Q,N,D,k", CARD_CASES)
 def test_kernel_matches_plain_on_card(packed, n_levels, Q, N, D, k):
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(Q * N + n_levels)
@@ -199,10 +270,12 @@ def test_kernel_matches_plain_on_card(packed, n_levels, Q, N, D, k):
     inv = doc_inv_norms(d, n_levels)
     inv[-N // 5:] = 0
     dd = pack_codes_nibbles(d) if packed else d
-    before = PS.sdc_topk.launches
+    fused = k <= PS.K_MAX  # past K_MAX: sdc_scores and a stable sort
+    before = (PS.sdc_topk.launches, PS.sdc_scores.launches)
     v, i = PS.sdc_topk(q, dd, inv, n_levels=n_levels, k=k, packed=packed)
     torch.cuda.synchronize()
-    assert PS.sdc_topk.launches == before + 1
+    assert (PS.sdc_topk.launches, PS.sdc_scores.launches) == \
+        (before[0] + fused, before[1] + (not fused))
     pv, pi = PS.sdc_topk_torch(q, dd, inv, n_levels=n_levels, k=k, packed=packed)
     assert torch.equal(v, pv) and torch.equal(i, pi)
 
@@ -210,7 +283,7 @@ def test_kernel_matches_plain_on_card(packed, n_levels, Q, N, D, k):
 @pytest.mark.gpu
 def test_kernel_raises_on_untaken_dim():
     dev = _card()
-    q = torch.zeros((2, 48), dtype=torch.int8, device=dev)
-    d = torch.zeros((10, 48), dtype=torch.int8, device=dev)
+    q = torch.zeros((2, 264), dtype=torch.int8, device=dev)  # above the widest kernel
+    d = torch.zeros((10, 264), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):
         PS.sdc_topk(q, d, torch.ones(10, device=dev), n_levels=4, k=3)

@@ -35,10 +35,10 @@ from __future__ import annotations
 
 import argparse
 import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
+
+from split_common import build_variants, card, profiled_kernels, register_lines, time_ms
 
 ROOT = Path(__file__).resolve().parents[1]
 SERVE_Q, N_QUERIES, K = 64, 512, 10
@@ -82,16 +82,6 @@ VARIANTS = {
 }
 
 
-def variant_source(text: str, edits) -> str:
-    for alternatives in edits:
-        hits = [(p, r) for p, r in alternatives if p in text]
-        if len(hits) != 1:
-            raise SystemExit(f"gather_split: {len(hits)} of {[p for p, _ in alternatives]} "
-                             "found in the kernel source")
-        text = text.replace(*hits[0])
-    return text
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=str(ROOT))
@@ -121,36 +111,18 @@ def main() -> None:
 
     device = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(f"[split] tree {tree} on {smi}", flush=True)
 
     # -- variants of the kernel source, built together ---------------------
-    csrc = Path(gather._SOURCE).parent
-    text = Path(gather._SOURCE).read_text()
-    out = _build.BUILD_DIR / "gather_split"
-    sources = {}
-    for name, edits in VARIANTS.items():
-        d = out / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        for h in csrc.glob("*.cuh"):
-            shutil.copy(h, d / h.name)
-        (d / "gather_topk.cu").write_text(variant_source(text, edits))
-        sources[name] = d / "gather_topk.cu"
-    libs = _build.build(list(sources.values()))
-    for name, lib in zip(sources, libs):
-        kernel = None
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            m = re.search(r"gather_scan_kernelILi128ELb([01])ELb([01])E", line)
-            if m:
-                kernel = f"gather_scan_kernel D=128 packed={m.group(1)} masked={m.group(2)}"
-            elif ("registers" in line or "spill" in line) and kernel:
-                print(f"[split] build {name}: {kernel}: "
-                      f"{line.replace('ptxas info    :', '').strip()}")
-                if "registers" in line:
-                    kernel = None
+    sources = build_variants(_build.build, Path(gather._SOURCE), VARIANTS,
+                             _build.BUILD_DIR / "gather_split", "gather_split")
+    for name, src in sources.items():
+        for kernel, line in register_lines(_build.library_path(src).with_suffix(".log"),
+                                           r"gather_scan_kernelILi128E"):
+            m = re.search(r"ILi128ELb([01])ELb([01])E", kernel)
+            print(f"[split] build {name}: gather_scan_kernel D=128 packed={m.group(1)} "
+                  f"masked={m.group(2)}: {line}")
 
     # -- the serving shapes of chip_smoke.py -------------------------------
     docs, queries, _ = clustered_corpus_torch(args.seed, args.docs, N_QUERIES, DIM, device=device)
@@ -188,24 +160,16 @@ def main() -> None:
         gather._SOURCE = sources[name]
         gather._lib.cache_clear()
 
-    def time_ms(tag):
+    def call_ms(tag):
         a, kw = calls[tag]
-        fn = lambda: gather.sdc_gather_topk(*a, **kw)  # noqa: E731
-        fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / args.reps
+        return time_ms(lambda: gather.sdc_gather_topk(*a, **kw), args.reps)
 
     order = list(VARIANTS) + ["full"]
     times = {}
     for i, name in enumerate(order):
         use(name)
         key = name if i < len(VARIANTS) else "full again"
-        times[key] = {tag: time_ms(tag) for tag in calls}
+        times[key] = {tag: call_ms(tag) for tag in calls}
         print(f"[split] {key:12s} " + "  ".join(f"{t} {ms:.3f} ms" for t, ms in times[key].items()),
               flush=True)
     for tag in calls:
@@ -223,7 +187,7 @@ def main() -> None:
         gather._WAVES = waves
         for qc in [int(x) for x in args.pairs.split(",") if x]:
             gather._pairs_per_block = lambda D, packed, cap, qc=qc: qc
-            t = {tag: time_ms(tag) for tag in calls}
+            t = {tag: call_ms(tag) for tag in calls}
             print(f"[split] full, {qc} pairs a block, {waves} waves: "
                   + "  ".join(f"{tag} {ms:.3f} ms" for tag, ms in t.items()), flush=True)
     gather._WAVES = waves0
@@ -234,23 +198,11 @@ def main() -> None:
               f"{choose(CODE_DIM, True, gather.cap_for(K))} packed", flush=True)
 
     # -- the scan and merge kernels alone, where the profiler sees them ----
-    from torch.profiler import ProfilerActivity, profile
-
     for tag in calls:
         a, kw = calls[tag]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.reps):
-                gather.sdc_gather_topk(*a, **kw)
-            torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
-            m = re.search(r"gather_\w+_kernel", ev.key or "")
-            if dev_us and m:
-                rows.append(f"{m.group(0)} {dev_us / 1e3 / args.reps:.3f} ms")
-        print(f"[split] profiler {tag}: " + ("; ".join(rows) if rows else "no device time"),
-              flush=True)
-
+        rows = profiled_kernels(lambda: gather.sdc_gather_topk(*a, **kw), args.reps,
+                                r"gather_\w+_kernel")
+        print(f"[split] profiler {tag}: {rows}", flush=True)
 
 if __name__ == "__main__":
     main()
