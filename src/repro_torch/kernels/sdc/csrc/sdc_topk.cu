@@ -24,8 +24,8 @@
 // kThreads document rows, staged in shared memory with cp.async
 // (tile_mma.cuh) with their inverse norms, the next round's copy running
 // while this round's keys are selected and the round after it asked into
-// L2. The code products of the round's rows with
-// the chunk's queries are one exact int8 tensor-core tile product
+// L2. The code products of the round's rows with the chunk's queries are
+// one exact int8 tensor-core tile product
 // (mma.sync m16n8k32) into a [query][row] dot tile; nibble-packed rows are
 // split into their even and odd dims as the product loads them, against
 // query halves split beforehand (Hopper has no int4 product). One more
@@ -38,10 +38,12 @@
 // 64-bit keys that order (score desc, id asc) as unsigned integers (the
 // Selector of sdc_common.cuh). A key is offered only if it beats the
 // query's current k-th best key; a buffer that fills is sorted (bitonic)
-// and cut back to k. A round ends with one query's count checked per
-// thread, and the selector's serial pass over the block's queries runs only
-// in a round in which some buffer is to be cut. Its barriers are hidden
-// by other blocks' work, so a chunk is small and three blocks share an SM.
+// and cut back to k. A thread whose offer takes a buffer past cap / 2
+// says so at the round's closing barrier, and only then does the
+// selector's serial pass over the block's queries run; that barrier also
+// publishes the next round's rows, so a round costs two barriers. They are
+// hidden by other blocks' work, so a chunk is small and three blocks share
+// an SM.
 // A block's first round finds every threshold at 0, so kThreads offers
 // would overflow a buffer of cap < kThreads keys: it is offered in parts
 // of min(cap, kThreads) threads instead, and the first part's compaction
@@ -95,21 +97,20 @@ __device__ __forceinline__ float exact_float(int x) {
   return __fsub_rn(__int_as_float(0x4B400000 + x), 12582912.0f);  // 1.5 * 2^23
 }
 
-static_assert(kQueries <= kThreads, "close_round checks one query a thread");
+static_assert(kQueries <= kThreads, "close_round updates one query a thread");
 
-// Selector::end_round where some buffer needs it (holds more than cap / 2
-// keys); otherwise what end_round then does: each query's next round
-// starts at its count. The check reads one query a thread, so the serial
-// pass over the block's queries runs only in the rounds in which a buffer
-// is to be cut.
+// End a round of offers: Selector::end_round where some buffer needs it
+// (holds more than cap / 2 keys; `cut` is whether this thread saw one of
+// its offers pass that), otherwise what end_round then does: each query's
+// next round starts at its count. So the serial pass over the block's
+// queries runs only in the rounds in which a buffer is to be cut, and a
+// round costs one barrier.
 template <class Rescore>
-__device__ __forceinline__ void close_round(Selector& sel, int nq, Rescore rescore) {
-  const int q = threadIdx.x;
-  __syncthreads();  // the round's offers are in
-  if (__syncthreads_or(q < nq && sel.count[q] > sel.cap / 2)) {
+__device__ __forceinline__ void close_round(Selector& sel, int nq, bool cut, Rescore rescore) {
+  if (__syncthreads_or(cut)) {
     sel.end_round(nq, rescore);
-  } else if (q < nq) {
-    sel.base[q] = sel.count[q];
+  } else if ((int)threadIdx.x < nq) {
+    sel.base[threadIdx.x] = sel.count[threadIdx.x];
   }
 }
 
@@ -160,23 +161,22 @@ sdc_scan_kernel(const int* __restrict__ qa,      // int8 [Q, D]; packed: even di
       prefetch_l2(docs + ahead * R::ROW_BYTES,
                   (unsigned)(min((long long)kThreads, end - ahead) * R::ROW_BYTES));
   };
-  // The rows of round r + 1 are copied while round r's keys are selected.
+  // The rows of round r + 1 are copied while round r's keys are selected,
+  // and have landed (for this thread's copies) before the round closes,
+  // so that its barrier also makes them visible to all.
   stage(begin);
+  cp_async_wait<0>();
+  __syncthreads();
   bool warm = true;
   for (long long r = begin; r < end; r += kThreads) {
-    cp_async_wait<0>();  // this thread's copies of the round have landed
     const long long n = r + threadIdx.x;
-    const float w_inv = n < end ? invs[threadIdx.x] : 0.f;
+    const float w_inv = n < end ? invs[threadIdx.x] : 0.f;  // this thread's own copy
     const bool valid = w_inv > 0.f;
-    const bool live = __syncthreads_or(valid);  // and everyone's
-    float sd = 0.f;
-    if (live) {
-      tile_dots<D, PACKED>(tile, qs, dots, nq + 1);
-      __syncthreads();  // the dot tile is written, the row tile free
-      sd = exact_float(dots[nq * kDotStride + threadIdx.x]);
-    }
-    if (r + kThreads < end) stage(r + kThreads);
-    if (!live) continue;  // no live row: no product, no selector round
+    tile_dots<D, PACKED>(tile, qs, dots, nq + 1);
+    __syncthreads();  // the dot tile is written, the row tile free
+    const float sd = exact_float(dots[nq * kDotStride + threadIdx.x]);
+    const bool more = r + kThreads < end;
+    if (more) stage(r + kThreads);
     // The epilogue of sdc_common.cuh, in its order; the sum of two integer
     // code sums below 2^24 is exact in float.
     auto key_of = [&](int j) -> u64 {
@@ -188,10 +188,18 @@ sdc_scan_kernel(const int* __restrict__ qa,      // int8 [Q, D]; packed: even di
     for (int h = 0; h < kThreads; h += part) {
       const bool mine = valid && (int)threadIdx.x >= h && (int)threadIdx.x < h + part;
       auto rescore = [&](int j) -> u64 { return mine ? key_of(j) : 0ull; };
+      bool cut = false;
       if (mine) {
-        for (int j = 0; j < nq; ++j) sel.insert(j, key_of(j));
+        for (int j = 0; j < nq; ++j) {
+          const u64 key = key_of(j);
+          if (key > sel.thresh[j]) {
+            sel.insert(j, key);
+            cut |= sel.count[j] > cap / 2;
+          }
+        }
       }
-      close_round(sel, nq, rescore);
+      if (more && h + part >= kThreads) cp_async_wait<0>();
+      close_round(sel, nq, cut, rescore);
     }
     warm = false;
   }

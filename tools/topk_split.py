@@ -59,8 +59,8 @@ DIM, CODE_DIM, LEVELS = 256, 128, 4
 _DP4A_DOT = "row_dot<PACKED>(a, b, qs + qq * R::QSTRIDE)"
 _DP4A_INSERT = "for (int qq = 0; qq < nq; ++qq) sel.insert(qq, score_key(qq));"
 _DP4A_END = "sel.end_round(nq, [&](int qq) -> u64 { return valid ? score_key(qq) : 0ull; });"
-_TILE_INSERT = "for (int j = 0; j < nq; ++j) sel.insert(j, key_of(j));"
-_TILE_END = "close_round(sel, nq, rescore);"
+_TILE_INSERT = "const u64 key = key_of(j);\n          if (key > sel.thresh[j]) {"
+_TILE_END = "close_round(sel, nq, cut, rescore);"
 _NO_PRODUCT = [
     (_DP4A_DOT, "(int)(a[0] ^ (unsigned)qs[qq * R::QSTRIDE])"),
     ("tile_dots<D, PACKED>(tile, qs, dots, nq + 1);",
@@ -70,14 +70,14 @@ _NO_PRODUCT = [
 _INSERT = [
     (_DP4A_INSERT, "for (int qq = 0; qq < nq; ++qq) { if (score_key(qq) == 1ull) "
                    "sel.count[qq] = -1; }"),
-    (_TILE_INSERT, "for (int j = 0; j < nq; ++j) { if (key_of(j) == 1ull) sel.count[j] = -1; }"),
+    (_TILE_INSERT, "const u64 key = key_of(j);\n          if (key == 1ull) {"),
 ]
 _END_ROUND = [(_DP4A_END, "__syncthreads();"), (_TILE_END, "__syncthreads();")]
 _NO_KEY = [
     (_DP4A_INSERT, "for (int qq = 0; qq < nq; ++qq) { if (" + _DP4A_DOT + " == 0x7fffffff) "
                    "sel.count[qq] = -1; }"),
-    (_TILE_INSERT, "for (int j = 0; j < nq; ++j) { if (dots[j * kDotStride + threadIdx.x] == "
-                   "0x7fffffff) sel.count[j] = -1; }"),
+    (_TILE_INSERT, "const u64 key = 0ull;\n          "
+                   "if (dots[j * kDotStride + threadIdx.x] == 0x7fffffff) {"),
 ]
 # `warm` is true through a block's first round (the tile-product version
 # has it already).
@@ -90,8 +90,8 @@ _WARM_LOOP = [
 _WARM_INSERT = [
     (_DP4A_INSERT, "for (int qq = 0; qq < nq; ++qq) { if (warm) sel.insert(qq, score_key(qq)); "
                    "else if (score_key(qq) == 1ull) sel.count[qq] = -1; }"),
-    (_TILE_INSERT, "for (int j = 0; j < nq; ++j) { if (warm) sel.insert(j, key_of(j)); "
-                   "else if (key_of(j) == 1ull) sel.count[j] = -1; }"),
+    (_TILE_INSERT, "const u64 key = key_of(j);\n          "
+                   "if (warm ? key > sel.thresh[j] : key == 1ull) {"),
 ]
 _WARM_END = [
     (_DP4A_END, "if (warm) { " + _DP4A_END + " } else { __syncthreads(); } warm = false;"),
