@@ -139,7 +139,7 @@ def edge_cases(device, gen) -> int:
     from repro_torch.kernels.sdc import sdc as sdc_mod
     from repro_torch.kernels.sdc.ref import doc_inv_norms
 
-    def case(Q, N, D, nl, k, packed, dup=False, tail=0):
+    def case(Q, N, D, nl, k, packed, dup=False, tail=0, holes=""):
         q = torch.randint(0, 2**nl, (Q, D), generator=gen, device=device).to(torch.int8)
         d = torch.randint(0, 2**nl, (N, D), generator=gen, device=device).to(torch.int8)
         if dup:
@@ -147,12 +147,22 @@ def edge_cases(device, gen) -> int:
         inv = doc_inv_norms(d, nl)
         if tail:
             inv[-tail:] = 0
+        # exclusions inside the first round's parts of cap = cap_for(k) rows
+        # (k < 128): every other row, or a quarter of one part's rows left
+        # before a part whose buffer overflows
+        n = torch.arange(N, device=device)
+        part = min(sdc_mod.cap_for(k), 256)
+        if holes == "alternate":
+            inv[n % 2 == 0] = 0
+        elif holes == "runs":
+            inv[n % (2 * part) < part - part // 4] = 0
         dd = pack_codes_nibbles(d) if packed else d
         fused = k <= sdc_mod.K_MAX  # past K_MAX: sdc_scores and a stable sort
         before = (sdc_mod.sdc_topk.launches, sdc_mod.sdc_scores.launches)
         v, i = sdc_mod.sdc_topk(q, dd, inv, n_levels=nl, k=k, packed=packed)
         pv, pi = sdc_mod.sdc_topk_torch(q, dd, inv, n_levels=nl, k=k, packed=packed)
-        what = f"Q={Q} N={N} D={D} n_levels={nl} k={k} packed={packed} dup={dup} tail={tail}"
+        what = (f"Q={Q} N={N} D={D} n_levels={nl} k={k} packed={packed} dup={dup} tail={tail} "
+                f"holes={holes or '-'}")
         check(torch.equal(v, pv) and torch.equal(i, pi), f"kernel != plain: {what}")
         check((sdc_mod.sdc_topk.launches, sdc_mod.sdc_scores.launches)
               == (before[0] + fused, before[1] + (not fused)), f"wrong kernel launched: {what}")
@@ -187,7 +197,10 @@ def edge_cases(device, gen) -> int:
     case(64, 200_003, 256, 4, K, True, dup=True)  # ties
     case(64, 200_003, 128, 1, K, False, dup=True)
     case(16, 100_003, 128, 1, 100, True, dup=True)
-    return len(cases) + 5
+    holes = [(k, h, p) for k in (10, 33) for h in ("alternate", "runs") for p in (False, True)]
+    for k, h, p in holes:
+        case(64, 200_003, 128, 4, k, p, holes=h)
+    return len(cases) + 5 + len(holes)
 
 
 def padded_requests(device, gen) -> None:

@@ -18,7 +18,7 @@
 // (staging, barriers, the selector's end of round).
 //
 // The grid is one wave of blocks. A block owns one slice of the documents
-// and one chunk of at most kQueries = 16 queries, held in shared memory.
+// and one chunk of at most 16 queries, held in shared memory.
 // The query chunk is blockIdx.x, so the chunks of one slice run side by
 // side and all but the first read the slice from the 50 MB L2. A round is
 // kThreads document rows, staged in shared memory with cp.async
@@ -47,7 +47,9 @@
 // A block's first round finds every threshold at 0, so kThreads offers
 // would overflow a buffer of cap < kThreads keys: it is offered in parts
 // of min(cap, kThreads) threads instead, and the first part's compaction
-// sets the threshold for the rest. Each block writes its per-query top-k
+// sets the threshold for the rest; each part but the last closes on one
+// more barrier, so that the next part's offers stay out of the counts
+// that an overflow falls back to. Each block writes its per-query top-k
 // partials [Q, n_slices, k]; a second kernel merges them with the same
 // buffer into [Q, k]. Keys are unique (ids are), so the result depends
 // neither on the order blocks finish in nor on how offers are cut into
@@ -63,8 +65,9 @@ using namespace sdc;
 
 namespace {
 
-constexpr int kQueries = 16;   // most queries a block
-constexpr int kMinBlocks = 3;  // blocks an SM the shape is sized for
+// Blocks an SM the shape is sized for; the wrapper gives a block at most
+// 16 queries (_TOPK_QUERIES_PER_BLOCK) and counts on this (_TOPK_BLOCKS_PER_SM).
+constexpr int kMinBlocks = 3;
 
 // Byte offsets of a scan block's shared arrays: the selector's buffers for
 // qc queries, then the query rows [qp][QS] int (qp = qc + 1 rounded up to
@@ -97,20 +100,24 @@ __device__ __forceinline__ float exact_float(int x) {
   return __fsub_rn(__int_as_float(0x4B400000 + x), 12582912.0f);  // 1.5 * 2^23
 }
 
-static_assert(kQueries <= kThreads, "close_round updates one query a thread");
-
 // End a round of offers: Selector::end_round where some buffer needs it
 // (holds more than cap / 2 keys; `cut` is whether this thread saw one of
 // its offers pass that), otherwise what end_round then does: each query's
 // next round starts at its count. So the serial pass over the block's
 // queries runs only in the rounds in which a buffer is to be cut, and a
-// round costs one barrier.
+// round costs one barrier. Where another part of the same round of rows
+// follows (`part_follows`, the same in every thread), one more barrier
+// keeps its offers out of the base: end_round cuts an overflowing buffer
+// back to its base and offers the part again, so a key counted in the
+// base would be offered twice.
 template <class Rescore>
-__device__ __forceinline__ void close_round(Selector& sel, int nq, bool cut, Rescore rescore) {
+__device__ __forceinline__ void close_round(Selector& sel, int nq, bool cut, bool part_follows,
+                                            Rescore rescore) {
   if (__syncthreads_or(cut)) {
     sel.end_round(nq, rescore);
-  } else if ((int)threadIdx.x < nq) {
-    sel.base[threadIdx.x] = sel.count[threadIdx.x];
+  } else {
+    for (int j = threadIdx.x; j < nq; j += blockDim.x) sel.base[j] = sel.count[j];
+    if (part_follows) __syncthreads();
   }
 }
 
@@ -198,8 +205,9 @@ sdc_scan_kernel(const int* __restrict__ qa,      // int8 [Q, D]; packed: even di
           }
         }
       }
-      if (more && h + part >= kThreads) cp_async_wait<0>();
-      close_round(sel, nq, cut, rescore);
+      const bool last = h + part >= kThreads;
+      if (more && last) cp_async_wait<0>();
+      close_round(sel, nq, cut, !last, rescore);
     }
     warm = false;
   }
@@ -249,11 +257,6 @@ ScanFn pick_scan(int D) {
 }  // namespace
 
 extern "C" {
-
-// The block shape the kernel is built for: the most queries a block holds,
-// and the blocks an SM it is sized for (its __launch_bounds__ minimum).
-int sdc_topk_queries_per_block() { return kQueries; }
-int sdc_topk_min_blocks() { return kMinBlocks; }
 
 // Dynamic shared memory of one scan block holding qc queries.
 size_t sdc_topk_scan_smem(int D, int packed, int cap, int qc) {

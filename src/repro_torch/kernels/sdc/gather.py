@@ -43,8 +43,6 @@ from repro_torch.core.binarize_lib import SDC_NEG_INF, sdc_affine_epilogue, unpa
 from repro_torch.device import full_fp32_matmul
 from repro_torch.kernels import _build
 from repro_torch.kernels.sdc.sdc import (
-    _SMEM_RESERVED,
-    _SMEM_SM,
     _THREADS,
     K_MAX,
     affine_terms,
@@ -53,6 +51,7 @@ from repro_torch.kernels.sdc.sdc import (
     kernel_dim,
     kernel_operands,
     merge_running_topk,
+    units_per_block,
 )
 
 _SOURCE = _build.SOURCES[1]
@@ -219,20 +218,14 @@ def _launch(q, lists, inv, ids, probes, *, n_levels, k, packed, cand_mask):
 
 @functools.cache
 def _pairs_per_block(D: int, packed: bool, cap: int) -> int:
-    """The most (query, probe) pairs, up to 16, for one scan block.
-
-    As many as let three blocks share an SM, so that the barriers that end
-    each selector round in one block hide behind the others' work; where
-    not even one pair allows that (large k), two blocks, then one. At k =
-    K_MAX that is 1.
-    """
+    """(Query, probe) pairs a scan block holds: ``units_per_block`` of the kernel's shape."""
     lib = _lib()
-    for blocks in (_BLOCKS_PER_SM, 2, 1):
-        budget = _SMEM_SM // blocks - _SMEM_RESERVED
-        for qc in range(_MAX_PAIRS_PER_BLOCK, 0, -1):
-            if lib.gather_topk_scan_smem(D, int(packed), cap, qc) <= budget:
-                return qc
-    raise RuntimeError(f"sdc_gather_topk: no scan block fits in shared memory (D={D}, cap={cap})")
+    qc = units_per_block(lambda n: lib.gather_topk_scan_smem(D, int(packed), cap, n),
+                         _MAX_PAIRS_PER_BLOCK, _BLOCKS_PER_SM)
+    if qc == 0:
+        raise RuntimeError(
+            f"sdc_gather_topk: no scan block fits in shared memory (D={D}, cap={cap})")
+    return qc
 
 
 @functools.cache

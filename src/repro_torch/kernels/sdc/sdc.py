@@ -65,9 +65,11 @@ KERNEL_DIMS = (32, 64, 128, 256)
 
 _THREADS = 256  # documents per round, as in the source
 _SCORES_QUERIES_PER_BLOCK = 64  # sdc_scores.cu: every query of a chunk against a row
+_TOPK_QUERIES_PER_BLOCK = 16  # sdc_topk.cu: the most queries a scan block holds
+_TOPK_BLOCKS_PER_SM = 3  # sdc_topk.cu: the scan's __launch_bounds__ minimum (kMinBlocks)
 # Hopper's shared memory: 228 KB an SM, of which it keeps 1 KB for each
 # block it runs (so one block may take 227 KB).
-_SMEM_SM, _SMEM_RESERVED = 228 * 1024, 1024
+SMEM_SM, SMEM_RESERVED = 228 * 1024, 1024
 _PLAIN_CHUNK = 1 << 18
 
 _SOURCE, _SCORES_SOURCE = _build.SOURCES[0], _build.SOURCES[2]
@@ -237,22 +239,32 @@ def _launch(q, d, inv, *, n_levels, k, packed):
     return vals, ids
 
 
+def units_per_block(smem, max_units: int, min_blocks: int) -> int:
+    """The most units (queries, or (query, probe) pairs), up to ``max_units``,
+    for one scan block whose shared memory for n units is ``smem(n)`` bytes.
+
+    As many as let ``min_blocks`` blocks share an SM, so that the barriers
+    that end each selector round in one block hide behind the others' work;
+    where not even one unit allows that (large k), fewer blocks, down to
+    one. At k = K_MAX that is 1 unit. 0 where no block fits.
+    """
+    for blocks in range(min_blocks, 0, -1):
+        budget = SMEM_SM // blocks - SMEM_RESERVED
+        for n in range(max_units, 0, -1):
+            if smem(n) <= budget:
+                return n
+    return 0
+
+
 @functools.cache
 def _queries_per_block(D: int, packed: bool, cap: int) -> int:
-    """The most queries, up to the kernel's chunk, for one scan block.
-
-    As many as let the blocks an SM the kernel is shaped for share it, so
-    that the barriers that end each selector round in one block hide
-    behind the others' work; where not even one query allows that (large
-    k), fewer blocks, down to one. At k = K_MAX that is 1.
-    """
+    """Queries a scan block holds: ``units_per_block`` of the kernel's shape."""
     lib = _lib()
-    for blocks in range(lib.sdc_topk_min_blocks(), 0, -1):
-        budget = _SMEM_SM // blocks - _SMEM_RESERVED
-        for qc in range(lib.sdc_topk_queries_per_block(), 0, -1):
-            if lib.sdc_topk_scan_smem(D, int(packed), cap, qc) <= budget:
-                return qc
-    raise RuntimeError(f"sdc_topk: no scan block fits in shared memory (D={D}, cap={cap})")
+    qc = units_per_block(lambda n: lib.sdc_topk_scan_smem(D, int(packed), cap, n),
+                         _TOPK_QUERIES_PER_BLOCK, _TOPK_BLOCKS_PER_SM)
+    if qc == 0:
+        raise RuntimeError(f"sdc_topk: no scan block fits in shared memory (D={D}, cap={cap})")
+    return qc
 
 
 @functools.cache
@@ -263,10 +275,6 @@ def _lib() -> ctypes.CDLL:
     lib.sdc_topk_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
                                     F, F, F, P]
     lib.sdc_topk_launch.restype = I
-    lib.sdc_topk_queries_per_block.argtypes = []
-    lib.sdc_topk_queries_per_block.restype = I
-    lib.sdc_topk_min_blocks.argtypes = []
-    lib.sdc_topk_min_blocks.restype = I
     lib.sdc_topk_scan_smem.argtypes = [I, I, I, I]
     lib.sdc_topk_scan_smem.restype = ctypes.c_size_t
     lib.sdc_topk_blocks_per_sm.argtypes = [I, I, I, I]

@@ -280,6 +280,40 @@ def test_kernel_matches_plain_on_card(packed, n_levels, Q, N, D, k):
     assert torch.equal(v, pv) and torch.equal(i, pi)
 
 
+def _holes(N: int, k: int, kind: str, device) -> torch.Tensor:
+    """Rows to exclude inside the first round's parts: below k = 128 the
+    kernel offers a block's first round in parts of cap = cap_for(k) < 256
+    rows. "alternate" drops every other row; "runs" leaves the first part
+    of each pair of parts a quarter of its rows (no buffer is cut after
+    it) and the second all of them (its buffer overflows)."""
+    n = torch.arange(N, device=device)
+    if kind == "alternate":
+        return n % 2 == 0
+    part = min(PS.cap_for(k), 256)
+    return n % (2 * part) < part - part // 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("k", [10, 33])
+@pytest.mark.parametrize("holes", ["alternate", "runs"])
+def test_kernel_matches_plain_with_interleaved_exclusions(packed, k, holes):
+    dev = _card()
+    Q, N, n_levels = 17, 50_003, 4
+    gen = torch.Generator(device=dev).manual_seed(N + k)
+    q = torch.randint(0, 2**n_levels, (Q, 128), generator=gen, device=dev).to(torch.int8)
+    d = torch.randint(0, 2**n_levels, (N, 128), generator=gen, device=dev).to(torch.int8)
+    inv = doc_inv_norms(d, n_levels)
+    inv[_holes(N, k, holes, dev)] = 0
+    dd = pack_codes_nibbles(d) if packed else d
+    before = PS.sdc_topk.launches
+    v, i = PS.sdc_topk(q, dd, inv, n_levels=n_levels, k=k, packed=packed)
+    torch.cuda.synchronize()
+    assert PS.sdc_topk.launches == before + 1
+    pv, pi = PS.sdc_topk_torch(q, dd, inv, n_levels=n_levels, k=k, packed=packed)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
 @pytest.mark.gpu
 def test_kernel_raises_on_untaken_dim():
     dev = _card()

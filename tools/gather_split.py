@@ -15,9 +15,8 @@ substitution and times each with CUDA events in the int8, packed and
 masked forms:
 
   full         the kernel as it is
-  no-product   the code product cut out (the parent's per-pair dp4a loop
-               becomes one XOR of a row word and a query word; the tile
-               product is skipped and its dot tile left as it is)
+  no-product   the tile product skipped, its dot tile filled with one XOR
+               of a row word and a query word
   no-selector  every key computed, none inserted; each selector round is
                one barrier
   warm-up      the selector runs on each block's first live round only
@@ -45,40 +44,26 @@ SERVE_Q, N_QUERIES, K = 64, 512, 10
 DIM, CODE_DIM, LEVELS = 256, 128, 4
 PROBE_BUDGET = 2080
 
-# Each cut is a list of edits. An edit lists its alternatives, one per
-# version of the kernel where they differ (the dp4a scan first, then the
-# tile-product scan): exactly one must be found in the source.
-_INSERT = [("for (int j = 0; j < np; ++j) sel.insert(j, key_of(j));",
+# Each cut is a list of edits (pattern, replacement); each pattern must be
+# found in the source.
+_INSERT_AT = "for (int j = 0; j < np; ++j) sel.insert(j, key_of(j));"
+_END_AT = "\n      sel.end_round(np, key_of);\n"
+_INSERT = [(_INSERT_AT,
             "for (int j = 0; j < np; ++j) { if (key_of(j) == 1ull) sel.count[j] = -1; }")]
-_END_ROUND = [("sel.end_round(np, key_of);", "__syncthreads();")]
-_NO_PRODUCT = [
-    ("row_dot<PACKED>(a, b, qs + j * R::QSTRIDE)", "(int)(a[0] ^ (unsigned)qs[j * R::QSTRIDE])"),
-    ("tile_dots<D, PACKED>(tile, qs, dots, np);",
-     "for (int j = 0; j < np; ++j) dots[j * kDotStride + threadIdx.x] = "
-     "(int)(tile[threadIdx.x * T::S] ^ (unsigned)qs[j * T::QS]);"),
-]
-# `warm` is true through a block's first live round (the tile-product
-# version has it already).
-_WARM_LOOP = [
-    ("slice_rows);\n  for (int r = begin; r < end; r += kThreads) {",
-     "slice_rows);\n  bool warm = true;\n  for (int r = begin; r < end; r += kThreads) {"),
-    ("bool warm = true;\n", "bool warm = true;\n"),
-]
-_WARM_INSERT = [("for (int j = 0; j < np; ++j) sel.insert(j, key_of(j));",
-                 "for (int j = 0; j < np; ++j) { if (warm) sel.insert(j, key_of(j)); "
-                 "else if (key_of(j) == 1ull) sel.count[j] = -1; }")]
-_WARM_END = [
-    ("\n    sel.end_round(np, key_of);\n", "\n    { const bool any = __syncthreads_or(valid); "
-     "if (warm && any) { sel.end_round(np, key_of); warm = false; } }\n"),
-    ("\n      sel.end_round(np, key_of);\n",
-     "\n      if (warm) sel.end_round(np, key_of); else __syncthreads();\n"),
-]
+_END_ROUND = [(_END_AT, "\n      __syncthreads();\n")]
+_NO_PRODUCT = [("tile_dots<D, PACKED>(tile, qs, dots, np);",
+                "for (int j = 0; j < np; ++j) dots[j * kDotStride + threadIdx.x] = "
+                "(int)(tile[threadIdx.x * T::S] ^ (unsigned)qs[j * T::QS]);")]
+# `warm` is true through a block's first live round.
+_WARM_UP = [(_INSERT_AT, "for (int j = 0; j < np; ++j) { if (warm) sel.insert(j, key_of(j)); "
+                         "else if (key_of(j) == 1ull) sel.count[j] = -1; }"),
+            (_END_AT, "\n      if (warm) sel.end_round(np, key_of); else __syncthreads();\n")]
 VARIANTS = {
     "full": [],
-    "no-product": [_NO_PRODUCT],
-    "no-selector": [_INSERT, _END_ROUND],
-    "warm-up": [_WARM_LOOP, _WARM_INSERT, _WARM_END],
-    "neither": [_NO_PRODUCT, _INSERT, _END_ROUND],
+    "no-product": _NO_PRODUCT,
+    "no-selector": _INSERT + _END_ROUND,
+    "warm-up": _WARM_UP,
+    "neither": _NO_PRODUCT + _INSERT + _END_ROUND,
 }
 
 
@@ -90,7 +75,7 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--pairs", default="",
                     help="comma-separated pairs per scan block to time the full kernel at, "
-                         "besides the wrapper's own choice (the tile-product version only)")
+                         "besides the wrapper's own choice")
     ap.add_argument("--waves", default="",
                     help="comma-separated grid depths (the wrapper's _WAVES) for that sweep")
     args = ap.parse_args()
@@ -181,7 +166,7 @@ def main() -> None:
 
     # -- the full kernel at other numbers of pairs per block ----------------
     use("full")
-    choose = getattr(gather, "_pairs_per_block", None)
+    choose = gather._pairs_per_block
     waves0 = gather._WAVES
     for waves in [int(x) for x in args.waves.split(",") if x] or [waves0]:
         gather._WAVES = waves
@@ -191,11 +176,10 @@ def main() -> None:
             print(f"[split] full, {qc} pairs a block, {waves} waves: "
                   + "  ".join(f"{tag} {ms:.3f} ms" for tag, ms in t.items()), flush=True)
     gather._WAVES = waves0
-    if choose is not None:
-        gather._pairs_per_block = choose
-        print(f"[split] the wrapper's choice at D={CODE_DIM}, k={K}: "
-              f"{choose(CODE_DIM, False, gather.cap_for(K))} pairs a block int8, "
-              f"{choose(CODE_DIM, True, gather.cap_for(K))} packed", flush=True)
+    gather._pairs_per_block = choose
+    print(f"[split] the wrapper's choice at D={CODE_DIM}, k={K}: "
+          f"{choose(CODE_DIM, False, gather.cap_for(K))} pairs a block int8, "
+          f"{choose(CODE_DIM, True, gather.cap_for(K))} packed", flush=True)
 
     # -- the scan and merge kernels alone, where the profiler sees them ----
     for tag in calls:
@@ -203,6 +187,7 @@ def main() -> None:
         rows = profiled_kernels(lambda: gather.sdc_gather_topk(*a, **kw), args.reps,
                                 r"gather_\w+_kernel")
         print(f"[split] profiler {tag}: {rows}", flush=True)
+
 
 if __name__ == "__main__":
     main()

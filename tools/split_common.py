@@ -14,15 +14,12 @@ from pathlib import Path
 
 
 def variant_source(text: str, edits, tool: str) -> str:
-    """Apply ``edits`` to a kernel source. Each edit lists its alternatives
-    (pattern, replacement), one per version of the kernel where they differ:
-    exactly one pattern must be found in the source."""
-    for alternatives in edits:
-        hits = [(p, r) for p, r in alternatives if p in text]
-        if len(hits) != 1:
-            raise SystemExit(f"{tool}: {len(hits)} of {[p for p, _ in alternatives]} "
-                             "found in the kernel source")
-        text = text.replace(*hits[0])
+    """Apply ``edits``, a list of (pattern, replacement), to a kernel
+    source; each pattern must be found in it."""
+    for pattern, replacement in edits:
+        if pattern not in text:
+            raise SystemExit(f"{tool}: {pattern!r} not found in the kernel source")
+        text = text.replace(pattern, replacement)
     return text
 
 

@@ -2,7 +2,8 @@
 """Where the time of the ``sdc_topk`` flat scan goes, measured by kernel variants.
 
     python3 tools/topk_split.py [--tree .] [--seed 0] [--docs 10000037] [--reps 10]
-                                [--shapes 16,32,16x4] [--extra]
+                                [--variants full,...] [--extra] [--shapes 16,32,16x4]
+                                [--batches 64,256,1024]
 
 Run on a CUDA card from the root of a checkout; ``--tree`` names the
 checkout whose ``src/repro_torch`` is measured (another commit unpacked
@@ -14,10 +15,8 @@ variants of the tree's ``sdc_topk.cu`` in which one part is cut out by
 text substitution and times each whole call with CUDA events:
 
   full         the kernel as it is
-  no-product   the code product cut out (the dp4a loop of the first
-               design becomes one XOR of a row word and a query word; the
-               tile product of the second is skipped and its dot tile
-               filled with one XOR of a row word and a query word)
+  no-product   the tile product skipped, its dot tile filled with one XOR
+               of a row word and a query word
   no-key       dots computed, but no epilogue and no key: one integer
                compare per (query, document) pair, and no selector
   no-selector  every key computed, none inserted; each selector round is
@@ -31,14 +30,18 @@ no-selector - no-key. ``full`` is timed first and last to show drift.
 Each variant's registers come from its build log, and the blocks per SM
 and queries per block from the wrapper's own query of the library; a
 profiler pass gives the scan and merge kernels' own times where the
-profiler sees the card. On the tile-product kernel, ``--extra`` adds
+profiler sees the card. ``--extra`` adds
 
   no-stage     no row staged (the norms still are): stale rows scored
   stage-only   the staging and barriers alone: no product, key or selector
 
-and ``--shapes`` builds every variant again at each block shape named,
-by editing the kernel's constants: 16 (queries a block, three blocks an
-SM, the kernel's own), 32 (two blocks an SM) and 16x4 (four).
+``--shapes`` builds every variant again at each block shape named, with
+the kernel's ``kMinBlocks`` edited and the wrapper's shape set to match:
+16 (queries a block, three blocks an SM, the kernel's own), 32 (two
+blocks an SM) and 16x4 (four). ``--batches`` times every variant at
+other numbers of queries a call. The cuts are text edits of this
+kernel's source; ``--variants full`` builds none, so it times any tree
+(an earlier design of the kernel) at the same shapes.
 """
 
 from __future__ import annotations
@@ -53,77 +56,44 @@ ROOT = Path(__file__).resolve().parents[1]
 SERVE_Q, N_QUERIES, K = 64, 512, 10
 DIM, CODE_DIM, LEVELS = 256, 128, 4
 
-# Each edit lists its alternatives, one per version of the kernel (the dp4a
-# scan of the first design, then the tile-product scan): exactly one must
-# be found in the source.
-_DP4A_DOT = "row_dot<PACKED>(a, b, qs + qq * R::QSTRIDE)"
-_DP4A_INSERT = "for (int qq = 0; qq < nq; ++qq) sel.insert(qq, score_key(qq));"
-_DP4A_END = "sel.end_round(nq, [&](int qq) -> u64 { return valid ? score_key(qq) : 0ull; });"
-_TILE_INSERT = "const u64 key = key_of(j);\n          if (key > sel.thresh[j]) {"
-_TILE_END = "close_round(sel, nq, cut, rescore);"
-_NO_PRODUCT = [
-    (_DP4A_DOT, "(int)(a[0] ^ (unsigned)qs[qq * R::QSTRIDE])"),
-    ("tile_dots<D, PACKED>(tile, qs, dots, nq + 1);",
-     "for (int j = 0; j < nq; ++j) dots[j * kDotStride + threadIdx.x] = "
-     "(int)(tile[threadIdx.x * T::S] ^ (unsigned)qs[j * T::QS]);"),
-]
-_INSERT = [
-    (_DP4A_INSERT, "for (int qq = 0; qq < nq; ++qq) { if (score_key(qq) == 1ull) "
-                   "sel.count[qq] = -1; }"),
-    (_TILE_INSERT, "const u64 key = key_of(j);\n          if (key == 1ull) {"),
-]
-_END_ROUND = [(_DP4A_END, "__syncthreads();"), (_TILE_END, "__syncthreads();")]
-_NO_KEY = [
-    (_DP4A_INSERT, "for (int qq = 0; qq < nq; ++qq) { if (" + _DP4A_DOT + " == 0x7fffffff) "
-                   "sel.count[qq] = -1; }"),
-    (_TILE_INSERT, "const u64 key = 0ull;\n          "
-                   "if (dots[j * kDotStride + threadIdx.x] == 0x7fffffff) {"),
-]
-# `warm` is true through a block's first round (the tile-product version
-# has it already).
-_DP4A_LOOP = ("  const long long end = min((long long)N, begin + slice_docs);\n"
-              "  for (long long r = begin; r < end; r += kThreads) {")
-_WARM_LOOP = [
-    (_DP4A_LOOP, _DP4A_LOOP.replace("  for (", "  bool warm = true;\n  for (")),
-    ("bool warm = true;\n", "bool warm = true;\n"),
-]
-_WARM_INSERT = [
-    (_DP4A_INSERT, "for (int qq = 0; qq < nq; ++qq) { if (warm) sel.insert(qq, score_key(qq)); "
-                   "else if (score_key(qq) == 1ull) sel.count[qq] = -1; }"),
-    (_TILE_INSERT, "const u64 key = key_of(j);\n          "
-                   "if (warm ? key > sel.thresh[j] : key == 1ull) {"),
-]
-_WARM_END = [
-    (_DP4A_END, "if (warm) { " + _DP4A_END + " } else { __syncthreads(); } warm = false;"),
-    (_TILE_END, "if (warm) { " + _TILE_END + " } else { __syncthreads(); }"),
-]
+# Each cut is a list of edits (pattern, replacement); each pattern must be
+# found in the source.
+_INSERT_AT = "const u64 key = key_of(j);\n          if (key > sel.thresh[j]) {"
+_END_AT = "close_round(sel, nq, cut, !last, rescore);"
+_NO_PRODUCT = [("tile_dots<D, PACKED>(tile, qs, dots, nq + 1);",
+                "for (int j = 0; j < nq; ++j) dots[j * kDotStride + threadIdx.x] = "
+                "(int)(tile[threadIdx.x * T::S] ^ (unsigned)qs[j * T::QS]);")]
+_END_ROUND = [(_END_AT, "__syncthreads();")]
+_NO_SELECTOR = [(_INSERT_AT, "const u64 key = key_of(j);\n          if (key == 1ull) {")] \
+    + _END_ROUND
+_NO_KEY = [(_INSERT_AT, "const u64 key = 0ull;\n          "
+                        "if (dots[j * kDotStride + threadIdx.x] == 0x7fffffff) {")] + _END_ROUND
+# `warm` is true through a block's first round.
+_WARM_UP = [(_INSERT_AT, "const u64 key = key_of(j);\n          "
+                         "if (warm ? key > sel.thresh[j] : key == 1ull) {"),
+            (_END_AT, "if (warm) { " + _END_AT + " } else { __syncthreads(); }")]
 VARIANTS = {
     "full": [],
-    "no-product": [_NO_PRODUCT],
-    "no-key": [_NO_KEY, _END_ROUND],
-    "no-selector": [_INSERT, _END_ROUND],
-    "warm-up": [_WARM_LOOP, _WARM_INSERT, _WARM_END],
-    "neither": [_NO_PRODUCT, _INSERT, _END_ROUND],
+    "no-product": _NO_PRODUCT,
+    "no-key": _NO_KEY,
+    "no-selector": _NO_SELECTOR,
+    "warm-up": _WARM_UP,
+    "neither": _NO_PRODUCT + _NO_SELECTOR,
 }
-# The tile-product scan's own cuts: no row is staged (every round scores
-# stale rows; the norms are still copied), or only the staging is left (no
-# product, key or selector).
+# No row is staged (every round scores stale rows; the norms are still
+# copied), or only the staging is left (no product, key or selector).
 _NO_STAGE = [("    stage_rows<D, PACKED>(tile, docs + r * R::ROW_BYTES, "
               "__ballot_sync(0xFFFFFFFFu, in));\n", "")]
-EXTRA = {"no-stage": [_NO_STAGE], "stage-only": [_NO_PRODUCT, _NO_KEY, _END_ROUND]}
-# Block shapes of the tile-product kernel (queries a block, blocks an SM),
-# as edits of its constants.
-_SHAPE = {"queries": "constexpr int kQueries = 16;", "blocks": "constexpr int kMinBlocks = 3;"}
+EXTRA = {"no-stage": _NO_STAGE, "stage-only": _NO_PRODUCT + _NO_KEY}
+# Block shapes, name: (queries a block, blocks an SM). The blocks an SM are
+# the kernel's __launch_bounds__ minimum, edited in the source; both are
+# set in the wrapper when the variant is timed.
+SHAPES = {"16": (16, 3), "32": (32, 2), "16x4": (16, 4)}
+_MIN_BLOCKS = "constexpr int kMinBlocks = 3;"
 
 
-def _shape(queries: int, blocks: int):
-    new = {"queries": queries, "blocks": blocks}
-    return [[(pattern, pattern.replace(pattern.split()[-1], f"{new[key]};"))]
-            for key, pattern in _SHAPE.items()]
-
-
-# name: queries a block [x blocks an SM]
-SHAPES = {"16": _shape(16, 3), "32": _shape(32, 2), "16x4": _shape(16, 4)}
+def _shape_edits(shape: str):
+    return [(_MIN_BLOCKS, f"constexpr int kMinBlocks = {SHAPES[shape][1]};")] if shape else []
 
 
 def main() -> None:
@@ -132,11 +102,17 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--docs", type=int, default=10_000_037)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated variants to build and time (" + ", ".join(VARIANTS)
+                         + "); `full` alone measures any tree, whatever its kernel")
+    ap.add_argument("--extra", action="store_true",
+                    help="also the cuts " + ", ".join(EXTRA))
     ap.add_argument("--shapes", default="",
                     help=f"comma-separated block shapes ({', '.join(SHAPES)}: queries a block, "
                          "x blocks an SM) to build every variant at; default: the source's own")
-    ap.add_argument("--extra", action="store_true",
-                    help="also the tile-product scan's own cuts (" + ", ".join(EXTRA) + ")")
+    ap.add_argument("--batches", default=str(SERVE_Q),
+                    help="comma-separated numbers of queries a call (the first that many of "
+                         "the request queries)")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
 
@@ -159,8 +135,9 @@ def main() -> None:
 
     # -- variants of the kernel source, built together ---------------------
     shapes = [s for s in args.shapes.split(",") if s] or [""]
-    cuts = dict(VARIANTS, **(EXTRA if args.extra else {}))
-    variants = {f"{name}{f'@{s}' if s else ''}": (SHAPES[s] if s else []) + edits
+    cuts = {v: VARIANTS[v] for v in args.variants.split(",")}
+    cuts.update(EXTRA if args.extra else {})
+    variants = {f"{name}{f'@{s}' if s else ''}": _shape_edits(s) + edits
                 for s in shapes for name, edits in cuts.items()}
     sources = build_variants(_build.build, Path(sdc._SOURCE), variants,
                              _build.BUILD_DIR / "topk_split", "topk_split")
@@ -171,18 +148,21 @@ def main() -> None:
             print(f"[split] build {name}: sdc_scan_kernel D=128 packed={packed}: {line}")
 
     # -- the serving shapes of chip_smoke.py -------------------------------
-    docs, queries, _ = clustered_corpus_torch(args.seed, args.docs, N_QUERIES, DIM,
-                                              device=device)
+    batches = [int(x) for x in args.batches.split(",")]
+    docs, queries, _ = clustered_corpus_torch(args.seed, args.docs, max(N_QUERIES, *batches),
+                                              DIM, device=device)
     bcfg = BinarizerConfig(input_dim=DIM, code_dim=CODE_DIM, n_levels=LEVELS, hidden_dim=2 * DIM)
     model = init_binarizer(bcfg, torch.Generator(device=device).manual_seed(args.seed), device)
     d_codes = encode_codes(model, docs, batch=1 << 17)
     del docs
-    q = make_encode_fn(model)(queries[:SERVE_Q])
+    q = make_encode_fn(model)(queries)
     calls = {}
     for packed in (False, True):
         index = FlatSDC.build(d_codes, LEVELS, packed=packed, device=device)
-        calls["packed" if packed else "int8"] = (
-            (q, index.codes, index.inv_norm), dict(n_levels=LEVELS, k=K, packed=packed))
+        for b in batches:
+            tag = ("packed" if packed else "int8") + (f"/Q{b}" if b != SERVE_Q else "")
+            calls[tag] = ((q[:b], index.codes, index.inv_norm),
+                          dict(n_levels=LEVELS, k=K, packed=packed))
     del d_codes
     torch.cuda.synchronize()
 
@@ -191,7 +171,10 @@ def main() -> None:
     def use(name):
         sdc._SOURCE = sources[name]
         sdc._lib.cache_clear()
-        if hasattr(sdc, "_queries_per_block"):  # the block shape follows the library
+        shape = name.partition("@")[2]  # none: the source's own
+        if shape:
+            sdc._TOPK_QUERIES_PER_BLOCK, sdc._TOPK_BLOCKS_PER_SM = SHAPES[shape]
+        if hasattr(sdc, "_queries_per_block"):  # an earlier design has none
             sdc._queries_per_block.cache_clear()
         lib = sdc._lib()
         ask = lib.sdc_topk_blocks_per_sm
@@ -219,19 +202,21 @@ def main() -> None:
     for (name, packed), (qc, per_sm) in occupancy.items():
         print(f"[split] occupancy {name} packed={packed}: {qc} queries a block, "
               f"{per_sm} blocks an SM")
-    for s in shapes:
-        at = f"@{s}" if s else ""
-        for tag in calls:
-            t = {v: times[v + at][tag] for v in VARIANTS}
-            print(f"[split] {tag}{at}: full {t['full']:.3f} ms; product "
-                  f"{t['full'] - t['no-product']:.3f}, selector {t['full'] - t['no-selector']:.3f} "
-                  f"(first round {t['warm-up'] - t['no-selector']:.3f}), keys "
-                  f"{t['no-selector'] - t['no-key']:.3f}, no key {t['no-key']:.3f}, neither "
-                  f"{t['neither']:.3f} ms on {smi}", flush=True)
+    if set(VARIANTS) <= set(cuts):
+        for s in shapes:
+            at = f"@{s}" if s else ""
+            for tag in calls:
+                t = {v: times[v + at][tag] for v in VARIANTS}
+                print(f"[split] {tag}{at}: full {t['full']:.3f} ms; product "
+                      f"{t['full'] - t['no-product']:.3f}, selector "
+                      f"{t['full'] - t['no-selector']:.3f} (first round "
+                      f"{t['warm-up'] - t['no-selector']:.3f}), keys "
+                      f"{t['no-selector'] - t['no-key']:.3f}, no key {t['no-key']:.3f}, neither "
+                      f"{t['neither']:.3f} ms on {smi}", flush=True)
 
     # -- the scan and merge kernels alone, where the profiler sees them ----
     for s in shapes:
-        use(f"full{f'@{s}' if s else ''}")
+        use(f"{names[0].partition('@')[0]}{f'@{s}' if s else ''}")
         for tag in calls:
             a, kw = calls[tag]
             rows = profiled_kernels(lambda: sdc.sdc_topk(*a, **kw), args.reps,
