@@ -1,7 +1,8 @@
 // Device code shared by the SDC kernels (sdc_topk.cu, gather_topk.cu,
-// sdc_scores.cu): the exact integer code product, the uncontracted affine
-// epilogue, the 64-bit ordered keys and the shared-memory top-k selector.
-// The tensor-core tile product and its staging are in tile_mma.cuh.
+// sdc_scores.cu): the row sizes, the query rows' load, the uncontracted
+// affine epilogue, the 64-bit ordered keys and the shared-memory top-k
+// selector. The tensor-core tile product and its staging are in
+// tile_mma.cuh.
 //
 // Every source includes this header and is built into its own library, so
 // nothing here needs external linkage. Build with -fmad=false; the epilogue
@@ -47,78 +48,20 @@ __device__ __forceinline__ float epilogue(int dot, int sums, float inv, float c1
   return __fmul_rn(__fadd_rn(s, c3), inv);
 }
 
-// One document row of D codes in registers, as local arrays of the
-// calling kernel: int8 row words in `a`, or for nibble-packed rows the low
-// nibbles (even dims) in `a` and the high nibbles (odd dims) in `b`, each
-// byte one code. Row<D, PACKED> only names the sizes.
+// The sizes of a stored document row of D codes (int8, or nibble-packed:
+// the low nibble of each byte the even dim, the high one the odd dim) and
+// of a query row in shared memory (packed: even-dim half, then odd-dim half).
 template <int D, bool PACKED>
 struct Row {
   static constexpr int ROW_BYTES = PACKED ? D / 2 : D;
   static constexpr int RW = ROW_BYTES / 4;              // 32-bit words per stored row
-  static constexpr int QSTRIDE = PACKED ? 2 * RW : RW;  // int words per query row in smem
-  static constexpr int BW = PACKED ? RW : 1;            // words of the high-nibble array
+  static constexpr int QSTRIDE = PACKED ? 2 * RW : RW;  // int words per query row
 };
-
-// The row's words, as 16-byte loads; `row` must be 16-byte aligned.
-template <int RW>
-__device__ __forceinline__ void load_row(const uint8_t* row, unsigned (&a)[RW]) {
-  const uint4* v4 = reinterpret_cast<const uint4*>(row);
-#pragma unroll
-  for (int v = 0; v < RW / 4; ++v) {
-    uint4 x = v4[v];
-    a[4 * v] = x.x;
-    a[4 * v + 1] = x.y;
-    a[4 * v + 2] = x.z;
-    a[4 * v + 3] = x.w;
-  }
-}
-
-// After load_row: split packed nibbles into a (low) and b (high); returns
-// the sum of the row's codes.
-template <bool PACKED, int RW, int BW>
-__device__ __forceinline__ int unpack_row(unsigned (&a)[RW], unsigned (&b)[BW]) {
-  int sum = 0;
-#pragma unroll
-  for (int w = 0; w < RW; ++w) {
-    if constexpr (PACKED) {
-      b[w] = (a[w] >> 4) & 0x0F0F0F0Fu;
-      a[w] = a[w] & 0x0F0F0F0Fu;
-      sum = __dp4a((int)b[w], 0x01010101, sum);
-    }
-    sum = __dp4a((int)a[w], 0x01010101, sum);
-  }
-  return sum;
-}
-
-// Exact int32 code product of a row with one query row in shared memory
-// (16-byte aligned; packed: even-dim half then odd-dim half).
-template <bool PACKED, int RW, int BW>
-__device__ __forceinline__ int row_dot(const unsigned (&a)[RW], const unsigned (&b)[BW],
-                                       const int* q) {
-  const int4* qw = reinterpret_cast<const int4*>(q);
-  int acc = 0;
-#pragma unroll
-  for (int v = 0; v < RW / 4; ++v) {
-    const int4 x = qw[v];
-    acc = __dp4a((int)a[4 * v], x.x, acc);
-    acc = __dp4a((int)a[4 * v + 1], x.y, acc);
-    acc = __dp4a((int)a[4 * v + 2], x.z, acc);
-    acc = __dp4a((int)a[4 * v + 3], x.w, acc);
-    if constexpr (PACKED) {
-      const int4 y = qw[RW / 4 + v];
-      acc = __dp4a((int)b[4 * v], y.x, acc);
-      acc = __dp4a((int)b[4 * v + 1], y.y, acc);
-      acc = __dp4a((int)b[4 * v + 2], y.z, acc);
-      acc = __dp4a((int)b[4 * v + 3], y.w, acc);
-    }
-  }
-  return acc;
-}
 
 // Copy nq query rows into shared memory (row j from query src(j) of qa/qb,
 // at qs + j * QS words) and their code sums into qsum. Called by all
 // threads; ends on a barrier.
-template <int D, bool PACKED, int QS = Row<D, PACKED>::QSTRIDE, class Src>
+template <int D, bool PACKED, int QS, class Src>
 __device__ void load_queries(int* qs, int* qsum, const int* qa, const int* qb, int nq, Src src) {
   using R = Row<D, PACKED>;
   for (int i = threadIdx.x; i < nq * R::RW; i += blockDim.x) {

@@ -2,102 +2,325 @@
 //
 // Replaces the TPU kernel repro/kernels/sdc/sdc.py::sdc_scores
 // (_sdc_kernel, _sdc_kernel_packed): scores [Q, N] f32, score[q, n] the SDC
-// epilogue of sdc_common.cuh, or -1e30 where !(inv[n] > 0). Only the
-// unfused search (ops.sdc_search(fused=False)) and the tests use it.
+// epilogue of sdc_common.cuh, or -1e30 where !(inv[n] > 0). The unfused
+// routes use it: ops.sdc_search(fused=False), and sdc_topk and the gather
+// on the card for k > K_MAX or a code dim above 256.
 //
-// What bounds it: the output. At Q = 64 it writes 4 * Q = 256 bytes per
-// document against D + 4 bytes read, so the floor is HBM bytes, and
-// mostly the writes. The design is sdc_topk.cu's scan without the top-k:
-// each block holds a chunk of up to 64 queries in shared memory and walks
-// one slice of the documents, one row per thread, loaded as 16-byte
-// vectors into registers; every query's score of that row is written at
-// once, so a warp's 32 stores to a query row are one contiguous 128-byte
-// line. Scoring is __dp4a on the CUDA cores (exact int32).
+// What bounds it: the output. At Q = 64 and D = 128 it writes 4 * Q = 256
+// bytes per document against D + 4 bytes read, so the floor is HBM bytes,
+// two thirds of them writes. The design keeps the store stream whole and
+// takes the product off the CUDA cores:
+//
+//  - A block holds a chunk of up to kMaxQueries queries in shared memory
+//    and walks one slice of the documents in tiles of kRows rows. Each
+//    tile's rows are staged in shared memory with cp.async, kStages - 1
+//    steps ahead, in chunks of kChunkCodes codes: any code dim that is a
+//    multiple of 32 (the wrapper pads to one) runs as a loop over chunks,
+//    so a wide row never needs a whole tile of shared memory.
+//  - The code products are the exact int8 tensor-core tile product of
+//    tile_mma.cuh (mma.sync m16n8k32, s8 x s8 -> s32): warp w takes rows
+//    16w..16w+15 against every query, accumulating over the chunks in
+//    registers. Nibble-packed rows are split into their even and odd dims
+//    as they are loaded, against query rows whose even- and odd-dim words
+//    are interleaved in shared memory. Query row 0 is all ones, so the
+//    product also gives each row's code sum.
+//  - The epilogue runs on the accumulators in the reference's order
+//    (__fmul_rn / __fadd_rn; the file is also built -fmad=false) and
+//    writes the tile's scores [query][row] to shared memory; then a warp
+//    writes each query's kRows scores with 16-byte stores, whole 128-byte
+//    lines, since the wrapper pads the rows of the output to a multiple of
+//    32 scores (ldo) and tiles start at multiples of kRows.
+//
+// Shared-memory rows are padded so that the fragment loads of a warp fall
+// in distinct banks: 64-bit loads of word pairs (int8 rows, query rows) at
+// a stride of 8 (mod 16) words, 32-bit loads (packed rows) at 4 (mod 8).
+// Integer sums are exact: codes are int8, so |dot| <= D * 2^14 and the
+// code sums are below 2^24 for every D the wrapper passes.
 
 #include "sdc_common.cuh"
+#include "tile_mma.cuh"
 
 using namespace sdc;
 
 namespace {
 
-// Shared memory: query words [qc][QSTRIDE] int, qsum [qc] int.
-template <int D, bool PACKED>
-__global__ void __launch_bounds__(kThreads)
-sdc_scores_kernel(const int* __restrict__ qa, const int* __restrict__ qb,
-                  const uint8_t* __restrict__ docs, const float* __restrict__ inv,
-                  float* __restrict__ out, int Q, int N, int qc, int slice_docs, float c1,
-                  float c2, float c3) {
-  using R = Row<D, PACKED>;
-  extern __shared__ __align__(16) u64 smem[];
-  int* qs = reinterpret_cast<int*>(smem);
-  int* qsum = qs + qc * R::QSTRIDE;
-  const int q0 = blockIdx.y * qc;
-  const int nq = min(qc, Q - q0);
-  load_queries<D, PACKED>(qs, qsum, qa, qb, nq, [&](int j) { return q0 + j; });
+constexpr int kRows = 128;                  // document rows per tile: 16 a warp
+constexpr int kMaxQueries = 64;             // queries a block holds
+constexpr int kNT = (kMaxQueries + 8) / 8;  // n8 tiles: the ones column and the queries
+constexpr int kChunkCodes = 128;            // codes of a row staged at once
+constexpr int kStages = 3;                  // staged chunks: one in use, the rest in flight
+constexpr int kOutStride = kRows + 4;       // floats per query row of the output tile
+constexpr int kMinBlocks = 2;               // blocks an SM (the wrapper's _SCORES_BLOCKS_PER_SM)
 
-  const long long begin = (long long)blockIdx.x * slice_docs;
-  const long long end = min((long long)N, begin + slice_docs);
-  for (long long n = begin + threadIdx.x; n < end; n += kThreads) {
-    const float w_inv = inv[n];
-    const bool valid = w_inv > 0.f;
-    unsigned a[R::RW];
-    unsigned b[R::BW];
-    int sd = 0;
-    if (valid) {
-      load_row(docs + n * R::ROW_BYTES, a);
-      sd = unpack_row<PACKED>(a, b);
+static_assert(kRows == 16 * (kThreads / 32), "a warp takes 16 rows");
+
+// Words of a shared-memory row of w words (w a multiple of 8) read as word
+// pairs: a stride of 8 (mod 16) words.
+__host__ __device__ constexpr int pad_pairs(int w) { return w + 8 + (w & 8); }
+
+// Byte offsets of a block's shared arrays for code dim D (a multiple of 32)
+// and qc queries: the query rows [qp][QS] words (qp = qc + 1 rounded up to
+// 8; row 0 all ones), their code sums [qp] float, kStages staged chunks of
+// [kRows][S] words with the tile's inverse norms [kRows] float, and the
+// output tile [qc][kOutStride] float. Every array starts 16-byte aligned.
+struct Layout {
+  int QS, S;
+  size_t qsum, stages, stage_bytes, invs, out, end;
+};
+
+__host__ __device__ inline Layout layout(int D, bool packed, int qc) {
+  Layout l;
+  const int qp = (qc + 8) & ~7;
+  l.QS = pad_pairs(D / 4);
+  l.S = packed ? pad_words(kChunkCodes / 8) : pad_pairs(kChunkCodes / 4);
+  l.qsum = (size_t)qp * l.QS * sizeof(int);
+  l.stages = l.qsum + (((size_t)qp * sizeof(float) + 15) & ~(size_t)15);
+  l.invs = (size_t)kRows * l.S * sizeof(unsigned);
+  l.stage_bytes = l.invs + kRows * sizeof(float);
+  l.out = l.stages + kStages * l.stage_bytes;
+  l.end = l.out + (size_t)qc * kOutStride * sizeof(float);
+  return l;
+}
+
+// The accumulators start at kBias and give float(x) of their sum x, exactly.
+// NARROW (|x| <= 2^22: every dot of D <= 256 int8 codes): kBias is the bits
+// of 1.5 * 2^23, so the int32 sum is the bits of 1.5 * 2^23 + x and one
+// exact subtraction gives x, where a conversion instruction would issue at
+// a fraction of the float rate. Otherwise a conversion.
+template <bool NARROW>
+constexpr int kBias = NARROW ? 0x4B400000 : 0;
+
+template <bool NARROW>
+__device__ __forceinline__ float to_float(int biased) {
+  if constexpr (NARROW) {
+    return __fsub_rn(__int_as_float(biased), 12582912.0f);
+  } else {
+    return __int2float_rn(biased);
+  }
+}
+
+template <bool PACKED, bool NARROW>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+sdc_scores_kernel(const int* __restrict__ qa,        // int8 [Q, D]; packed: even dims [Q, D/2]
+                  const int* __restrict__ qb,        // packed: odd dims [Q, D/2]; else unused
+                  const uint8_t* __restrict__ docs,  // [N, D] int8 or [N, D/2] packed
+                  const float* __restrict__ inv,     // [N]
+                  float* __restrict__ out,           // [Q, ldo], ldo a multiple of 32
+                  int Q, int N, int ldo, int D, int qc, int slice_docs, float c1, float c2,
+                  float c3) {
+  extern __shared__ __align__(16) u64 smem[];
+  char* const base = reinterpret_cast<char*>(smem);
+  const Layout lay = layout(D, PACKED, qc);
+  int* qs = reinterpret_cast<int*>(base);
+  float* qsum = reinterpret_cast<float*>(base + lay.qsum);
+  float* otile = reinterpret_cast<float*>(base + lay.out);
+  const int QS = lay.QS, S = lay.S, QW = D / 4;
+  const int RB = PACKED ? D / 2 : D;                          // bytes of a stored row
+  constexpr int CB = PACKED ? kChunkCodes / 2 : kChunkCodes;  // bytes of a row chunk
+  const int nk = (RB + CB - 1) / CB;                          // chunks per row
+  const int q0 = blockIdx.x * qc;
+  const int nq = min(qc, Q - q0);
+  const int nt = (nq + 8) / 8;  // n8 tiles in use
+
+  // Query rows: row 0 all ones, row j + 1 query q0 + j, zero past nq.
+  // Packed rows interleave the halves: word 2w is even-dim word w, 2w + 1
+  // odd-dim word w, so that one 64-bit load gives a k-step's two B words.
+  for (int i = threadIdx.x; i < nt * 8 * QW; i += kThreads) {
+    const int r = i / QW, w = i - r * QW;
+    int v = 0x01010101;
+    if (r > 0) {
+      v = 0;
+      if (r <= nq) {
+        const size_t row = (size_t)(q0 + r - 1) * QW;
+        if constexpr (PACKED) v = (w & 1 ? qb : qa)[row / 2 + w / 2];
+        else v = qa[row + w];
+      }
     }
-    for (int qq = 0; qq < nq; ++qq) {
-      const float s = valid ? epilogue(row_dot<PACKED>(a, b, qs + qq * R::QSTRIDE), qsum[qq] + sd,
-                                       w_inv, c1, c2, c3)
-                            : kNegInf;
-      out[(size_t)(q0 + qq) * N + n] = s;
+    qs[r * QS + w] = v;
+  }
+  __syncthreads();
+  for (int j = 1 + threadIdx.x; j <= nq; j += kThreads) {
+    int s = 0;
+    for (int w = 0; w < QW; ++w) s = __dp4a(qs[j * QS + w], 0x01010101, s);
+    qsum[j] = __int2float_rn(s);  // exact: below 2^24
+  }
+  __syncthreads();
+
+  const long long begin = (long long)blockIdx.y * slice_docs;
+  const long long end = min((long long)N, begin + slice_docs);
+  const int nsteps = (int)((end - begin + kRows - 1) / kRows) * nk;
+  auto rows_of = [&](int step) {
+    return reinterpret_cast<unsigned*>(base + lay.stages + (step % kStages) * lay.stage_bytes);
+  };
+  // Start copying chunk c of the rows of tile `step / nk` (rows past the
+  // slice are not read; their scores land in no column below N), and with
+  // the last chunk the rows' inverse norms.
+  auto stage = [&](int step) {
+    const int tile = step / nk, c = step - tile * nk;
+    const long long n0 = begin + (long long)tile * kRows;
+    const int nrows = (int)min((long long)kRows, end - n0);
+    const int ch = min(CB, RB - c * CB) / 16;
+    unsigned* rows = rows_of(step);
+    const uint8_t* src = docs + n0 * RB + c * CB;
+    for (int i = threadIdx.x; i < nrows * ch; i += kThreads) {
+      const int r = i / ch, x = i - r * ch;
+      cp_async16(rows + r * S + 4 * x, src + (size_t)r * RB + 16 * x);
+    }
+    if (c == nk - 1 && (int)threadIdx.x < nrows) {
+      float* invs = reinterpret_cast<float*>(reinterpret_cast<char*>(rows) + lay.invs);
+      cp_async4(invs + threadIdx.x, inv + n0 + threadIdx.x);
+    }
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = 16 * warp;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps) stage(s);
+    cp_async_commit();
+  }
+  // This lane's columns 2t and 2t + 1 of each n8 tile: their query code sums.
+  float qv[kNT][2];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    if (n < nt) {
+      qv[n][0] = qsum[8 * n + 2 * t];
+      qv[n][1] = qsum[8 * n + 2 * t + 1];
+    }
+  }
+  int acc[kNT][4];
+  for (int step = 0; step < nsteps; ++step) {
+    // This step's chunk has landed for every thread's copies, and every
+    // thread is done with the chunk staged kStages - 1 steps ago and with
+    // the output tile.
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (step + kStages - 1 < nsteps) stage(step + kStages - 1);
+    cp_async_commit();
+
+    const int tile = step / nk, c = step - tile * nk;
+    if (c == 0) {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+        acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = kBias<NARROW>;
+    }
+    const unsigned* rows = rows_of(step);
+    const unsigned* lo = rows + (m0 + g) * S;  // row g of the warp's 16
+    const unsigned* hi = lo + 8 * S;           // row g + 8
+    const int ksteps = min(CB, RB - c * CB) / (PACKED ? 16 : 32);
+#pragma unroll
+    for (int ks = 0; ks < kChunkCodes / 32; ++ks) {
+      if (ks < ksteps) {
+        // A sum over K does not depend on K's order: lane t takes the
+        // same two words of its A row and of its B column.
+        unsigned a[4];
+        int qw;  // the k-step's first word in a query row
+        if constexpr (PACKED) {
+          const unsigned x = lo[4 * ks + t], y = hi[4 * ks + t];
+          a[0] = x & 0x0F0F0F0Fu;
+          a[1] = y & 0x0F0F0F0Fu;
+          a[2] = (x >> 4) & 0x0F0F0F0Fu;
+          a[3] = (y >> 4) & 0x0F0F0F0Fu;
+          qw = 2 * (c * (kChunkCodes / 8) + 4 * ks + t);
+        } else {
+          const uint2 x = *reinterpret_cast<const uint2*>(lo + 8 * ks + 2 * t);
+          const uint2 y = *reinterpret_cast<const uint2*>(hi + 8 * ks + 2 * t);
+          a[0] = x.x;
+          a[1] = y.x;
+          a[2] = x.y;
+          a[3] = y.y;
+          qw = c * (kChunkCodes / 4) + 8 * ks + 2 * t;
+        }
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          if (n < nt) {
+            const uint2 b2 = *reinterpret_cast<const uint2*>(qs + (8 * n + g) * QS + qw);
+            const unsigned b[2] = {b2.x, b2.y};
+            mma_s8(acc[n], a, b);
+          }
+        }
+      }
+    }
+    if (c < nk - 1) continue;
+
+    // Epilogue: c[0] (row g, column 2t), c[1] (g, 2t + 1), c[2] (g + 8, 2t),
+    // c[3] (g + 8, 2t + 1) of each n8 tile; column 0 is the row's code sum,
+    // column j + 1 query j.
+    const float* invs = reinterpret_cast<const float*>(
+        reinterpret_cast<const char*>(rows) + lay.invs);
+    const float sd[2] = {to_float<NARROW>(__shfl_sync(0xFFFFFFFFu, acc[0][0], lane & ~3)),
+                         to_float<NARROW>(__shfl_sync(0xFFFFFFFFu, acc[0][2], lane & ~3))};
+    const float w[2] = {invs[m0 + g], invs[m0 + g + 8]};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      if (n < nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * n + 2 * t + (e & 1), h = e >> 1;
+          if (col >= 1 && col <= nq) {
+            // the sum of two integer code sums below 2^24 is exact in float;
+            // no branch: the score of an excluded row is computed, then
+            // replaced
+            const float sums = __fadd_rn(qv[n][e & 1], sd[h]);
+            float s = __fadd_rn(__fmul_rn(c1, to_float<NARROW>(acc[n][e])), __fmul_rn(c2, sums));
+            s = __fmul_rn(__fadd_rn(s, c3), w[h]);
+            otile[(col - 1) * kOutStride + m0 + g + 8 * h] = w[h] > 0.f ? s : kNegInf;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the output tile is written
+    const long long n = begin + (long long)tile * kRows + 4 * lane;
+    if (n < ldo) {
+      for (int j = warp; j < nq; j += kThreads / 32) {
+        const float4 v = *reinterpret_cast<const float4*>(otile + j * kOutStride + 4 * lane);
+        *reinterpret_cast<float4*>(out + (size_t)(q0 + j) * ldo + n) = v;
+      }
     }
   }
 }
 
 typedef void (*ScoresFn)(const int*, const int*, const uint8_t*, const float*, float*, int, int,
-                         int, int, float, float, float);
+                         int, int, int, int, float, float, float);
 
-template <bool PACKED>
-ScoresFn pick(int D) {
-  switch (D) {
-    case 32: return sdc_scores_kernel<32, PACKED>;
-    case 64: return sdc_scores_kernel<64, PACKED>;
-    case 128: return sdc_scores_kernel<128, PACKED>;
-    case 256: return sdc_scores_kernel<256, PACKED>;
-    default: return nullptr;
-  }
+// The kernel for code dim D (a positive multiple of 32), or nullptr.
+ScoresFn pick(int D, int packed) {
+  if (D <= 0 || D % 32) return nullptr;
+  if (D <= 256) return packed ? &sdc_scores_kernel<true, true> : &sdc_scores_kernel<false, true>;
+  return packed ? &sdc_scores_kernel<true, false> : &sdc_scores_kernel<false, false>;
 }
-
-size_t scores_smem(int D, int qc) { return (size_t)qc * (D / 4) * sizeof(int) + (size_t)qc * sizeof(int); }
 
 }  // namespace
 
 extern "C" {
 
+// Dynamic shared memory of one block holding qc queries at code dim D.
+size_t sdc_scores_smem(int D, int packed, int qc) { return layout(D, packed != 0, qc).end; }
+
 // Blocks that fit on one SM at once, or a negative CUDA error code.
 int sdc_scores_blocks_per_sm(int D, int packed, int qc) {
-  ScoresFn fn = packed ? pick<true>(D) : pick<false>(D);
-  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
-  return blocks_per_sm((const void*)fn, scores_smem(D, qc));
+  ScoresFn fn = pick(D, packed);
+  if (fn == nullptr || qc < 1 || qc > kMaxQueries) return -(int)cudaErrorInvalidValue;
+  return blocks_per_sm((const void*)fn, sdc_scores_smem(D, packed, qc));
 }
 
-// Launches n_slices x ceil(Q / qc) blocks on `stream`. Returns
+// Launches ceil(Q / qc) x n_slices blocks on `stream`: D is the padded code
+// dim, ldo the output's row stride (a multiple of 32 floats, >= N). Returns
 // cudaGetLastError() (0 on success).
 int sdc_scores_launch(const void* qa, const void* qb, const void* docs, const void* inv,
-                      void* out, int Q, int N, int D, int packed, int qc, int n_slices,
+                      void* out, int Q, int N, int ldo, int D, int packed, int qc, int n_slices,
                       int slice_docs, float c1, float c2, float c3, void* stream) {
-  ScoresFn fn = packed ? pick<true>(D) : pick<false>(D);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = scores_smem(D, qc);
+  ScoresFn fn = pick(D, packed);
+  if (fn == nullptr || qc < 1 || qc > kMaxQueries || ldo % 32 || ldo < N || slice_docs % kRows)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sdc_scores_smem(D, packed, qc);
   cudaError_t err = cudaFuncSetAttribute((const void*)fn,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_slices, (Q + qc - 1) / qc);
+  dim3 grid((Q + qc - 1) / qc, n_slices);
   fn<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)qa, (const int*)qb, (const uint8_t*)docs, (const float*)inv, (float*)out, Q, N,
-      qc, slice_docs, c1, c2, c3);
+      ldo, D, qc, slice_docs, c1, c2, c3);
   return (int)cudaGetLastError();
 }
 

@@ -20,8 +20,13 @@ one of ``csrc/sdc_common.cuh``. ``csrc/gather_topk.cu`` says more.
 
 The kernel takes code dims up to 256: any dim that is not one of
 ``sdc.KERNEL_DIMS`` is padded with zero codes to the next of them, which
-copies the lists once per call (``sdc.kernel_operands``). On the card k
-is at most ``K_MAX``; the plain version takes any k.
+copies the lists once per call (``sdc.kernel_operands``), and k up to
+``K_MAX``. A larger k or dim on the card takes the unfused route,
+``unfused_gather_topk``: the ``sdc_scores`` kernel scores every list
+slot, ``select_probed_topk`` picks each query's probed slots from that
+matrix and selects with a stable sort, a chunk of queries at a time
+(``sdc_scores.launches`` counts it). The plain version takes any k and
+dim.
 
 Both versions return the reference's contract: ``(scores [Q, k] f32,
 ids [Q, k] int32)``, best first, ties toward the earlier probe column
@@ -43,14 +48,19 @@ from repro_torch.core.binarize_lib import SDC_NEG_INF, sdc_affine_epilogue, unpa
 from repro_torch.device import full_fp32_matmul
 from repro_torch.kernels import _build
 from repro_torch.kernels.sdc.sdc import (
+    _SORT_BYTES,
     _THREADS,
     K_MAX,
+    KERNEL_DIMS,
     affine_terms,
     cap_for,
     check_k,
     kernel_dim,
     kernel_operands,
     merge_running_topk,
+    query_chunk,
+    sdc_scores,
+    select_topk,
     units_per_block,
 )
 
@@ -115,7 +125,9 @@ def sdc_gather_topk(q_codes, lists_codes, lists_inv_norm, lists_ids, probes, *,
     Returns:
       (scores [Q, k], doc ids [Q, k]); empty slots are (SDC_NEG_INF, -1).
       CUDA tensors run the kernel (``sdc_gather_topk.launches`` counts its
-      launches; k at most ``K_MAX``), CPU tensors the plain version (any k).
+      launches), or for k above ``K_MAX`` or a code dim above 256
+      ``unfused_gather_topk`` (``sdc_scores.launches`` counts it); CPU
+      tensors the plain version.
     """
     _check_inputs(q_codes, lists_codes, lists_inv_norm, lists_ids, probes, k, packed, cand_mask)
     args = (q_codes, lists_codes, lists_inv_norm, lists_ids, probes)
@@ -124,6 +136,9 @@ def sdc_gather_topk(q_codes, lists_codes, lists_inv_norm, lists_ids, probes, *,
                                      cand_mask=cand_mask)
     if q_codes.device.type != "cuda":
         raise ValueError(f"no SDC gather kernel for device {q_codes.device}")
+    if k > K_MAX or q_codes.shape[1] > KERNEL_DIMS[-1]:
+        return unfused_gather_topk(*args, n_levels=n_levels, k=k, packed=packed,
+                                   cand_mask=cand_mask)
     return _launch(*args, n_levels=n_levels, k=k, packed=packed, cand_mask=cand_mask)
 
 
@@ -157,8 +172,6 @@ def _launch(q, lists, inv, ids, probes, *, n_levels, k, packed, cand_mask):
     Q, D = q.shape
     nlist, L = ids.shape
     nprobe = probes.shape[1]
-    if k > K_MAX:
-        raise ValueError(f"the CUDA gather takes k in [1, {K_MAX}], got {k}")
     if nprobe * L >= 2**31:
         raise ValueError(f"nprobe * L = {nprobe * L} slots exceed the kernel's 31-bit slot ids")
     for name, t in (("lists_codes", lists), ("lists_inv_norm", inv), ("lists_ids", ids)):
@@ -242,6 +255,67 @@ def _lib() -> ctypes.CDLL:
     lib.gather_topk_error_string.argtypes = [I]
     lib.gather_topk_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# ---------------------------------------------------------------------------
+# The unfused route: the score matrix of every list slot, then a selection.
+# ---------------------------------------------------------------------------
+
+
+def select_probed_topk(scores, probes, lists_inv_norm, lists_ids, *, k: int, cand_mask=None):
+    """The gather's top-k from the scores of every list slot.
+
+    ``scores`` [Q, nlist * L] holds query q's score of list c's position
+    pos at column ``c * L + pos``. Each query's probed slots are taken in
+    slot order ``p * L + pos`` (probes clamped into range); a slot whose
+    ``cand_mask`` is not > 0, whose id is < 0 or whose inverse norm is not
+    > 0 scores SDC_NEG_INF; a stable descending sort (``select_topk``)
+    keeps the best k, ties going to the earlier slot as in the kernel's
+    keys; slots map to doc ids through ``lists_ids``, and every slot
+    scoring SDC_NEG_INF to -1. Plain tensor code, on any device.
+    """
+    Q = scores.shape[0]
+    nlist, L = lists_ids.shape
+    pc = probes.to(torch.int64).clamp(0, nlist - 1)
+    cols = (pc[:, :, None] * L + torch.arange(L, device=scores.device)).reshape(Q, -1)
+    live = (lists_inv_norm[pc] > 0) & (lists_ids[pc] >= 0)
+    if cand_mask is not None:
+        live &= cand_mask > 0
+    picked = torch.where(live.reshape(Q, -1), torch.gather(scores, 1, cols), SDC_NEG_INF)
+    vals, slots = select_topk(picked, k)
+    ids = lists_ids.reshape(-1)[torch.gather(cols, 1, slots.clamp(min=0).to(torch.int64))]
+    return vals, torch.where(slots >= 0, ids, -1)
+
+
+def unfused_gather_topk(q_codes, lists_codes, lists_inv_norm, lists_ids, probes, *,
+                        n_levels: int, k: int, packed: bool = False, cand_mask=None):
+    """The gather search through ``sdc_scores`` and ``select_probed_topk``.
+
+    Same contract and bits as ``sdc_gather_topk``, any k and code dim: a
+    chunk of queries at a time (``sdc.query_chunk``), ``sdc_scores``
+    scores the chunk against every slot of every list ([nlist * L] rows,
+    the lists' codes and norms viewed flat), then ``select_probed_topk``
+    selects. On CUDA tensors the score matrix is the kernel's.
+    """
+    Q = q_codes.shape[0]
+    nlist, L = lists_ids.shape
+    nprobe = probes.shape[1]
+    dev = q_codes.device
+    if Q == 0 or nprobe == 0 or L == 0:
+        return (torch.full((Q, k), SDC_NEG_INF, device=dev),
+                torch.full((Q, k), -1, dtype=torch.int32, device=dev))
+    codes = lists_codes.reshape(nlist * L, -1)
+    inv = lists_inv_norm.reshape(-1)
+    per_query = 4 * nlist * L + max(nprobe * L, k) * (_SORT_BYTES + 16)
+    qc = query_chunk(dev, Q, per_query)
+    parts = []
+    for s in range(0, Q, qc):
+        scores = sdc_scores(q_codes[s:s + qc], codes, inv, n_levels=n_levels, packed=packed)
+        mask = None if cand_mask is None else cand_mask[s:s + qc]
+        parts.append(select_probed_topk(scores, probes[s:s + qc], lists_inv_norm, lists_ids,
+                                        k=k, cand_mask=mask))
+        del scores
+    return torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from repro_torch.kernels.sdc.sdc import (  # noqa: F401  (select_topk: public he
     sdc_topk,
     sdc_topk_torch,
     select_topk,
+    unfused_topk,
 )
 
 NEG_INF = SDC_NEG_INF
@@ -74,7 +75,8 @@ def sdc_search(
       block_q, block_n: the reference's tile shapes; the kernels size their
         own grids, so they change nothing here (checked, then unused).
       fused: the fused scan + top-k kernel; False writes the [Q, N] score
-        matrix (``sdc_scores``) and selects from it.
+        matrix (``sdc_scores``) and selects from it, a chunk of queries at
+        a time (``sdc.unfused_topk``).
 
     Returns:
       (scores [Q, k], indices [Q, k]); slots with no valid candidate
@@ -90,11 +92,11 @@ def sdc_search(
 
 def _search(topk_fn, scores_fn, q_codes, d_codes, d_inv_norm, *, n_levels, k, packed, fused):
     """The fused top-k ``topk_fn``, or with ``fused=False`` the score matrix
-    of ``scores_fn`` and ``select_topk`` of it."""
+    of ``scores_fn`` and ``select_topk`` of it (``unfused_topk``)."""
     if fused:
         return topk_fn(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k, packed=packed)
-    return select_topk(scores_fn(q_codes, d_codes, d_inv_norm, n_levels=n_levels,
-                                 packed=packed), k)
+    return unfused_topk(scores_fn, q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
+                        packed=packed)
 
 
 def sdc_search_torch(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int,

@@ -19,15 +19,16 @@ slice is read from HBM about once. A round stages 256 rows with
 top-k of its slice in the selector of ``csrc/sdc_common.cuh``, and a
 second kernel merges the slices. The source says more.
 
-The kernels are built for code dims 32, 64, 128 and 256
+The fused kernel is built for code dims 32, 64, 128 and 256
 (``KERNEL_DIMS``). Any other dim up to 256 runs at the next of them, its
 codes padded with zeros (a code of 0 adds nothing to a product or a code
 sum, and the epilogue keeps the real dim), which copies the corpus once
-per call. A dim above 256 raises on the card. ``sdc_topk`` on the card
-takes k up to ``K_MAX`` in the fused kernel; a larger k runs the
-reference's unfused route, the ``sdc_scores`` kernel and a stable sort
-(``select_topk``), chosen on k before any launch and counted by
-``sdc_scores.launches``. The plain versions take any k.
+per call. ``sdc_topk`` on the card takes k up to ``K_MAX`` and code dims
+up to 256 in the fused kernel; a larger k or dim runs the reference's
+unfused route (``unfused_topk``: the ``sdc_scores`` kernel and a stable
+sort, ``select_topk``, a chunk of queries at a time), chosen before any
+launch and counted by ``sdc_scores.launches``. The plain versions take
+any k and dim.
 
 Both versions return what the reference's ``ops.sdc_search`` returns:
 ``(scores [Q, k] f32, ids [Q, k] int32)``, best first, ties toward the
@@ -36,7 +37,11 @@ lower id, and ``(SDC_NEG_INF, -1)`` in every slot without a candidate
 
 ``sdc_scores`` (kernel ``csrc/sdc_scores.cu``, plain version
 ``sdc_scores_torch``) writes the whole [Q, N] score matrix instead, for
-the unfused search and the tests; it dispatches the same way.
+the unfused routes and the tests; it dispatches the same way, and its
+kernel takes any code dim (padded with zero codes to a multiple of 32).
+On the card the matrix's rows are padded to a multiple of 32 scores, so
+that every row starts on a 128-byte line: it is a view of its first N
+columns, contiguous only where N is a multiple of 32.
 """
 
 from __future__ import annotations
@@ -59,18 +64,27 @@ from repro_torch.kernels.sdc.ref import code_dot
 # Largest k the fused kernel takes: a query's candidate buffer holds
 # max(64, next_pow2(2k)) 64-bit keys in shared memory.
 K_MAX = 4096
-# Code dims the kernels are instantiated for; other dims up to the last
-# are padded to the next of them.
+# Code dims the fused kernels are instantiated for; other dims up to the
+# last are padded to the next of them, wider ones take the unfused route.
 KERNEL_DIMS = (32, 64, 128, 256)
+SCORES_DIM_STEP = 32  # sdc_scores.cu pads the code dim to a multiple of the mma's K
+SCORES_ROW_STEP = 32  # sdc_scores.cu: the score matrix's rows padded to 128 bytes
 
 _THREADS = 256  # documents per round, as in the source
-_SCORES_QUERIES_PER_BLOCK = 64  # sdc_scores.cu: every query of a chunk against a row
+_SCORES_QUERIES_PER_BLOCK = 64  # sdc_scores.cu: the most queries a block holds (kMaxQueries)
+_SCORES_BLOCKS_PER_SM = 2  # sdc_scores.cu: blocks an SM its shared memory is sized for
 _TOPK_QUERIES_PER_BLOCK = 16  # sdc_topk.cu: the most queries a scan block holds
 _TOPK_BLOCKS_PER_SM = 3  # sdc_topk.cu: the scan's __launch_bounds__ minimum (kMinBlocks)
 # Hopper's shared memory: 228 KB an SM, of which it keeps 1 KB for each
 # block it runs (so one block may take 227 KB).
 SMEM_SM, SMEM_RESERVED = 228 * 1024, 1024
 _PLAIN_CHUNK = 1 << 18
+# The unfused routes hold a [Qc, n] score matrix and sort it: a chunk of
+# queries takes at most this share of the device memory that is free, at
+# _SORT_BYTES bytes a score (the score, its sorted copy, the sort's int64
+# index and its scratch).
+_UNFUSED_MEMORY_SHARE = 0.5
+_SORT_BYTES = 24
 
 _SOURCE, _SCORES_SOURCE = _build.SOURCES[0], _build.SOURCES[2]
 
@@ -109,8 +123,8 @@ def sdc_topk(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int, packed: boo
     uint8 [N, D//2] when ``packed``; ``d_inv_norm`` [N] f32, where a
     value that is not > 0 excludes its document. CUDA tensors run the
     kernel (``sdc_topk.launches`` counts its launches), CPU tensors the
-    plain version. On CUDA tensors a k above ``K_MAX`` runs the
-    ``sdc_scores`` kernel and ``select_topk`` instead (the same bits;
+    plain version. On CUDA tensors a k above ``K_MAX`` or a code dim
+    above 256 runs ``unfused_topk`` instead (the same bits;
     ``sdc_scores.launches`` counts it), and a code dim that is not in
     ``KERNEL_DIMS`` is padded with zeros, a copy of the corpus.
     """
@@ -121,9 +135,9 @@ def sdc_topk(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int, packed: boo
                               packed=packed)
     if q_codes.device.type != "cuda":
         raise ValueError(f"no SDC kernel for device {q_codes.device}")
-    if k > K_MAX:
-        return select_topk(sdc_scores(q_codes, d_codes, d_inv_norm, n_levels=n_levels,
-                                      packed=packed), k)
+    if k > K_MAX or q_codes.shape[1] > KERNEL_DIMS[-1]:
+        return unfused_topk(sdc_scores, q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
+                            packed=packed)
     return _launch(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k, packed=packed)
 
 
@@ -142,15 +156,21 @@ def affine_terms(n_levels: int, D: int):
 
 
 def kernel_dim(D: int) -> int:
-    """The code dim a kernel runs a dim-D search at: the least of ``KERNEL_DIMS`` >= D."""
+    """The code dim a fused kernel runs a dim-D search at: the least of ``KERNEL_DIMS`` >= D."""
     for width in KERNEL_DIMS:
         if D <= width:
             return width
     raise ValueError(
-        f"the CUDA SDC kernels take code dims up to {KERNEL_DIMS[-1]}, got {D}: a 256-row "
+        f"the fused CUDA SDC scans take code dims up to {KERNEL_DIMS[-1]}, got {D}: a 256-row "
         f"tile of wider rows leaves shared memory for one block an SM at D = 512 (the "
-        f"scans are shaped for three) and for none past about D = 800"
+        f"scans are shaped for three) and for none past about D = 800; wider dims take "
+        f"the unfused route"
     )
+
+
+def scores_dim(D: int) -> int:
+    """The code dim the ``sdc_scores`` kernel runs a dim-D matrix at: D rounded up to 32."""
+    return -(-D // SCORES_DIM_STEP) * SCORES_DIM_STEP
 
 
 def _pad_codes(codes: torch.Tensor, width: int) -> torch.Tensor:
@@ -160,18 +180,18 @@ def _pad_codes(codes: torch.Tensor, width: int) -> torch.Tensor:
     return torch.nn.functional.pad(codes, (0, width - codes.shape[-1]))
 
 
-def kernel_operands(q: torch.Tensor, codes: torch.Tensor, packed: bool):
+def kernel_operands(q: torch.Tensor, codes: torch.Tensor, packed: bool, width: int | None = None):
     """Queries and corpus as the kernels read them: (qa, qb, codes).
 
     Query rows are int8, 4-byte aligned; packed corpora are scored against
     the even and odd dims split beforehand, otherwise ``qa`` and ``qb`` are
-    both the queries. A code dim that is no kernel width is padded with
-    zero codes to ``kernel_dim(D)``: query rows and corpus rows alike (for
-    a packed corpus, zero bytes, two zero codes each), so the corpus is
-    copied. Raises on a code dim above the widest kernel.
+    both the queries. A code dim below ``width`` (default ``kernel_dim(D)``,
+    which raises above the widest fused kernel) is padded with zero codes
+    to it: query rows and corpus rows alike (for a packed corpus, zero
+    bytes, two zero codes each), so the corpus is copied.
     """
     D = q.shape[1]
-    width = kernel_dim(D)
+    width = kernel_dim(D) if width is None else width
     if packed:
         qa, qb = (_pad_codes(h, width // 2).contiguous() for h in (q[:, 0::2], q[:, 1::2]))
         return qa, qb, _pad_codes(codes, width // 2)
@@ -287,9 +307,10 @@ def _lib() -> ctypes.CDLL:
 def sdc_scores(q_codes, d_codes, d_inv_norm, *, n_levels: int, packed: bool = False):
     """SDC score matrix [Q, N] f32 = <v(q), v(d)> / ||v(d)||.
 
-    Same inputs as ``sdc_topk``; a document whose inverse norm is not
-    > 0 scores SDC_NEG_INF. CUDA tensors run the kernel
-    (``sdc_scores.launches`` counts its launches), CPU tensors the plain
+    Same inputs as ``sdc_topk``, any code dim; a document whose inverse
+    norm is not > 0 scores SDC_NEG_INF. CUDA tensors run the kernel
+    (``sdc_scores.launches`` counts its launches), whose result is a view
+    of rows padded to a multiple of 32 scores; CPU tensors the plain
     version.
     """
     _check_inputs(q_codes, d_codes, d_inv_norm, packed)
@@ -300,13 +321,14 @@ def sdc_scores(q_codes, d_codes, d_inv_norm, *, n_levels: int, packed: bool = Fa
     Q, D = q_codes.shape
     N = d_codes.shape[0]
     _check_corpus(d_codes, d_inv_norm)
-    qa, qb, d_codes = kernel_operands(q_codes, d_codes, packed)
-    W = kernel_dim(D)
-    out = torch.empty((Q, N), dtype=torch.float32, device=q_codes.device)
+    W = scores_dim(D)
+    qa, qb, d_codes = kernel_operands(q_codes, d_codes, packed, W)
+    ldo = -(-max(N, 1) // SCORES_ROW_STEP) * SCORES_ROW_STEP
+    out = torch.empty((Q, ldo), dtype=torch.float32, device=q_codes.device)[:, :N]
     if Q == 0 or N == 0:
         return out
     lib = _scores_lib()
-    qc = min(Q, _SCORES_QUERIES_PER_BLOCK)
+    qc = min(Q, _scores_queries_per_block(W, packed))
     with torch.cuda.device(q_codes.device):
         per_sm = lib.sdc_scores_blocks_per_sm(W, int(packed), qc)
     if per_sm <= 0:
@@ -318,7 +340,8 @@ def sdc_scores(q_codes, d_codes, d_inv_norm, *, n_levels: int, packed: bool = Fa
         stream = torch.cuda.current_stream(q_codes.device).cuda_stream
         err = lib.sdc_scores_launch(
             qa.data_ptr(), qb.data_ptr(), d_codes.data_ptr(), d_inv_norm.data_ptr(),
-            out.data_ptr(), Q, N, W, int(packed), qc, n_slices, slice_docs, c1, c2, c3, stream,
+            out.data_ptr(), Q, N, ldo, W, int(packed), qc, n_slices, slice_docs, c1, c2, c3,
+            stream,
         )
     if err != 0:
         msg = lib.sdc_scores_error_string(err).decode()
@@ -331,17 +354,55 @@ sdc_scores.launches = 0
 
 
 @functools.cache
+def _scores_queries_per_block(D: int, packed: bool) -> int:
+    """Queries an ``sdc_scores`` block holds: ``units_per_block`` of the kernel's shape."""
+    lib = _scores_lib()
+    qc = units_per_block(lambda n: lib.sdc_scores_smem(D, int(packed), n),
+                         _SCORES_QUERIES_PER_BLOCK, _SCORES_BLOCKS_PER_SM)
+    if qc == 0:
+        raise RuntimeError(f"sdc_scores: no block fits in shared memory (D={D})")
+    return qc
+
+
+@functools.cache
 def _scores_lib() -> ctypes.CDLL:
     """The score-matrix kernel library (built on first use), its C functions declared."""
     lib = _build.load(_SCORES_SOURCE)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sdc_scores_launch.argtypes = [P] * 5 + [I] * 7 + [F] * 3 + [P]
+    lib.sdc_scores_launch.argtypes = [P] * 5 + [I] * 8 + [F] * 3 + [P]
     lib.sdc_scores_launch.restype = I
+    lib.sdc_scores_smem.argtypes = [I, I, I]
+    lib.sdc_scores_smem.restype = ctypes.c_size_t
     lib.sdc_scores_blocks_per_sm.argtypes = [I, I, I]
     lib.sdc_scores_blocks_per_sm.restype = I
     lib.sdc_scores_error_string.argtypes = [I]
     lib.sdc_scores_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def query_chunk(device, Q: int, bytes_per_query: int) -> int:
+    """Queries an unfused route scores at once: all of them off the card; on
+    it, as many as keep ``bytes_per_query`` each within
+    ``_UNFUSED_MEMORY_SHARE`` of the free memory (the driver's free memory
+    and the caching allocator's unused blocks), and at least one."""
+    if device.type != "cuda":
+        return max(Q, 1)
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return max(1, min(Q, int(free * _UNFUSED_MEMORY_SHARE) // max(1, bytes_per_query)))
+
+
+def unfused_topk(scores_fn, q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int,
+                 packed: bool = False):
+    """``select_topk`` of ``scores_fn``'s [Q, N] matrix (``sdc_scores`` or its
+    plain version), a chunk of queries at a time (``query_chunk``): the
+    reference's unfused search, in bounded memory."""
+    Q, N = q_codes.shape[0], d_codes.shape[0]
+    qc = query_chunk(q_codes.device, Q, max(N, k) * _SORT_BYTES)
+    parts = [select_topk(scores_fn(q_codes[s:s + qc], d_codes, d_inv_norm, n_levels=n_levels,
+                                   packed=packed), k)
+             for s in range(0, max(Q, 1), qc)]
+    return torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
 
 
 # ---------------------------------------------------------------------------

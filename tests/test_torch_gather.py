@@ -10,9 +10,14 @@ Pallas kernel reports the real ids of masked slots beside their
 {1, 2, 4}, int8 and nibble-packed lists, padding, probes out of range on
 both sides, ``k > nprobe * L``, a mask leaving fewer than k live slots,
 everything masked, and equal scores in two probed lists where the later
-list holds the lower id (the order is by slot, not by id). The CUDA
-kernel is held against the plain version by the ``gpu`` tests (on the
-card only) and by ``chip_smoke.py``.
+list holds the lower id (the order is by slot, not by id). The unfused
+route the card takes for k > ``K_MAX`` or a code dim above 256
+(``unfused_gather_topk``: the score matrix of every list slot, then
+``select_probed_topk``) runs here on the plain score matrix and must give
+the same bits as the plain version and the reference, with masks, ids of
+-1 inside the lists and ties across lists. The CUDA kernels are held
+against the plain version by the ``gpu`` tests (on the card only) and by
+``chip_smoke.py``.
 """
 
 import numpy as np
@@ -195,10 +200,11 @@ def test_largest_k_is_served():
     assert (i[:, NPROBE * L:] == -1).all()
 
 
-@pytest.mark.parametrize("D_", [8, 16])
+@pytest.mark.parametrize("D_", [8, 16, 264, 300])
 @pytest.mark.parametrize("packed", [False, True])
 def test_gather_matches_reference_past_k_max_off_kernel_dims(D_, packed):
-    # k = 5000 > K_MAX on CPU tensors, at code dims the card pads to 32
+    # k = 5000 > K_MAX on CPU tensors, at code dims the card pads to 32 and
+    # above the fused kernel's widest
     rng = np.random.default_rng(D_ + packed)
     nlist, L_, nprobe, k = 4, 2000, 3, 5000
     codes = rng.integers(0, 4, (nlist, L_, D_)).astype(np.int8)
@@ -215,6 +221,68 @@ def test_gather_matches_reference_past_k_max_off_kernel_dims(D_, packed):
     assert pv.shape == (2, k)
     assert np.array_equal(pv.view(np.uint32), xv.view(np.uint32))
     assert np.array_equal(pi, xi)
+    t = (torch.from_numpy(a) for a in (q, lc, inv, ids, probes))
+    uv, ui = PG.unfused_gather_topk(*t, **kw)
+    assert np.array_equal(uv.numpy(), pv) and np.array_equal(ui.numpy(), pi)
+
+
+def _unfused_inputs(seed, packed, D_=64):
+    """Lists for the unfused route past K_MAX: every list a copy of list 0
+    (ties across lists; later lists hold lower ids), padding, ids of -1
+    inside the lists, probes out of range and repeated."""
+    rng = np.random.default_rng(seed)
+    nlist, L_, nprobe = 6, 1500, 4
+    codes = np.repeat(rng.integers(0, 4, (1, L_, D_)).astype(np.int8), nlist, axis=0)
+    ids = ((nlist - 1 - np.arange(nlist))[:, None] * L_ + np.arange(L_)).astype(np.int32)
+    inv = np.array(RR.doc_inv_norms(jnp.asarray(codes.reshape(-1, D_)), 2)).reshape(nlist, L_)
+    inv[:, -9:] = 0.0
+    ids[:, -9:] = -1
+    ids[rng.random((nlist, L_)) < 0.1] = -1
+    q = rng.integers(0, 4, (3, D_)).astype(np.int8)
+    probes = np.array([[0, 5, 2, 2], [-1, 9, 3, 1], [4, 0, 1, 3]], np.int32)
+    lc = np.array(RB.pack_codes_nibbles(jnp.asarray(codes))) if packed else codes
+    return q, lc, inv, ids, probes
+
+
+@pytest.mark.parametrize("k", [PS.K_MAX + 1, 5000])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("packed", [False, True])
+def test_unfused_route_matches_plain_and_reference_past_k_max(k, masked, packed):
+    q, lc, inv, ids, probes = _unfused_inputs(k + 2 * masked + packed, packed)
+    mask = None
+    if masked:
+        mask = (np.random.default_rng(k).random((3, 4, 1500)) > 0.3).astype(np.float32)
+    kw = dict(n_levels=2, k=k, packed=packed)
+    t = [torch.from_numpy(a) for a in (q, lc, inv, ids, probes)]
+    m = None if mask is None else torch.from_numpy(mask)
+    before = PS.sdc_scores.launches
+    uv, ui = PG.unfused_gather_topk(*t, cand_mask=m, **kw)
+    assert PS.sdc_scores.launches == before  # the CPU path launches no kernel
+    pv, pi = PG.sdc_gather_topk_torch(*t, cand_mask=m, **kw)
+    assert torch.equal(uv, pv) and torch.equal(ui, pi)
+    xv, xi = _ref(RG.sdc_gather_topk_xla, q, lc, inv, ids, probes, mask, **kw)
+    assert np.array_equal(uv.numpy().view(np.uint32), xv.view(np.uint32))
+    assert np.array_equal(ui.numpy(), xi)
+    live = uv > SDC_NEG_INF / 2
+    assert (ui[~live] == -1).all() and not (ui[live] == -1).any()
+    # the selection alone, on the plain score matrix of every list slot
+    scores = PS.sdc_scores_torch(t[0], t[1].reshape(6 * 1500, -1), t[2].reshape(-1),
+                                 n_levels=2, packed=packed)
+    sv, si = PG.select_probed_topk(scores, t[4], t[2], t[3], k=k, cand_mask=m)
+    assert torch.equal(sv, pv) and torch.equal(si, pi)
+
+
+def test_select_probed_topk_ties_go_to_the_earlier_slot():
+    # one query, two probed lists of one document each, equal scores: the
+    # earlier probe column wins though the later list holds the lower id
+    scores = torch.tensor([[2.0, 2.0, 5.0]])  # list c's slot pos at column c * L + pos
+    ids = torch.tensor([[7], [2], [4]], dtype=torch.int32)
+    inv = torch.ones((3, 1))
+    v, i = PG.select_probed_topk(scores, torch.tensor([[0, 1]]), inv, ids, k=3)
+    assert torch.equal(v, torch.tensor([[2.0, 2.0, SDC_NEG_INF]])) and i.tolist() == [[7, 2, -1]]
+    v, i = PG.select_probed_topk(scores, torch.tensor([[1, 0]]), inv, ids, k=2,
+                                 cand_mask=torch.tensor([[[1.0], [0.0]]]))
+    assert torch.equal(v, torch.tensor([[2.0, SDC_NEG_INF]])) and i.tolist() == [[2, -1]]
 
 
 def _card():
@@ -247,7 +315,8 @@ def _card_lists(dev, gen, nlist, L_, D_, n_levels, Q_, nprobe, every=False, hole
 # nlist, L, D, Q, nprobe, k, every, holes: lengths that are no multiple of 16
 # or of the 256-row tile, 1 / 7 / 9 / 65 pairs on every list (65: several units
 # on one list), ids of -1 inside the lists, D = 256, k = K_MAX (one pair
-# per block), and code dims the wrapper pads.
+# per block), code dims the wrapper pads, and the unfused route: k = 4097
+# and 5000, and code dims 264, 300 and 512.
 CARD_CASES = [(16, 3001, 128, 37, 8, 10, False, False),
               (8, 17, 64, 5, 8, 100, False, False),
               (4, 20_000, 32, 64, 4, 1024, False, False),
@@ -259,7 +328,12 @@ CARD_CASES = [(16, 3001, 128, 37, 8, 10, False, False),
               (4, 3000, 128, 5, 2, PS.K_MAX, False, True),
               (4, 3000, 256, 5, 2, PS.K_MAX, True, False),
               (6, 999, 16, 7, 6, 10, True, True),  # D = 16, padded to 32
-              (8, 2001, 48, 9, 4, 33, False, False)]  # D = 48, padded to 64
+              (8, 2001, 48, 9, 4, 33, False, False),  # D = 48, padded to 64
+              (4, 3000, 128, 5, 2, PS.K_MAX + 1, False, True),
+              (6, 2000, 64, 9, 4, 5000, True, True),
+              (6, 999, 300, 7, 6, 10, True, True),
+              (8, 2001, 264, 9, 4, 33, False, False),
+              (4, 1500, 512, 5, 2, 10, False, True)]
 
 
 @pytest.mark.gpu
@@ -277,11 +351,13 @@ def test_kernel_matches_plain_on_card(variant, n_levels, nlist, L_, D_, Q_, npro
     mask = None
     if variant == "masked":
         mask = (torch.rand((Q_, nprobe, L_), generator=gen, device=dev) > 0.5).float()
-    before = PG.sdc_gather_topk.launches
+    fused = k <= PS.K_MAX and D_ <= 256  # else: sdc_scores and the selection
+    before = (PG.sdc_gather_topk.launches, PS.sdc_scores.launches)
     v, i = PG.sdc_gather_topk(q, lc, inv, ids, probes, n_levels=n_levels, k=k, packed=packed,
                               cand_mask=mask)
     torch.cuda.synchronize()
-    assert PG.sdc_gather_topk.launches == before + 1
+    assert (PG.sdc_gather_topk.launches, PS.sdc_scores.launches) == \
+        (before[0] + fused, before[1] + (not fused))
     pv, pi = PG.sdc_gather_topk_torch(q, lc, inv, ids, probes, n_levels=n_levels, k=k,
                                       packed=packed, cand_mask=mask)
     assert torch.equal(v, pv) and torch.equal(i, pi)
@@ -290,7 +366,9 @@ def test_kernel_matches_plain_on_card(variant, n_levels, nlist, L_, D_, Q_, npro
 @pytest.mark.gpu
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("Q_,N,D_,n_levels", [(37, 100_003, 128, 4), (130, 5_001, 64, 2),
-                                               (3, 7, 32, 1), (9, 3_001, 16, 4)])
+                                               (3, 7, 32, 1), (9, 3_001, 16, 4),
+                                               (64, 30_011, 128, 1), (17, 20_011, 264, 2),
+                                               (65, 10_007, 300, 4), (5, 4_099, 512, 1)])
 def test_scores_kernel_matches_plain_on_card(packed, Q_, N, D_, n_levels):
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(Q_ * N)
@@ -303,15 +381,23 @@ def test_scores_kernel_matches_plain_on_card(packed, Q_, N, D_, n_levels):
     s = PS.sdc_scores(q, dd, inv, n_levels=n_levels, packed=packed)
     torch.cuda.synchronize()
     assert PS.sdc_scores.launches == before + 1
+    assert s.shape == (Q_, N) and s.stride(0) % PS.SCORES_ROW_STEP == 0
     assert torch.equal(s, PS.sdc_scores_torch(q, dd, inv, n_levels=n_levels, packed=packed))
 
 
 @pytest.mark.gpu
-def test_kernel_refuses_k_past_k_max_on_card():
+@pytest.mark.parametrize("masked", [False, True])
+def test_k_past_k_max_takes_the_unfused_route_on_card(masked):
     dev = _card()
-    q, lc, inv, ids, probes, _, _ = _inputs("padded_out_of_range", 4, False)
+    q, lc, inv, ids, probes = _unfused_inputs(7, False)
+    mask = None
+    if masked:
+        mask = torch.from_numpy((np.random.default_rng(7).random((3, 4, 1500)) > 0.3)
+                                .astype(np.float32)).to(dev)
     args = [torch.from_numpy(a).to(dev) for a in (q, lc, inv, ids, probes)]
-    before = PG.sdc_gather_topk.launches
-    with pytest.raises(ValueError):
-        PG.sdc_gather_topk(*args, n_levels=4, k=PS.K_MAX + 1)
-    assert PG.sdc_gather_topk.launches == before
+    before = (PG.sdc_gather_topk.launches, PS.sdc_scores.launches)
+    v, i = PG.sdc_gather_topk(*args, n_levels=2, k=PS.K_MAX + 1, cand_mask=mask)
+    torch.cuda.synchronize()
+    assert (PG.sdc_gather_topk.launches, PS.sdc_scores.launches) == (before[0], before[1] + 1)
+    pv, pi = PG.sdc_gather_topk_torch(*args, n_levels=2, k=PS.K_MAX + 1, cand_mask=mask)
+    assert torch.equal(v, pv) and torch.equal(i, pi)

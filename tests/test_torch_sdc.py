@@ -8,9 +8,11 @@ codes, a corpus that is a multiple of no block, k > N, excluded
 documents and ties. The unfused search (``fused=False``: the score
 matrix of ``sdc_scores``, then a stable top-k) must give the same bits
 as the reference's unfused search and as the port's fused one. Code dims
-8 and 16 (which the card pads to 32) and k = 5000 (past the fused
+8 and 16 (which the card pads to 32), 264 and 300 (above the fused
+kernels' 256: the card's unfused route) and k = 5000 (past the fused
 kernel's ``K_MAX``) must give the reference's bits too, through
-``sdc_search`` and ``FlatSDC``: the tolerance is zero throughout. The
+``sdc_search``, ``FlatSDC``, ``unfused_topk`` and the score matrix: the
+tolerance is zero throughout. The
 CUDA kernels themselves are held against the plain versions by the
 ``gpu`` tests (on the card only) and by ``chip_smoke.py``.
 """
@@ -182,8 +184,10 @@ def test_largest_k_is_served():
     assert (i[:, dd.shape[0]:] == -1).all()
 
 
-# (D, Q, N, k): code dims off the kernel widths, and k past K_MAX.
-SHAPES = {"dim8": (8, 5, 203, 7), "dim16": (16, 6, 311, 12), "k5000": (16, 3, 6007, 5000)}
+# (D, Q, N, k): code dims off the kernel widths, above the fused kernels'
+# widest (264, 300), and k past K_MAX.
+SHAPES = {"dim8": (8, 5, 203, 7), "dim16": (16, 6, 311, 12), "k5000": (16, 3, 6007, 5000),
+          "dim264": (264, 4, 203, 9), "dim300": (300, 3, 211, 12)}
 
 
 def _shape_inputs(shape, n_levels, packed):
@@ -216,6 +220,42 @@ def test_search_matches_reference_off_kernel_dims_and_past_k_max(shape, packed):
                        inv_norm=torch.from_numpy(np.array(ref_index.inv_norm)),
                        n_levels=n_levels, packed=packed)
     _same(ref_index.search(jnp.asarray(q), k), index.search(torch.from_numpy(q), k))
+    # the route the card takes past K_MAX or above code dim 256, on the plain scores
+    _same(ref, PS.unfused_topk(PS.sdc_scores, *args, n_levels=n_levels, k=k, packed=packed))
+
+
+@pytest.mark.parametrize("D_", [264, 300])
+@pytest.mark.parametrize("packed", [False, True])
+def test_score_matrix_matches_reference_above_the_fused_dims(D_, packed):
+    rng = np.random.default_rng(D_ + packed)
+    q = rng.integers(0, 16, (4, D_)).astype(np.int8)
+    d = rng.integers(0, 16, (128, D_)).astype(np.int8)
+    inv = np.array(RR.doc_inv_norms(jnp.asarray(d), 4))
+    inv[::9] = 0.0
+    dd = np.array(RB.pack_codes_nibbles(jnp.asarray(d))) if packed else d
+    ref = RS.sdc_scores(jnp.asarray(q), jnp.asarray(dd), jnp.asarray(inv), n_levels=4,
+                        block_q=4, block_n=64, interpret=True, packed=packed)
+    got = PS.sdc_scores(torch.from_numpy(q), torch.from_numpy(dd), torch.from_numpy(inv),
+                        n_levels=4, packed=packed)
+    assert np.array_equal(np.asarray(ref).view(np.uint32), got.numpy().view(np.uint32))
+    assert (got.numpy()[:, inv == 0] == RB.SDC_NEG_INF).all()
+
+
+def test_scores_dim_pads_to_a_multiple_of_32():
+    assert [PS.scores_dim(D) for D in (1, 32, 33, 200, 256, 264, 300, 512)] == \
+        [32, 32, 64, 224, 256, 288, 320, 512]
+    q = torch.ones((2, 300), dtype=torch.int8)
+    qa, qb, dk = PS.kernel_operands(q, q[[1, 0, 1]], packed=False, width=PS.scores_dim(300))
+    assert qa.shape == (2, 320) and dk.shape == (3, 320) and not dk[:, 300:].any()
+
+
+def test_unfused_query_chunks_do_not_change_results(monkeypatch):
+    q, dd, inv, k = _inputs("ties", 4, True)
+    args = (torch.from_numpy(q), torch.from_numpy(dd), torch.from_numpy(inv))
+    whole = PS.unfused_topk(PS.sdc_scores, *args, n_levels=4, k=k, packed=True)
+    monkeypatch.setattr(PS, "query_chunk", lambda device, Q, per_query: 3)
+    part = PS.unfused_topk(PS.sdc_scores, *args, n_levels=4, k=k, packed=True)
+    assert torch.equal(whole[0], part[0]) and torch.equal(whole[1], part[1])
 
 
 def test_kernel_dim_pads_to_the_next_width():
@@ -247,14 +287,15 @@ def _card():
 
 # Q, N, D, k: query chunks of either block shape cut at 1, 15, 16, 17, 64 and
 # 65 queries, N a multiple of neither 128 nor 256, code dims the wrapper pads
-# (16, 48) beside 32 and 256, k = 1 and K_MAX, and k = 5000 (past K_MAX: the
-# sdc_scores kernel and a stable sort).
+# (16, 48) beside 32 and 256, k = 1 and K_MAX, and k = 5000 and code dims 264,
+# 300 and 512 (the unfused route: the sdc_scores kernel and a stable sort).
 CARD_CASES = [(37, 100_003, 128, 10), (5, 50, 64, 100), (64, 30_011, 128, 1024),
               (3, 900, 32, PS.K_MAX), (1, 10_007, 128, 10), (15, 10_007, 128, 10),
               (16, 33_001, 128, 10), (17, 33_001, 64, 10), (64, 50_003, 128, 10),
               (65, 50_003, 128, 10), (7, 20_011, 16, 10), (9, 20_011, 48, 33),
               (33, 20_011, 32, 10), (33, 20_011, 256, 10), (5, 3_001, 128, 1),
-              (3, 9_001, 128, PS.K_MAX), (3, 9_001, 16, 5000)]
+              (3, 9_001, 128, PS.K_MAX), (3, 9_001, 16, 5000), (9, 10_007, 264, 10),
+              (5, 4_099, 300, 33), (3, 3_001, 512, 10)]
 
 
 @pytest.mark.gpu
@@ -270,7 +311,7 @@ def test_kernel_matches_plain_on_card(packed, n_levels, Q, N, D, k):
     inv = doc_inv_norms(d, n_levels)
     inv[-N // 5:] = 0
     dd = pack_codes_nibbles(d) if packed else d
-    fused = k <= PS.K_MAX  # past K_MAX: sdc_scores and a stable sort
+    fused = k <= PS.K_MAX and D <= 256  # else: sdc_scores and a stable sort
     before = (PS.sdc_topk.launches, PS.sdc_scores.launches)
     v, i = PS.sdc_topk(q, dd, inv, n_levels=n_levels, k=k, packed=packed)
     torch.cuda.synchronize()
@@ -315,9 +356,15 @@ def test_kernel_matches_plain_with_interleaved_exclusions(packed, k, holes):
 
 
 @pytest.mark.gpu
-def test_kernel_raises_on_untaken_dim():
+def test_wide_dims_take_the_unfused_route_on_card():
     dev = _card()
-    q = torch.zeros((2, 264), dtype=torch.int8, device=dev)  # above the widest kernel
-    d = torch.zeros((10, 264), dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError):
-        PS.sdc_topk(q, d, torch.ones(10, device=dev), n_levels=4, k=3)
+    gen = torch.Generator(device=dev).manual_seed(264)
+    q = torch.randint(0, 16, (2, 264), generator=gen, device=dev).to(torch.int8)
+    d = torch.randint(0, 16, (10, 264), generator=gen, device=dev).to(torch.int8)
+    inv = doc_inv_norms(d, 4)
+    before = (PS.sdc_topk.launches, PS.sdc_scores.launches)
+    v, i = PS.sdc_topk(q, d, inv, n_levels=4, k=3)  # above the widest fused kernel
+    torch.cuda.synchronize()
+    assert (PS.sdc_topk.launches, PS.sdc_scores.launches) == (before[0], before[1] + 1)
+    pv, pi = PS.sdc_topk_torch(q, d, inv, n_levels=4, k=3)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
