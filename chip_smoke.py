@@ -13,7 +13,8 @@ that fails:
      in int8 and nibble-packed form, k > N, k = 1, 1024 and K_MAX, an
      all-excluded tail, duplicated documents (ties), Q not a multiple of
      any tile and cut at every query-chunk edge, N a multiple of neither
-     128 nor 256, code dims 16 and 48 (padded) beside 32 and 256; a flat
+     128 nor 256, code dims 16 and 48 (padded) beside 32 and 256, and
+     264, 300 and 512 (the unfused route, with excluded documents); a flat
      request at code dim 16 and a search for k = 5000 (sdc_scores and a
      stable sort) through FlatSDC;
   3. drives the flat serving path at the serving defaults (dim 256,
@@ -31,7 +32,11 @@ that fails:
      edge cases: padded lists, probes out of range, k > nprobe * L, masks
      leaving fewer than k or no live slots, equal scores across lists,
      lists of 17 and of 150,001 rows, k = 1024, Q a multiple of no tile,
-     and nprobe = nlist against sdc_topk over the same documents;
+     nprobe = nlist against sdc_topk over the same documents, and the
+     gather's unfused route (k = 4097 and 5000, code dims 264, 300 and
+     512) with the route checked by the launch counts; sdc_scores at code
+     dims up to 512; dot_interact at ragged B, F of 2, 5 and 40, and D of
+     13, 65, 300 and 1100;
   6. drives the IVF serving path over phase 3's codes: build_ivf on the
      card (nlist 64, 20 k-means iterations, seed 1), twice, checked
      identical, int8 and packed; 8 requests of 64 queries at nprobe 32
@@ -157,7 +162,7 @@ def edge_cases(device, gen) -> int:
         elif holes == "runs":
             inv[n % (2 * part) < part - part // 4] = 0
         dd = pack_codes_nibbles(d) if packed else d
-        fused = k <= sdc_mod.K_MAX  # past K_MAX: sdc_scores and a stable sort
+        fused = k <= sdc_mod.K_MAX and D <= 256  # else: sdc_scores and a stable sort
         before = (sdc_mod.sdc_topk.launches, sdc_mod.sdc_scores.launches)
         v, i = sdc_mod.sdc_topk(q, dd, inv, n_levels=nl, k=k, packed=packed)
         pv, pi = sdc_mod.sdc_topk_torch(q, dd, inv, n_levels=nl, k=k, packed=packed)
@@ -200,7 +205,14 @@ def edge_cases(device, gen) -> int:
     holes = [(k, h, p) for k in (10, 33) for h in ("alternate", "runs") for p in (False, True)]
     for k, h, p in holes:
         case(64, 200_003, 128, 4, k, p, holes=h)
-    return len(cases) + 5 + len(holes)
+    # code dims above the fused kernel's widest (the unfused route: sdc_scores
+    # and a stable sort), with excluded documents
+    wide = [(17, 20_011, D, 4, K, p) for D in (264, 300, 512) for p in (False, True)]
+    for c in wide:
+        case(*c, tail=777)
+    case(9, 20_011, 300, 2, 33, False, holes="alternate")
+    case(3, 9_001, 512, 4, 5000, True, tail=100)
+    return len(cases) + 5 + len(holes) + len(wide) + 2
 
 
 def padded_requests(device, gen) -> None:
@@ -270,13 +282,18 @@ def gather_edge_cases(device, gen) -> int:
         elif mask == "none":
             cand = torch.zeros((Q, nprobe, L), device=device)
         lc = pack_codes_nibbles(codes) if packed else codes
+        fused = k <= sdc_mod.K_MAX and D <= 256  # else: sdc_scores and the selection
+        before = (gather_mod.sdc_gather_topk.launches, sdc_mod.sdc_scores.launches)
         v, i = gather_mod.sdc_gather_topk(q, lc, inv, ids, probes, n_levels=nl, k=k,
                                           packed=packed, cand_mask=cand)
+        route = (gather_mod.sdc_gather_topk.launches - before[0],
+                 sdc_mod.sdc_scores.launches - before[1])
         pv, pi = gather_mod.sdc_gather_topk_torch(q, lc, inv, ids, probes, n_levels=nl, k=k,
                                                   packed=packed, cand_mask=cand)
         what = (f"Q={Q} nlist={nlist} L={L} D={D} n_levels={nl} k={k} nprobe={nprobe} "
                 f"packed={packed} mask={mask} ties={ties} holes={holes}")
         check(torch.equal(v, pv) and torch.equal(i, pi), f"gather kernel != plain: {what}")
+        check(route == ((1, 0) if fused else (0, 1)), f"gather: wrong kernel launched: {what}")
         live = v > -5e29
         check(bool((i[~live] == -1).all()), f"gather: empty slots not -1: {what}")
         if k > nprobe * L:
@@ -331,6 +348,22 @@ def gather_edge_cases(device, gen) -> int:
              holes=True),
         dict(Q=5, nlist=4, L=3000, D=256, nl=4, k=sdc_mod.K_MAX, nprobe=2, packed=True,
              mask="half"),
+        # the unfused route: k past K_MAX, with and without a mask, ids of -1
+        # inside the lists, ties across lists; code dims above 256
+        dict(Q=5, nlist=6, L=2000, D=128, nl=4, k=sdc_mod.K_MAX + 1, nprobe=4, packed=False,
+             holes=True),
+        dict(Q=5, nlist=6, L=2000, D=128, nl=4, k=sdc_mod.K_MAX + 1, nprobe=4, packed=True,
+             mask="half", holes=True),
+        dict(Q=7, nlist=6, L=2000, D=64, nl=2, k=5000, nprobe=4, packed=False, ties=True),
+        dict(Q=7, nlist=6, L=2000, D=64, nl=1, k=5000, nprobe=4, packed=True, mask="few",
+             holes=True),
+        dict(Q=9, nlist=6, L=999, D=264, nl=4, k=K, nprobe=6, packed=False, full=True,
+             holes=True),
+        dict(Q=9, nlist=6, L=999, D=264, nl=4, k=K, nprobe=6, packed=True, mask="half"),
+        dict(Q=33, nlist=8, L=2001, D=300, nl=2, k=33, nprobe=4, packed=False, holes=True),
+        dict(Q=33, nlist=8, L=2001, D=300, nl=2, k=33, nprobe=4, packed=True, ties=True),
+        dict(Q=5, nlist=4, L=1500, D=512, nl=4, k=K, nprobe=2, packed=False, mask="half"),
+        dict(Q=5, nlist=4, L=1500, D=512, nl=4, k=5000, nprobe=4, packed=True, holes=True),
     ]
     for c in cases:
         case(**c)
@@ -348,19 +381,51 @@ def scores_edge_cases(device, gen) -> int:
     cases = [(37, 100_003, 128, nl, p) for nl in (1, 2, 4) for p in (False, True)]
     cases += [(130, 5_001, 64, 2, True), (3, 7, 32, 1, False), (64, 1, 256, 4, True),
               (65, 30_011, 256, 4, False)]
+    # code dims above 256 (looped over in chunks of the kernel's staging)
+    cases += [(Q, N, D, nl, p) for Q, N, D, nl in ((17, 20_011, 264, 2), (65, 10_007, 300, 4),
+                                                    (5, 4_099, 512, 1)) for p in (False, True)]
     for Q, N, D, nl, packed in cases:
         q = torch.randint(0, 2**nl, (Q, D), generator=gen, device=device).to(torch.int8)
         d = torch.randint(0, 2**nl, (N, D), generator=gen, device=device).to(torch.int8)
         inv = doc_inv_norms(d, nl)
         inv[::7] = 0  # excluded documents
         dd = pack_codes_nibbles(d) if packed else d
+        before = sdc_mod.sdc_scores.launches
         s = sdc_mod.sdc_scores(q, dd, inv, n_levels=nl, packed=packed)
         ps = sdc_mod.sdc_scores_torch(q, dd, inv, n_levels=nl, packed=packed)
         what = f"Q={Q} N={N} D={D} n_levels={nl} packed={packed}"
+        check(sdc_mod.sdc_scores.launches == before + 1, f"sdc_scores did not launch: {what}")
         check(torch.equal(s, ps), f"sdc_scores kernel != plain: {what}")
         check(bool((s[:, ::7] == -1e30).all()), f"sdc_scores: excluded docs not -1e30: {what}")
         log(f"[scores-edge] ok {what}")
     return len(cases)
+
+
+def dot_interact_edge_cases(device, gen) -> int:
+    """dot_interact kernel vs plain version, exactly, at the edges of its
+    stages and tiles. Returns the case count."""
+    import torch
+
+    from repro_torch.kernels.dot_interact import kernel as di_mod
+    from repro_torch.kernels.dot_interact.ref import dot_interact_torch
+
+    # (B, F, D): B ragged against the 8-example stages and one example; F of
+    # 2, 5 and 40 (row blocks cut at the diagonal); D not a multiple of 4
+    # (13, 65: 4-byte copies, zero padding); D large enough that a stage
+    # holds 4, 2 or 1 examples (300, 600, 1100; B large enough that a wave of
+    # blocks still takes whole stages)
+    shapes = [(9, 2, 13), (17, 5, 65), (33, 40, 13), (1, 27, 64), (4099, 27, 64),
+              (1001, 27, 65), (130, 40, 64), (4097, 5, 13), (600, 27, 300), (300, 27, 600),
+              (2, 27, 1100)]
+    for B, F, D in shapes:
+        e = torch.randn((B, F, D), generator=gen, device=device)
+        before = di_mod.dot_interact.launches
+        got = di_mod.dot_interact(e)
+        what = f"B={B} F={F} D={D}"
+        check(di_mod.dot_interact.launches == before + 1, f"dot_interact did not launch: {what}")
+        check(torch.equal(got, dot_interact_torch(e)), f"dot_interact kernel != plain: {what}")
+        log(f"[dlrm-edge] ok dot_interact {what}")
+    return len(shapes)
 
 
 def serve_checked(tag, encode, search, batches, counter, cfg):
@@ -606,10 +671,13 @@ def main() -> None:
         kernel = "?"
         for line in lib.with_suffix(".log").read_text().splitlines():
             m = re.search(r"Compiling entry function '.*?((?:sdc|gather)_(?:scan|merge|scores)_kernel)"
-                          r"(?:ILi(\d+)ELb([01])E(?:Lb([01])E)?)?", line)
+                          r"(?:ILi(\d+)ELb([01])E(?:Lb([01])E)?|ILb([01])ELb([01])E)?", line)
             b = re.search(r"Compiling entry function '.*?(binary_dot_kernel)ILi(\d+)ELi(\d+)E"
                           r"|Compiling entry function '.*?(dot_interact_kernel)", line)
-            if m:
+            if m and m.group(5):  # sdc_scores: any D, packed or not, D <= 256 or above
+                kernel = (f"{m.group(1)}{' packed' if m.group(5) == '1' else ''} "
+                          f"{'D <= 256' if m.group(6) == '1' else 'D > 256'}")
+            elif m:
                 kernel = m.group(1) + (f" D={m.group(2)}{' packed' if m.group(3) == '1' else ''}"
                                        f"{' masked' if m.group(4) == '1' else ''}"
                                        if m.group(2) else "")
@@ -643,8 +711,9 @@ def main() -> None:
     t0 = time.perf_counter()
     n_gather = gather_edge_cases(device, gen)
     n_scores = scores_edge_cases(device, gen)
-    log(f"[gather-edge] {n_gather} gather and {n_scores} sdc_scores cases exactly equal to "
-        f"the plain versions ({time.perf_counter() - t0:.1f} s)")
+    n_dot = dot_interact_edge_cases(device, gen)
+    log(f"[gather-edge] {n_gather} gather, {n_scores} sdc_scores and {n_dot} dot_interact cases "
+        f"exactly equal to the plain versions ({time.perf_counter() - t0:.1f} s)")
 
     # -- 3. the main path at full width -----------------------------------
     t0 = time.perf_counter()

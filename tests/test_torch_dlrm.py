@@ -40,8 +40,11 @@ from repro_torch.models.recsys import embedding as PE  # noqa: E402
 from repro_torch.train.steps import dlrm_serve_step  # noqa: E402
 
 LOGIT_TOL = 1e-5
-# (B, F, D): dlrm-rm2's interaction at a ragged B, SMOKE's, and small shapes.
-SHAPES = [(37, 27, 64), (130, 27, 16), (5, 3, 7), (1, 2, 1), (19, 8, 33)]
+# (B, F, D): dlrm-rm2's interaction at a ragged B, SMOKE's, small shapes, and
+# the kernel's edges: F of 2, 5 and 40 (row blocks of 4 cut at the diagonal),
+# D of 13 and 65 (not a multiple of 4: zero padding).
+SHAPES = [(37, 27, 64), (130, 27, 16), (5, 3, 7), (1, 2, 1), (19, 8, 33), (9, 2, 13),
+          (17, 5, 65), (6, 40, 13), (33, 27, 13), (10, 40, 64)]
 
 
 def _emb(B, F, D, seed=0):
@@ -221,7 +224,10 @@ def _card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,F,D", [(512, 27, 64), (1001, 27, 64), (7, 3, 5), (33, 40, 33),
-                                   (5, 50, 8), (130, 27, 16)])
+                                   (5, 50, 8), (130, 27, 16), (9, 2, 13), (17, 5, 65),
+                                   (33, 40, 13), (1, 27, 64), (4099, 27, 64), (1001, 27, 65),
+                                   (4097, 5, 13), (600, 27, 300), (300, 27, 600),
+                                   (2, 27, 1100)])
 def test_kernel_matches_plain_on_card(B, F, D):
     dev = _card()
     e = torch.randn((B, F, D), generator=torch.Generator(device=dev).manual_seed(B), device=dev)
