@@ -64,7 +64,8 @@ that fails:
      kernel against its plain version on every batch, exactly, and the
      logits against forwards with the plain interaction (exactly) and with
      the Gram-matrix formulation (within float32 rounding); times the
-     kernel, its plain version, its bound and the torch.bmm yardstick.
+     kernel (and its device time by torch.profiler), its plain version,
+     its bound and the torch.bmm yardstick.
 
 Its last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``. The binarizer's weights are seeded and
@@ -134,6 +135,24 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> str:
+    """The device time per call of the kernels whose name holds ``kernel``,
+    by torch.profiler (so without the host's launch overhead), or "not
+    measured" where the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
+             for ev in prof.key_averages() if kernel in (ev.key or ""))
+    return f"{us / 1e3 / reps:.4f} ms" if us else "not measured"
 
 
 def edge_cases(device, gen) -> int:
@@ -615,6 +634,7 @@ def dlrm_phase(seed, device, name, smi):
             _, feats = model.features(batches[shape][0]["dense"], batches[shape][0]["sparse_ids"])
         reps = 20 if B > 4096 else 200
         ms = cuda_ms(lambda: di_mod.dot_interact(feats), reps)
+        dev_ms = device_ms(lambda: di_mod.dot_interact(feats), reps, "dot_interact_kernel")
         plain_ms = cuda_ms(lambda: dot_interact_torch(feats), 2 if B > 4096 else 20)
         library_ms = cuda_ms(lambda: torch.bmm(feats, feats.transpose(1, 2))[:, rows, cols],
                              reps)
@@ -629,7 +649,8 @@ def dlrm_phase(seed, device, name, smi):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=library_ms,
             )
         log(f"[time] dot_interact {shape} B={B} F={F} D={D} on {name} ({smi}): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, HBM bound {bytes_ms:.4f} ms "
+            f"{ms:.4f} ms (profiler device time {dev_ms}), plain {plain_ms:.3f} ms, HBM bound "
+            f"{bytes_ms:.4f} ms "
             f"({nbytes / 1e9:.3f} GB), fp32 op bound {ops_ms:.4f} ms, library (torch.bmm + "
             f"triangle) {library_ms:.4f} ms{'' if B > 4096 else '; input L2-resident'}")
     return row

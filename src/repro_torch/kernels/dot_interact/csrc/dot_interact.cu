@@ -20,10 +20,9 @@
 // suffice, the bytes being the bound.
 //
 // What bounds it: bytes. At dlrm-rm2's F = 27, D = 64 an example is 6,912
-// bytes in and 1,404 bytes out against 351 * 64 multiply-adds. The first
-// version gave each thread one pair and paid two 32-bit shared-memory
-// loads per pair and d, and the SM's one load a clock, not HBM, was its
-// limit. This one:
+// bytes in and 1,404 bytes out against 351 * 64 multiply-adds. A thread
+// per pair would pay two 32-bit shared-memory loads per pair and d, and
+// the SM's one load a clock, not HBM, would bound it. So:
 //
 //  - Persistent blocks, three to an SM at F = 27, D = 64, walk the batch
 //    in stages of E examples (8 where shared memory allows). A stage's rows
@@ -38,8 +37,8 @@
 //    diagonal (rows 4I..4I+3 against columns 4J..4J+3, J < I) and R on it
 //    (its 6 pairs i > j). A lane holds one tile of one example in
 //    registers and reads d four at a time: 8 16-byte loads feed 64
-//    multiply-adds (4 and 24 on the diagonal), a sixteenth of the first
-//    version's loads. Zero padding adds +0 products, which leave a sum
+//    multiply-adds (4 and 24 on the diagonal), a sixteenth of the loads of
+//    a thread per pair. Zero padding adds +0 products, which leave a sum
 //    unchanged.
 //  - Lane l takes example l % E of the stage and tile l / E of its warp's
 //    group, so the 8 lanes of a 16-byte load phase read one row of 8
@@ -139,7 +138,9 @@ __device__ __forceinline__ void tile_diagonal(const float* a, int Dp, float (&ac
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// At most 64 registers (4 blocks an SM by registers; shared memory allows
+// 3 at F = 27, D = 64): measured faster than the compiler's own choice.
+__global__ void __launch_bounds__(kThreads, 4)
 dot_interact_kernel(const float* __restrict__ emb,  // [B, F, D]
                     float* __restrict__ out,        // [B, P]
                     int B, int F, int D, int E, int vec) {

@@ -18,18 +18,23 @@
 //    multiple of 32 (the wrapper pads to one) runs as a loop over chunks,
 //    so a wide row never needs a whole tile of shared memory.
 //  - The code products are the exact int8 tensor-core tile product of
-//    tile_mma.cuh (mma.sync m16n8k32, s8 x s8 -> s32): warp w takes rows
-//    16w..16w+15 against every query, accumulating over the chunks in
-//    registers. Nibble-packed rows are split into their even and odd dims
-//    as they are loaded, against query rows whose even- and odd-dim words
-//    are interleaved in shared memory. Query row 0 is all ones, so the
-//    product also gives each row's code sum.
+//    tile_mma.cuh (mma.sync m16n8k32, s8 x s8 -> s32). The chunk's queries
+//    are split in two halves of up to 32, each behind an all-ones query
+//    row, so that the product also gives each row's code sum; warp w takes
+//    32 rows of the tile (two m16 tiles) against one half (five n8 tiles),
+//    accumulating over the chunks in registers, and holds that half's B
+//    fragments in registers for the whole scan where the code is one chunk
+//    (D <= 128): the warp loads only its rows from shared memory. Nibble-
+//    packed rows are split into their even and odd dims as they are loaded,
+//    against query rows whose even- and odd-dim words are interleaved in
+//    shared memory.
 //  - The epilogue runs on the accumulators in the reference's order
-//    (__fmul_rn / __fadd_rn; the file is also built -fmad=false) and
-//    writes the tile's scores [query][row] to shared memory; then a warp
-//    writes each query's kRows scores with 16-byte stores, whole 128-byte
-//    lines, since the wrapper pads the rows of the output to a multiple of
-//    32 scores (ldo) and tiles start at multiples of kRows.
+//    (__fmul_rn / __fadd_rn; the file is also built -fmad=false), with each
+//    lane's query code sums in registers, and writes the tile's scores
+//    [query][row] to shared memory; then a warp writes each query's kRows
+//    scores with 16-byte stores, whole 128-byte lines, since the wrapper
+//    pads the rows of the output to a multiple of 32 scores (ldo) and
+//    tiles start at multiples of kRows.
 //
 // Shared-memory rows are padded so that the fragment loads of a warp fall
 // in distinct banks: 64-bit loads of word pairs (int8 rows, query rows) at
@@ -44,25 +49,28 @@ using namespace sdc;
 
 namespace {
 
-constexpr int kRows = 128;                  // document rows per tile: 16 a warp
-constexpr int kMaxQueries = 64;             // queries a block holds
-constexpr int kNT = (kMaxQueries + 8) / 8;  // n8 tiles: the ones column and the queries
-constexpr int kChunkCodes = 128;            // codes of a row staged at once
-constexpr int kStages = 3;                  // staged chunks: one in use, the rest in flight
-constexpr int kOutStride = kRows + 4;       // floats per query row of the output tile
-constexpr int kMinBlocks = 2;               // blocks an SM (the wrapper's _SCORES_BLOCKS_PER_SM)
+constexpr int kRows = 128;             // document rows per tile
+constexpr int kMaxQueries = 64;        // queries a block holds: two halves of up to 32
+constexpr int kNT = 5;                 // n8 tiles of a half: its ones column and 32 queries
+constexpr int kHalfRows = 8 * kNT;     // query rows of a half in shared memory
+constexpr int kChunkCodes = 128;       // codes of a row staged at once
+constexpr int kKSteps = kChunkCodes / 32;  // mma k-steps of a chunk
+constexpr int kStages = 3;             // staged chunks: one in use, the rest in flight
+constexpr int kOutStride = kRows + 4;  // floats per query row of the output tile
+constexpr int kMinBlocks = 2;          // blocks an SM (the wrapper's _SCORES_BLOCKS_PER_SM)
 
-static_assert(kRows == 16 * (kThreads / 32), "a warp takes 16 rows");
+static_assert(kRows == 32 * (kThreads / 64), "a warp takes 32 rows against one query half");
 
 // Words of a shared-memory row of w words (w a multiple of 8) read as word
 // pairs: a stride of 8 (mod 16) words.
 __host__ __device__ constexpr int pad_pairs(int w) { return w + 8 + (w & 8); }
 
 // Byte offsets of a block's shared arrays for code dim D (a multiple of 32)
-// and qc queries: the query rows [qp][QS] words (qp = qc + 1 rounded up to
-// 8; row 0 all ones), their code sums [qp] float, kStages staged chunks of
-// [kRows][S] words with the tile's inverse norms [kRows] float, and the
-// output tile [qc][kOutStride] float. Every array starts 16-byte aligned.
+// and qc queries: the query rows of both halves [2 * kHalfRows][QS] words
+// (row 0 of a half all ones), their code sums [2 * kHalfRows] float,
+// kStages staged chunks of [kRows][S] words, each with the tile's inverse
+// norms [kRows] float, and the output tile [qc][kOutStride] float. Every
+// array starts 16-byte aligned.
 struct Layout {
   int QS, S;
   size_t qsum, stages, stage_bytes, invs, out, end;
@@ -70,11 +78,10 @@ struct Layout {
 
 __host__ __device__ inline Layout layout(int D, bool packed, int qc) {
   Layout l;
-  const int qp = (qc + 8) & ~7;
   l.QS = pad_pairs(D / 4);
   l.S = packed ? pad_words(kChunkCodes / 8) : pad_pairs(kChunkCodes / 4);
-  l.qsum = (size_t)qp * l.QS * sizeof(int);
-  l.stages = l.qsum + (((size_t)qp * sizeof(float) + 15) & ~(size_t)15);
+  l.qsum = (size_t)2 * kHalfRows * l.QS * sizeof(int);
+  l.stages = l.qsum + 2 * kHalfRows * sizeof(float);
   l.invs = (size_t)kRows * l.S * sizeof(unsigned);
   l.stage_bytes = l.invs + kRows * sizeof(float);
   l.out = l.stages + kStages * l.stage_bytes;
@@ -120,18 +127,21 @@ sdc_scores_kernel(const int* __restrict__ qa,        // int8 [Q, D]; packed: eve
   const int nk = (RB + CB - 1) / CB;                          // chunks per row
   const int q0 = blockIdx.x * qc;
   const int nq = min(qc, Q - q0);
-  const int nt = (nq + 8) / 8;  // n8 tiles in use
+  const int h0 = (nq + 1) / 2;  // queries of half 0; half 1 takes the rest
 
-  // Query rows: row 0 all ones, row j + 1 query q0 + j, zero past nq.
-  // Packed rows interleave the halves: word 2w is even-dim word w, 2w + 1
+  // Query rows: row 0 of each half all ones, row c > 0 of half h query
+  // h * h0 + c - 1 of the chunk, zero past the half's queries. Packed rows
+  // interleave the halves of the code: word 2w is even-dim word w, 2w + 1
   // odd-dim word w, so that one 64-bit load gives a k-step's two B words.
-  for (int i = threadIdx.x; i < nt * 8 * QW; i += kThreads) {
+  for (int i = threadIdx.x; i < 2 * kHalfRows * QW; i += kThreads) {
     const int r = i / QW, w = i - r * QW;
+    const int h = r / kHalfRows, c = r - h * kHalfRows;
+    const int j = h * h0 + c - 1;  // the chunk's query, for c > 0
     int v = 0x01010101;
-    if (r > 0) {
+    if (c > 0) {
       v = 0;
-      if (r <= nq) {
-        const size_t row = (size_t)(q0 + r - 1) * QW;
+      if (c <= (h ? nq - h0 : h0)) {
+        const size_t row = (size_t)(q0 + j) * QW;
         if constexpr (PACKED) v = (w & 1 ? qb : qa)[row / 2 + w / 2];
         else v = qa[row + w];
       }
@@ -139,10 +149,10 @@ sdc_scores_kernel(const int* __restrict__ qa,        // int8 [Q, D]; packed: eve
     qs[r * QS + w] = v;
   }
   __syncthreads();
-  for (int j = 1 + threadIdx.x; j <= nq; j += kThreads) {
+  for (int r = threadIdx.x; r < 2 * kHalfRows; r += kThreads) {
     int s = 0;
-    for (int w = 0; w < QW; ++w) s = __dp4a(qs[j * QS + w], 0x01010101, s);
-    qsum[j] = __int2float_rn(s);  // exact: below 2^24
+    for (int w = 0; w < QW; ++w) s = __dp4a(qs[r * QS + w], 0x01010101, s);
+    qsum[r] = __int2float_rn(s);  // exact: below 2^24
   }
   __syncthreads();
 
@@ -172,23 +182,47 @@ sdc_scores_kernel(const int* __restrict__ qa,        // int8 [Q, D]; packed: eve
     }
   };
 
+  // Warp w takes rows m0..m0+31 of each tile (two m16 tiles) against query
+  // half h: columns 8n + 2t, 8n + 2t + 1 of its n8 tiles, column 0 the
+  // rows' code sums, column c > 0 query h * h0 + c - 1.
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int m0 = 16 * warp;
+  const int h = warp / (kThreads / 64), m0 = 32 * (warp % (kThreads / 64));
+  const int hq = h ? nq - h0 : h0;  // queries of this warp's half
+  const int nt = (hq + 8) / 8;      // its n8 tiles in use
+  const int* hrows = qs + h * kHalfRows * QS;
+  float qv[kNT][2];  // the code sums of this lane's columns
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    qv[n][0] = qsum[h * kHalfRows + 8 * n + 2 * t];
+    qv[n][1] = qsum[h * kHalfRows + 8 * n + 2 * t + 1];
+  }
+  // The B fragments of the half's query rows for one chunk of the code, in
+  // registers: loaded once where the code is one chunk, else every step.
+  unsigned bq[kNT][kKSteps][2];
+  auto load_b = [&](int c) {
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        // A sum over K does not depend on K's order: lane t takes the same
+        // two words (int8) or the two nibble halves of the same word
+        // (packed) of its A row and its B column.
+        const int qw = PACKED ? 2 * (c * (kChunkCodes / 8) + 4 * ks + t)
+                              : c * (kChunkCodes / 4) + 8 * ks + 2 * t;
+        const uint2 b2 = *reinterpret_cast<const uint2*>(hrows + (8 * n + g) * QS + qw);
+        bq[n][ks][0] = b2.x;
+        bq[n][ks][1] = b2.y;
+      }
+    }
+  };
+  if (nk == 1) load_b(0);
+
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nsteps) stage(s);
     cp_async_commit();
   }
-  // This lane's columns 2t and 2t + 1 of each n8 tile: their query code sums.
-  float qv[kNT][2];
-#pragma unroll
-  for (int n = 0; n < kNT; ++n) {
-    if (n < nt) {
-      qv[n][0] = qsum[8 * n + 2 * t];
-      qv[n][1] = qsum[8 * n + 2 * t + 1];
-    }
-  }
-  int acc[kNT][4];
+  int acc[2][kNT][4];
   for (int step = 0; step < nsteps; ++step) {
     // This step's chunk has landed for every thread's copies, and every
     // thread is done with the chunk staged kStages - 1 steps ago and with
@@ -199,44 +233,41 @@ sdc_scores_kernel(const int* __restrict__ qa,        // int8 [Q, D]; packed: eve
     cp_async_commit();
 
     const int tile = step / nk, c = step - tile * nk;
+    if (nk > 1) load_b(c);
     if (c == 0) {
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
-        acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = kBias<NARROW>;
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+          acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = kBias<NARROW>;
     }
     const unsigned* rows = rows_of(step);
-    const unsigned* lo = rows + (m0 + g) * S;  // row g of the warp's 16
-    const unsigned* hi = lo + 8 * S;           // row g + 8
     const int ksteps = min(CB, RB - c * CB) / (PACKED ? 16 : 32);
 #pragma unroll
-    for (int ks = 0; ks < kChunkCodes / 32; ++ks) {
+    for (int ks = 0; ks < kKSteps; ++ks) {
       if (ks < ksteps) {
-        // A sum over K does not depend on K's order: lane t takes the
-        // same two words of its A row and of its B column.
-        unsigned a[4];
-        int qw;  // the k-step's first word in a query row
-        if constexpr (PACKED) {
-          const unsigned x = lo[4 * ks + t], y = hi[4 * ks + t];
-          a[0] = x & 0x0F0F0F0Fu;
-          a[1] = y & 0x0F0F0F0Fu;
-          a[2] = (x >> 4) & 0x0F0F0F0Fu;
-          a[3] = (y >> 4) & 0x0F0F0F0Fu;
-          qw = 2 * (c * (kChunkCodes / 8) + 4 * ks + t);
-        } else {
-          const uint2 x = *reinterpret_cast<const uint2*>(lo + 8 * ks + 2 * t);
-          const uint2 y = *reinterpret_cast<const uint2*>(hi + 8 * ks + 2 * t);
-          a[0] = x.x;
-          a[1] = y.x;
-          a[2] = x.y;
-          a[3] = y.y;
-          qw = c * (kChunkCodes / 4) + 8 * ks + 2 * t;
-        }
 #pragma unroll
-        for (int n = 0; n < kNT; ++n) {
-          if (n < nt) {
-            const uint2 b2 = *reinterpret_cast<const uint2*>(qs + (8 * n + g) * QS + qw);
-            const unsigned b[2] = {b2.x, b2.y};
-            mma_s8(acc[n], a, b);
+        for (int m = 0; m < 2; ++m) {
+          const unsigned* lo = rows + (m0 + 16 * m + g) * S;  // row g of the m16 tile
+          const unsigned* hi = lo + 8 * S;                    // row g + 8
+          unsigned a[4];
+          if constexpr (PACKED) {
+            const unsigned x = lo[4 * ks + t], y = hi[4 * ks + t];
+            a[0] = x & 0x0F0F0F0Fu;
+            a[1] = y & 0x0F0F0F0Fu;
+            a[2] = (x >> 4) & 0x0F0F0F0Fu;
+            a[3] = (y >> 4) & 0x0F0F0F0Fu;
+          } else {
+            const uint2 x = *reinterpret_cast<const uint2*>(lo + 8 * ks + 2 * t);
+            const uint2 y = *reinterpret_cast<const uint2*>(hi + 8 * ks + 2 * t);
+            a[0] = x.x;
+            a[1] = y.x;
+            a[2] = x.y;
+            a[3] = y.y;
+          }
+#pragma unroll
+          for (int n = 0; n < kNT; ++n) {
+            if (n < nt) mma_s8(acc[m][n], a, bq[n][ks]);
           }
         }
       }
@@ -244,27 +275,31 @@ sdc_scores_kernel(const int* __restrict__ qa,        // int8 [Q, D]; packed: eve
     if (c < nk - 1) continue;
 
     // Epilogue: c[0] (row g, column 2t), c[1] (g, 2t + 1), c[2] (g + 8, 2t),
-    // c[3] (g + 8, 2t + 1) of each n8 tile; column 0 is the row's code sum,
-    // column j + 1 query j.
+    // c[3] (g + 8, 2t + 1) of each m16 x n8 tile.
     const float* invs = reinterpret_cast<const float*>(
         reinterpret_cast<const char*>(rows) + lay.invs);
-    const float sd[2] = {to_float<NARROW>(__shfl_sync(0xFFFFFFFFu, acc[0][0], lane & ~3)),
-                         to_float<NARROW>(__shfl_sync(0xFFFFFFFFu, acc[0][2], lane & ~3))};
-    const float w[2] = {invs[m0 + g], invs[m0 + g + 8]};
 #pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      if (n < nt) {
+    for (int m = 0; m < 2; ++m) {
+      const int r = m0 + 16 * m + g;  // this lane's rows r and r + 8 of the tile
+      const float sd[2] = {to_float<NARROW>(__shfl_sync(0xFFFFFFFFu, acc[m][0][0], lane & ~3)),
+                           to_float<NARROW>(__shfl_sync(0xFFFFFFFFu, acc[m][0][2], lane & ~3))};
+      const float w[2] = {invs[r], invs[r + 8]};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * n + 2 * t + (e & 1), h = e >> 1;
-          if (col >= 1 && col <= nq) {
-            // the sum of two integer code sums below 2^24 is exact in float;
-            // no branch: the score of an excluded row is computed, then
-            // replaced
-            const float sums = __fadd_rn(qv[n][e & 1], sd[h]);
-            float s = __fadd_rn(__fmul_rn(c1, to_float<NARROW>(acc[n][e])), __fmul_rn(c2, sums));
-            s = __fmul_rn(__fadd_rn(s, c3), w[h]);
-            otile[(col - 1) * kOutStride + m0 + g + 8 * h] = w[h] > 0.f ? s : kNegInf;
+      for (int n = 0; n < kNT; ++n) {
+        if (n < nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * n + 2 * t + (e & 1), hh = e >> 1;
+            if (col >= 1 && col <= hq) {
+              // the sum of two integer code sums below 2^24 is exact in
+              // float; no branch: an excluded row's score is computed, then
+              // replaced
+              const float sums = __fadd_rn(qv[n][e & 1], sd[hh]);
+              float s = __fadd_rn(__fmul_rn(c1, to_float<NARROW>(acc[m][n][e])),
+                                  __fmul_rn(c2, sums));
+              s = __fmul_rn(__fadd_rn(s, c3), w[hh]);
+              otile[(h * h0 + col - 1) * kOutStride + r + 8 * hh] = w[hh] > 0.f ? s : kNegInf;
+            }
           }
         }
       }

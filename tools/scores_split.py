@@ -48,7 +48,8 @@ CUTS = {
                   "if (s == 1.2345f) out[(size_t)(q0 + qq) * N + n] = s;"),
     },
     "tile": {
-        "product": ("mma_s8(acc[n], a, b);", "acc[n][0] ^= (int)(a[0] ^ b[0]);"),
+        "product": ("mma_s8(acc[m][n], a, bq[n][ks]);",
+                    "acc[m][n][0] ^= (int)(a[0] ^ bq[n][ks][0]);"),
         "store": ("*reinterpret_cast<float4*>(out + (size_t)(q0 + j) * ldo + n) = v;",
                   "if (v.x == 1.2345f) *reinterpret_cast<float4*>(out + (size_t)(q0 + j) * ldo"
                   " + n) = v;"),
