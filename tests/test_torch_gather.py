@@ -272,6 +272,18 @@ def test_unfused_route_matches_plain_and_reference_past_k_max(k, masked, packed)
     assert torch.equal(sv, pv) and torch.equal(si, pi)
 
 
+def test_unfused_query_chunks_do_not_change_results(monkeypatch):
+    q, lc, inv, ids, probes = _unfused_inputs(11, True)
+    mask = torch.from_numpy((np.random.default_rng(11).random((3, 4, 1500)) > 0.5)
+                            .astype(np.float32))
+    t = [torch.from_numpy(a) for a in (q, lc, inv, ids, probes)]
+    kw = dict(n_levels=2, k=PS.K_MAX + 1, packed=True, cand_mask=mask)
+    whole = PG.unfused_gather_topk(*t, **kw)
+    monkeypatch.setattr(PG, "query_chunk", lambda device, Q, per_query: 2)
+    part = PG.unfused_gather_topk(*t, **kw)
+    assert torch.equal(whole[0], part[0]) and torch.equal(whole[1], part[1])
+
+
 def test_select_probed_topk_ties_go_to_the_earlier_slot():
     # one query, two probed lists of one document each, equal scores: the
     # earlier probe column wins though the later list holds the lower id
@@ -383,6 +395,25 @@ def test_scores_kernel_matches_plain_on_card(packed, Q_, N, D_, n_levels):
     assert PS.sdc_scores.launches == before + 1
     assert s.shape == (Q_, N) and s.stride(0) % PS.SCORES_ROW_STEP == 0
     assert torch.equal(s, PS.sdc_scores_torch(q, dd, inv, n_levels=n_levels, packed=packed))
+
+
+@pytest.mark.gpu
+def test_unfused_routes_chunk_queries_on_card(monkeypatch):
+    dev = _card()
+    q, lc, inv, ids, probes = _unfused_inputs(5, False)
+    args = [torch.from_numpy(a).to(dev) for a in (q, lc, inv, ids, probes)]
+    want = PG.sdc_gather_topk_torch(*args, n_levels=2, k=5000)
+    flat = (args[0], args[1].reshape(-1, args[1].shape[-1]), args[2].reshape(-1))
+    want_flat = PS.sdc_topk_torch(*flat, n_levels=2, k=5000)
+    for mod in (PG, PS):  # a chunk of one query at a time
+        monkeypatch.setattr(mod, "query_chunk", lambda device, Q, per_query: 1)
+    before = PS.sdc_scores.launches
+    got = PG.sdc_gather_topk(*args, n_levels=2, k=5000)
+    got_flat = PS.sdc_topk(*flat, n_levels=2, k=5000)
+    torch.cuda.synchronize()
+    assert PS.sdc_scores.launches == before + 2 * q.shape[0]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got_flat[0], want_flat[0]) and torch.equal(got_flat[1], want_flat[1])
 
 
 @pytest.mark.gpu
