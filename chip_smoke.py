@@ -45,6 +45,9 @@ that fails:
      launch counts zeroed just before and read just after every run; the
      budget 32 * 64 against nprobe 32; the unfused flat search
      (ops.sdc_search(fused=False)) of one request against the fused one;
+     the unfused routes at the CLI's batch, 1,024 queries at k = 5000 over
+     the flat index and the IVF lists (chunked by free memory), four of
+     them against the plain versions;
   7. times the new kernels, their plain versions, bounds and yardsticks at
      the main path's shapes, the IVF build and the IVF serving drivers,
      and holds the whole sdc_scores matrix at those shapes (int8 and
@@ -921,6 +924,45 @@ def main() -> None:
               f"unfused search (packed={packed}) differs from the fused one")
     log("[ivf] ops.sdc_search(fused=False) = fused, int8 and packed, one request of "
         f"{args.docs} documents")
+
+    # the unfused routes at the CLI's batch (it sends every query in one
+    # call): 1,024 queries at k = 5000 over the flat index and the IVF
+    # lists, a chunk of queries at a time sized from free memory; four of
+    # the queries held against the plain versions
+    q_big = torch.randint(0, 2**LEVELS, (1024, CODE_DIM), generator=gen,
+                          device=device).to(torch.int8)
+    rows = torch.tensor([0, 1, 1022, 1023], device=device)
+    probes_big = ivf.coarse_probes(q_big, ivfs[False].centroids, ivfs[False].centroid_codes,
+                                   nprobe=IVF_NPROBE, n_levels=LEVELS)
+    lists = (ivfs[False].lists_codes, ivfs[False].lists_inv_norm, ivfs[False].lists_ids)
+    for what, run, plain in (
+        ("flat sdc_topk",
+         lambda q: sdc_mod.sdc_topk(q, indexes[False].codes, indexes[False].inv_norm,
+                                    n_levels=LEVELS, k=5000),
+         lambda q: sdc_mod.sdc_topk_torch(q, indexes[False].codes, indexes[False].inv_norm,
+                                          n_levels=LEVELS, k=5000)),
+        ("IVF gather",
+         lambda q: gather_mod.sdc_gather_topk(q, *lists, probes_big, n_levels=LEVELS, k=5000),
+         lambda q: gather_mod.sdc_gather_topk_torch(q, *lists, probes_big[rows],
+                                                    n_levels=LEVELS, k=5000)),
+    ):
+        sdc_mod.sdc_scores.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bv, bi = run(q_big)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        chunks = sdc_mod.sdc_scores.launches
+        check(bv.shape == (1024, 5000) and bool(torch.isfinite(bv).all()),
+              f"{what} at Q = 1024, k = 5000: bad scores")
+        pv, pi = plain(q_big[rows])
+        check(torch.equal(bv[rows], pv) and torch.equal(bi[rows], pi),
+              f"{what} at Q = 1024, k = 5000 differs from the plain version")
+        log(f"[unfused] {what} Q=1024 k=5000 over {args.docs} documents: {chunks} query chunks "
+            f"(sdc_scores launches), {1e3 * dt:.1f} ms on {name} ({smi}), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; queries 0, 1, 1022, 1023 "
+            "equal to the plain version")
+    del q_big, probes_big, bv, bi
     idx_ivf = torch.cat([i for _, i in ivf_served["int8"]], 0)
     log(f"[ivf] recall@{K} against the positive doc (untrained weights, information only): "
         f"flat BEBR={recall_at_k(idx_b, gt.cpu()):.4f} IVF nprobe {IVF_NPROBE}="

@@ -278,7 +278,7 @@ def select_probed_topk(scores, probes, lists_inv_norm, lists_ids, *, k: int, can
     nlist, L = lists_ids.shape
     pc = probes.to(torch.int64).clamp(0, nlist - 1)
     cols = (pc[:, :, None] * L + torch.arange(L, device=scores.device)).reshape(Q, -1)
-    live = (lists_inv_norm[pc] > 0) & (lists_ids[pc] >= 0)
+    live = ((lists_inv_norm > 0) & (lists_ids >= 0))[pc]
     if cand_mask is not None:
         live &= cand_mask > 0
     picked = torch.where(live.reshape(Q, -1), torch.gather(scores, 1, cols), SDC_NEG_INF)
