@@ -82,9 +82,10 @@ _PLAIN_CHUNK = 1 << 18
 # The unfused routes hold a [Qc, n] score matrix and sort it: a chunk of
 # queries takes at most this share of the device memory that is free, at
 # _SORT_BYTES bytes a score (the score, its sorted copy, the sort's int64
-# index and its scratch).
-_UNFUSED_MEMORY_SHARE = 0.5
-_SORT_BYTES = 24
+# indices, their iota and the sort's double buffers, about 40 bytes: 24
+# ran out of memory on the card at 1,024 queries over ten million rows).
+_UNFUSED_MEMORY_SHARE = 0.4
+_SORT_BYTES = 48
 
 _SOURCE, _SCORES_SOURCE = _build.SOURCES[0], _build.SOURCES[2]
 
