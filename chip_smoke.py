@@ -60,6 +60,21 @@ that fails:
      plain version, exactly; times the kernel at n_levels 1, 2 and 4
      (planes of coarse_codes) beside sdc_scores, its plain version and
      its popcount bound;
+ 8b. drives bi-granular retrieval over phase 3's codes (a coarse scan
+     over the first C levels, each query's top-k' survivors reranked on
+     the full-level codes by the gather kernel): flat with the fine tier
+     on the card at (C, k') = (2, 40), (2, 160) and (3, 160), coarse tier
+     packed, 8 requests of 64 queries each through ServingPipeline,
+     checked against serve_sequential and the plain version, the
+     sdc_topk and sdc_gather_topk launch counts zeroed just before and
+     read just after every run; the fine tier in host memory at (2, 160),
+     bit-identical to the card's; k' = 5000 (the coarse scan's unfused
+     route, sdc_scores), 4 queries against the plain version; IVF at
+     (2, 160) (nlist 64, nprobe 32, seed 1); times the coarse scan beside
+     the full-level one, the rerank with its fine tier on the card and in
+     host memory (the grouping of pairs, the scan and merge kernels, the
+     host gather and the upload apart), its plain versions and byte
+     bounds, and the serving drivers;
   9. drives the dlrm-rm2 serving forward at full width (26 tables of
      1,048,576 x 64 float32, 6.98 GB, seeded): dlrm_serve_step on 3
      batches each at B = 512 and B = 262,144, with the dot_interact
@@ -111,6 +126,12 @@ REPLACES = {False: "src/repro/kernels/sdc/sdc.py:318", True: "src/repro/kernels/
 GATHER_REPLACES = "src/repro/kernels/sdc/gather.py:176"
 SCORES_REPLACES = {False: "src/repro/kernels/sdc/sdc.py:195", True: "src/repro/kernels/sdc/sdc.py:183"}
 PROBE_BUDGET = 2080  # not a multiple of nlist = 64: runs the masked kernel
+# bi-granular (coarse levels C, survivors k'): served from the device tier;
+# the first of RERANK_TIMED's shape also from the host tier, through IVF,
+# and timed; k' = 5000 (past K_MAX) takes the coarse scan's unfused route
+RERANK_CONFIGS = ((2, 40), (2, 160), (3, 160))
+RERANK_C, RERANK_KC = 2, 160
+RERANK_WIDE_KC, RERANK_WIDE_ROWS = 5000, 4
 
 
 def fail(msg: str) -> None:
@@ -140,10 +161,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> str:
-    """The device time per call of the kernels whose name holds ``kernel``,
-    by torch.profiler (so without the host's launch overhead), or "not
-    measured" where the profiler sees no device time."""
+def device_ms(fn, reps: int, *kernels: str):
+    """The device time per call of the kernels whose name holds each of
+    ``kernels``, by torch.profiler (so without the host's launch
+    overhead), or "not measured" where the profiler sees no device time;
+    one string, or a list of them for several names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -153,9 +175,25 @@ def device_ms(fn, reps: int, kernel: str) -> str:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
-             for ev in prof.key_averages() if kernel in (ev.key or ""))
-    return f"{us / 1e3 / reps:.4f} ms" if us else "not measured"
+    out = []
+    for kernel in kernels:
+        us = sum(getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
+                 for ev in prof.key_averages() if kernel in (ev.key or ""))
+        out.append(f"{us / 1e3 / reps:.4f} ms" if us else "not measured")
+    return out[0] if len(out) == 1 else out
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn`` on the host clock, each call ending in a device sync."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
 
 
 def edge_cases(device, gen) -> int:
@@ -450,30 +488,40 @@ def dot_interact_edge_cases(device, gen) -> int:
     return len(shapes)
 
 
-def serve_checked(tag, encode, search, batches, counter, cfg):
+def serve_checked(tag, encode, search, batches, cfg, counts):
     """Serve ``batches`` sequentially, then pipelined, each run with the
-    kernel's launch count zeroed just before and read just after; checks
-    that both runs launched once per request and agree. Returns (results,
-    launches, sequential ms/request, pipelined ms/request, stats)."""
+    launch counts zeroed just before and read just after; checks that
+    both runs launched each kernel of ``counts`` ((kernel, launches per
+    request) pairs) that many times per request, and agree. Returns
+    (results, the first kernel's launches in the pipelined run,
+    sequential ms/request, pipelined ms/request, stats)."""
     import torch
 
     from repro_torch.launch import serving
     from repro_torch.launch.serve import serve_pipelined
 
+    def zero():
+        for fn, _ in counts:
+            fn.launches = 0
+
+    def read(run):
+        for fn, n in counts:
+            check(fn.launches == n * len(batches),
+                  f"{tag}: the {run} run launched {fn.__name__} {fn.launches} times, "
+                  f"want {n * len(batches)}")
+
     serving.warmup(encode, search, batches)
-    counter.launches = 0
+    zero()
     t0 = time.perf_counter()
     seq = serving.serve_sequential(encode, search, batches)
     dt_seq = time.perf_counter() - t0
-    check(counter.launches == len(batches),
-          f"{tag}: sequential run launched the kernel {counter.launches} times")
-    counter.launches = 0
+    read("sequential")
+    zero()
     t0 = time.perf_counter()
     results, stats, _ = serve_pipelined(encode, search, batches, cfg)
     dt_pipe = time.perf_counter() - t0
-    launches = counter.launches
-    check(launches == len(batches),
-          f"{tag}: the served requests launched the kernel {launches} times, want {len(batches)}")
+    read("pipelined")
+    launches = counts[0][0].launches
     for (v, i), (sv, si) in zip(results, seq):
         check(v.shape == (SERVE_Q, K) and i.shape == (SERVE_Q, K), f"{tag}: bad shape")
         check(bool(torch.isfinite(v).all()), f"{tag}: non-finite scores")
@@ -509,7 +557,7 @@ def bitwise_phase(d_codes, encode, batches, cfg, device, name, smi, sm_clock_mhz
         return index.search(q, K)
 
     results, launches, seq_ms, pipe_ms, stats = serve_checked(
-        "bitwise", encode, search, batches, bd_mod.binary_dot, cfg)
+        "bitwise", encode, search, batches, cfg, [(bd_mod.binary_dot, 1)])
     for batch, (v, i) in zip(batches, results):
         check(bool(((i >= 0) & (i < N)).all()), "bitwise: ids out of range")
         qp = pack_code_planes(encode(batch), LEVELS)
@@ -563,6 +611,228 @@ def bitwise_phase(d_codes, encode, batches, cfg, device, name, smi, sm_clock_mhz
         f"ms/batch (scan stage idle {100 * stats['device_idle_frac']:.0f}%), "
         f"{len(batches)} requests of {SERVE_Q} on {name} ({smi})")
     return row
+
+
+def bigranular_phase(d_codes, encode, batches, cfg, device, name, smi, full_scan_ms):
+    """Phase 8b: bi-granular retrieval over the corpus codes (coarse scan +
+    fine rerank) through flat and IVF. Returns the rerank's two JSON rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.binarize_lib import coarse_codes
+    from repro_torch.index import ivf
+    from repro_torch.index.flat import BiGranularFlat, flat_search_from_snapshot
+    from repro_torch.kernels.sdc import gather as gather_mod
+    from repro_torch.kernels.sdc import rerank as rr_mod
+    from repro_torch.kernels.sdc import sdc as sdc_mod
+    from repro_torch.kernels.sdc.defaults import RERANK_GROUP
+    from repro_torch.launch.serve import IVF_KMEANS_ITERS, IVF_NLIST, IVF_NPROBE, IVF_SEED
+
+    t_phase = time.perf_counter()
+    N = d_codes.shape[0]
+    codes0 = encode(batches[0])
+    flat_counts = [(gather_mod.sdc_gather_topk, 1), (sdc_mod.sdc_topk, 1)]
+    serving_ms = {}
+
+    def flat(codes, C, kc, backend="auto"):
+        return flat_search_from_snapshot(codes, LEVELS, k=K, packed=True, backend=backend,
+                                         rerank=dict(coarse_levels=C, k_coarse=kc),
+                                         device=device)
+
+    def served(tag, search, plain, counts):
+        results, launches, seq_ms, pipe_ms, stats = serve_checked(
+            f"bigranular {tag}", encode, search, batches, cfg, counts)
+        for _, i in results:
+            check(bool(((i >= 0) & (i < N)).all()), f"bigranular {tag}: ids out of range")
+        v0, i0 = results[0]
+        pv, pi = plain(codes0)
+        check(torch.equal(v0, pv) and torch.equal(i0, pi),
+              f"bigranular {tag}: served search differs from the plain version")
+        serving_ms[tag] = (seq_ms, pipe_ms, stats["device_idle_frac"])
+        log(f"[bigranular] {tag}: {len(batches)} requests of {SERVE_Q} served, launches "
+            + ", ".join(f"{fn.__name__} {n * len(batches)}" for fn, n in counts)
+            + " in each run; bit-identical to serve_sequential and to the plain version")
+        return results, launches, float((v0 - pv).abs().max())
+
+    # -- flat, the fine tier on the card --------------------------------------
+    device_out = {}
+    for C, kc in RERANK_CONFIGS:
+        device_out[C, kc] = served(f"flat C={C} k'={kc}", flat(d_codes, C, kc),
+                                   flat(d_codes, C, kc, backend="torch"), flat_counts)
+
+    # -- flat, the fine tier in host memory ------------------------------------
+    host = d_codes.cpu().numpy()
+    t0 = time.perf_counter()
+    search = flat(host, RERANK_C, RERANK_KC)
+    torch.cuda.synchronize()
+    host_build_s = time.perf_counter() - t0
+    host_tag = f"flat C={RERANK_C} k'={RERANK_KC} host tier"
+    host_out = served(host_tag, search, flat(d_codes, RERANK_C, RERANK_KC, backend="torch"),
+                      flat_counts)
+    for (v, i), (dv, di) in zip(host_out[0], device_out[RERANK_C, RERANK_KC][0]):
+        check(torch.equal(v, dv) and torch.equal(i, di),
+              "bigranular: the host tier's results differ from the device tier's")
+    log(f"[bigranular] {host_tag}: bit-identical to the device tier on every request (built "
+        f"from a {host.nbytes / 1e9:.2f} GB host copy in {host_build_s:.3f} s)")
+    del search
+
+    # -- k' past K_MAX: the coarse scan's unfused route -------------------------
+    search = flat(d_codes, RERANK_C, RERANK_WIDE_KC)
+    search(codes0)
+    counters = (sdc_mod.sdc_topk, sdc_mod.sdc_scores, gather_mod.sdc_gather_topk)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v, i = search(codes0)
+    torch.cuda.synchronize()
+    wide_ms = 1e3 * (time.perf_counter() - t0)
+    topk_n, scores_n, gather_n = (fn.launches for fn in counters)
+    check(topk_n == 0 and scores_n >= 1 and gather_n == 1,
+          f"bigranular k'={RERANK_WIDE_KC}: launches sdc_topk {topk_n}, sdc_scores {scores_n}, "
+          f"sdc_gather_topk {gather_n}; want 0, >= 1, 1")
+    rows = slice(0, RERANK_WIDE_ROWS)
+    pv, pi = flat(d_codes, RERANK_C, RERANK_WIDE_KC, backend="torch")(codes0[rows])
+    check(torch.equal(v[rows], pv) and torch.equal(i[rows], pi),
+          f"bigranular k'={RERANK_WIDE_KC} differs from the plain version")
+    log(f"[bigranular] flat C={RERANK_C} k'={RERANK_WIDE_KC}: one request of {SERVE_Q} in "
+        f"{wide_ms:.1f} ms, {scores_n} sdc_scores chunks and no sdc_topk for the coarse scan, "
+        f"{gather_n} sdc_gather_topk for the rerank; queries 0-{RERANK_WIDE_ROWS - 1} equal "
+        "to the plain version")
+    del search
+
+    # -- IVF: the coarse tier clustered at C levels -----------------------------
+    def ivf_search(backend="auto"):
+        return ivf.ivf_search_from_snapshot(
+            d_codes, LEVELS, k=K, nlist=IVF_NLIST, nprobe=IVF_NPROBE, seed=IVF_SEED,
+            kmeans_iters=IVF_KMEANS_ITERS, packed=True, backend=backend,
+            rerank=dict(coarse_levels=RERANK_C, k_coarse=RERANK_KC), device=device)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    search = ivf_search()
+    torch.cuda.synchronize()
+    ivf_build_s = time.perf_counter() - t0
+    ivf_tag = f"IVF C={RERANK_C} k'={RERANK_KC} nprobe {IVF_NPROBE}"
+    served(ivf_tag, search, ivf_search(backend="torch"),
+           [(gather_mod.sdc_gather_topk, 2), (sdc_mod.sdc_topk, 0)])
+    log(f"[bigranular] {ivf_tag}: built (k-means over {RERANK_C}-level codes) in "
+        f"{ivf_build_s:.3f} s; one gather for the lists, one for the rerank, per request")
+    del search
+
+    # -- times ---------------------------------------------------------------------
+    bigr = BiGranularFlat.build(d_codes, LEVELS, coarse_levels=RERANK_C, k_coarse=RERANK_KC,
+                                packed=True, device=device)
+    coarse = bigr.coarse
+    qc = coarse_codes(codes0, LEVELS, RERANK_C)
+    ck = dict(n_levels=RERANK_C, packed=True)
+    coarse_ms = {k: cuda_ms(lambda k=k: sdc_mod.sdc_topk(qc, coarse.codes, coarse.inv_norm, k=k,
+                                                         **ck), 20)
+                 for k in (K, RERANK_KC)}
+    scan_bytes = N * (coarse.codes.shape[1] + 4)
+    log(f"[time] bigranular coarse scan C={RERANK_C} packed Q={SERVE_Q} N={N} on {name} ({smi}): "
+        f"sdc_topk {coarse_ms[K]:.3f} ms at k={K}, {coarse_ms[RERANK_KC]:.3f} ms at "
+        f"k'={RERANK_KC}; the full-level scan (n_levels {LEVELS}, k={K}) {full_scan_ms:.3f} ms; "
+        f"both read {scan_bytes / 1e9:.3f} GB (a code a nibble at any level count; HBM bound "
+        f"{1e3 * scan_bytes / HBM_BYTES_PER_S:.3f} ms); serialized coarse tier "
+        f"{coarse.nbytes() / 1e9:.3f} GB against {N * ((CODE_DIM * LEVELS + 7) // 8 + 4) / 1e9:.3f}"
+        " GB at full depth")
+
+    _, cand = coarse.search(qc, RERANK_KC)
+    live = int((cand >= 0).sum())
+    W = sdc_mod.kernel_dim(CODE_DIM)
+    qc_cap = gather_mod._pairs_per_block(W, False, sdc_mod.cap_for(K))
+
+    def split(fn, probes, nlist):
+        """(plan ms, scan, merge) of a gather call: the grouping of its
+        pairs by list by CUDA events, the kernels by the profiler."""
+        P = probes.numel()
+        plan_ms = cuda_ms(lambda: gather_mod.gather_plan(probes, nlist, min(P, qc_cap)), 20)
+        return (plan_ms, *device_ms(fn, 20, "gather_scan_kernel", "gather_merge_kernel"))
+
+    def bound(nbytes):
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * 2 * live * CODE_DIM / INT8_OPS_PER_S
+        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+    # the fine tier on the card: N lists of one row
+    fine, fine_inv = bigr.fine_codes, bigr.fine_inv_norm
+    rargs, rkw = (codes0, fine, fine_inv, cand), dict(n_levels=LEVELS, k=K)
+    v, i = rr_mod.sdc_rerank(*rargs, **rkw)
+    pv, pi = rr_mod.sdc_rerank_torch(*rargs, **rkw)
+    check(torch.equal(v, pv) and torch.equal(i, pi), "sdc_rerank != sdc_rerank_torch")
+    dev_ms = cuda_ms(lambda: rr_mod.sdc_rerank(*rargs, **rkw), 20)
+    dev_plain_ms = cuda_ms(lambda: rr_mod.sdc_rerank_torch(*rargs, **rkw), 1)
+    probes = rr_mod._sort_candidates(cand)
+    dev_split = split(lambda: rr_mod.sdc_rerank(*rargs, **rkw), probes, N)
+    P = probes.numel()
+    dev_bytes = live * (CODE_DIM + 8) + codes0.numel() + 8 * P + SERVE_Q * K * 8
+    dev_bound, dev_by = bound(dev_bytes)
+    log(f"[time] rerank device tier C={RERANK_C} k'={RERANK_KC} Q={SERVE_Q} ({live} live "
+        f"survivors) over N={N} lists of one row on {name} ({smi}): sdc_rerank {dev_ms:.4f} ms, "
+        f"plain {dev_plain_ms:.3f} ms, bound {dev_bound:.4f} ms ({dev_by}; {dev_bytes / 1e6:.3f} "
+        f"MB); split: plan (gather_plan over {N} lists) {dev_split[0]:.4f} ms, scan kernel "
+        f"{dev_split[1]}, merge kernel {dev_split[2]} (profiler device time)")
+
+    # the fine tier in host memory: survivors' rows gathered there, uploaded
+    host_inv = fine_inv.cpu().numpy()
+    g = RERANK_GROUP
+    hargs = (codes0, host, host_inv, cand)
+    hv, hi = rr_mod.sdc_rerank_gathered(*hargs, group=g, **rkw)
+    check(torch.equal(hv, v) and torch.equal(hi, i), "sdc_rerank_gathered != sdc_rerank")
+    whole_ms = host_ms(lambda: rr_mod.sdc_rerank_gathered(*hargs, group=g, **rkw), 20)
+    parts = np.zeros(3)
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = rr_mod._sort_candidates(cand).cpu().numpy()
+        t1 = time.perf_counter()
+        safe = np.clip(c, 0, N - 1)
+        rows_np = host[safe]
+        inv_np = np.where(c >= 0, host_inv[safe], 0.0).astype(np.float32)
+        t2 = time.perf_counter()
+        for a in (rows_np, inv_np, c):
+            torch.from_numpy(a).to(device)
+        torch.cuda.synchronize()
+        parts += (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    d2h_ms, gather_ms, upload_ms = 1e3 * parts / 20
+    lists = rr_mod.host_gathered_lists(host, host_inv, cand, group=g, device=device)
+    kv, ki = gather_mod.sdc_gather_topk(codes0, *lists, **rkw)
+    kpv, kpi = gather_mod.sdc_gather_topk_torch(codes0, *lists, **rkw)
+    check(torch.equal(kv, kpv) and torch.equal(ki, kpi),
+          "the host-gathered rerank's kernel != plain")
+    host_kernel_ms = cuda_ms(lambda: gather_mod.sdc_gather_topk(codes0, *lists, **rkw), 20)
+    host_plain_ms = cuda_ms(lambda: gather_mod.sdc_gather_topk_torch(codes0, *lists, **rkw), 1)
+    n_lists = lists[0].shape[0]
+    host_split = split(lambda: gather_mod.sdc_gather_topk(codes0, *lists, **rkw), lists[3],
+                       n_lists)
+    host_bytes = n_lists * g * (CODE_DIM + 8) + codes0.numel() + 4 * lists[3].numel() \
+        + SERVE_Q * K * 8
+    host_bound, host_by = bound(host_bytes)
+    log(f"[time] rerank host tier C={RERANK_C} k'={RERANK_KC} Q={SERVE_Q} group {g} on {name} "
+        f"({smi}): sdc_rerank_gathered {whole_ms:.4f} ms a call (host clock, synchronised): "
+        f"candidates to the host {d2h_ms:.4f} ms, host gather {gather_ms:.4f} ms, upload "
+        f"{upload_ms:.4f} ms; kernel on the [{n_lists}, {g}] lists {host_kernel_ms:.4f} ms "
+        f"(plan {host_split[0]:.4f} ms, scan kernel {host_split[1]}, merge kernel "
+        f"{host_split[2]}), plain {host_plain_ms:.3f} ms, bound {host_bound:.4f} ms ({host_by}; "
+        f"{host_bytes / 1e6:.3f} MB)")
+    for tag, (seq_ms, pipe_ms, idle) in serving_ms.items():
+        log(f"[time] bigranular serving {tag}: sequential {seq_ms:.3f} ms/batch, pipelined "
+            f"{pipe_ms:.3f} ms/batch (scan stage idle {100 * idle:.0f}%), {len(batches)} "
+            f"requests of {SERVE_Q} on {name} ({smi})")
+    log(f"[bigranular] phase passed in {time.perf_counter() - t_phase:.1f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+    _, dev_launches, dev_err = device_out[RERANK_C, RERANK_KC]
+    return [
+        dict(name="sdc_gather_topk_rerank", route="cuda", source=GATHER_SOURCE,
+             replaces=GATHER_REPLACES, launches=dev_launches, max_abs_err=dev_err, ms=dev_ms,
+             plain_ms=dev_plain_ms, bound_ms=dev_bound, bound_by=dev_by, library_ms=None),
+        dict(name="sdc_gather_topk_rerank_gathered", route="cuda", source=GATHER_SOURCE,
+             replaces=GATHER_REPLACES, launches=host_out[1], max_abs_err=host_out[2],
+             ms=host_kernel_ms, plain_ms=host_plain_ms, bound_ms=host_bound, bound_by=host_by,
+             library_ms=None),
+    ]
 
 
 def dlrm_phase(seed, device, name, smi):
@@ -885,7 +1155,7 @@ def main() -> None:
             def search(q, index=index, backend="auto"):
                 return ivf.search(index, q, nprobe=IVF_NPROBE, k=K, backend=backend)
         results, launches, seq_ms, pipe_ms, stats = serve_checked(
-            f"ivf {tag}", encode, search, batches, gather_mod.sdc_gather_topk, cfg)
+            f"ivf {tag}", encode, search, batches, cfg, [(gather_mod.sdc_gather_topk, 1)])
         for v, i in results:
             check(bool(((i >= 0) & (i < args.docs)).all()), f"ivf {tag}: ids out of range")
         pv, pi = search(report[packed]["codes"], backend="torch")
@@ -1115,6 +1385,11 @@ def main() -> None:
     del ivfs
     kernels.append(bitwise_phase(d_codes, encode, batches, cfg, device, name, smi, sm_clock_mhz,
                                  sdc_ms))
+
+    # -- 8b. bi-granular retrieval over the same codes -------------------------
+    full_scan_ms = next(k["ms"] for k in kernels if k["name"] == "sdc_topk_packed")
+    kernels += bigranular_phase(d_codes, encode, batches, cfg, device, name, smi, full_scan_ms)
+    torch.cuda.empty_cache()
 
     # -- 9. the dlrm-rm2 serving forward at full width ------------------------
     del indexes, d_codes

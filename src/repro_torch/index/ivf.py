@@ -8,7 +8,11 @@ codes with ``coarse_sdc``) as a plain product, as the reference leaves it
 to XLA; the fine layer is the gather kernel (``kernels/sdc/gather.py``)
 on CUDA tensors and its plain twin on CPU tensors. Lists can be stored
 nibble-packed (``packed=True``, n_levels <= 4) at 2 dims/byte, halving
-scan bytes with bit-identical scores.
+scan bytes with bit-identical scores. ``ivf_search_from_snapshot`` builds
+an index from a corpus snapshot and returns a serving closure, under
+nprobe or a probe budget, in bi-granular mode too (an IVF over the
+level-prefix codes whose top-k' survivors are reranked on the full-level
+codes).
 
 The index lives on the device it is built on: ``device="cuda"`` by
 default, raising when there is no card. ``ivf_from_numpy`` carries an
@@ -24,11 +28,20 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.binarize_lib import codes_to_values, pack_codes_nibbles, values_to_codes
+from repro_torch.core.binarize_lib import (
+    coarse_codes,
+    codes_to_values,
+    pack_codes_nibbles,
+    values_to_codes,
+)
 from repro_torch.device import full_fp32_matmul, resolve_device
+from repro_torch.index._snapshot import resolve_rerank_args, resolve_snapshot_args, split_effort
+from repro_torch.index.flat import device_codes
 from repro_torch.index.kmeans import kmeans
 from repro_torch.kernels.sdc import ref as sdc_ref
+from repro_torch.kernels.sdc.defaults import plan_for
 from repro_torch.kernels.sdc.ops import sdc_gather_backend
+from repro_torch.kernels.sdc.rerank import fine_inv_norms, sdc_rerank_backend
 
 
 @dataclasses.dataclass
@@ -308,3 +321,86 @@ def search(index: IVFIndex, q_codes, *, nprobe: int, k: int, coarse_sdc: bool = 
         index.lists_ids, _queries(index, q_codes), nprobe=nprobe, k=k,
         n_levels=index.n_levels, coarse_sdc=coarse_sdc, backend=backend, packed=index.packed,
     )
+
+
+def ivf_search_from_snapshot(codes, n_levels: int = None, *, k: int, nlist: int, nprobe: int,
+                             seed: int = 0, kmeans_iters: int = 20, max_len: int | None = None,
+                             headroom: float = 1.0, packed: bool = False, backend: str = "auto",
+                             coarse_sdc: bool = False, effort=None, rerank: dict | None = None,
+                             probe_budget: int | None = None, block_plan=None, device="cuda"):
+    """Rebuild-from-snapshot entry point: a serving closure ``codes -> (scores, ids)``.
+
+    Clusters a snapshot's codes (anything with ``.codes`` and
+    ``.n_levels``, or raw codes and ``n_levels``) into a fresh IVF index
+    on ``device``. Deterministic: the k-means draws come from ``seed``,
+    so the same snapshot and parameters rebuild the same index, bit for
+    bit.
+
+    ``effort`` (anything with an int ``level``, 0 = full, e.g.
+    ``launch.proxy.EffortKnob``) is read per call: level L serves with
+    ``max(1, nprobe >> L)`` probes, or under ``max(1, probe_budget >>
+    L)`` when a budget is set; level 0 is bit-identical to
+    ``effort=None``. ``probe_budget`` switches probe selection to the
+    occupancy-weighted allocator (``search_budget``; ``nprobe`` is then
+    ignored).
+
+    ``rerank={"coarse_levels": c, "k_coarse": k'}`` switches to
+    bi-granular mode (``fn.reranked = True``): the IVF is clustered and
+    scanned over the level-prefix codes at ``c`` levels, and each query's
+    top-k' survivors are reranked on the full-level codes; numpy snapshot
+    codes keep that fine tier on the host. ``effort`` then halves
+    ``k_coarse`` first (floored at k, ``split_effort``) and applies only
+    the residual levels to nprobe or the budget. ``block_plan`` reaches
+    the rerank (its group size); the IVF scan's shape is the lists'.
+    """
+    codes, n_levels = resolve_snapshot_args(codes, n_levels)
+    rr = resolve_rerank_args(rerank, n_levels)
+    dev = resolve_device(device)
+    if rr is None:
+        index = build_ivf(device_codes(codes, dev), n_levels=n_levels, nlist=nlist,
+                          kmeans_iters=kmeans_iters, max_len=max_len, headroom=headroom,
+                          packed=packed, seed=seed, device=dev)
+
+        def at_effort(value):
+            return value if effort is None else max(1, value >> max(0, int(effort.level)))
+
+        def fn(q):
+            if probe_budget is not None:
+                return search_budget(index, q, probe_budget=at_effort(probe_budget), k=k,
+                                     coarse_sdc=coarse_sdc, backend=backend)
+            return search(index, q, nprobe=at_effort(nprobe), k=k, coarse_sdc=coarse_sdc,
+                          backend=backend)
+
+        if effort is not None:
+            fn.effort = effort
+        return fn
+
+    c_levels, k_coarse = rr
+    full = device_codes(codes, dev)
+    index = build_ivf(coarse_codes(full, n_levels, c_levels), n_levels=c_levels, nlist=nlist,
+                      kmeans_iters=kmeans_iters, max_len=max_len, headroom=headroom,
+                      packed=packed and c_levels <= 4, seed=seed, device=dev)
+    fine = codes if isinstance(codes, np.ndarray) else full
+    del full  # a host tier's device copy was only the coarse tier's source
+    fine_inv = fine_inv_norms(fine, n_levels, device=dev)
+    k_coarse = min(k_coarse, fine.shape[0])
+    rerank_plan = plan_for(block_plan, "rerank")
+
+    def fn(q):
+        kc_eff, residual = (split_effort(effort.level, k=k, k_coarse=k_coarse)
+                            if effort is not None else (k_coarse, 0))
+        q = _queries(index, q)
+        qc = coarse_codes(q, n_levels, c_levels)
+        if probe_budget is not None:
+            _, cand = search_budget(index, qc, probe_budget=max(1, probe_budget >> residual),
+                                    k=kc_eff, coarse_sdc=coarse_sdc, backend=backend)
+        else:
+            _, cand = search(index, qc, nprobe=max(1, nprobe >> residual), k=kc_eff,
+                             coarse_sdc=coarse_sdc, backend=backend)
+        return sdc_rerank_backend(q, fine, fine_inv, cand, n_levels=n_levels, k=k,
+                                  backend=backend, block_plan=rerank_plan)
+
+    if effort is not None:
+        fn.effort = effort
+    fn.reranked = True
+    return fn

@@ -1,20 +1,27 @@
 """BEBR serving launcher, flat and IVF indexes (ports the ``--index flat``
-and ``--index ivf`` paths of ``repro/launch/serve.py``).
+and ``--index ivf`` paths of ``repro/launch/serve.py``, bi-granular mode
+included).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --index flat --docs 20000 --queries 64
     PYTHONPATH=src python -m repro_torch.launch.serve --index ivf [--probe-budget 2080]
+    PYTHONPATH=src python -m repro_torch.launch.serve --index flat|ivf \
+        --coarse-levels 2 --k-coarse 64
 
 End to end on the card: a clustered synthetic corpus -> eval-mode
 recurrent binarizer -> integer codes (nibble-packed with ``--packed``)
 -> ``FlatSDC`` scanned by the CUDA ``sdc_topk`` kernel, or an IVF index
 (nlist 64, nprobe 32, k-means seed 1, the reference CLI's parameters)
 whose probed lists the CUDA ``sdc_gather_topk`` kernel scans, served
-through ``ServingPipeline``; recall@k against the float-embedding exhaustive
-baseline, index bytes, and sequential vs pipelined ms/batch. Training is
-not ported yet: ``--ckpt`` loads a checkpoint written by the reference,
-and without it the binarizer has seeded random weights (recall is then
-low; the run says so). ``--device cpu`` runs the plain scoring path on
-the CPU.
+through ``ServingPipeline``. ``--coarse-levels C --k-coarse K'`` serves
+either family in bi-granular mode: the index covers the first C levels
+of the codes (hot tier, on the card) and the top-K' survivors of each
+query are reranked on the full-level codes, which stay in host memory
+(cold tier) and are gathered there per request. Recall@k against the
+float-embedding exhaustive baseline, index bytes, and sequential vs
+pipelined ms/batch. Training is not ported yet: ``--ckpt`` loads a
+checkpoint written by the reference, and without it the binarizer has
+seeded random weights (recall is then low; the run says so). ``--device
+cpu`` runs the plain scoring path on the CPU.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from repro_torch.core.binarize_lib import (
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.index import ivf
-from repro_torch.index.flat import FlatFloat, FlatSDC
+from repro_torch.index.flat import FlatFloat, FlatSDC, flat_search_from_snapshot
 from repro_torch.launch import binarizer_cache, serving
 
 # The reference CLI's IVF parameters (``lifecycle.IVFBuilder`` as
@@ -94,6 +101,15 @@ def main(argv=None):
     ap.add_argument("--code-dim", type=int, default=128)
     ap.add_argument("--levels", type=int, default=4)
     ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--coarse-levels", type=int, default=0, metavar="C",
+                    help="bi-granular mode: coarse-scan the first C "
+                         "residual levels (hot tier), then rerank the "
+                         "--k-coarse survivors on the full-level codes "
+                         "(cold tier); 0 disables (set with --k-coarse)")
+    ap.add_argument("--k-coarse", type=int, default=0, metavar="K'",
+                    help="bi-granular mode: survivors kept per query by "
+                         "the coarse scan and rescored at full depth; "
+                         "0 disables (set with --coarse-levels)")
     ap.add_argument("--packed", action="store_true",
                     help="int4 nibble-packed code storage (2 dims/byte; "
                          "halves scan bytes, bit-identical scores)")
@@ -122,6 +138,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
+    if bool(args.coarse_levels) != bool(args.k_coarse):
+        ap.error("--coarse-levels and --k-coarse must be set together")
+    if args.coarse_levels and not 0 < args.coarse_levels < args.levels:
+        ap.error(f"--coarse-levels must be in [1, {args.levels - 1}] "
+                 f"(got {args.coarse_levels} of --levels {args.levels})")
     if args.probe_budget and args.index != "ivf":
         ap.error("--probe-budget only applies to --index ivf")
     device = resolve_device(args.device)
@@ -144,9 +165,32 @@ def main(argv=None):
 
     d_codes = encode_codes(model, docs)
     flat_float = FlatFloat.build(docs, device=device)
-    if args.index == "flat":
+    if args.coarse_levels:
+        # The snapshot closures from a host copy of the codes: the cold
+        # fine tier stays in host memory, as the reference's builders keep it.
+        cl, kc = args.coarse_levels, args.k_coarse
+        rerank = {"coarse_levels": cl, "k_coarse": kc}
+        host_codes = d_codes.cpu().numpy()
+        if args.index == "flat":
+            search = flat_search_from_snapshot(host_codes, bcfg.n_levels, k=args.k,
+                                               packed=args.packed, rerank=rerank, device=device)
+        else:
+            search = ivf.ivf_search_from_snapshot(
+                host_codes, bcfg.n_levels, k=args.k, nlist=IVF_NLIST, nprobe=IVF_NPROBE,
+                seed=IVF_SEED, kmeans_iters=IVF_KMEANS_ITERS, packed=args.packed,
+                rerank=rerank, probe_budget=args.probe_budget or None, device=device)
+        per_doc = lambda lv: (args.code_dim * lv + 7) // 8 + 4  # noqa: E731
+        coarse_b = args.docs * per_doc(cl)
+        fine_b = args.docs * per_doc(args.levels)
+        nbytes = coarse_b + fine_b
+        print(f"[index] bi-granular tiers (serialized): "
+              f"coarse {coarse_b/2**20:.2f} MiB (hot, {cl}/{args.levels} "
+              f"levels), fine {fine_b/2**20:.2f} MiB (cold), "
+              f"rerank k'={kc}")
+    elif args.index == "flat":
         index = FlatSDC.build(d_codes, bcfg.n_levels, packed=args.packed, device=device)
         search = lambda q: index.search(q, args.k)  # noqa: E731
+        nbytes = index.nbytes()
     else:
         index = ivf.build_ivf(d_codes, n_levels=bcfg.n_levels, nlist=IVF_NLIST,
                               kmeans_iters=IVF_KMEANS_ITERS, packed=args.packed,
@@ -156,7 +200,8 @@ def main(argv=None):
                 index, q, probe_budget=args.probe_budget, k=args.k)
         else:
             search = lambda q: ivf.search(index, q, nprobe=IVF_NPROBE, k=args.k)  # noqa: E731
-    nbytes, float_bytes = index.nbytes(), flat_float.nbytes()
+        nbytes = index.nbytes()
+    float_bytes = flat_float.nbytes()
     print(f"[index] {args.index}: {nbytes/2**20:.2f} MiB "
           f"(float flat: {float_bytes/2**20:.2f} MiB, "
           f"saving {100*(1-nbytes/float_bytes):.1f}%)")

@@ -21,12 +21,21 @@ from repro_torch.data import synthetic as PS  # noqa: E402
 from repro_torch.configs.archs import dlrm_rm2  # noqa: E402
 from repro_torch.index import ivf as PI  # noqa: E402
 from repro_torch.index import kmeans as PK  # noqa: E402
-from repro_torch.index.flat import FlatBitwise, FlatFloat, FlatSDC  # noqa: E402
+from repro_torch.index.flat import (  # noqa: E402
+    BiGranularFlat,
+    FlatBitwise,
+    FlatFloat,
+    FlatSDC,
+    flat_search_from_snapshot,
+)
 from repro_torch.kernels.binary_dot import kernel as PBD  # noqa: E402
 from repro_torch.kernels.binary_dot import ops as PBO  # noqa: E402
 from repro_torch.kernels.dot_interact import kernel as PDI  # noqa: E402
 from repro_torch.kernels.dot_interact import ops as PDO  # noqa: E402
 from repro_torch.kernels.sdc import gather as PG  # noqa: E402
+from repro_torch.kernels.sdc import ops as PO  # noqa: E402
+from repro_torch.kernels.sdc import rerank as PRK  # noqa: E402
+from repro_torch.kernels.sdc import sdc as PSDC  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.recsys import dlrm as PD  # noqa: E402
 from repro_torch.models.recsys import embedding as PE  # noqa: E402
@@ -124,10 +133,18 @@ def test_entry_points_default_to_the_card():
 def test_new_entry_points_default_to_the_card():
     codes = np.random.default_rng(0).integers(0, 16, (50, 32)).astype(np.int8)
     cfg = dlrm_rm2.SMOKE
+    rr = {"coarse_levels": 2, "k_coarse": 8}
     if torch.cuda.is_available():
         index = FlatBitwise.build(codes, 4)
         assert index.packed.device.type == "cuda"
         assert PS.dlrm_batch(0, 4, cfg)["dense"].device.type == "cuda"
+        bigr = BiGranularFlat.build(codes, 4, coarse_levels=2, k_coarse=8)
+        assert bigr.coarse.codes.device.type == "cuda" and isinstance(bigr.fine_codes, np.ndarray)
+        for build in (flat_search_from_snapshot, PI.ivf_search_from_snapshot):
+            kw = dict(nlist=4, nprobe=2) if build is PI.ivf_search_from_snapshot else {}
+            for rerank in (None, rr):
+                v, i = build(codes, 4, k=5, rerank=rerank, **kw)(codes[:3])
+                assert v.device.type == "cuda" and i.device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FlatBitwise.build(codes, 4)
@@ -141,6 +158,19 @@ def test_new_entry_points_default_to_the_card():
         PE.mlp_params(torch.Generator(), (4, 2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PE.init_table(torch.Generator(), PE.TableConfig(10, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BiGranularFlat.build(codes, 4, coarse_levels=2, k_coarse=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PRK.fine_inv_norms(codes, 4)
+    for rerank in (None, rr):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            flat_search_from_snapshot(codes, 4, k=5, rerank=rerank)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PI.ivf_search_from_snapshot(codes, 4, k=5, nlist=4, nprobe=2, rerank=rerank)
+    for index in ("flat", "ivf"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--index", index, "--docs", "10", "--coarse-levels", "2",
+                        "--k-coarse", "8"])
 
 
 @pytest.mark.gpu
@@ -186,6 +216,36 @@ def test_gather_on_card_never_reaches_the_plain_version(monkeypatch, masked):
     torch.cuda.synchronize()
     assert PG.sdc_gather_topk.launches == before + 1
     assert v.device.type == "cuda" and (i >= 0).all()
+
+
+@pytest.mark.gpu
+def test_bigranular_closures_on_card_never_reach_the_plain_versions(monkeypatch):
+    """Both snapshot closures in bi-granular mode, with a device fine tier
+    and a host one: every scan and rerank launches a kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for module, name in ((PG, "sdc_gather_topk_torch"), (PRK, "sdc_gather_topk_torch"),
+                         (PSDC, "sdc_topk_torch"), (PO, "sdc_topk_torch"),
+                         (PRK, "sdc_rerank_torch")):
+        monkeypatch.setattr(module, name, plain)
+    dev = torch.device("cuda")
+    codes = torch.randint(0, 16, (3000, 64), device=dev).to(torch.int8)
+    q = codes[:5]
+    rr = {"coarse_levels": 2, "k_coarse": 40}
+    for fine in (codes, codes.cpu().numpy()):
+        launches = PSDC.sdc_topk.launches, PG.sdc_gather_topk.launches
+        out = [flat_search_from_snapshot(fine, 4, k=10, packed=True, rerank=rr)(q),
+               PI.ivf_search_from_snapshot(fine, 4, k=10, nlist=8, nprobe=4, rerank=rr)(q)]
+        torch.cuda.synchronize()
+        # flat: one scan and one rerank; IVF: a gather scan and a rerank
+        assert (PSDC.sdc_topk.launches, PG.sdc_gather_topk.launches) == (launches[0] + 1,
+                                                                         launches[1] + 3)
+        for v, i in out:
+            assert v.device.type == "cuda" and bool(((i >= 0) & (i < 3000)).all())
 
 
 def test_cpu_only_when_asked():
