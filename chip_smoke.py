@@ -75,6 +75,22 @@ that fails:
      host memory (the grouping of pairs, the scan and merge kernels, the
      host gather and the upload apart), its plain versions and byte
      bounds, and the serving drivers;
+ 8c. drives the HNSW graph search at the CLI's width over a clustered
+     corpus of 20,000 documents (the CLI's default): the NSW graph built
+     on the host (M 16, ef_construction 64), int8 and packed (the same
+     graph), its neighbour-block tables on the card; 8 requests of 64
+     queries at ef 64, beam 8, max_hops 64 through ServingPipeline, each
+     held against serve_sequential, the plain version on the same tables
+     and the other form, with the sdc_topk (entry scoring) and
+     sdc_gather_topk (one a hop) launch counts and the walk's host reads
+     zeroed just before and read just after every run; bi-granular at
+     (C, k') = (2, 160), the fine tier in host memory; one request at the
+     full hop budget against its early exit; walks from doc 0 alone and
+     from a node next to it beside invalid entries (repeated indices)
+     against the plain version on the CPU; times the build, one hop split
+     into its steps (entry scoring, beam selection, dedupe, plan, gather,
+     merge), the gather beside its plain version and byte bound, and the
+     serving drivers;
   9. drives the dlrm-rm2 serving forward at full width (26 tables of
      1,048,576 x 64 float32, 6.98 GB, seeded): dlrm_serve_step on 3
      batches each at B = 512 and B = 262,144, with the dot_interact
@@ -132,6 +148,12 @@ PROBE_BUDGET = 2080  # not a multiple of nlist = 64: runs the masked kernel
 RERANK_CONFIGS = ((2, 40), (2, 160), (3, 160))
 RERANK_C, RERANK_KC = 2, 160
 RERANK_WIDE_KC, RERANK_WIDE_ROWS = 5000, 4
+# HNSW at the reference CLI's width: its default --docs (and the ceiling of
+# its host build), --ef and --beam; the bi-granular walk at (C, k'); the
+# hop whose state the split times
+HNSW_DOCS, HNSW_EF, HNSW_BEAM = 20_000, 64, 8
+HNSW_RERANK = (2, 160)
+HNSW_SPLIT_HOP = 3
 
 
 def fail(msg: str) -> None:
@@ -181,6 +203,23 @@ def device_ms(fn, reps: int, *kernels: str):
                  for ev in prof.key_averages() if kernel in (ev.key or ""))
         out.append(f"{us / 1e3 / reps:.4f} ms" if us else "not measured")
     return out[0] if len(out) == 1 else out
+
+
+def device_busy_ms(fn, reps: int):
+    """The device time per call of every kernel ``fn`` launches, by
+    torch.profiler, or "not measured" where the profiler sees none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
+             for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps if us else "not measured"
 
 
 def host_ms(fn, reps: int) -> float:
@@ -835,6 +874,310 @@ def bigranular_phase(d_codes, encode, batches, cfg, device, name, smi, full_scan
     ]
 
 
+def hnsw_phase(model, encode, cfg, seed, device, name, smi):
+    """Phase 8c: the HNSW graph search at the CLI's width. Returns its gather's JSON row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.binarize_lib import coarse_codes, pack_codes_nibbles
+    from repro_torch.data.synthetic import clustered_corpus
+    from repro_torch.index import hnsw_lite as hl
+    from repro_torch.kernels.sdc import gather as gather_mod
+    from repro_torch.kernels.sdc import ref as sdc_ref
+    from repro_torch.kernels.sdc import sdc as sdc_mod
+    from repro_torch.kernels.sdc.ops import sdc_search_backend
+    from repro_torch.kernels.sdc.rerank import sdc_rerank_backend
+    from repro_torch.launch import serving
+    from repro_torch.launch.serve import (HNSW_EF_CONSTRUCTION, HNSW_M, HNSW_MAX_HOPS,
+                                          HNSW_SEED, encode_codes, recall_at_k,
+                                          serve_pipelined)
+
+    t_phase = time.perf_counter()
+    n_queries = SERVE_Q * SERVE_REQUESTS
+    docs, queries, gt = clustered_corpus(seed, HNSW_DOCS, n_queries, DIM)
+    d_codes = encode_codes(model, torch.from_numpy(docs).to(device))
+    batches = [torch.from_numpy(queries[i:i + SERVE_Q]).to(device)
+               for i in range(0, n_queries, SERVE_Q)]
+    codes_b = [encode(b) for b in batches]
+    host = d_codes.cpu().numpy()
+    inv = sdc_ref.doc_inv_norms(d_codes, LEVELS).cpu().numpy()
+    N = host.shape[0]
+    gkw = dict(M=HNSW_M, ef_construction=HNSW_EF_CONSTRUCTION, seed=HNSW_SEED)
+    skw = dict(k=K, ef=HNSW_EF, beam=HNSW_BEAM, max_hops=HNSW_MAX_HOPS)
+
+    # -- the host build and the device tables, int8 and packed -----------------
+    graphs, tables, build_s, prep_s = {}, {}, {}, {}
+    for packed in (False, True):
+        t0 = time.perf_counter()
+        graphs[packed] = hl.build_hnsw(host, inv, n_levels=LEVELS, packed=packed, **gkw)
+        build_s[packed] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables[packed] = hl.prepare_batched(graphs[packed], device=device)
+        torch.cuda.synchronize()
+        prep_s[packed] = time.perf_counter() - t0
+    g = graphs[False]
+    check(np.array_equal(g.neighbors, graphs[True].neighbors) and g.entry == graphs[True].entry,
+          "hnsw: two builds from the same codes and seed differ")
+    check(np.array_equal(graphs[True].codes, pack_codes_nibbles(torch.from_numpy(host)).numpy()),
+          "hnsw: the packed build's codes are not the packed codes")
+    check(int(g.neighbors.min()) >= -1 and int(g.neighbors.max()) < N,
+          "hnsw: neighbour ids out of range")
+    for f in ("codes", "nbr_codes"):
+        check(torch.equal(getattr(tables[True], f), pack_codes_nibbles(getattr(tables[False], f))),
+              f"hnsw: packed {f} differ from the packed int8 tables")
+    for f in ("inv_norm", "nbr_inv", "nbr_ids"):
+        check(torch.equal(getattr(tables[True], f), getattr(tables[False], f)),
+              f"hnsw: packed tables differ in {f}")
+    log(f"[hnsw] build_hnsw N={N} D={CODE_DIM} M={HNSW_M} ef_construction="
+        f"{HNSW_EF_CONSTRUCTION} on the host: int8 {build_s[False]:.2f} s, packed "
+        f"{build_s[True]:.2f} s (identical graphs, {int((g.neighbors < 0).sum())} empty slots); "
+        f"prepare_batched int8 {prep_s[False]:.3f} s, packed {prep_s[True]:.3f} s; device tables "
+        f"int8 {tables[False].nbytes() / 2**20:.2f} MiB, packed {tables[True].nbytes() / 2**20:.2f}"
+        f" MiB (the M-fold neighbour blocks) against HNSWLite.nbytes int8 "
+        f"{g.nbytes() / 2**20:.2f} MiB, packed {graphs[True].nbytes() / 2**20:.2f} MiB")
+
+    topk_fn, gather_fn, walk = sdc_mod.sdc_topk, gather_mod.sdc_gather_topk, hl.hnsw_frontier_search
+
+    def hop_counts(tbl, codes, **kw):
+        """Each request's walk: its stats, gather launches (the hops in
+        which some query is active) and host reads (one a hop, and one
+        more that finds no query active, unless the budget ends it)."""
+        stats = [hl.search_hnsw_batched(tbl, c, with_stats=True, **kw)[2] for c in codes]
+        iters = [int(s["hops"].max()) for s in stats]
+        return stats, iters, [n + (n < HNSW_MAX_HOPS) for n in iters]
+
+    def served(tag, search, plain, want_gather, want_reads, codes):
+        """Both drivers, launch counts and host reads zeroed just before and
+        read just after each run; every request held against ``plain``."""
+        serving.warmup(encode, search, batches)
+        want = (len(batches), sum(want_gather), sum(want_reads))
+
+        def zero():
+            topk_fn.launches = gather_fn.launches = walk.host_reads = 0
+
+        def read(run):
+            got = (topk_fn.launches, gather_fn.launches, walk.host_reads)
+            check(got == want, f"hnsw {tag}: the {run} run counted (sdc_topk, sdc_gather_topk, "
+                               f"host reads) = {got}, want {want}")
+
+        zero()
+        t0 = time.perf_counter()
+        seq = serving.serve_sequential(encode, search, batches)
+        dt_seq = time.perf_counter() - t0
+        read("sequential")
+        zero()
+        t0 = time.perf_counter()
+        results, stats, _ = serve_pipelined(encode, search, batches, cfg)
+        dt_pipe = time.perf_counter() - t0
+        read("pipelined")
+        err = 0.0
+        for c, (v, i), (sv, si) in zip(codes, results, seq):
+            check(v.shape == (SERVE_Q, K) and i.shape == (SERVE_Q, K), f"hnsw {tag}: bad shape")
+            check(bool(torch.isfinite(v).all()), f"hnsw {tag}: non-finite scores")
+            check(bool(((i >= 0) & (i < N)).all()), f"hnsw {tag}: ids out of range")
+            check(all(len(set(r)) == K for r in i.tolist()), f"hnsw {tag}: an id twice in a row")
+            check(torch.equal(v, sv) and torch.equal(i, si),
+                  f"hnsw {tag}: pipelined results differ from serve_sequential")
+            pv, pi = plain(c)
+            check(torch.equal(v, pv) and torch.equal(i, pi),
+                  f"hnsw {tag}: served search differs from the plain version")
+            err = max(err, float((v - pv).abs().max()))
+        log(f"[hnsw] {tag}: {len(batches)} requests of {SERVE_Q} served, {want[0]} sdc_topk and "
+            f"{want[1]} sdc_gather_topk launches and {want[2]} host reads in each run; "
+            "bit-identical to serve_sequential and to the plain version on every request")
+        return dict(results=results, gathers=want[1], err=err, seq_ms=1e3 * dt_seq / len(batches),
+                    pipe_ms=1e3 * dt_pipe / len(batches), idle=stats["device_idle_frac"])
+
+    # -- served, int8 and packed ---------------------------------------------------
+    stats, iters, reads = hop_counts(tables[False], codes_b, **skw)
+    out = {}
+    for packed in (False, True):
+        tag = "packed" if packed else "int8"
+        tbl = tables[packed]
+        out[tag] = served(
+            tag, lambda q, tbl=tbl: hl.search_hnsw_batched(tbl, q, **skw),
+            lambda c, tbl=tbl: hl.search_hnsw_batched(tbl, c, backend="torch", **skw),
+            iters, reads, codes_b)
+    for (v, i), (pv, pi) in zip(out["int8"]["results"], out["packed"]["results"]):
+        check(torch.equal(v, pv) and torch.equal(i, pi), "hnsw: packed and int8 results differ")
+    hops = torch.cat([s["hops"] for s in stats]).float()
+    scored = torch.cat([s["scored"] for s in stats]).float()
+    log(f"[hnsw] packed and int8 bit-identical; hops per query mean {float(hops.mean()):.2f} max "
+        f"{int(hops.max())}; hop iterations per request {iters}; scored candidates per query "
+        f"mean {float(scored.mean()):.1f}; host reads per request mean {np.mean(reads):.2f}")
+
+    # -- bi-granular: the walk at C levels, the fine tier in host memory --------
+    C, kc = HNSW_RERANK
+    rerank = dict(coarse_levels=C, k_coarse=kc)
+    t0 = time.perf_counter()
+    search = hl.hnsw_search_from_snapshot(host, LEVELS, packed=True, rerank=rerank, device=device,
+                                          **gkw, **skw)
+    torch.cuda.synchronize()
+    bigr_s = time.perf_counter() - t0
+    codes_c = coarse_codes(d_codes, LEVELS, C)
+    graph_c = hl.build_hnsw(codes_c.cpu().numpy(), sdc_ref.doc_inv_norms(codes_c, C).cpu().numpy(),
+                            n_levels=C, packed=True, **gkw)
+    tables_c = hl.prepare_batched(graph_c, device=device)
+    ckw = dict(skw, k=kc, ef=max(kc, HNSW_EF))
+    qc_b = [coarse_codes(c, LEVELS, C) for c in codes_b]
+    _, iters_c, reads_c = hop_counts(tables_c, qc_b, **ckw)
+
+    def bigr_plain(c):
+        _, cand = hl.search_hnsw_batched(tables_c, coarse_codes(c, LEVELS, C), backend="torch",
+                                         **ckw)
+        return sdc_rerank_backend(c, host, inv, cand, n_levels=LEVELS, k=K, backend="torch")
+
+    bigr_tag = f"C={C} k'={kc} host tier"
+    out[bigr_tag] = served(bigr_tag, search, bigr_plain, [n + 1 for n in iters_c], reads_c,
+                           codes_b)
+    log(f"[hnsw] {bigr_tag}: hnsw_search_from_snapshot built in {bigr_s:.2f} s; a walk at ef "
+        f"{ckw['ef']} over {C}-level packed codes ({tables_c.nbytes() / 2**20:.2f} MiB of tables), "
+        f"hop iterations per request {iters_c}, then one gather for the rerank")
+    del search
+
+    # -- the full hop budget, held against the early exit ------------------------
+    tbl = tables[False]
+    topk_fn.launches = gather_fn.launches = walk.host_reads = 0
+    v, i, s = hl.search_hnsw_batched(tbl, codes_b[0], with_stats=True, early_exit=False, **skw)
+    got = (topk_fn.launches, gather_fn.launches, walk.host_reads)
+    check(got == (1, HNSW_MAX_HOPS, 0),
+          f"hnsw full budget: counted (sdc_topk, gather, host reads) = {got}, want (1, "
+          f"{HNSW_MAX_HOPS}, 0)")
+    v0, i0 = out["int8"]["results"][0]
+    check(torch.equal(v, v0) and torch.equal(i, i0) and torch.equal(s["hops"], stats[0]["hops"])
+          and torch.equal(s["scored"], stats[0]["scored"]),
+          "hnsw: the full hop budget differs from the early exit")
+    log(f"[hnsw] request 0 at the full budget ({HNSW_MAX_HOPS} gathers, no host read) "
+        f"bit-identical to its early exit after {iters[0]} hops, stats included")
+
+    # -- a beam holding doc 0 beside invalid slots (every invalid slot clamps to 0)
+    cpu_tbl = hl.prepare_batched(g, device="cpu")
+    holder = next(int(n) for n in np.nonzero((g.neighbors == 0).any(1))[0] if n != 0)
+    for first in (0, holder):
+        ents = torch.tensor([first] + [-1] * 7)
+
+        def walk_from(t, q, backend):
+            return walk(q, t.codes, t.inv_norm, t.nbr_codes, t.nbr_inv, t.nbr_ids, ents,
+                        n_levels=LEVELS, k=K, ef=HNSW_EF, beam=HNSW_BEAM,
+                        max_hops=HNSW_MAX_HOPS, backend=backend, packed=False)
+
+        want = walk_from(cpu_tbl, codes_b[0].cpu(), "torch")
+        for backend in ("auto", "torch"):
+            got = walk_from(tbl, codes_b[0], backend)
+            check(all(torch.equal(a.cpu(), b) for a, b in zip(got[:2], want[:2]))
+                  and all(torch.equal(got[2][x].cpu(), want[2][x]) for x in ("hops", "scored")),
+                  f"hnsw from entry {first} alone ({backend}): differs from the plain version "
+                  "on the CPU")
+        check(all(len(set(r) - {-1}) == sum(x >= 0 for x in r) for r in want[1].tolist()),
+              f"hnsw from entry {first} alone: an id twice in a row")
+    log(f"[hnsw] walks from doc 0 alone and from doc {holder} (doc 0 among its neighbours) "
+        "alone, beside 7 invalid entries: the kernel and the plain version on the card equal "
+        "the plain version on the CPU, stats included")
+
+    # -- times: one hop split at the state of hop HNSW_SPLIT_HOP of request 0 ---
+    q = codes_b[0]
+    Q = q.shape[0]
+    E = 8
+    ents = hl._entry_points(N, g.entry, E, 0)
+    ents_t = torch.full((E,), -1, dtype=torch.int64)
+    ents_t[:len(ents)] = torch.from_numpy(ents)
+    ents_t = ents_t.to(device)
+    e_valid = ents_t >= 0
+    e_ids = torch.where(e_valid, ents_t, 0)
+
+    def entry_scoring():
+        e_inv = torch.where(e_valid, tbl.inv_norm[e_ids], 0.0)
+        return sdc_search_backend(q, tbl.codes[e_ids], e_inv, n_levels=LEVELS, k=HNSW_EF)
+
+    res_vals, e_pos = entry_scoring()
+    res_ids = torch.where(e_pos >= 0, ents_t[e_pos.clamp(0, E - 1).long()], -1).int()
+    visited = torch.zeros((Q, N + 1), dtype=torch.bool, device=device)
+    visited[:, torch.where(e_valid, ents_t, N)] = True
+    expanded = torch.zeros_like(visited)
+    active = torch.ones(Q, dtype=torch.bool, device=device)
+    gkw_hop = dict(n_levels=LEVELS, k=HNSW_EF)
+    check(iters[0] > HNSW_SPLIT_HOP, f"hnsw: request 0 ended before hop {HNSW_SPLIT_HOP}")
+    for hop in range(HNSW_SPLIT_HOP + 1):
+        beam_ids = hl.select_beam(res_vals, res_ids, expanded, HNSW_BEAM)
+        active &= (beam_ids >= 0).any(-1)
+        state = (expanded.clone(), visited.clone())
+        bclamp, fresh = hl.expand_beam(beam_ids, active, tbl.nbr_ids, expanded, visited)
+        mask = fresh.reshape(Q, HNSW_BEAM, HNSW_M).float()
+        gargs = (q, tbl.nbr_codes, tbl.nbr_inv, tbl.nbr_ids, bclamp)
+        hop_vals, hop_ids = gather_fn(*gargs, cand_mask=mask, **gkw_hop)
+        merged = sdc_mod.merge_running_topk(res_vals, res_ids, hop_vals, hop_ids, HNSW_EF)
+        if hop < HNSW_SPLIT_HOP:
+            res_vals, res_ids = merged
+    pv, pi = gather_mod.sdc_gather_topk_torch(*gargs, cand_mask=mask, **gkw_hop)
+    check(torch.equal(hop_vals, pv) and torch.equal(hop_ids, pi),
+          f"hnsw hop {HNSW_SPLIT_HOP}: gather kernel != plain")
+    exp_t, vis_t = state
+    qc_cap = gather_mod._pairs_per_block(sdc_mod.kernel_dim(CODE_DIM), False,
+                                         sdc_mod.cap_for(HNSW_EF))
+    split = {
+        "entry scoring": cuda_ms(entry_scoring, 50),
+        "beam selection": cuda_ms(lambda: hl.select_beam(res_vals, res_ids, exp_t, HNSW_BEAM),
+                                  50),
+        "dedupe": cuda_ms(lambda: hl.expand_beam(beam_ids, active, tbl.nbr_ids, exp_t.clone(),
+                                                 vis_t.clone()), 50),
+        "plan": cuda_ms(lambda: gather_mod.gather_plan(bclamp, N, min(bclamp.numel(), qc_cap)),
+                        50),
+        "gather call": cuda_ms(lambda: gather_fn(*gargs, cand_mask=mask, **gkw_hop), 50),
+        "merge": cuda_ms(lambda: sdc_mod.merge_running_topk(res_vals, res_ids, hop_vals, hop_ids,
+                                                            HNSW_EF), 50),
+    }
+    clone_ms = cuda_ms(lambda: (exp_t.clone(), vis_t.clone()), 50)
+    split["dedupe"] -= clone_ms
+    scan_ms, merge_ms = device_ms(lambda: gather_fn(*gargs, cand_mask=mask, **gkw_hop), 50,
+                                  "gather_scan_kernel", "gather_merge_kernel")
+    plain_ms = cuda_ms(lambda: gather_mod.sdc_gather_topk_torch(*gargs, cand_mask=mask,
+                                                                **gkw_hop), 5)
+    beam_ok = (beam_ids >= 0) & active[:, None]
+    lists = int(torch.unique(bclamp[beam_ok]).numel())
+    live = int(fresh.sum())
+    nbytes = (lists * HNSW_M * (CODE_DIM + 8) + mask.numel() * 4 + q.numel() + bclamp.numel() * 8
+              + Q * HNSW_EF * 8)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2 * live * CODE_DIM / INT8_OPS_PER_S
+    bound_ms = max(bytes_ms, ops_ms)
+    hop_ms = sum(v for k_, v in split.items() if k_ not in ("entry scoring", "plan"))
+    log(f"[time] hnsw hop {HNSW_SPLIT_HOP} of request 0, Q={Q} beam={HNSW_BEAM} M={HNSW_M} "
+        f"ef={HNSW_EF} N={N} int8 on {name} ({smi}): "
+        + ", ".join(f"{k_} {v:.4f} ms" for k_, v in split.items())
+        + f" (CUDA events; the dedupe without its two bitmap copies, {clone_ms:.4f} ms); gather "
+        f"scan kernel {scan_ms}, merge kernel {merge_ms} (profiler device time); a hop "
+        f"{hop_ms:.4f} ms; gather plain {plain_ms:.3f} ms; bound {bound_ms:.6f} ms ("
+        f"{'bytes' if bytes_ms >= ops_ms else 'operations'}: {lists} distinct beam nodes, "
+        f"{live} fresh slots, {nbytes / 1e6:.3f} MB; int8 ops {ops_ms:.3g} ms)")
+    tbl_p = tables[True]
+    for tag, t_ in (("int8", tbl), ("packed", tbl_p)):
+        def request(t_=t_):
+            return hl.search_hnsw_batched(t_, q, **skw)
+
+        wall = host_ms(request, 10)
+        busy = device_busy_ms(request, 3)
+        share = "not measured" if isinstance(busy, str) else f"{100 * (1 - busy / wall):.1f}%"
+        log(f"[time] hnsw search of request 0 ({iters[0]} hops) {tag} on {name} ({smi}): "
+            f"{wall:.3f} ms (host clock, synchronised), device busy "
+            f"{busy if isinstance(busy, str) else f'{busy:.4f} ms'} (profiler, every kernel), "
+            f"device idle {share}; {wall / iters[0]:.4f} ms per hop iteration")
+    for tag, o in out.items():
+        log(f"[time] hnsw serving {tag}: sequential {o['seq_ms']:.3f} ms/batch, pipelined "
+            f"{o['pipe_ms']:.3f} ms/batch (scan stage idle {100 * o['idle']:.0f}%), "
+            f"{len(batches)} requests of {SERVE_Q} on {name} ({smi})")
+    idx = torch.cat([i for _, i in out["int8"]["results"]], 0)
+    idx_c = torch.cat([i for _, i in out[bigr_tag]["results"]], 0)
+    log(f"[hnsw] recall@{K} against the positive doc (untrained weights, information only): "
+        f"hnsw {recall_at_k(idx, gt):.4f}, bi-granular {recall_at_k(idx_c, gt):.4f}")
+    log(f"[hnsw] phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return dict(name="sdc_gather_topk_hnsw", route="cuda", source=GATHER_SOURCE,
+                replaces=GATHER_REPLACES, launches=out["int8"]["gathers"],
+                max_abs_err=out["int8"]["err"], ms=split["gather call"], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None)
+
+
 def dlrm_phase(seed, device, name, smi):
     """Phase 9: the dlrm-rm2 serving forward at full width. Returns the kernel's JSON row."""
     import torch
@@ -1390,6 +1733,9 @@ def main() -> None:
     full_scan_ms = next(k["ms"] for k in kernels if k["name"] == "sdc_topk_packed")
     kernels += bigranular_phase(d_codes, encode, batches, cfg, device, name, smi, full_scan_ms)
     torch.cuda.empty_cache()
+
+    # -- 8c. HNSW graph search at the CLI's width ------------------------------
+    kernels.append(hnsw_phase(model, encode, cfg, args.seed, device, name, smi))
 
     # -- 9. the dlrm-rm2 serving forward at full width ------------------------
     del indexes, d_codes

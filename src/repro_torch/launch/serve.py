@@ -1,22 +1,26 @@
-"""BEBR serving launcher, flat and IVF indexes (ports the ``--index flat``
-and ``--index ivf`` paths of ``repro/launch/serve.py``, bi-granular mode
-included).
+"""BEBR serving launcher, flat, IVF and HNSW indexes (ports the
+``--index flat|ivf|hnsw`` paths of ``repro/launch/serve.py``, bi-granular
+mode included).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --index flat --docs 20000 --queries 64
     PYTHONPATH=src python -m repro_torch.launch.serve --index ivf [--probe-budget 2080]
-    PYTHONPATH=src python -m repro_torch.launch.serve --index flat|ivf \
+    PYTHONPATH=src python -m repro_torch.launch.serve --index hnsw [--ef 64 --beam 8]
+    PYTHONPATH=src python -m repro_torch.launch.serve --index flat|ivf|hnsw \
         --coarse-levels 2 --k-coarse 64
 
 End to end on the card: a clustered synthetic corpus -> eval-mode
 recurrent binarizer -> integer codes (nibble-packed with ``--packed``)
 -> ``FlatSDC`` scanned by the CUDA ``sdc_topk`` kernel, or an IVF index
 (nlist 64, nprobe 32, k-means seed 1, the reference CLI's parameters)
-whose probed lists the CUDA ``sdc_gather_topk`` kernel scans, served
-through ``ServingPipeline``. ``--coarse-levels C --k-coarse K'`` serves
-either family in bi-granular mode: the index covers the first C levels
-of the codes (hot tier, on the card) and the top-K' survivors of each
-query are reranked on the full-level codes, which stay in host memory
-(cold tier) and are gathered there per request. Recall@k against the
+whose probed lists the CUDA ``sdc_gather_topk`` kernel scans, or an NSW
+graph (M 16, ef_construction 64, seed 0, built on the host in O(N^2))
+walked by the batched-frontier search, whose hops the same gather kernel
+scores (``--ef`` results, ``--beam`` nodes expanded a hop, at most 64
+hops), served through ``ServingPipeline``. ``--coarse-levels C
+--k-coarse K'`` serves any family in bi-granular mode: the index covers
+the first C levels of the codes (hot tier, on the card) and the top-K'
+survivors of each query are reranked on the full-level codes, which
+stay in host memory (cold tier) and are gathered there per request. Recall@k against the
 float-embedding exhaustive baseline, index bytes, and sequential vs
 pipelined ms/batch. Training is not ported yet: ``--ckpt`` loads a
 checkpoint written by the reference, and without it the binarizer has
@@ -41,13 +45,16 @@ from repro_torch.core.binarize_lib import (
 )
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
-from repro_torch.index import ivf
+from repro_torch.index import hnsw_lite, ivf
 from repro_torch.index.flat import FlatFloat, FlatSDC, flat_search_from_snapshot
+from repro_torch.kernels.sdc import ref as sdc_ref
 from repro_torch.launch import binarizer_cache, serving
 
 # The reference CLI's IVF parameters (``lifecycle.IVFBuilder`` as
 # ``repro/launch/serve.py`` builds it).
 IVF_NLIST, IVF_NPROBE, IVF_SEED, IVF_KMEANS_ITERS = 64, 32, 1, 20
+# ... and its HNSW parameters (``lifecycle.HNSWBuilder``).
+HNSW_M, HNSW_EF_CONSTRUCTION, HNSW_MAX_HOPS, HNSW_SEED = 16, 64, 64, 0
 
 
 def encode_codes(model: RecurrentBinarizer, emb, batch: int = 4096) -> torch.Tensor:
@@ -93,8 +100,8 @@ def recall_at_k(ids: torch.Tensor, gt) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--index", choices=["flat", "ivf"], default="flat",
-                    help="index family (this port serves flat and IVF)")
+    ap.add_argument("--index", choices=["flat", "ivf", "hnsw"], default="flat",
+                    help="index family")
     ap.add_argument("--docs", type=int, default=20000)
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--dim", type=int, default=256)
@@ -110,6 +117,10 @@ def main(argv=None):
                     help="bi-granular mode: survivors kept per query by "
                          "the coarse scan and rescored at full depth; "
                          "0 disables (set with --coarse-levels)")
+    ap.add_argument("--ef", type=int, default=64,
+                    help="hnsw: result-list width (and per-hop top-k)")
+    ap.add_argument("--beam", type=int, default=8,
+                    help="hnsw: frontier nodes expanded per hop")
     ap.add_argument("--packed", action="store_true",
                     help="int4 nibble-packed code storage (2 dims/byte; "
                          "halves scan bytes, bit-identical scores)")
@@ -165,6 +176,11 @@ def main(argv=None):
 
     d_codes = encode_codes(model, docs)
     flat_float = FlatFloat.build(docs, device=device)
+    hnsw_kw = dict(M=HNSW_M, ef_construction=HNSW_EF_CONSTRUCTION, seed=HNSW_SEED)
+    if args.index == "hnsw":
+        print("[index] building NSW graph (host-side, O(N^2) incremental "
+              "construction — use --docs <= 20000 for a quick demo)")
+        t0 = time.perf_counter()
     if args.coarse_levels:
         # The snapshot closures from a host copy of the codes: the cold
         # fine tier stays in host memory, as the reference's builders keep it.
@@ -174,6 +190,11 @@ def main(argv=None):
         if args.index == "flat":
             search = flat_search_from_snapshot(host_codes, bcfg.n_levels, k=args.k,
                                                packed=args.packed, rerank=rerank, device=device)
+        elif args.index == "hnsw":
+            search = hnsw_lite.hnsw_search_from_snapshot(
+                host_codes, bcfg.n_levels, k=args.k, ef=args.ef, beam=args.beam,
+                max_hops=HNSW_MAX_HOPS, packed=args.packed, rerank=rerank, device=device,
+                **hnsw_kw)
         else:
             search = ivf.ivf_search_from_snapshot(
                 host_codes, bcfg.n_levels, k=args.k, nlist=IVF_NLIST, nprobe=IVF_NPROBE,
@@ -191,6 +212,14 @@ def main(argv=None):
         index = FlatSDC.build(d_codes, bcfg.n_levels, packed=args.packed, device=device)
         search = lambda q: index.search(q, args.k)  # noqa: E731
         nbytes = index.nbytes()
+    elif args.index == "hnsw":
+        inv = sdc_ref.doc_inv_norms(d_codes, bcfg.n_levels).cpu().numpy()
+        graph = hnsw_lite.build_hnsw(d_codes.cpu().numpy(), inv, n_levels=bcfg.n_levels,
+                                     packed=args.packed, **hnsw_kw)
+        tables = hnsw_lite.prepare_batched(graph, device=device)
+        search = lambda q: hnsw_lite.search_hnsw_batched(  # noqa: E731
+            tables, q, k=args.k, ef=args.ef, beam=args.beam, max_hops=HNSW_MAX_HOPS)
+        nbytes = graph.nbytes()
     else:
         index = ivf.build_ivf(d_codes, n_levels=bcfg.n_levels, nlist=IVF_NLIST,
                               kmeans_iters=IVF_KMEANS_ITERS, packed=args.packed,
@@ -201,6 +230,8 @@ def main(argv=None):
         else:
             search = lambda q: ivf.search(index, q, nprobe=IVF_NPROBE, k=args.k)  # noqa: E731
         nbytes = index.nbytes()
+    if args.index == "hnsw":
+        print(f"[index] NSW graph built in {time.perf_counter() - t0:.2f} s (host)")
     float_bytes = flat_float.nbytes()
     print(f"[index] {args.index}: {nbytes/2**20:.2f} MiB "
           f"(float flat: {float_bytes/2**20:.2f} MiB, "
