@@ -91,6 +91,25 @@ that fails:
      into its steps (entry scoring, beam selection, dedupe, plan, gather,
      merge), the gather beside its plain version and byte bound, and the
      serving drivers;
+ 8d. drives the distributed engine (proxy -> leaf -> merge) with four
+     leaves on the card, a (2, 2) LeafMesh, each built through
+     lifecycle.EngineBuilder: the flat engine over the first 10,000,036 of
+     phase 3's documents (a view), int8 and packed, 8 requests of 64
+     queries through ServingPipeline with 4 sdc_topk launches and no
+     sdc_scores a request, held against FlatSDC.search over the same rows
+     (ties put in the merge's leaf order, engine.gather_order; equal
+     without reordering wherever no tie is reordered) and against the
+     plain leaves; failover with leaf 3 dead against ops.sdc_search with
+     its inverse norms zeroed, and the mask flipped back; bi-granular at
+     (C, k') = (2, 160) from a numpy snapshot against the flat closure's
+     index, one rerank gather a request; two replicas sharing the card
+     (shared leaf storage, one artifact, one tag); the HNSW engine over
+     phase 8c's corpus (5,000 documents a leaf), int8 and packed, with the
+     gathers and host reads of every leaf's hops counted and request 0
+     held against the same engine on the CPU; times one leaf's scan beside
+     its plain version, bound and yardstick, the merge, the engine's
+     request beside the single scan's, the HNSW engine's request with its
+     device-busy share, its hops' gathers, and the serving drivers;
   9. drives the dlrm-rm2 serving forward at full width (26 tables of
      1,048,576 x 64 float32, 6.98 GB, seeded): dlrm_serve_step on 3
      batches each at B = 512 and B = 262,144, with the dot_interact
@@ -154,6 +173,21 @@ RERANK_WIDE_KC, RERANK_WIDE_ROWS = 5000, 4
 HNSW_DOCS, HNSW_EF, HNSW_BEAM = 20_000, 64, 8
 HNSW_RERANK = (2, 160)
 HNSW_SPLIT_HOP = 3
+# the engine: four leaves on the card; the flat list a merged result is held
+# against has WIDE_MARGIN slots past k (every tie at the k-th score must fall
+# inside), the coarse list of the bi-granular check RERANK_MARGIN past k'
+ENGINE_LEAVES = 4
+ENGINE_RERANK = (2, 160)
+WIDE_MARGIN = 118
+RERANK_MARGIN = 4096 - 160
+
+
+def ivf_params():
+    """The CLI's IVF build parameters: nlist, nprobe, seed, k-means iterations."""
+    from repro_torch.launch.serve import cli_builder
+
+    p = cli_builder("ivf").params
+    return p["nlist"], p["nprobe"], p["seed"], p["kmeans_iters"]
 
 
 def fail(msg: str) -> None:
@@ -531,23 +565,31 @@ def serve_checked(tag, encode, search, batches, cfg, counts):
     """Serve ``batches`` sequentially, then pipelined, each run with the
     launch counts zeroed just before and read just after; checks that
     both runs launched each kernel of ``counts`` ((kernel, launches per
-    request) pairs) that many times per request, and agree. Returns
-    (results, the first kernel's launches in the pipelined run,
-    sequential ms/request, pipelined ms/request, stats)."""
+    request) pairs; a list gives each request its own count; a third item
+    names another counter attribute than ``launches``) that many times,
+    and agree. Returns (results, the first kernel's launches in the
+    pipelined run, sequential ms/request, pipelined ms/request, stats)."""
     import torch
 
     from repro_torch.launch import serving
     from repro_torch.launch.serve import serve_pipelined
 
+    def attr(entry):
+        return entry[2] if len(entry) > 2 else "launches"
+
+    def want(n):
+        return sum(n) if isinstance(n, list) else n * len(batches)
+
     def zero():
-        for fn, _ in counts:
-            fn.launches = 0
+        for entry in counts:
+            setattr(entry[0], attr(entry), 0)
 
     def read(run):
-        for fn, n in counts:
-            check(fn.launches == n * len(batches),
-                  f"{tag}: the {run} run launched {fn.__name__} {fn.launches} times, "
-                  f"want {n * len(batches)}")
+        for entry in counts:
+            got = getattr(entry[0], attr(entry))
+            check(got == want(entry[1]),
+                  f"{tag}: the {run} run counted {entry[0].__name__}.{attr(entry)} = {got}, "
+                  f"want {want(entry[1])}")
 
     serving.warmup(encode, search, batches)
     zero()
@@ -665,7 +707,8 @@ def bigranular_phase(d_codes, encode, batches, cfg, device, name, smi, full_scan
     from repro_torch.kernels.sdc import rerank as rr_mod
     from repro_torch.kernels.sdc import sdc as sdc_mod
     from repro_torch.kernels.sdc.defaults import RERANK_GROUP
-    from repro_torch.launch.serve import IVF_KMEANS_ITERS, IVF_NLIST, IVF_NPROBE, IVF_SEED
+
+    IVF_NLIST, IVF_NPROBE, IVF_SEED, IVF_KMEANS_ITERS = ivf_params()
 
     t_phase = time.perf_counter()
     N = d_codes.shape[0]
@@ -875,7 +918,8 @@ def bigranular_phase(d_codes, encode, batches, cfg, device, name, smi, full_scan
 
 
 def hnsw_phase(model, encode, cfg, seed, device, name, smi):
-    """Phase 8c: the HNSW graph search at the CLI's width. Returns its gather's JSON row."""
+    """Phase 8c: the HNSW graph search at the CLI's width. Returns its gather's JSON row
+    and the corpus (host codes, query batches, their codes) with request 0's time."""
     import numpy as np
     import torch
 
@@ -888,9 +932,11 @@ def hnsw_phase(model, encode, cfg, seed, device, name, smi):
     from repro_torch.kernels.sdc.ops import sdc_search_backend
     from repro_torch.kernels.sdc.rerank import sdc_rerank_backend
     from repro_torch.launch import serving
-    from repro_torch.launch.serve import (HNSW_EF_CONSTRUCTION, HNSW_M, HNSW_MAX_HOPS,
-                                          HNSW_SEED, encode_codes, recall_at_k,
-                                          serve_pipelined)
+    from repro_torch.launch.serve import cli_builder, encode_codes, recall_at_k, serve_pipelined
+
+    p = cli_builder("hnsw").params
+    HNSW_M, HNSW_EF_CONSTRUCTION, HNSW_MAX_HOPS, HNSW_SEED = (p["M"], p["ef_construction"],
+                                                              p["max_hops"], p["seed"])
 
     t_phase = time.perf_counter()
     n_queries = SERVE_Q * SERVE_REQUESTS
@@ -1151,11 +1197,12 @@ def hnsw_phase(model, encode, cfg, seed, device, name, smi):
         f"{'bytes' if bytes_ms >= ops_ms else 'operations'}: {lists} distinct beam nodes, "
         f"{live} fresh slots, {nbytes / 1e6:.3f} MB; int8 ops {ops_ms:.3g} ms)")
     tbl_p = tables[True]
+    walls = {}
     for tag, t_ in (("int8", tbl), ("packed", tbl_p)):
         def request(t_=t_):
             return hl.search_hnsw_batched(t_, q, **skw)
 
-        wall = host_ms(request, 10)
+        wall = walls[tag] = host_ms(request, 10)
         busy = device_busy_ms(request, 3)
         share = "not measured" if isinstance(busy, str) else f"{100 * (1 - busy / wall):.1f}%"
         log(f"[time] hnsw search of request 0 ({iters[0]} hops) {tag} on {name} ({smi}): "
@@ -1171,11 +1218,375 @@ def hnsw_phase(model, encode, cfg, seed, device, name, smi):
     log(f"[hnsw] recall@{K} against the positive doc (untrained weights, information only): "
         f"hnsw {recall_at_k(idx, gt):.4f}, bi-granular {recall_at_k(idx_c, gt):.4f}")
     log(f"[hnsw] phase passed in {time.perf_counter() - t_phase:.1f} s")
-    return dict(name="sdc_gather_topk_hnsw", route="cuda", source=GATHER_SOURCE,
-                replaces=GATHER_REPLACES, launches=out["int8"]["gathers"],
-                max_abs_err=out["int8"]["err"], ms=split["gather call"], plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=None)
+    row = dict(name="sdc_gather_topk_hnsw", route="cuda", source=GATHER_SOURCE,
+               replaces=GATHER_REPLACES, launches=out["int8"]["gathers"],
+               max_abs_err=out["int8"]["err"], ms=split["gather call"], plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               library_ms=None)
+    return row, dict(host=host, batches=batches, codes=codes_b, request_ms=walls["int8"],
+                     iters=iters[0])
+
+
+def in_gather_order(v, i, order, shard_n, k):
+    """A flat search's list (ties toward the lower id) in the engine's merge
+    order: score, then the leaf's place in ``order`` (``engine.gather_order``),
+    then id; its first k."""
+    import torch
+
+    place = torch.tensor(order, device=i.device).argsort()
+    leaf = (i.long() // shard_n).clamp(0, len(order) - 1)
+    by_place = torch.sort(place[leaf], dim=1, stable=True).indices
+    v, i = v.gather(1, by_place), i.gather(1, by_place)
+    by_score = torch.sort(v, dim=1, descending=True, stable=True).indices[:, :k]
+    return v.gather(1, by_score), i.gather(1, by_score)
+
+
+def engine_phase(d_codes, indexes, encode, batches, cfg, device, name, smi, hnsw):
+    """Phase 8d: the distributed engine, four leaves on the card. Returns the
+    JSON rows of the engine leaf's scan and the HNSW engine's hop."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.binarize_lib import coarse_codes
+    from repro_torch.index import engine as eng
+    from repro_torch.index import hnsw_lite as hl
+    from repro_torch.index.flat import BiGranularFlat, FlatSDC
+    from repro_torch.kernels.sdc import gather as gather_mod
+    from repro_torch.kernels.sdc import ops as ops_mod
+    from repro_torch.kernels.sdc import sdc as sdc_mod
+    from repro_torch.kernels.sdc.rerank import sdc_rerank_backend
+    from repro_torch.launch.lifecycle import CorpusSnapshot, EngineBuilder, builder_version
+    from repro_torch.launch.mesh import make_host_mesh, make_replica_meshes
+    from repro_torch.launch.serve import cli_builder
+
+    t_phase = time.perf_counter()
+    topk_fn, gather_fn, scores_fn = sdc_mod.sdc_topk, gather_mod.sdc_gather_topk, sdc_mod.sdc_scores
+    mesh = make_host_mesh((2, 2), devices=[device] * ENGINE_LEAVES)
+    order = eng.gather_order(mesh)
+    N = d_codes.shape[0] - d_codes.shape[0] % ENGINE_LEAVES
+    shard_n = N // ENGINE_LEAVES
+    codes_b = [encode(b) for b in batches]
+    t0 = time.perf_counter()
+    snap = CorpusSnapshot(d_codes[:N], LEVELS, "v1")  # a view of the first N rows
+    digest = snap.digest
+    digest_s = time.perf_counter() - t0
+    log(f"[engine] {ENGINE_LEAVES} leaves on {name} (LeafMesh (2, 2), merge order {order}), "
+        f"{N} of the {d_codes.shape[0]} documents, {shard_n} a leaf; snapshot digest "
+        f"{digest[:12]} in {digest_s:.2f} s (host copy + sha1)")
+
+    def ties_checked(v, i, want, tag):
+        """``want`` is a flat list with WIDE_MARGIN extra slots: every doc
+        tied with the k-th must be in it."""
+        wv, wi = want
+        check(bool((wv[:, -1] < wv[:, K - 1]).all()),
+              f"engine {tag}: a tie at the k-th score reaches past the flat list's margin")
+        ev, ei = in_gather_order(wv, wi, order, shard_n, K)
+        check(torch.equal(v, ev) and torch.equal(i, ei),
+              f"engine {tag}: differs from the flat search in merge order")
+        same = torch.equal(v, wv[:, :K]) and torch.equal(i, wi[:, :K])
+        check(same or not (torch.equal(ev, wv[:, :K]) and torch.equal(ei, wi[:, :K])),
+              f"engine {tag}: differs from the flat search where no tie is reordered")
+        return same
+
+    # -- the flat engine, int8 and packed, from EngineBuilder.build ------------
+    flat_out, searches, builders = {}, {}, {}
+    for packed in (False, True):
+        tag = "packed" if packed else "int8"
+        builders[packed] = EngineBuilder([mesh], index="flat", n_levels=LEVELS, k=K,
+                                         packed=packed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        search = searches[packed] = builders[packed].build(snap)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        results, launches, seq_ms, pipe_ms, stats = serve_checked(
+            f"engine flat {tag}", encode, search, batches, cfg, [(topk_fn, 4), (scores_fn, 0)])
+        ref = FlatSDC(codes=indexes[packed].codes[:N], inv_norm=indexes[packed].inv_norm[:N],
+                      n_levels=LEVELS, packed=packed)
+        plain = eng.make_distributed_search(mesh, n_levels=LEVELS, k=K, packed=packed,
+                                            backend="torch")
+        flat_equal = 0
+        for r, (c, (v, i)) in enumerate(zip(codes_b, results)):
+            check(bool(((i >= 0) & (i < N)).all()), f"engine flat {tag}: ids out of range")
+            flat_equal += ties_checked(v, i, ref.search(c, K + WIDE_MARGIN), f"flat {tag}")
+        pv, pi = plain(codes_b[0], *search.leaf_inputs)
+        v0, i0 = results[0]
+        check(torch.equal(v0, pv) and torch.equal(i0, pi),
+              f"engine flat {tag}: differs from the plain leaves on the card")
+        flat_out[packed] = dict(results=results, launches=launches, seq_ms=seq_ms,
+                                pipe_ms=pipe_ms, idle=stats["device_idle_frac"],
+                                err=float((v0 - pv).abs().max()))
+        log(f"[engine] flat {tag}: EngineBuilder.build in {build_s:.2f} s; {len(batches)} "
+            f"requests of {SERVE_Q} served, 4 sdc_topk launches and no sdc_scores a request in "
+            f"each run; bit-identical to serve_sequential, to FlatSDC.search over the same rows "
+            f"with ties in merge order (and without reordering on {flat_equal} of "
+            f"{len(batches)} requests), and to the plain leaves on request 0")
+    for (a, b), (c, d) in zip(flat_out[False]["results"], flat_out[True]["results"]):
+        check(torch.equal(a, c) and torch.equal(b, d), "engine: packed and int8 results differ")
+
+    # -- failover: leaf 3 dead, then alive again, no rebuild --------------------
+    search = searches[False]
+    fo = eng.make_failover_search(mesh, n_levels=LEVELS, k=K)
+    alive = torch.ones(ENGINE_LEAVES, dtype=torch.bool, device=device)
+    alive[3] = False
+    q0 = codes_b[0]
+    topk_fn.launches = 0
+    v, i = fo(q0, *search.leaf_inputs, alive)
+    check(topk_fn.launches == ENGINE_LEAVES, "failover: a dead leaf still scans (SPMD), want 4")
+    check(not bool(((i >= 3 * shard_n) & (i < 4 * shard_n)).any()),
+          "failover: an id of the dead leaf 3 surfaced")
+    inv = indexes[False].inv_norm[:N].clone()
+    inv[3 * shard_n:] = 0
+    want = ops_mod.sdc_search(q0, d_codes[:N], inv, n_levels=LEVELS, k=K + WIDE_MARGIN)
+    ties_checked(v, i, want, "failover")
+    alive[3] = True
+    v, i = fo(q0, *search.leaf_inputs, alive)
+    v0, i0 = flat_out[False]["results"][0]
+    check(torch.equal(v, v0) and torch.equal(i, i0),
+          "failover: the mask flipped back differs from the healthy engine")
+    log("[engine] failover: leaf 3 dead, no id of its rows, bit-identical to ops.sdc_search "
+        "with its inverse norms zeroed (ties in merge order); the mask flipped back (same "
+        "closure, no rebuild) gives the healthy result")
+
+    # -- bi-granular: a numpy snapshot, the coarse leaves, one rerank ----------
+    C, kc = ENGINE_RERANK
+    host = d_codes[:N].cpu().numpy()
+    snap_h = CorpusSnapshot(host, LEVELS, "v1")
+    check(snap_h.digest == snap.digest, "engine: the numpy snapshot's digest differs")
+    builder_rr = EngineBuilder([mesh], index="flat", n_levels=LEVELS, k=K, packed=True,
+                               coarse_levels=C, k_coarse=kc)
+    t0 = time.perf_counter()
+    search_rr = builder_rr.build(snap_h)
+    torch.cuda.synchronize()
+    rr_build_s = time.perf_counter() - t0
+    rr_tag = f"bi-granular C={C} k'={kc} host tier"
+    results, rr_launches, rr_seq, rr_pipe, rr_stats = serve_checked(
+        f"engine {rr_tag}", encode, search_rr, batches, cfg,
+        [(gather_fn, 1), (topk_fn, ENGINE_LEAVES), (scores_fn, 0)])
+    # flat_search_from_snapshot's index over the same rows
+    bigr = BiGranularFlat.build(host, LEVELS, coarse_levels=C, k_coarse=kc, packed=True,
+                                device=device)
+    rr_equal = 0
+    for c, (v, i) in zip(codes_b, results):
+        cv, ci = bigr.coarse.search(coarse_codes(c, LEVELS, C), kc + RERANK_MARGIN)
+        check(bool((cv[:, -1] < cv[:, kc - 1]).all()),
+              f"engine {rr_tag}: a coarse tie at k' reaches past the margin")
+        _, cand = in_gather_order(cv, ci, order, shard_n, kc)
+        ev, ei = sdc_rerank_backend(c, bigr.fine_codes, bigr.fine_inv_norm, cand,
+                                    n_levels=LEVELS, k=K)
+        check(torch.equal(v, ev) and torch.equal(i, ei),
+              f"engine {rr_tag}: differs from the flat closure's rerank of the coarse "
+              "survivors in merge order")
+        fv, fi = bigr.search(c, K)
+        same = torch.equal(v, fv) and torch.equal(i, fi)
+        check(same or not (torch.equal(ev, fv) and torch.equal(ei, fi)),
+              f"engine {rr_tag}: differs from the flat closure where no tie is reordered")
+        rr_equal += same
+    log(f"[engine] {rr_tag}: EngineBuilder.build in {rr_build_s:.2f} s; {len(batches)} "
+        f"requests served, {ENGINE_LEAVES} coarse sdc_topk and 1 rerank sdc_gather_topk a "
+        f"request in each run; bit-identical to the flat closure (BiGranularFlat, as "
+        f"flat_search_from_snapshot builds it) on {rr_equal} of {len(batches)} requests, and "
+        "to its rerank of the coarse survivors in merge order on all")
+    del bigr, search_rr
+
+    # -- two replicas on the card: shared leaf storage, one artifact -----------
+    meshes = make_replica_meshes(2, (2, 2), devices=[device] * (2 * ENGINE_LEAVES))
+    b2 = EngineBuilder(meshes, index="flat", n_levels=LEVELS, k=K, packed=True)
+    reps = [b2.build(snap, replica=r) for r in (0, 1)]
+    outs = [fn(q0) for fn in reps]
+    v0, i0 = flat_out[True]["results"][0]
+    check(all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+          and torch.equal(outs[0][0], v0) and torch.equal(outs[0][1], i0),
+          "replicas: results differ")
+    check(all([t.data_ptr() for t in a] == [t.data_ptr() for t in b]
+              for a, b in zip(reps[0].leaf_inputs, reps[1].leaf_inputs)),
+          "replicas: the leaf tensors are not shared")
+    check(len(b2._flat_cache) == 1, "replicas: more than one artifact for the digest")
+    tags = {builder_version(b, s).tag for b in (b2, builders[True]) for s in (snap, snap_h)}
+    check(len(tags) == 1, f"replicas: builder_version tags differ: {tags}")
+    log(f"[engine] two replicas (make_replica_meshes(2, (2, 2)) on one card): equal results, "
+        f"the same leaf storage (data_ptr), one artifact for the digest, one tag {tags.pop()}")
+    del reps, b2, builder_rr
+
+    # -- the HNSW engine over phase 8c's corpus ---------------------------------
+    host20, hb, hcodes = hnsw["host"], hnsw["batches"], hnsw["codes"]
+    snap20 = CorpusSnapshot(host20, LEVELS, "v1")
+    hp = cli_builder("hnsw", ef=HNSW_EF, beam=HNSW_BEAM).params
+    gkw = dict(M=hp["M"], ef_construction=hp["ef_construction"], ef=hp["ef"], beam=hp["beam"],
+               max_hops=hp["max_hops"], seed=hp["seed"])
+    walk = hl.hnsw_frontier_search
+    cpu_mesh = make_host_mesh((2, 2), devices=["cpu"] * ENGINE_LEAVES)
+    h_out = {}
+    for packed in (False, True):
+        tag = "packed" if packed else "int8"
+        b = EngineBuilder([mesh], index="hnsw", n_levels=LEVELS, k=K, packed=packed, **gkw)
+        t0 = time.perf_counter()
+        hsearch = b.build(snap20)
+        torch.cuda.synchronize()
+        hbuild_s = time.perf_counter() - t0
+        tables = hsearch.leaf_inputs
+
+        def leaf_iters(c):
+            """Each leaf's hop iterations for query codes ``c``, walked alone."""
+            out = []
+            for leaf in range(ENGINE_LEAVES):
+                t = [x[leaf] for x in tables]
+                _, _, st = walk(c, *t[:5], t[5].reshape(-1), n_levels=LEVELS, k=K,
+                                ef=max(hp["ef"], K), beam=hp["beam"], max_hops=hp["max_hops"],
+                                backend="cuda", packed=packed)
+                out.append(int(st["hops"].max()))
+            return out
+
+        iters = [leaf_iters(c) for c in hcodes]
+        gathers = [sum(it) for it in iters]
+        reads = [sum(n + (n < hp["max_hops"]) for n in it) for it in iters]
+        results, hl_launches, hseq, hpipe, hstats = serve_checked(
+            f"engine hnsw {tag}", encode, hsearch, hb, cfg,
+            [(gather_fn, gathers), (topk_fn, ENGINE_LEAVES), (walk, reads, "host_reads"),
+             (scores_fn, 0)])
+        cpu_tables = [[t.cpu() for t in tbl] for tbl in tables]
+        cpu_fn = eng.make_hnsw_search(cpu_mesh, n_levels=LEVELS, k=K, ef=hp["ef"],
+                                      beam=hp["beam"], max_hops=hp["max_hops"], packed=packed)
+        cv, ci = cpu_fn(hcodes[0].cpu(), *cpu_tables)
+        v0, i0 = results[0]
+        check(torch.equal(v0.cpu(), cv) and torch.equal(i0.cpu(), ci),
+              f"engine hnsw {tag}: request 0 differs from the same engine on the CPU")
+        for v, i in results:
+            check(bool(((i >= 0) & (i < host20.shape[0])).all()),
+                  f"engine hnsw {tag}: ids out of range")
+        h_out[packed] = dict(results=results, search=hsearch, iters=iters, gathers=gathers,
+                             seq_ms=hseq, pipe_ms=hpipe, idle=hstats["device_idle_frac"])
+        log(f"[engine] hnsw {tag}: EngineBuilder.build (4 graphs of {host20.shape[0] // 4} on "
+            f"the host, M {hp['M']}, ef_construction {hp['ef_construction']}) in "
+            f"{hbuild_s:.2f} s; {len(hb)} requests of {SERVE_Q} at ef {hp['ef']}, beam "
+            f"{hp['beam']}: hop iterations per leaf {iters}; in each run 4 sdc_topk, "
+            f"{sum(gathers)} sdc_gather_topk launches (the summed iterations) and {sum(reads)} "
+            "host reads; request 0 bit-identical to the same engine on the CPU")
+    for (a, b), (c, d) in zip(h_out[False]["results"], h_out[True]["results"]):
+        check(torch.equal(a, c) and torch.equal(b, d), "engine hnsw: packed and int8 differ")
+
+    # -- times ----------------------------------------------------------------------
+    q = codes_b[0]
+    rows = []
+    leaf_c, leaf_v = (t[0] for t in searches[False].leaf_inputs)
+    lk = dict(n_levels=LEVELS, k=K, packed=False)
+    leaf_ms = cuda_ms(lambda: topk_fn(q, leaf_c, leaf_v, **lk), 20)
+    leaf_plain_ms = cuda_ms(lambda: sdc_mod.sdc_topk_torch(q, leaf_c, leaf_v, **lk), 3)
+    lv, li = topk_fn(q, leaf_c, leaf_v, **lk)
+    pv, pi = sdc_mod.sdc_topk_torch(q, leaf_c, leaf_v, **lk)
+    check(torch.equal(lv, pv) and torch.equal(li, pi), "engine leaf: kernel != plain")
+    nbytes = shard_n * (CODE_DIM + 4) + q.numel() + q.shape[0] * K * 8
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2 * q.shape[0] * shard_n * CODE_DIM / INT8_OPS_PER_S
+    n8 = shard_n - shard_n % 8
+    d8, inv8 = leaf_c[:n8], leaf_v[:n8]
+    sq = q.to(torch.int32).sum(-1, keepdim=True)
+    sd = d8.to(torch.int32).sum(-1)[None, :]
+
+    def library():
+        from repro_torch.core.binarize_lib import sdc_affine_epilogue
+        dot = torch._int_mm(q, d8.t())
+        s_ = sdc_affine_epilogue(dot, sq + sd, dim=CODE_DIM, n_levels=LEVELS,
+                                 inv_norm=inv8[None, :])
+        return torch.topk(s_, K)
+
+    leaf_lib_ms = cuda_ms(library, 3)
+    parts = [eng._leaf_scan(q, c, v, r * shard_n, n_levels=LEVELS, k=K, backend="cuda")
+             for r, (c, v) in enumerate(zip(*searches[False].leaf_inputs))]
+    merge_ms = cuda_ms(lambda: eng._merge(parts, order, K, device), 50)
+    ref = FlatSDC(codes=indexes[False].codes[:N], inv_norm=indexes[False].inv_norm[:N],
+                  n_levels=LEVELS)
+    t_flat = [host_ms(lambda: ref.search(q, K), 10)]
+    t_eng = [host_ms(lambda: searches[False](q), 10) for _ in range(2)]
+    t_flat.append(host_ms(lambda: ref.search(q, K), 10))
+    eng_busy = device_busy_ms(lambda: searches[False](q), 3)
+    log(f"[time] engine leaf sdc_topk int8 Q={q.shape[0]} N={shard_n} D={CODE_DIM} k={K} on "
+        f"{name} ({smi}): kernel {leaf_ms:.3f} ms, plain {leaf_plain_ms:.3f} ms, HBM bound "
+        f"{bytes_ms:.4f} ms, int8 op bound {ops_ms:.4f} ms, library {leaf_lib_ms:.3f} ms; "
+        f"merge of 4 x [{q.shape[0]}, {K}] {merge_ms:.4f} ms (CUDA events)")
+    log(f"[time] engine flat int8 request ({ENGINE_LEAVES} leaves) against the single "
+        f"FlatSDC request over the same {N} rows on {name} ({smi}), host clock synchronised, "
+        f"flat/engine/engine/flat: {t_flat[0]:.3f} / {t_eng[0]:.3f} / {t_eng[1]:.3f} / "
+        f"{t_flat[1]:.3f} ms; engine device busy "
+        f"{eng_busy if isinstance(eng_busy, str) else f'{eng_busy:.4f} ms'} (profiler)")
+    for packed, o in flat_out.items():
+        log(f"[time] engine serving flat {'packed' if packed else 'int8'}: sequential "
+            f"{o['seq_ms']:.3f} ms/batch, pipelined {o['pipe_ms']:.3f} ms/batch (scan stage "
+            f"idle {100 * o['idle']:.0f}%), {len(batches)} requests of {SERVE_Q} on {name} "
+            f"({smi})")
+    log(f"[time] engine serving {rr_tag}: sequential {rr_seq:.3f} ms/batch, pipelined "
+        f"{rr_pipe:.3f} ms/batch (scan stage idle {100 * rr_stats['device_idle_frac']:.0f}%) "
+        f"on {name} ({smi})")
+    rows.append(dict(name="sdc_topk_engine_leaf", route="cuda", source=SOURCE,
+                     replaces=REPLACES[False], launches=flat_out[False]["launches"],
+                     max_abs_err=float((lv - pv).abs().max()), ms=leaf_ms,
+                     plain_ms=leaf_plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                     bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                     library_ms=leaf_lib_ms))
+
+    # the HNSW engine: a request, its device share, and its hops' gathers
+    hsearch, hq = h_out[False]["search"], hcodes[0]
+    wall = host_ms(lambda: hsearch(hq), 10)
+    busy = device_busy_ms(lambda: hsearch(hq), 3)
+    share = "not measured" if isinstance(busy, str) else f"{100 * (1 - busy / wall):.1f}%"
+    hops0 = h_out[False]["iters"][0]
+    log(f"[time] hnsw engine request 0 int8 ({ENGINE_LEAVES} leaves, hop iterations {hops0}, "
+        f"{sum(hops0)} gathers) on {name} ({smi}): {wall:.3f} ms (host clock, synchronised), "
+        f"device busy {busy if isinstance(busy, str) else f'{busy:.4f} ms'} (profiler, every "
+        f"kernel), device idle {share}; {wall / sum(hops0):.4f} ms per leaf hop; one graph "
+        f"over the whole corpus (phase 8c) {hnsw['request_ms']:.3f} ms for {hnsw['iters']} "
+        "hops")
+    for packed, o in h_out.items():
+        log(f"[time] engine serving hnsw {'packed' if packed else 'int8'}: sequential "
+            f"{o['seq_ms']:.3f} ms/batch, pipelined {o['pipe_ms']:.3f} ms/batch (scan stage "
+            f"idle {100 * o['idle']:.0f}%), {len(hb)} requests of {SERVE_Q} on {name} ({smi})")
+    hops = []
+    real = ops_mod.sdc_gather_topk
+
+    def record(*a, **kw):
+        hops.append((a, kw))
+        return real(*a, **kw)
+
+    ops_mod.sdc_gather_topk = record
+    try:
+        hsearch(hq)
+    finally:
+        ops_mod.sdc_gather_topk = real
+    check(len(hops) == sum(hops0), f"hnsw engine: recorded {len(hops)} hops, want {sum(hops0)}")
+    kms, pms, bms, err = [], [], [], 0.0
+    n_bytes = n_ops = 0
+    for a, kw in hops:
+        kms.append(cuda_ms(lambda: real(*a, **kw), 10))
+        pms.append(cuda_ms(lambda: gather_mod.sdc_gather_topk_torch(*a, **kw), 1))
+        gv, gi = real(*a, **kw)
+        tv, ti = gather_mod.sdc_gather_topk_torch(*a, **kw)
+        check(torch.equal(gv, tv) and torch.equal(gi, ti), "hnsw engine hop: kernel != plain")
+        err = max(err, float((gv - tv).abs().max()))
+        qh, nbr_codes, probes, mask = a[0], a[1], a[4], kw["cand_mask"]
+        live_slot = mask.any(-1)
+        lists = int(torch.unique(probes[live_slot]).numel())
+        live = int(mask.sum())
+        m = nbr_codes.shape[1]
+        b_ = (lists * m * (nbr_codes.shape[2] + 8) + mask.numel() * 4 + qh.numel()
+              + probes.numel() * 8 + qh.shape[0] * kw["k"] * 8)
+        n_bytes += b_
+        n_ops += 2 * live * CODE_DIM
+        bms.append(max(1e3 * b_ / HBM_BYTES_PER_S, 1e3 * 2 * live * CODE_DIM / INT8_OPS_PER_S))
+    h_bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S / len(hops)
+    h_ops_ms = 1e3 * n_ops / INT8_OPS_PER_S / len(hops)
+    log(f"[time] hnsw engine hop gathers of request 0 int8 ({len(hops)} hops over the "
+        f"{ENGINE_LEAVES} leaves) on {name} ({smi}): kernel {np.mean(kms):.4f} ms a hop (min "
+        f"{min(kms):.4f}, max {max(kms):.4f}), plain {np.mean(pms):.3f} ms, bound "
+        f"{np.mean(bms):.6f} ms a hop ({'bytes' if h_bytes_ms >= h_ops_ms else 'operations'}: "
+        f"{n_bytes / len(hops) / 1e6:.4f} MB, {n_ops / len(hops) / 1e6:.3f} M int8 ops a hop)")
+    rows.append(dict(name="sdc_gather_topk_hnsw_engine", route="cuda", source=GATHER_SOURCE,
+                     replaces=GATHER_REPLACES, launches=sum(h_out[False]["gathers"]),
+                     max_abs_err=err, ms=float(np.mean(kms)), plain_ms=float(np.mean(pms)),
+                     bound_ms=float(np.mean(bms)),
+                     bound_by="bytes" if h_bytes_ms >= h_ops_ms else "operations",
+                     library_ms=None))
+    log(f"[engine] phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 def dlrm_phase(seed, device, name, smi):
@@ -1445,7 +1856,8 @@ def main() -> None:
     from repro_torch.index import ivf
     from repro_torch.kernels.sdc import gather as gather_mod
     from repro_torch.kernels.sdc import ops as ops_mod
-    from repro_torch.launch.serve import IVF_KMEANS_ITERS, IVF_NLIST, IVF_NPROBE, IVF_SEED
+
+    IVF_NLIST, IVF_NPROBE, IVF_SEED, IVF_KMEANS_ITERS = ivf_params()
 
     def build_ivf(packed):
         torch.cuda.synchronize()
@@ -1735,7 +2147,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 8c. HNSW graph search at the CLI's width ------------------------------
-    kernels.append(hnsw_phase(model, encode, cfg, args.seed, device, name, smi))
+    row, hnsw_data = hnsw_phase(model, encode, cfg, args.seed, device, name, smi)
+    kernels.append(row)
+
+    # -- 8d. the distributed engine, four leaves on the card ---------------------
+    kernels += engine_phase(d_codes, indexes, encode, batches, cfg, device, name, smi,
+                            hnsw_data)
+    del hnsw_data
 
     # -- 9. the dlrm-rm2 serving forward at full width ------------------------
     del indexes, d_codes

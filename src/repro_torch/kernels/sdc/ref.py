@@ -35,11 +35,15 @@ def doc_inv_norms(d_codes: torch.Tensor, n_levels: int) -> torch.Tensor:
     The sum of squares is exact in float32. Its reciprocal square root is
     taken as a correctly rounded square root and a correctly rounded
     division, so the card and the CPU give the same bits (``torch.rsqrt``
-    on CUDA is an approximation within two ulp). The result may differ
+    on CUDA is an approximation within two ulp). The square root is taken
+    in float64 and rounded to float32, which is the correctly rounded
+    float32 root: PyTorch's float32 ``sqrt`` on the CPU is not (one ulp
+    off on about 0.6% of inputs in torch 2.13). The result may differ
     from the reference's ``jax.lax.rsqrt`` by one ulp.
     """
     v = codes_to_values(d_codes, n_levels)
-    return torch.sqrt(torch.sum(v * v, dim=-1) + 1e-12).reciprocal()
+    s = torch.sum(v * v, dim=-1) + 1e-12
+    return torch.sqrt(s.to(torch.float64)).to(torch.float32).reciprocal()
 
 
 def sdc_ref(q_codes, d_codes, n_levels: int, d_inv_norm=None) -> torch.Tensor:

@@ -25,7 +25,10 @@ float-embedding exhaustive baseline, index bytes, and sequential vs
 pipelined ms/batch. Training is not ported yet: ``--ckpt`` loads a
 checkpoint written by the reference, and without it the binarizer has
 seeded random weights (recall is then low; the run says so). ``--device
-cpu`` runs the plain scoring path on the CPU.
+cpu`` runs the plain scoring path on the CPU. As in the reference CLI, a
+lifecycle builder (``cli_builder``) holds every build parameter, and
+bi-granular mode serves that builder's closure over a snapshot of the
+codes.
 """
 
 from __future__ import annotations
@@ -46,15 +49,26 @@ from repro_torch.core.binarize_lib import (
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.index import hnsw_lite, ivf
-from repro_torch.index.flat import FlatFloat, FlatSDC, flat_search_from_snapshot
+from repro_torch.index.flat import FlatFloat, FlatSDC
 from repro_torch.kernels.sdc import ref as sdc_ref
-from repro_torch.launch import binarizer_cache, serving
+from repro_torch.launch import binarizer_cache, lifecycle, serving
 
-# The reference CLI's IVF parameters (``lifecycle.IVFBuilder`` as
-# ``repro/launch/serve.py`` builds it).
-IVF_NLIST, IVF_NPROBE, IVF_SEED, IVF_KMEANS_ITERS = 64, 32, 1, 20
-# ... and its HNSW parameters (``lifecycle.HNSWBuilder``).
-HNSW_M, HNSW_EF_CONSTRUCTION, HNSW_MAX_HOPS, HNSW_SEED = 16, 64, 64, 0
+
+def cli_builder(index: str, *, k: int = 10, packed: bool = False, ef: int = 64, beam: int = 8,
+                coarse_levels=None, k_coarse=None, probe_budget=None, device="cuda"):
+    """The lifecycle builder the CLI serves ``index`` from, with the
+    reference CLI's parameters (``repro/launch/serve.py``: IVF nlist 64,
+    nprobe 32, seed 1; HNSW M 16, ef_construction 64; the builders'
+    defaults otherwise). Its ``params`` are the single source of the build
+    parameters: every branch of the CLI reads them, so the index served and
+    a rebuild from a snapshot are the same index."""
+    kw = dict(k=k, packed=packed, coarse_levels=coarse_levels, k_coarse=k_coarse,
+              device=device)
+    if index == "flat":
+        return lifecycle.FlatBuilder(**kw)
+    if index == "ivf":
+        return lifecycle.IVFBuilder(nlist=64, nprobe=32, seed=1, probe_budget=probe_budget, **kw)
+    return lifecycle.HNSWBuilder(M=16, ef_construction=64, ef=ef, beam=beam, **kw)
 
 
 def encode_codes(model: RecurrentBinarizer, emb, batch: int = 4096) -> torch.Tensor:
@@ -176,30 +190,22 @@ def main(argv=None):
 
     d_codes = encode_codes(model, docs)
     flat_float = FlatFloat.build(docs, device=device)
-    hnsw_kw = dict(M=HNSW_M, ef_construction=HNSW_EF_CONSTRUCTION, seed=HNSW_SEED)
+    cl, kc = args.coarse_levels or None, args.k_coarse or None
+    builder = cli_builder(args.index, k=args.k, packed=args.packed, ef=args.ef, beam=args.beam,
+                          coarse_levels=cl, k_coarse=kc, probe_budget=args.probe_budget or None,
+                          device=device)
+    p = builder.params
     if args.index == "hnsw":
         print("[index] building NSW graph (host-side, O(N^2) incremental "
               "construction — use --docs <= 20000 for a quick demo)")
         t0 = time.perf_counter()
-    if args.coarse_levels:
-        # The snapshot closures from a host copy of the codes: the cold
-        # fine tier stays in host memory, as the reference's builders keep it.
-        cl, kc = args.coarse_levels, args.k_coarse
-        rerank = {"coarse_levels": cl, "k_coarse": kc}
-        host_codes = d_codes.cpu().numpy()
-        if args.index == "flat":
-            search = flat_search_from_snapshot(host_codes, bcfg.n_levels, k=args.k,
-                                               packed=args.packed, rerank=rerank, device=device)
-        elif args.index == "hnsw":
-            search = hnsw_lite.hnsw_search_from_snapshot(
-                host_codes, bcfg.n_levels, k=args.k, ef=args.ef, beam=args.beam,
-                max_hops=HNSW_MAX_HOPS, packed=args.packed, rerank=rerank, device=device,
-                **hnsw_kw)
-        else:
-            search = ivf.ivf_search_from_snapshot(
-                host_codes, bcfg.n_levels, k=args.k, nlist=IVF_NLIST, nprobe=IVF_NPROBE,
-                seed=IVF_SEED, kmeans_iters=IVF_KMEANS_ITERS, packed=args.packed,
-                rerank=rerank, probe_budget=args.probe_budget or None, device=device)
+    if cl is not None:
+        # Bi-granular mode serves the builder's closure over a host copy of
+        # the codes: the cold fine tier stays in host memory, as in the
+        # reference CLI.
+        snapshot = lifecycle.CorpusSnapshot(codes=d_codes.cpu().numpy(),
+                                            n_levels=bcfg.n_levels, embedding_version="v1")
+        search = builder.build(snapshot)
         per_doc = lambda lv: (args.code_dim * lv + 7) // 8 + 4  # noqa: E731
         coarse_b = args.docs * per_doc(cl)
         fine_b = args.docs * per_doc(args.levels)
@@ -209,26 +215,30 @@ def main(argv=None):
               f"levels), fine {fine_b/2**20:.2f} MiB (cold), "
               f"rerank k'={kc}")
     elif args.index == "flat":
-        index = FlatSDC.build(d_codes, bcfg.n_levels, packed=args.packed, device=device)
-        search = lambda q: index.search(q, args.k)  # noqa: E731
+        index = FlatSDC.build(d_codes, bcfg.n_levels, packed=p["packed"], backend=p["backend"],
+                              device=device)
+        search = lambda q: index.search(q, p["k"])  # noqa: E731
         nbytes = index.nbytes()
     elif args.index == "hnsw":
         inv = sdc_ref.doc_inv_norms(d_codes, bcfg.n_levels).cpu().numpy()
         graph = hnsw_lite.build_hnsw(d_codes.cpu().numpy(), inv, n_levels=bcfg.n_levels,
-                                     packed=args.packed, **hnsw_kw)
+                                     M=p["M"], ef_construction=p["ef_construction"],
+                                     seed=p["seed"], packed=p["packed"])
         tables = hnsw_lite.prepare_batched(graph, device=device)
         search = lambda q: hnsw_lite.search_hnsw_batched(  # noqa: E731
-            tables, q, k=args.k, ef=args.ef, beam=args.beam, max_hops=HNSW_MAX_HOPS)
+            tables, q, k=p["k"], ef=p["ef"], beam=p["beam"], max_hops=p["max_hops"],
+            backend=p["backend"])
         nbytes = graph.nbytes()
     else:
-        index = ivf.build_ivf(d_codes, n_levels=bcfg.n_levels, nlist=IVF_NLIST,
-                              kmeans_iters=IVF_KMEANS_ITERS, packed=args.packed,
-                              seed=IVF_SEED, device=device)
-        if args.probe_budget:
+        index = ivf.build_ivf(d_codes, n_levels=bcfg.n_levels, nlist=p["nlist"],
+                              kmeans_iters=p["kmeans_iters"], packed=p["packed"],
+                              seed=p["seed"], device=device)
+        if p["probe_budget"]:
             search = lambda q: ivf.search_budget(  # noqa: E731
-                index, q, probe_budget=args.probe_budget, k=args.k)
+                index, q, probe_budget=p["probe_budget"], k=p["k"], backend=p["backend"])
         else:
-            search = lambda q: ivf.search(index, q, nprobe=IVF_NPROBE, k=args.k)  # noqa: E731
+            search = lambda q: ivf.search(  # noqa: E731
+                index, q, nprobe=p["nprobe"], k=p["k"], backend=p["backend"])
         nbytes = index.nbytes()
     if args.index == "hnsw":
         print(f"[index] NSW graph built in {time.perf_counter() - t0:.2f} s (host)")

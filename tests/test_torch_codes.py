@@ -115,6 +115,18 @@ def test_doc_inv_norms_within_one_ulp(n_levels):
     assert np.all(np.abs(ref - got) <= ulp)
 
 
+@pytest.mark.parametrize("n_levels", [1, 2, 4])
+def test_doc_inv_norms_correctly_rounded(n_levels):
+    """The float32 root and quotient, each correctly rounded (numpy's float32
+    sqrt and division are), so the CPU's bits are the card's."""
+    codes = _codes(20 + n_levels, (20000, 128), n_levels)
+    v = PB.codes_to_values(torch.from_numpy(codes), n_levels).numpy()
+    s = (v * v).sum(-1, dtype=np.float32) + np.float32(1e-12)
+    want = np.float32(1) / np.sqrt(s)
+    got = PR.doc_inv_norms(torch.from_numpy(codes), n_levels).numpy()
+    assert np.array_equal(got, want)
+
+
 @pytest.mark.parametrize("n_levels", [1, 4])
 def test_sdc_oracles_match_reference(n_levels):
     q, d = _codes(1, (8, 64), n_levels), _codes(2, (90, 64), n_levels)

@@ -19,6 +19,7 @@ import numpy as np  # noqa: E402
 from repro_torch.core import binarize_lib as PB  # noqa: E402
 from repro_torch.data import synthetic as PS  # noqa: E402
 from repro_torch.configs.archs import dlrm_rm2  # noqa: E402
+from repro_torch.index import engine as PEN  # noqa: E402
 from repro_torch.index import ivf as PI  # noqa: E402
 from repro_torch.index import kmeans as PK  # noqa: E402
 from repro_torch.index.flat import (  # noqa: E402
@@ -36,6 +37,8 @@ from repro_torch.kernels.sdc import gather as PG  # noqa: E402
 from repro_torch.kernels.sdc import ops as PO  # noqa: E402
 from repro_torch.kernels.sdc import rerank as PRK  # noqa: E402
 from repro_torch.kernels.sdc import sdc as PSDC  # noqa: E402
+from repro_torch.launch import lifecycle as PL  # noqa: E402
+from repro_torch.launch import mesh as PM  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.recsys import dlrm as PD  # noqa: E402
 from repro_torch.models.recsys import embedding as PE  # noqa: E402
@@ -55,6 +58,9 @@ bad = sorted(m for m in sys.modules
 print(len(names), "modules;", "foreign:", bad)
 assert not bad, bad
 assert len(names) >= 12, names
+for name in ("repro_torch.index.engine", "repro_torch.launch.mesh",
+             "repro_torch.launch.lifecycle"):
+    assert name in names, name
 """
 
 
@@ -171,6 +177,31 @@ def test_new_entry_points_default_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--index", index, "--docs", "10", "--coarse-levels", "2",
                         "--k-coarse", "8"])
+
+
+def test_engine_and_builders_default_to_the_card():
+    codes = np.random.default_rng(0).integers(0, 16, (64, 32)).astype(np.int8)
+    snap = PL.CorpusSnapshot(codes, 4)
+    if torch.cuda.is_available():
+        mesh = PM.make_host_mesh((1,), ("data",))
+        assert mesh.devices[0].type == "cuda"
+        v, i = PEN.engine_search_from_snapshot(mesh, snap, k=5, shard_axes=("data",))(codes[:3])
+        assert v.device.type == "cuda" and i.device.type == "cuda"
+        v, i = PL.make_builder("flat", k=5).build(snap)(codes[:3])
+        assert v.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="need 4 devices, have 0"):
+        PM.make_host_mesh()
+    with pytest.raises(RuntimeError, match=r"need 8 devices \(2 replicas x 4\), have 0"):
+        PM.make_replica_meshes(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PEN.flat_engine_inputs_from_snapshot(codes, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PEN.sharded_graph_from_snapshot(codes, 4, n_leaves=2)
+    for kind in ("flat", "ivf", "hnsw"):
+        kw = dict(nlist=4, nprobe=2) if kind == "ivf" else {}
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PL.make_builder(kind, k=5, **kw).build(snap)
 
 
 @pytest.mark.gpu

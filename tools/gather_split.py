@@ -91,8 +91,15 @@ def main() -> None:
     from repro_torch.index import ivf
     from repro_torch.kernels import _build
     from repro_torch.kernels.sdc import gather
-    from repro_torch.launch.serve import IVF_KMEANS_ITERS, IVF_NLIST, IVF_NPROBE, IVF_SEED, \
-        encode_codes
+    from repro_torch.launch.serve import encode_codes
+    try:
+        from repro_torch.launch.serve import cli_builder
+    except ImportError:  # a tree from before the CLI built through lifecycle builders
+        from repro_torch.launch.serve import IVF_KMEANS_ITERS, IVF_NLIST, IVF_NPROBE, IVF_SEED
+    else:
+        p = cli_builder("ivf").params
+        IVF_NLIST, IVF_NPROBE, IVF_SEED, IVF_KMEANS_ITERS = (p["nlist"], p["nprobe"], p["seed"],
+                                                             p["kmeans_iters"])
 
     device = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
