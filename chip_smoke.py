@@ -110,6 +110,23 @@ that fails:
      its plain version, bound and yardstick, the merge, the engine's
      request beside the single scan's, the HNSW engine's request with its
      device-busy share, its hops' gathers, and the serving drivers;
+ 8e. drives the replicated serving tier through the CLI's routed run
+     (serve.serve_routed: ServingPipeline replicas behind a QueryRouter,
+     the stream through lifecycle.run_stream_with_swap) over phase 3's
+     codes, 8 requests of 64 replayed 4 times: 1, 2 and 4 replicas sharing
+     the card, round-robin and least-outstanding, int8 and packed, each
+     bit-identical to serve_sequential with one sdc_topk launch a request;
+     the encode's host time inside a replica pipeline and alone, with its
+     launches, and the routed/sequential and routed(N)/routed(1) QPS beside
+     the reference bench gate's 1.0 and 0.9 (report only); chaos
+     r1.fail@1 with the canary re-probe (failed over, revived, nothing
+     lost; the failed call launches no kernel); r1.stick@1 on two unshared
+     replicas under the watchdog and a deadline; a rolling swap mid-stream
+     from a snapshot of the same codes (drain, build, warm and probe
+     times); the autoscaler between 1 and 3 replicas under the stream's
+     own load (nothing lost, bit-identical, replicas within bounds); two
+     replicas over phase 8c's HNSW closure, the gather reached through the
+     router. The kernels JSON gains the routed launches' rows;
   9. drives the dlrm-rm2 serving forward at full width (26 tables of
      1,048,576 x 64 float32, 6.98 GB, seeded): dlrm_serve_step on 3
      batches each at B = 512 and B = 262,144, with the dot_interact
@@ -180,6 +197,16 @@ ENGINE_LEAVES = 4
 ENGINE_RERANK = (2, 160)
 WIDE_MARGIN = 118
 RERANK_MARGIN = 4096 - 160
+# the routed tier: the 8 requests replayed ROUTED_ROUNDS times (the CLI's
+# --rounds default), at each replica count and routing policy; the chaos,
+# deadline and autoscaler streams are longer so the probe loop and the
+# autoscaler act inside them; the reference bench gate's serving ratios
+# (scripts/check_bench_gate.py:848,851), printed beside the measured ones
+ROUTED_ROUNDS, ROUTED_REPLICAS = 4, (1, 2, 4)
+ROUTED_POLICIES = ("round-robin", "least-outstanding")
+CHAOS_ROUNDS, AUTOSCALE_ROUNDS, SWAP_AFTER = 8, 16, 12
+PROBE_EVERY_S, WATCHDOG_BUDGET_S, DEADLINE_S = 0.02, 0.1, 2.0
+GATE_SERVING_RATIO, GATE_REPLICA_RATIO = 1.0, 0.9
 
 
 def ivf_params():
@@ -572,7 +599,6 @@ def serve_checked(tag, encode, search, batches, cfg, counts):
     import torch
 
     from repro_torch.launch import serving
-    from repro_torch.launch.serve import serve_pipelined
 
     def attr(entry):
         return entry[2] if len(entry) > 2 else "launches"
@@ -599,7 +625,7 @@ def serve_checked(tag, encode, search, batches, cfg, counts):
     read("sequential")
     zero()
     t0 = time.perf_counter()
-    results, stats, _ = serve_pipelined(encode, search, batches, cfg)
+    results, stats = serving.serve_batches(encode, search, batches, config=cfg)
     dt_pipe = time.perf_counter() - t0
     read("pipelined")
     launches = counts[0][0].launches
@@ -932,7 +958,7 @@ def hnsw_phase(model, encode, cfg, seed, device, name, smi):
     from repro_torch.kernels.sdc.ops import sdc_search_backend
     from repro_torch.kernels.sdc.rerank import sdc_rerank_backend
     from repro_torch.launch import serving
-    from repro_torch.launch.serve import cli_builder, encode_codes, recall_at_k, serve_pipelined
+    from repro_torch.launch.serve import cli_builder, encode_codes, recall_at_k
 
     p = cli_builder("hnsw").params
     HNSW_M, HNSW_EF_CONSTRUCTION, HNSW_MAX_HOPS, HNSW_SEED = (p["M"], p["ef_construction"],
@@ -1014,7 +1040,7 @@ def hnsw_phase(model, encode, cfg, seed, device, name, smi):
         read("sequential")
         zero()
         t0 = time.perf_counter()
-        results, stats, _ = serve_pipelined(encode, search, batches, cfg)
+        results, stats = serving.serve_batches(encode, search, batches, config=cfg)
         dt_pipe = time.perf_counter() - t0
         read("pipelined")
         err = 0.0
@@ -1224,7 +1250,7 @@ def hnsw_phase(model, encode, cfg, seed, device, name, smi):
                bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                library_ms=None)
     return row, dict(host=host, batches=batches, codes=codes_b, request_ms=walls["int8"],
-                     iters=iters[0])
+                     iters=iters[0], tables=tables[False])
 
 
 def in_gather_order(v, i, order, shard_n, k):
@@ -1589,6 +1615,300 @@ def engine_phase(d_codes, indexes, encode, batches, cfg, device, name, smi, hnsw
     return rows
 
 
+def launches_per_call(fn, reps: int = 3):
+    """Kernel launches one call of ``fn`` issues (runtime and driver launch
+    calls, by torch.profiler) and the device kernels that ran, per call; or
+    "not measured" where the profiler sees none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    calls = sum(ev.count for ev in events
+                if (ev.key or "").startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    kernels = sum(ev.count for ev in events
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return tuple(n / reps if n else "not measured" for n in (calls, kernels))
+
+
+def routed_phase(d_codes, indexes, encode, batches, cfg, device, name, smi, hnsw, rows):
+    """Phase 8e: the replicated serving tier, through the CLI's routed run
+    (``serve.serve_routed``) over phase 3's codes. Returns the JSON rows of
+    the kernels' launches through the router."""
+    import numpy as np
+    import torch
+
+    from repro_torch.index import hnsw_lite as hl
+    from repro_torch.kernels.sdc import gather as gather_mod
+    from repro_torch.kernels.sdc import sdc as sdc_mod
+    from repro_torch.launch import autoscale, faults, lifecycle, proxy, serving
+    from repro_torch.launch.serve import cli_builder, serve_routed
+
+    t_phase = time.perf_counter()
+    topk, gather = sdc_mod.sdc_topk, gather_mod.sdc_gather_topk
+    stream = batches * ROUTED_ROUNDS
+    routed_launches = {False: 0, True: 0}
+    searches = {p: (lambda q, index=index: index.search(q, K)) for p, index in indexes.items()}
+
+    def held(tag, results, seq, allow_missed=False):
+        """Every result bit-identical to serve_sequential's, in order; a
+        missed deadline (None) only where allowed. Returns the missed count."""
+        check(len(results) == len(seq), f"routed {tag}: {len(results)} results, want {len(seq)}")
+        missed = 0
+        for r, (sv, si) in zip(results, seq):
+            if r is None:
+                check(allow_missed, f"routed {tag}: a request was lost")
+                missed += 1
+                continue
+            v, i = r
+            check(v.shape == (SERVE_Q, K) and bool(torch.isfinite(v).all()),
+                  f"routed {tag}: bad scores")
+            check(torch.equal(v, sv) and torch.equal(i, si),
+                  f"routed {tag}: results differ from serve_sequential")
+        return missed
+
+    def counted(search):
+        """``search`` with its calls counted (a fault fires before the call)."""
+        calls = [0]
+
+        def fn(q):
+            calls[0] += 1
+            return search(q)
+
+        return fn, calls
+
+    def run_routed(tag, packed, search, stream_, want_launches, **kw):
+        """serve_routed with the sdc_topk count zeroed just before and read
+        just after; ``want_launches(run)`` is what the run must count."""
+        topk.launches = 0
+        run = serve_routed(encode, search, stream_, warm_batches=batches, device=device,
+                           **{"config": cfg, **kw})
+        got = topk.launches
+        want = want_launches(run)
+        check(got == want, f"routed {tag}: {got} sdc_topk launches, want {want}")
+        routed_launches[packed] += got
+        return run
+
+    # -- (a) 1, 2 and 4 replicas, both policies, int8 and packed ------------------
+    seqs, qps = {}, {}
+    for packed, search in searches.items():
+        tag = "packed" if packed else "int8"
+        serving.warmup(encode, search, batches)
+        topk.launches = 0
+        t0 = time.perf_counter()
+        seq = serving.serve_sequential(encode, search, stream)
+        qps[tag, "sequential"] = SERVE_Q * len(stream) / (time.perf_counter() - t0)
+        check(topk.launches == len(stream), f"routed {tag}: sequential baseline launched "
+                                            f"{topk.launches} sdc_topk, want {len(stream)}")
+        seqs[packed] = seq
+        for policy in ROUTED_POLICIES:
+            for n in ROUTED_REPLICAS:
+                run = run_routed(f"{tag} x{n} {policy}", packed, search, stream,
+                                 lambda run: len(stream), replicas=n, router=policy)
+                held(f"{tag} x{n} {policy}", run.results, seq)
+                st = run.stats
+                check(st["requests"] == len(stream) and st["healthy"] == list(range(n))
+                      and st["failovers"] == 0 and st["shed"] == 0,
+                      f"routed {tag} x{n} {policy}: stats {st['requests']} requests, healthy "
+                      f"{st['healthy']}, {st['failovers']} failovers, {st['shed']} shed")
+                qps[tag, policy, n] = SERVE_Q * len(stream) / run.seconds
+                log(f"[routed] {tag} x{n} {policy}: {len(stream)} requests of {SERVE_Q}, "
+                    f"{len(stream)} sdc_topk launches, bit-identical to serve_sequential; "
+                    f"per replica {[s['requests'] for s in st['per_replica']]} requests, "
+                    f"p50 {st['latency_p50_ms']:.3f} ms p99 {st['latency_p99_ms']:.3f} ms")
+    seq8, search8 = seqs[False], searches[False]
+    seq_long = {r: seq8 * (r // ROUTED_ROUNDS) for r in (CHAOS_ROUNDS, AUTOSCALE_ROUNDS)}
+
+    # -- the pipelined-vs-sequential gap: the encode inside a pipeline and alone ---
+    enc_s = []
+
+    def timed_encode(x):
+        t0 = time.perf_counter()
+        y = encode(x)
+        enc_s.append(time.perf_counter() - t0)
+        return y
+
+    topk.launches = 0
+    run = serve_routed(timed_encode, search8, stream, warm_batches=batches, config=cfg,
+                       device=device)
+    routed_launches[False] += topk.launches
+    held("encode split", run.results, seq8)
+    in_pipe = 1e3 * float(np.mean(enc_s))
+    enc_s.clear()
+    torch.cuda.synchronize()
+    for b in stream:
+        timed_encode(b)
+    torch.cuda.synchronize()
+    alone = 1e3 * float(np.mean(enc_s))
+    synced = host_ms(lambda: encode(batches[0]), 20)
+    enc_launches, enc_kernels = launches_per_call(lambda: encode(batches[0]))
+    scan_launches, scan_kernels = launches_per_call(lambda: search8(encode(batches[0])))
+    log(f"[time] routed encode on {name} ({smi}): host issue {in_pipe:.4f} ms a batch inside "
+        f"a replica pipeline (encode thread, beside the scan thread), {alone:.4f} ms alone "
+        f"(the same calls back to back), {synced:.4f} ms alone with a device sync; "
+        f"{enc_launches} launch calls and {enc_kernels} device kernels a batch (profiler; "
+        f"encode and scan together: {scan_launches} and {scan_kernels})")
+    for tag in ("int8", "packed"):
+        for policy in ROUTED_POLICIES:
+            r1 = qps[tag, policy, 1] / qps[tag, "sequential"]
+            rn = {n: qps[tag, policy, n] / qps[tag, policy, 1] for n in ROUTED_REPLICAS[1:]}
+            log(f"[time] routed {tag} {policy} on {name} ({smi}): QPS sequential "
+                f"{qps[tag, 'sequential']:.0f}, "
+                + ", ".join(f"routed({n}) {qps[tag, policy, n]:.0f}" for n in ROUTED_REPLICAS)
+                + f"; routed(1)/sequential {r1:.3f} (the reference gate asks >= "
+                f"{GATE_SERVING_RATIO}), "
+                + ", ".join(f"routed({n})/routed(1) {v:.3f}" for n, v in rn.items())
+                + f" (the gate asks >= {GATE_REPLICA_RATIO}); report only")
+
+    # -- (b) chaos: replica 1 fails its second scan, failover, canary revival -------
+    long_b = batches * CHAOS_ROUNDS
+    fn, calls = counted(search8)
+    run = run_routed("chaos", False, fn, long_b, lambda run: calls[0], replicas=2,
+                     chaos="r1.fail@1", probe_every=PROBE_EVERY_S)
+    held("chaos", run.results, seq_long[CHAOS_ROUNDS])
+    st, fired = run.stats, run.injectors[1].log
+    check(fired == [("search", 1, "fail")], f"routed chaos: faults fired {fired}")
+    check(st["failovers"] >= 1 and st["revivals"] >= 1 and st["healthy"] == [0, 1],
+          f"routed chaos: {st['failovers']} failovers, {st['revivals']} revivals, healthy "
+          f"{st['healthy']}")
+    log(f"[routed] chaos r1.fail@1, probe every {PROBE_EVERY_S} s: {len(long_b)} requests, zero "
+        f"lost, bit-identical; {st['failovers']} failover(s), {st['revivals']} revival(s) by "
+        f"the canary probe, states {st['states']}; {calls[0]} scan calls went through and "
+        f"{calls[0]} sdc_topk launches (the failed call launched none)")
+
+    # -- (c) a stuck scan the watchdog fails over, under a deadline ------------------
+    # Two replicas that do not share the device gate, admitting under the
+    # shed policy, as the reference tier needs too: a scan stuck while it
+    # holds the gate stalls every co-located replica with it, and their
+    # watchdogs fail them all; and a blocking submit into the stuck
+    # replica's full queue would wait for it however the router fails it
+    # over. A shed submit bounces to the survivor and is retried.
+    fn, calls = counted(search8)
+    replicas, injectors = faults.apply_chaos([(encode, fn)] * 2, "r1.stick@1")
+    shed_cfg = serving.ServingConfig(queue_depth=cfg.queue_depth, policy="shed")
+    tier = proxy.QueryRouter(proxy.ReplicaSet(replicas, config=shed_cfg, share_device=False))
+    topk.launches = 0
+    try:
+        tier.start_watchdogs(WATCHDOG_BUDGET_S)
+        t0 = time.perf_counter()
+        results, _ = lifecycle.run_stream_with_swap(tier, stream, deadline_s=DEADLINE_S)
+        dt_stick = time.perf_counter() - t0
+    finally:
+        for inj in injectors.values():
+            inj.release()
+        tier.close()
+    st = tier.stats()
+    check(topk.launches == calls[0], f"routed watchdog: {topk.launches} launches for "
+                                     f"{calls[0]} scan calls")
+    routed_launches[False] += topk.launches
+    missed = held("watchdog", results, seq8, allow_missed=True)
+    check(injectors[1].stuck_count == 1 and st["watchdog_stalls"] >= 1 and st["failovers"] >= 1
+          and st["states"][1] == "unhealthy",
+          f"routed watchdog: {injectors[1].stuck_count} stuck, {st['watchdog_stalls']} stalls, "
+          f"{st['failovers']} failovers, states {st['states']}")
+    check(missed <= st["deadline_expired"], "routed watchdog: a missed request was not counted")
+    log(f"[routed] r1.stick@1 under a {WATCHDOG_BUDGET_S} s scan budget and a {DEADLINE_S} s "
+        f"deadline, unshared replicas, shed admission: {len(stream)} requests in "
+        f"{1e3 * dt_stick:.1f} ms, {st['shed']} proxy sheds retried, "
+        f"{len(stream) - missed} answered bit-identical, {missed} missed their deadline; "
+        f"{st['watchdog_stalls']} stall(s), {st['failovers']} failover(s), {st['deadline_expired']}"
+        f" expired (stale copies included), states {st['states']}")
+
+    # -- (d) a rolling swap mid-stream from a snapshot of the same codes --------------
+    t0 = time.perf_counter()
+    snapshot = lifecycle.CorpusSnapshot(codes=d_codes.cpu().numpy(), n_levels=LEVELS,
+                                        embedding_version="v1")
+    digest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snapshot.digest  # hashed once here, then cached
+    digest_s = (digest_s, time.perf_counter() - t0)
+    builder = cli_builder("flat", k=K, device=device)
+    # the stream, and per replica a warmup of both drivers and a canary
+    run = run_routed("swap", False, search8, stream, lambda run: len(stream) + 3 * 2,
+                     replicas=2, builder=builder, snapshot=snapshot, swap_after=SWAP_AFTER)
+    held("swap", run.results, seq8)
+    rep = run.swap
+    check(rep is not None and rep.swapped == 2 and run.stats["states"] == {0: "healthy",
+                                                                            1: "healthy"},
+          "routed swap: the swap did not complete on both replicas")
+    check([p["version"] for p in run.stats["per_replica"]] == [rep.version.tag] * 2,
+          "routed swap: a replica does not serve the new version")
+    log(f"[routed] rolling swap after {SWAP_AFTER} of {len(stream)} requests -> "
+        f"{rep.version.tag}: zero lost, bit-identical; host copy {digest_s[0]:.2f} s, digest "
+        f"{digest_s[1]:.2f} s of {d_codes.numel() / 1e9:.2f} GB")
+    for row in rep.replicas:
+        log(f"[time] routed swap replica {row['replica']} on {name} ({smi}): drain "
+            f"{1e3 * row['drain_s']:.1f} ms, build {1e3 * row['build_s']:.1f} ms, warm "
+            f"{1e3 * row['warm_s']:.1f} ms, probe {1e3 * row['probe_s']:.1f} ms, total "
+            f"{1e3 * row['total_s']:.1f} ms (generation {row['generation']})")
+    del builder, run  # frees the rebuilt index
+    torch.cuda.empty_cache()
+
+    # -- (e) the autoscaler, min 1 and max 3 replicas, under the stream's own load ----
+    spec = autoscale.TierSpec(min_replicas=1, max_replicas=3, index="flat",
+                              build_params={"k": K}, router="least-outstanding", policy="shed",
+                              queue_depth=2, high_water=0.5, low_water=0.1, cooldown_s=0.05,
+                              window_s=0.02, tick_s=0.01)
+    long_e = batches * AUTOSCALE_ROUNDS
+    run = run_routed(
+        "autoscale", False, search8, long_e,
+        lambda run: len(long_e) + 3 * (run.autoscale["scale_ups"]
+                                       + run.autoscale["probe_failures"]),
+        replicas=spec.min_replicas, router=spec.router, spec=spec, snapshot=snapshot,
+        config=serving.ServingConfig(queue_depth=spec.queue_depth, policy=spec.policy))
+    held("autoscale", run.results, seq_long[AUTOSCALE_ROUNDS])
+    sm = run.autoscale
+    check(spec.min_replicas <= sm["min_replicas_seen"] and sm["max_replicas_seen"]
+          <= spec.max_replicas and spec.min_replicas <= sm["replicas"] <= spec.max_replicas,
+          f"routed autoscale: replicas seen [{sm['min_replicas_seen']}, "
+          f"{sm['max_replicas_seen']}], ended at {sm['replicas']}")
+    log(f"[routed] autoscaler spec [{spec.min_replicas}, {spec.max_replicas}] under "
+        f"{len(long_e)} requests (shed policy, queue depth {spec.queue_depth}): zero lost, "
+        f"bit-identical; {sm['scale_ups']} scale-up(s), {sm['scale_downs']} scale-down(s), "
+        f"{sm['probe_failures']} failed canaries over {sm['decisions']} ticks; replicas seen "
+        f"[{sm['min_replicas_seen']}, {sm['max_replicas_seen']}], ended at {sm['replicas']}; "
+        f"{run.stats['shed']} sheds retried; {1e3 * run.seconds / len(long_e):.3f} ms/batch")
+    del run, snapshot
+    torch.cuda.empty_cache()
+
+    # -- (f) two replicas over phase 8c's HNSW closure -------------------------------
+    tbl, hb = hnsw["tables"], hnsw["batches"][:2]
+    max_hops = cli_builder("hnsw").params["max_hops"]
+
+    def search_h(q):
+        return hl.search_hnsw_batched(tbl, q, k=K, ef=HNSW_EF, beam=HNSW_BEAM,
+                                      max_hops=max_hops)
+
+    serving.warmup(encode, search_h, hb)
+    topk.launches = gather.launches = 0
+    seq_h = serving.serve_sequential(encode, search_h, hb)
+    want = (topk.launches, gather.launches)
+    topk.launches = gather.launches = 0
+    run = serve_routed(encode, search_h, hb, warm_batches=hb, replicas=2, config=cfg,
+                       device=device)
+    got = (topk.launches, gather.launches)
+    check(got == want and min(got) > 0,
+          f"routed hnsw: (sdc_topk, sdc_gather_topk) launches {got}, want {want}")
+    held("hnsw", run.results, seq_h)
+    check(run.stats["per_replica"][0]["requests"] == run.stats["per_replica"][1]["requests"] == 1,
+          "routed hnsw: round-robin did not use both replicas")
+    log(f"[routed] hnsw x2 round-robin: {len(hb)} requests of {SERVE_Q}, {got[0]} sdc_topk and "
+        f"{got[1]} sdc_gather_topk launches as in serve_sequential, bit-identical")
+    log(f"[routed] phase passed in {time.perf_counter() - t_phase:.1f} s")
+
+    base = {r["name"]: r for r in rows}
+    return ([dict(base[f"sdc_topk_{'packed' if p else 'int8'}"],
+                  name=f"sdc_topk_{'packed' if p else 'int8'}_routed", launches=n)
+             for p, n in routed_launches.items()]
+            + [dict(base["sdc_gather_topk_hnsw"], name="sdc_gather_topk_hnsw_routed",
+                    launches=got[1])])
+
+
 def dlrm_phase(seed, device, name, smi):
     """Phase 9: the dlrm-rm2 serving forward at full width. Returns the kernel's JSON row."""
     import torch
@@ -1704,7 +2024,7 @@ def main() -> None:
     from repro_torch.kernels.sdc import sdc as sdc_mod
     from repro_torch.kernels.sdc.ops import sdc_search_torch
     from repro_torch.launch import serving
-    from repro_torch.launch.serve import encode_codes, recall_at_k, serve_pipelined
+    from repro_torch.launch.serve import encode_codes, recall_at_k
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1813,7 +2133,7 @@ def main() -> None:
 
         sdc_mod.sdc_topk.launches = 0
         t0 = time.perf_counter()
-        results, stats, _ = serve_pipelined(encode, search, batches, cfg)
+        results, stats = serving.serve_batches(encode, search, batches, config=cfg)
         dt_pipe = time.perf_counter() - t0
         launches = sdc_mod.sdc_topk.launches
         check(launches == len(batches),
@@ -2153,6 +2473,10 @@ def main() -> None:
     # -- 8d. the distributed engine, four leaves on the card ---------------------
     kernels += engine_phase(d_codes, indexes, encode, batches, cfg, device, name, smi,
                             hnsw_data)
+
+    # -- 8e. the replicated serving tier, the CLI's routed run ----------------------
+    kernels += routed_phase(d_codes, indexes, encode, batches, cfg, device, name, smi,
+                            hnsw_data, kernels)
     del hnsw_data
 
     # -- 9. the dlrm-rm2 serving forward at full width ------------------------

@@ -1,8 +1,10 @@
-"""Synthetic data (ports ``repro/data/synthetic.py``: ``clustered_corpus``
-and ``dlrm_batch``).
+"""Synthetic data (ports ``repro/data/synthetic.py``: ``clustered_corpus``,
+``upgraded_corpus``, ``backbone_upgrade`` and ``dlrm_batch``).
 
-``clustered_corpus`` is the reference's numpy generator, verbatim, so the
-same seed gives the same corpus bit for bit. ``clustered_corpus_torch``
+``clustered_corpus``, ``upgraded_corpus`` (paired old/new-backbone
+corpora) and ``backbone_upgrade`` (a drifted float space) are the
+reference's numpy generators, verbatim, so the same seed gives the same
+arrays bit for bit. ``clustered_corpus_torch``
 follows the same recipe with a ``torch.Generator`` on the card, for
 corpora whose float64 numpy intermediates would not fit in host memory
 (ten million 256-dim documents); its numbers differ from the numpy ones.
@@ -53,6 +55,77 @@ def clustered_corpus(
     docs /= np.linalg.norm(docs, axis=-1, keepdims=True) + 1e-12
     queries /= np.linalg.norm(queries, axis=-1, keepdims=True) + 1e-12
     return docs, queries, gt
+
+
+def upgraded_corpus(
+    seed: int,
+    n_docs: int,
+    n_queries: int,
+    dim: int,
+    n_clusters: int = 96,
+    old_noise: float = 0.30,
+    new_noise: float = 0.15,
+    old_qnoise: float = 0.25,
+    new_qnoise: float = 0.12,
+    drift: float = 0.3,
+    nonlinear: float = 0.3,
+):
+    """Paired corpora for backbone-upgrade experiments: the same items
+    embedded by an OLD backbone (noisier) and a NEW backbone (cleaner,
+    drifted space). Mirrors the paper's Table 4 setting where the upgraded
+    model is strictly better, so compatible training can EXCEED the
+    (old, old) baseline.
+
+    Returns (old_docs, old_queries, new_docs, new_queries, gt).
+    """
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clusters, dim)).astype(np.float32)
+    assign = rng.integers(0, n_clusters, n_docs)
+    item_id = rng.normal(size=(n_docs, dim)).astype(np.float32)
+
+    def unit(x):
+        return x / (np.linalg.norm(x, axis=-1, keepdims=True) + 1e-12)
+
+    # intrinsic item identity is shared; noise level models encoder quality
+    old_raw = centers[assign] + old_noise * item_id
+    new_raw = centers[assign] + new_noise * item_id
+
+    gt = rng.choice(n_docs, size=n_queries, replace=False)
+    qnoise_dir = rng.normal(size=(n_queries, dim)).astype(np.float32)
+
+    old_docs = unit(old_raw)
+    new_base = unit(new_raw)
+    old_queries = unit(old_raw[gt] + old_qnoise * qnoise_dir)
+    new_queries_base = unit(new_raw[gt] + new_qnoise * qnoise_dir)
+
+    # the new backbone lives in a drifted space
+    G = rng.normal(size=(dim, dim)).astype(np.float32) / np.sqrt(dim)
+    A = rng.normal(size=(dim, dim)).astype(np.float32) / np.sqrt(dim)
+    B = rng.normal(size=(dim, dim)).astype(np.float32) / np.sqrt(dim)
+
+    def to_new_space(e):
+        out = e + drift * e @ G + nonlinear * np.tanh(e @ A) @ B
+        return out / (np.linalg.norm(out, axis=-1, keepdims=True) + 1e-12)
+
+    return (old_docs, old_queries, to_new_space(new_base),
+            to_new_space(new_queries_base), gt)
+
+
+def backbone_upgrade(
+    emb: np.ndarray, seed: int, *, strength: float = 0.4,
+    nonlinear: float = 0.15,
+) -> np.ndarray:
+    """Simulate a backbone model upgrade: the new float space is a
+    near-identity linear drift of the old one plus a small nonlinear
+    component (what a finetuned v2 encoder looks like relative to v1 —
+    strongly correlated, not identical, not linearly reachable)."""
+    rng = np.random.default_rng(seed)
+    d = emb.shape[-1]
+    G = rng.normal(size=(d, d)).astype(np.float32) / np.sqrt(d)
+    A = rng.normal(size=(d, d)).astype(np.float32) / np.sqrt(d)
+    B = rng.normal(size=(d, d)).astype(np.float32) / np.sqrt(d)
+    out = emb + strength * emb @ G + nonlinear * np.tanh(emb @ A) @ B
+    return out / (np.linalg.norm(out, axis=-1, keepdims=True) + 1e-12)
 
 
 def clustered_corpus_torch(

@@ -1,6 +1,6 @@
-"""Live index lifecycle, the builder half (ports ``CorpusSnapshot``,
-``IndexVersion``, the index builders and their registry from
-``repro/launch/lifecycle.py``).
+"""Live index lifecycle (ports ``repro/launch/lifecycle.py`` whole:
+``CorpusSnapshot``, ``IndexVersion``, the index builders and their
+registry, and the rolling swap).
 
   * ``CorpusSnapshot`` — an immutable corpus capture (unpacked codes +
     level count + embedding-version tag) with a content ``digest``, the
@@ -14,14 +14,22 @@
     rebuild-from-snapshot entry points (``flat.flat_search_from_snapshot``,
     ``ivf.ivf_search_from_snapshot``, ``hnsw_lite.hnsw_search_from_snapshot``,
     ``engine.*_search_from_snapshot`` for replicas on their own leaves).
+  * ``RollingSwapController`` — re-indexes a live tier one replica at a
+    time: drain (the router stops routing there; in-flight tickets
+    finish or re-dispatch through the existing failover path), quiesce
+    the pipeline, rebuild from the snapshot, warm the fresh closure
+    (``serving.warmup_replicas``), hot-swap it in, bump the stats
+    generation, and canary-probe the replica back into rotation.
+    ``run_stream_with_swap`` drives a query stream through the tier and
+    kicks the swap mid-stream.
 
 The digest and the ``IndexVersion`` equal the reference's for the same
 codes and build arguments, so a tag means the same corpus and index in
 both packages. The builders take a ``device`` (``"cuda"`` by default,
-raising without a card), which stays out of ``params`` and so out of the
-version: where an index lives does not change its results. The rolling
-swap, the canary revival and the router this module fronts in the
-reference come with the serving tier.
+raising without a card when they build), which stays out of ``params``
+and so out of the version: where an index lives does not change its
+results. A swap's rebuilt index is a second copy of the corpus on the
+device until the last reference to the old one is dropped.
 """
 
 from __future__ import annotations
@@ -30,12 +38,28 @@ import dataclasses
 import functools
 import hashlib
 import inspect
-from typing import Any, Dict, List, Protocol, Tuple
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Protocol, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.launch.serving import SearchFn
+from repro_torch.launch import serving
+from repro_torch.launch.proxy import AllReplicasDown, IncompatibleVersion, QueryRouter
+from repro_torch.launch.serving import (
+    DeadlineExpired,
+    EncodeFn,
+    RequestShed,
+    SearchFn,
+)
+
+#: Minimum acceptable recall@k for cross-version traffic served through a
+#: bc-trained compat encoder (the serving-tier face of the offline recall
+#: floor of compatible training). The reference's upgrade bench row
+#: records it and its bench gate enforces per-version recall >= floor
+#: throughout a live migration.
+COMPAT_RECALL_FLOOR = 0.55
 
 
 def _host_codes(codes) -> np.ndarray:
@@ -427,3 +451,289 @@ def make_builder(kind: str, *, device="cuda", **params) -> IndexBuilder:
             f"(accepted: {sorted(known)})"
         )
     return cls(device=device, **params)
+
+
+# ---------------------------------------------------------------------------
+# rolling swap controller
+# ---------------------------------------------------------------------------
+
+
+class SwapFailed(RuntimeError):
+    """A replica's post-rebuild canary probe failed; the replica is left
+    ``unhealthy`` (the periodic re-probe may still revive it) and the
+    rolling swap stops before touching the next replica."""
+
+
+@dataclasses.dataclass
+class SwapReport:
+    """What a rolling swap did, per replica (timings in seconds)."""
+
+    version: IndexVersion
+    replicas: List[dict] = dataclasses.field(default_factory=list)
+    total_s: float = 0.0
+
+    @property
+    def swapped(self) -> int:
+        return len(self.replicas)
+
+
+class RollingSwapController:
+    """Re-index a live ``QueryRouter`` tier one replica at a time.
+
+    Per replica: drain -> quiesce -> rebuild (``builder.build``) -> warm
+    (``serving.warmup_replicas``) -> hot-swap + new stats generation ->
+    canary probe -> back in rotation. Traffic keeps flowing to the
+    survivors throughout; with a single-replica tier the router sheds
+    (retryable ``RequestShed``) for the rebuild window instead.
+
+    ``encode_fn``: the encode stage for the NEW embedding version; None
+    keeps each replica's current encode (a corpus-only refresh).
+    ``canary``: the health-probe batch (defaults to ``warm_batches[0]``).
+    """
+
+    def __init__(
+        self,
+        router: QueryRouter,
+        builder: IndexBuilder,
+        *,
+        warm_batches: Optional[List[Any]] = None,
+        canary: Any = None,
+        encode_fn: Optional[EncodeFn] = None,
+        drain_timeout: float = 30.0,
+        quiesce_timeout: float = 30.0,
+        probe_timeout: float = 60.0,
+        on_event: Optional[Callable[[str], None]] = None,
+    ):
+        if canary is None and not warm_batches:
+            raise ValueError("need a canary batch (or warm_batches)")
+        self.router = router
+        self.builder = builder
+        self.warm_batches = warm_batches
+        self.canary = canary if canary is not None else warm_batches[0]
+        self.encode_fn = encode_fn
+        self.drain_timeout = drain_timeout
+        self.quiesce_timeout = quiesce_timeout
+        self.probe_timeout = probe_timeout
+        self._log = on_event or (lambda msg: None)
+
+    def _claim(self, replica: int) -> None:
+        """Move ``replica`` into 'rebuilding' from whatever lifecycle
+        state it is in: drain it when healthy, claim it directly when
+        dead (the swap then doubles as its revival — nothing is routed
+        there), and wait out an in-flight canary probe (the background
+        probe loop and the swap race over unhealthy replicas). Once
+        'rebuilding', the probe loop cannot touch the replica, so the
+        hand-off is atomic."""
+        router = self.router
+        deadline = time.perf_counter() + self.drain_timeout
+        while True:
+            st = router.states()[replica]
+            try:
+                if st == "rebuilding":
+                    raise SwapFailed(
+                        f"replica {replica} is already rebuilding "
+                        "(another controller owns it)"
+                    )
+                if st == "probing":
+                    # The probe resolves to healthy or unhealthy shortly:
+                    # condition-wait on the state machine (woken by the
+                    # transition itself) instead of sleep-polling.
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0 or not router.wait_state(
+                        replica, ("healthy", "unhealthy"),
+                        timeout=remaining,
+                    ):
+                        raise SwapFailed(
+                            f"replica {replica} still probing after "
+                            f"{self.drain_timeout}s"
+                        )
+                    continue
+                if st == "healthy":
+                    router.drain(replica, timeout=self.drain_timeout)
+                router.begin_rebuild(replica)  # draining|unhealthy
+                return
+            except ValueError:
+                # state changed under us (a probe revived/parked the
+                # replica between the read and the transition): re-read
+                if time.perf_counter() >= deadline:
+                    raise SwapFailed(
+                        f"replica {replica} lifecycle state kept "
+                        "changing; could not claim it for rebuild"
+                    ) from None
+                continue
+
+    def swap_replica(self, replica: int, snapshot: CorpusSnapshot) -> dict:
+        """Swap one replica to ``snapshot``; returns its report row."""
+        router, log = self.router, self._log
+        pipe = router.replicas.pipelines[replica]
+        version = builder_version(self.builder, snapshot)
+
+        t0 = time.perf_counter()
+        log(f"replica {replica}: draining")
+        self._claim(replica)  # ends with the replica in 'rebuilding'
+        try:
+            if not pipe.quiesce(timeout=self.quiesce_timeout):
+                # Proxy tickets are gone (drained/re-dispatched) but an
+                # inner batch is stuck on the pipeline; swapping under it
+                # would race the scan stage.
+                raise SwapFailed(
+                    f"replica {replica} pipeline did not quiesce within "
+                    f"{self.quiesce_timeout}s"
+                )
+            t_drain = time.perf_counter()
+
+            log(f"replica {replica}: rebuilding ({version.tag})")
+            search_fn = self.builder.build(snapshot, replica=replica)
+            t_build = time.perf_counter()
+
+            encode_fn = self.encode_fn or pipe.encode_fn
+            if self.warm_batches:
+                # Throwaway-pipeline warmup: worker threads carry
+                # per-thread library state (set up on first use), so
+                # warming on this thread alone is not enough.
+                serving.warmup_replicas([(encode_fn, search_fn)],
+                                        self.warm_batches)
+            t_warm = time.perf_counter()
+
+            pipe.swap_fns(encode_fn=encode_fn, search_fn=search_fn)
+            generation = pipe.new_generation()
+            router.set_version(replica, version)
+        except BaseException as e:
+            # An aborted swap must not strand the replica in a transient
+            # state no probe targets (draining/rebuilding would be
+            # one-strike-forever all over again) — park it unhealthy so
+            # the canary re-probe can reclaim it once the cause clears.
+            router.mark_unhealthy(replica, e)
+            raise
+
+        log(f"replica {replica}: probing")
+        if not router.probe(replica, self.canary, timeout=self.probe_timeout,
+                            from_rebuild=True):
+            raise SwapFailed(
+                f"replica {replica} failed its post-swap canary probe "
+                f"(left unhealthy; version {version.tag})"
+            )
+        t_end = time.perf_counter()
+        log(f"replica {replica}: healthy (generation {generation})")
+        return {
+            "replica": replica,
+            "version": version.tag,
+            "generation": generation,
+            "drain_s": t_drain - t0,
+            "build_s": t_build - t_drain,
+            "warm_s": t_warm - t_build,
+            "probe_s": t_end - t_warm,
+            "total_s": t_end - t0,
+        }
+
+    def swap_all(self, snapshot: CorpusSnapshot) -> SwapReport:
+        """Rolling swap of every replica, one at a time, under traffic."""
+        report = SwapReport(version=builder_version(self.builder, snapshot))
+        t0 = time.perf_counter()
+        for replica in range(len(self.router.replicas)):
+            report.replicas.append(self.swap_replica(replica, snapshot))
+        report.total_s = time.perf_counter() - t0
+        return report
+
+
+def run_stream_with_swap(
+    router: QueryRouter,
+    stream: List[Any],
+    *,
+    controller: Optional[RollingSwapController] = None,
+    snapshot: Optional[CorpusSnapshot] = None,
+    swap_after: int = 0,
+    shed_retry_s: float = 1e-3,
+    deadline_s: Optional[float] = None,
+) -> Tuple[List[Any], Optional[SwapReport]]:
+    """Drive a query stream through the tier, optionally swapping mid-way.
+
+    The shared driver loop of ``launch/serve.py`` and the serve
+    drivers: submits every batch (retrying retryable
+    ``RequestShed`` — a burst, or a swap/probe holding the tier for an
+    instant), kicks ``controller.swap_all(snapshot)`` on a helper thread
+    after ``swap_after`` submissions, awaits every ticket in submission
+    order, and re-raises a failed swap only after the stream has
+    resolved. A failed swap that downs the tier mid-stream surfaces the
+    swap's own error (the root cause), not the ``AllReplicasDown`` /
+    ticket errors it triggered. Returns ``(results, SwapReport | None)``.
+
+    ``deadline_s`` gives every batch a per-query deadline that many
+    seconds after its first submit attempt; a batch the tier sheds as
+    expired lands as ``None`` in the results (the stream keeps going —
+    a missed budget is an answer, not a tier failure).
+
+    The shed-retry pause runs on the router's injected clock and is
+    interruptible by ``router.close()`` — a teardown mid-stream no
+    longer waits out ``shed_retry_s`` (and a ``FakeClock`` tier
+    advances through it without real sleeping). A close that lands
+    during the pause surfaces as ``PipelineClosed`` from the next
+    submit.
+    """
+    if controller is not None and swap_after and swap_after >= len(stream):
+        # Misconfiguration, not a quiet no-op — and caught BEFORE the
+        # workload runs, not after minutes of serving.
+        raise ValueError(
+            f"swap_after={swap_after} would never fire: the stream has "
+            f"only {len(stream)} batches"
+        )
+    swap_state: dict = {}
+    swap_thread: Optional[threading.Thread] = None
+
+    def run_swap():
+        try:
+            swap_state["report"] = controller.swap_all(snapshot)
+        except BaseException as e:  # surfaced after the stream
+            swap_state["error"] = e
+
+    tickets = []
+    downstream_error: Optional[BaseException] = None
+    for n_submitted, batch in enumerate(stream):
+        if controller is not None and swap_after \
+                and n_submitted == swap_after:
+            swap_thread = threading.Thread(target=run_swap, daemon=True)
+            swap_thread.start()
+        deadline = (
+            None if deadline_s is None
+            else router.clock.now() + deadline_s
+        )
+        while downstream_error is None:
+            try:
+                tickets.append(router.submit(batch, deadline=deadline))
+                break
+            except DeadlineExpired:
+                tickets.append(None)  # budget spent waiting out sheds
+                break
+            except RequestShed:
+                # Interruptible: router.close() sets _close_event, so a
+                # teardown mid-pause wakes immediately (the next submit
+                # raises PipelineClosed); a FakeClock advances through
+                # it without real sleeping.
+                router.clock.wait(router._close_event, shed_retry_s)
+            except (AllReplicasDown, IncompatibleVersion) as e:
+                # Tier down, or a versioned batch no replica can ever
+                # serve: terminal either way — stop submitting.
+                downstream_error = e
+        if downstream_error is not None:
+            break
+    results = []
+    try:
+        for t in tickets:
+            if t is None:
+                results.append(None)
+                continue
+            try:
+                results.append(t.result())
+            except DeadlineExpired:
+                if deadline_s is None:
+                    raise  # caller-provided deadlines surface as errors
+                results.append(None)  # a missed budget, not a failure
+    except BaseException as e:
+        downstream_error = downstream_error or e
+    if swap_thread is not None:
+        swap_thread.join()
+    if "error" in swap_state:
+        raise swap_state["error"]
+    if downstream_error is not None:
+        raise downstream_error
+    return results, swap_state.get("report")

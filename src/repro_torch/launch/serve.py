@@ -1,12 +1,15 @@
-"""BEBR serving launcher, flat, IVF and HNSW indexes (ports the
-``--index flat|ivf|hnsw`` paths of ``repro/launch/serve.py``, bi-granular
-mode included).
+"""BEBR serving launcher, flat, IVF and HNSW indexes behind the replicated
+serving tier (ports ``repro/launch/serve.py``: the index and bi-granular
+flags and the routed run; not yet the training flags or
+``--upgrade-after``, which needs backward-compatible training).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --index flat --docs 20000 --queries 64
     PYTHONPATH=src python -m repro_torch.launch.serve --index ivf [--probe-budget 2080]
     PYTHONPATH=src python -m repro_torch.launch.serve --index hnsw [--ef 64 --beam 8]
     PYTHONPATH=src python -m repro_torch.launch.serve --index flat|ivf|hnsw \
         --coarse-levels 2 --k-coarse 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2 \
+        --router least-outstanding --chaos r1.fail@2 --probe-every 0.05 --swap-after 4
 
 End to end on the card: a clustered synthetic corpus -> eval-mode
 recurrent binarizer -> integer codes (nibble-packed with ``--packed``)
@@ -16,13 +19,18 @@ whose probed lists the CUDA ``sdc_gather_topk`` kernel scans, or an NSW
 graph (M 16, ef_construction 64, seed 0, built on the host in O(N^2))
 walked by the batched-frontier search, whose hops the same gather kernel
 scores (``--ef`` results, ``--beam`` nodes expanded a hop, at most 64
-hops), served through ``ServingPipeline``. ``--coarse-levels C
+hops). As in the reference CLI the stream is always served through the
+router (``serve_routed``): ``--replicas`` pipelines on the one device,
+sharing its index tensors, behind a ``QueryRouter`` (``--router``), with
+optional chaos, canary re-probe, deadlines, stuck-scan watchdogs, a
+rolling swap from a snapshot of the codes (``--swap-after``) and the
+shed-pressure autoscaler (``--tier-spec``). ``--coarse-levels C
 --k-coarse K'`` serves any family in bi-granular mode: the index covers
 the first C levels of the codes (hot tier, on the card) and the top-K'
 survivors of each query are reranked on the full-level codes, which
 stay in host memory (cold tier) and are gathered there per request. Recall@k against the
 float-embedding exhaustive baseline, index bytes, and sequential vs
-pipelined ms/batch. Training is not ported yet: ``--ckpt`` loads a
+routed ms/batch. Training is not ported yet: ``--ckpt`` loads a
 checkpoint written by the reference, and without it the binarizer has
 seeded random weights (recall is then low; the run says so). ``--device
 cpu`` runs the plain scoring path on the CPU. As in the reference CLI, a
@@ -34,8 +42,9 @@ codes.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
-from typing import Any, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -51,7 +60,14 @@ from repro_torch.device import resolve_device
 from repro_torch.index import hnsw_lite, ivf
 from repro_torch.index.flat import FlatFloat, FlatSDC
 from repro_torch.kernels.sdc import ref as sdc_ref
-from repro_torch.launch import binarizer_cache, lifecycle, serving
+from repro_torch.launch import (
+    autoscale,
+    binarizer_cache,
+    faults,
+    lifecycle,
+    proxy,
+    serving,
+)
 
 
 def cli_builder(index: str, *, k: int = 10, packed: bool = False, ef: int = 64, beam: int = 8,
@@ -81,30 +97,85 @@ def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
 
 
-def serve_pipelined(encode_fn, search_fn, stream: List[Any], config: serving.ServingConfig):
-    """Run ``stream`` through one ``ServingPipeline`` under ``config``'s policy.
+@dataclasses.dataclass
+class RoutedRun:
+    """What ``serve_routed`` did: the results in stream order (``None`` for
+    a batch that missed its deadline), the router's stats after close, the
+    stream's wall seconds, the swap's report, the autoscaler's summary and
+    the chaos injectors by replica."""
 
-    With the shed policy a rejected submit waits for the oldest
-    outstanding request and is tried again. Returns (results in
-    submission order, pipeline stats, number of sheds).
+    results: List[Any]
+    stats: dict
+    seconds: float
+    swap: Optional[lifecycle.SwapReport]
+    autoscale: Optional[dict]
+    injectors: Dict[int, faults.FaultInjector]
+
+
+def serve_routed(encode, search, stream: List[Any], *, warm_batches: List[Any],
+                 replicas: int = 1, router: str = "round-robin",
+                 config: serving.ServingConfig = serving.ServingConfig(),
+                 chaos: Optional[str] = None, builder=None, snapshot=None,
+                 swap_after: int = 0, probe_every: float = 0.0,
+                 scan_budget_s: float = 0.0, deadline_s: Optional[float] = None,
+                 spec: Optional[autoscale.TierSpec] = None, embedding_version: str = "v1",
+                 device="cuda") -> RoutedRun:
+    """The reference CLI's routed run (``repro/launch/serve.py``): ``replicas``
+    pipelines over the one ``(encode, search)`` pair behind a
+    ``QueryRouter``, the stream driven by ``lifecycle.run_stream_with_swap``.
+
+    The caller warms the pair first. ``chaos`` wraps the replicas after
+    that (the fault schedule counts calls, and warmup must not consume
+    it). Replicas on one device share it (``share_device``): also when a
+    tier spec may add replicas later. ``swap_after`` rolls ``builder``
+    over ``snapshot`` after that many submissions (a spec's
+    ``swap_every_s`` sets it to mid-stream when unset);
+    ``probe_every`` runs the canary re-probe loop; ``scan_budget_s`` arms
+    the stuck-scan watchdogs; ``deadline_s`` gives each batch a budget;
+    ``spec`` runs the shed-pressure ``Autoscaler`` over the stream, its
+    replicas built on ``device`` from ``snapshot``. Stuck scans are
+    released and every thread joined before this returns.
     """
-    pipe = serving.ServingPipeline(encode_fn, search_fn, config=config)
-    tickets, sheds = [], 0
+    replica_fns, injectors = faults.apply_chaos([(encode, search)] * replicas, chaos)
+    share = replicas > 1 or (spec is not None and spec.max_replicas > 1)
+    tier = proxy.QueryRouter(
+        proxy.ReplicaSet(replica_fns, config=config, share_device=share), policy=router)
+    for r in range(replicas):
+        tier.set_version(r, embedding_version)
+    if spec is not None and spec.swap_every_s > 0 and not swap_after:
+        # The spec's swap cadence, mapped onto a finite stream: one
+        # rolling swap at mid-stream.
+        swap_after = max(1, len(stream) // 2)
+    controller = None
+    if swap_after:
+        controller = lifecycle.RollingSwapController(
+            tier, builder, warm_batches=warm_batches[:1], encode_fn=encode)
+    scaler = None
     try:
-        for b in stream:
-            while True:
-                try:
-                    tickets.append(pipe.submit(b))
-                    break
-                except serving.RequestShed:
-                    sheds += 1
-                    pending = [t for t in tickets if not t.done()]
-                    if pending:
-                        pending[0].result()
-        results = [t.result() for t in tickets]
+        if probe_every:
+            tier.start_health_probe(warm_batches[0], interval=probe_every)
+        if scan_budget_s:
+            tier.start_watchdogs(scan_budget_s)
+        if spec is not None:
+            scaler = autoscale.Autoscaler(
+                tier, spec, snapshot=snapshot, encode_fn=encode,
+                warm_batches=warm_batches[:1], device=device,
+                on_event=lambda msg: print(f"[autoscale] {msg}", flush=True))
+            scaler.start()
+        t0 = time.perf_counter()
+        results, swap_report = lifecycle.run_stream_with_swap(
+            tier, stream, controller=controller, snapshot=snapshot,
+            swap_after=swap_after, deadline_s=deadline_s)
+        seconds = time.perf_counter() - t0
     finally:
-        pipe.close()
-    return results, pipe.stats(), sheds
+        if scaler is not None:
+            scaler.stop()
+        for inj in injectors.values():
+            inj.release()  # a still-stuck scan would wedge close()'s joins
+        tier.close()
+    return RoutedRun(results=results, stats=tier.stats(), seconds=seconds, swap=swap_report,
+                     autoscale=scaler.summary() if scaler is not None else None,
+                     injectors=injectors)
 
 
 def recall_at_k(ids: torch.Tensor, gt) -> float:
@@ -151,9 +222,69 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=4,
                     help="times the query stream is replayed for timing")
     ap.add_argument("--queue-depth", type=int, default=8,
-                    help="admission-queue depth (requests)")
+                    help="admission-queue depth (requests, per replica)")
     ap.add_argument("--policy", choices=["block", "shed"], default="block",
-                    help="admission policy when the queue is full")
+                    help="admission policy when a replica queue is full "
+                         "(the proxy sheds only when EVERY replica is "
+                         "saturated)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serving replicas behind the query router (on one "
+                         "device they share it and the index tensors; each "
+                         "still gets its own pipeline + admission queue)")
+    ap.add_argument("--router", choices=sorted(proxy.ROUTING_POLICIES),
+                    default="round-robin",
+                    help="replica routing policy")
+    ap.add_argument("--tier-spec", default=None, metavar="SPEC.json",
+                    help="declarative tier spec (launch/autoscale.py "
+                         "TierSpec JSON): replica min/max, index kind + "
+                         "build params, router policy, admission policy/"
+                         "queue depth, swap cadence, and scale thresholds. "
+                         "Overrides --replicas/--router/--queue-depth/"
+                         "--policy/--index, starts the tier at "
+                         "min_replicas, and runs the shed-pressure "
+                         "autoscaler over the stream (scale-up replicas "
+                         "are built from the spec's index params, warmed, "
+                         "and canary-probed before taking traffic; "
+                         "scale-down drains losslessly). swap_every_s > 0 "
+                         "schedules one rolling swap mid-stream when "
+                         "--swap-after is unset")
+    ap.add_argument("--embedding-version", default="v1",
+                    help="embedding-version tag of the corpus snapshot and "
+                         "the tier's replicas; typed SearchRequests are "
+                         "routed by this tag")
+    ap.add_argument("--upgrade-after", type=int, default=0, metavar="N",
+                    help="a live embedding-version migration after N "
+                         "batches; needs backward-compatible binarizer "
+                         "training, which the port does not have yet, so "
+                         "any N > 0 is refused")
+    ap.add_argument("--swap-after", type=int, default=0, metavar="N",
+                    help="after N batches of the routed stream, run a "
+                         "rolling index swap (drain -> rebuild -> warm -> "
+                         "canary re-probe, one replica at a time) under "
+                         "the live traffic; 0 disables")
+    ap.add_argument("--probe-every", type=float, default=0.0, metavar="S",
+                    help="period (s) of the router's canary health "
+                         "re-probe loop — unhealthy replicas that answer "
+                         "the canary are revived; 0 disables")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="deterministic fault injection on the serving "
+                         "fns: comma-joined clauses "
+                         "'[rN.][stage.]kind[@AT][xCOUNT][~PROB][:ARG]' "
+                         "with kind in fail|delay|stick|flap (see "
+                         "launch/faults.py). e.g. "
+                         "'r0.search.fail@3,r1.search.delay~0.5:0.01' — "
+                         "pair with --probe-every / --scan-budget-ms to "
+                         "watch the tier heal")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-batch deadline (ms) enforced through the "
+                         "tier: expired work is shed at dequeue (counted, "
+                         "never scanned) and lands as a None result; "
+                         "0 disables")
+    ap.add_argument("--scan-budget-ms", type=float, default=0.0,
+                    help="stuck-scan watchdog budget (ms): a scan running "
+                         "past it marks its replica unhealthy and fails "
+                         "its in-flight work over to the survivors; "
+                         "0 disables")
     ap.add_argument("--seed", type=int, default=0,
                     help="corpus seed, and the weight seed without --ckpt")
     ap.add_argument("--ckpt", default=None, metavar="PATH",
@@ -163,6 +294,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
+    if args.upgrade_after:
+        ap.error("--upgrade-after needs backward-compatible binarizer training "
+                 "(bc_train_binarizer), which the port does not have yet")
     if bool(args.coarse_levels) != bool(args.k_coarse):
         ap.error("--coarse-levels and --k-coarse must be set together")
     if args.coarse_levels and not 0 < args.coarse_levels < args.levels:
@@ -170,6 +304,27 @@ def main(argv=None):
                  f"(got {args.coarse_levels} of --levels {args.levels})")
     if args.probe_budget and args.index != "ivf":
         ap.error("--probe-budget only applies to --index ivf")
+
+    # Declarative tier spec: ONE artifact describes the tier's desired
+    # state; the flags it covers are overridden so an operator cannot
+    # half-apply it. The autoscaler re-applies the same spec as it
+    # resizes.
+    spec = None
+    if args.tier_spec:
+        try:
+            spec = autoscale.TierSpec.from_file(args.tier_spec)
+        except autoscale.InvalidTierSpec as e:
+            ap.error(f"--tier-spec: {e}")
+        args.index = spec.index
+        args.replicas = spec.min_replicas
+        args.router = spec.router
+        args.queue_depth = spec.queue_depth
+        args.policy = spec.policy
+        print(f"[tier-spec] {args.tier_spec}: index={spec.index} "
+              f"replicas=[{spec.min_replicas}, {spec.max_replicas}] "
+              f"router={spec.router} policy={spec.policy} "
+              f"water=({spec.low_water}, {spec.high_water}) "
+              f"cooldown={spec.cooldown_s}s window={spec.window_s}s")
     device = resolve_device(args.device)
     where = device_name(device)
 
@@ -191,20 +346,29 @@ def main(argv=None):
     d_codes = encode_codes(model, docs)
     flat_float = FlatFloat.build(docs, device=device)
     cl, kc = args.coarse_levels or None, args.k_coarse or None
-    builder = cli_builder(args.index, k=args.k, packed=args.packed, ef=args.ef, beam=args.beam,
-                          coarse_levels=cl, k_coarse=kc, probe_budget=args.probe_budget or None,
-                          device=device)
+    if spec is not None:
+        # The spec's build params are the single source of truth: the
+        # initial index, every swap and every scale-up build the same index.
+        builder = spec.make_index_builder(device)
+    else:
+        builder = cli_builder(args.index, k=args.k, packed=args.packed, ef=args.ef,
+                              beam=args.beam, coarse_levels=cl, k_coarse=kc,
+                              probe_budget=args.probe_budget or None, device=device)
     p = builder.params
+    snapshot = None
+    if cl is not None or args.swap_after or spec is not None:
+        # A host copy of the codes: bi-granular mode keeps its cold fine
+        # tier there, and a swap or a scale-up rebuilds from it.
+        snapshot = lifecycle.CorpusSnapshot(codes=d_codes.cpu().numpy(), n_levels=bcfg.n_levels,
+                                            embedding_version=args.embedding_version)
     if args.index == "hnsw":
         print("[index] building NSW graph (host-side, O(N^2) incremental "
               "construction — use --docs <= 20000 for a quick demo)")
         t0 = time.perf_counter()
     if cl is not None:
-        # Bi-granular mode serves the builder's closure over a host copy of
-        # the codes: the cold fine tier stays in host memory, as in the
-        # reference CLI.
-        snapshot = lifecycle.CorpusSnapshot(codes=d_codes.cpu().numpy(),
-                                            n_levels=bcfg.n_levels, embedding_version="v1")
+        # Bi-granular mode serves the builder's closure over the host
+        # snapshot: the cold fine tier stays in host memory, and a swap of
+        # the same snapshot installs the same (digest-cached) closure.
         search = builder.build(snapshot)
         per_doc = lambda lv: (args.code_dim * lv + 7) // 8 + 4  # noqa: E731
         coarse_b = args.docs * per_doc(cl)
@@ -259,22 +423,80 @@ def main(argv=None):
     serving.serve_sequential(encode, search, stream)
     dt_seq = time.perf_counter() - t0
 
-    pcfg = serving.ServingConfig(queue_depth=args.queue_depth, policy=args.policy)
-    t0 = time.perf_counter()
-    results, stats, sheds = serve_pipelined(encode, search, stream, pcfg)
-    dt_pipe = time.perf_counter() - t0
+    # Drive the router directly so --policy is honoured: submits that shed
+    # off EVERY replica's full admission queue are retried after a short
+    # pause (stats["shed"]); the block policy back-pressures inside submit.
+    run = serve_routed(
+        encode, search, stream, warm_batches=batches, replicas=args.replicas,
+        router=args.router,
+        config=serving.ServingConfig(queue_depth=args.queue_depth, policy=args.policy),
+        chaos=args.chaos, builder=builder, snapshot=snapshot, swap_after=args.swap_after,
+        probe_every=args.probe_every, scan_budget_s=args.scan_budget_ms / 1e3,
+        deadline_s=(args.deadline_ms / 1e3) if args.deadline_ms else None, spec=spec,
+        embedding_version=args.embedding_version, device=device)
+    results, stats = run.results, run.stats
 
-    idx_b = torch.cat([ids for _, ids in results[: len(batches)]], 0)
-    print(f"[serve] recall@{args.k}: float={recall_at_k(idx_f, gt):.4f} "
-          f"BEBR={recall_at_k(idx_b, gt):.4f}")
+    first = results[: len(batches)]
+    if all(r is not None for r in first):
+        idx_b = torch.cat([ids for _, ids in first], 0)
+        print(f"[serve] recall@{args.k}: float={recall_at_k(idx_f, gt):.4f} "
+              f"BEBR={recall_at_k(idx_b, gt):.4f}")
+    else:
+        # Deadline sheds are accounted answers, but recall needs the full
+        # first replay of the stream.
+        print(f"[serve] recall@{args.k}: float={recall_at_k(idx_f, gt):.4f} BEBR=n/a "
+              f"({sum(r is None for r in first)}/{len(first)} first-round batches "
+              "missed their deadline)")
     print(f"[serve] sequential: {1e3 * dt_seq / len(stream):.3f} ms/batch "
           f"({n_q / dt_seq:.0f} QPS on {where}, warmed)")
-    shed = f", {sheds} shed" if sheds else ""
-    print(f"[serve] pipelined: {1e3 * dt_pipe / len(stream):.3f} ms/batch "
-          f"({n_q / dt_pipe:.0f} QPS on {where}; "
+    n_q_routed = sum(getattr(b, "n_queries", None) or b.shape[0] for b in stream)
+    shed = f", {stats['shed']} shed" if stats["shed"] else ""
+    print(f"[serve] routed ({args.replicas} replica(s), {args.router}): "
+          f"{1e3 * run.seconds / len(stream):.3f} ms/batch "
+          f"({n_q_routed / run.seconds:.0f} QPS on {where}; "
           f"p50={stats['latency_p50_ms']:.3f} ms p99={stats['latency_p99_ms']:.3f} ms, "
-          f"scan stage idle {100 * stats['device_idle_frac']:.0f}%{shed})")
-
+          f"device idle {100 * stats['device_idle_frac']:.0f}%{shed})")
+    if args.replicas > 1:
+        for s in stats["per_replica"]:
+            print(f"[serve]   replica {s['replica']}: {s['requests']} req "
+                  f"({s['queries']} queries), shed {s['shed']}, device idle "
+                  f"{100 * s['device_idle_frac']:.0f}%")
+    if run.swap is not None:
+        rep = run.swap
+        print(f"[swap] rolling swap -> {rep.version.tag}: {rep.swapped} "
+              f"replica(s) re-indexed in {rep.total_s * 1e3:.0f} ms under "
+              f"live traffic (zero results lost)")
+        for row in rep.replicas:
+            print(f"[swap]   replica {row['replica']}: "
+                  f"drain {row['drain_s'] * 1e3:.0f} ms, "
+                  f"build {row['build_s'] * 1e3:.0f} ms, "
+                  f"warm {row['warm_s'] * 1e3:.0f} ms, "
+                  f"probe {row['probe_s'] * 1e3:.0f} ms "
+                  f"(generation {row['generation']})")
+    if args.probe_every:
+        print(f"[probe] canary re-probe every {args.probe_every}s: "
+              f"{stats['revivals']} revival(s), states {stats['states']}")
+    if args.deadline_ms:
+        print(f"[deadline] {args.deadline_ms:.0f} ms budget: "
+              f"{stats['deadline_expired']} expired "
+              f"({sum(r is None for r in results)}/{len(results)} batches "
+              "unanswered)")
+    if args.scan_budget_ms:
+        print(f"[watchdog] {args.scan_budget_ms:.0f} ms scan budget: "
+              f"{stats['watchdog_stalls']} stall(s), "
+              f"{stats['failovers']} failover(s)")
+    if run.autoscale is not None:
+        sm = run.autoscale
+        print(f"[autoscale] spec [{sm['replicas_min']}, "
+              f"{sm['replicas_max']}]: {sm['scale_ups']} scale-up(s), "
+              f"{sm['scale_downs']} scale-down(s) over {sm['decisions']} "
+              f"tick(s); replicas ended at {sm['replicas']} "
+              f"(seen [{sm['min_replicas_seen']}, "
+              f"{sm['max_replicas_seen']}])")
+    for i, inj in sorted(run.injectors.items()):
+        fired = ", ".join(f"{s}#{n}:{k}" for s, n, k in inj.log) or "none"
+        print(f"[chaos] replica {i}: {len(inj.log)} fault(s) fired "
+              f"({fired})")
 
 if __name__ == "__main__":
     main()

@@ -11,7 +11,8 @@ devices=["cpu"] * 8)`` with its plain leaves. Every case is bit-identical,
 scores (-inf included) and ids: the flat engine, int8 and packed, at k = 10
 and at k above a leaf's rows; an n_levels-1 corpus full of ties; failover
 with leaf 3 dead, and with every leaf but one dead at k above its rows, so
-that dead leaves' ids surface beside -inf; the HNSW engine, int8 and
+that dead leaves' ids surface beside -inf; a reversed ``shard_axes`` and
+a subset of the mesh's axes; the HNSW engine, int8 and
 packed; both snapshot closures, bi-granular at every effort level; the
 reference's errors; and ``EngineBuilder`` over two replica meshes. The
 port's ``doc_inv_norms`` may differ from the reference's by one ulp, so the
@@ -57,6 +58,9 @@ TIES_D = 8  # n_levels 1 at code dim 8: 256 distinct rows for 2048 documents
 RR_ARGS = {"coarse_levels": 2, "k_coarse": 64}
 HNSW_KW = dict(M=8, ef_construction=32)
 HNSW_SEARCH = dict(ef=64, beam=16)
+# shard axes other than the mesh's own order: reversed, and a subset (the
+# corpus split over "data" only, each shard on the leaf at model 0)
+AXES = (("reversed", ("model", "data")), ("subset", ("data",)))
 
 _REFERENCE = """
 import json, sys, types
@@ -98,6 +102,16 @@ with mesh:
                              jax.device_put(jnp.asarray(tinv), vs)))
     d = jax.device_put(jnp.asarray(cd), ds)
     v = jax.device_put(jnp.asarray(inv), vs)
+    for name, axes in %(AXES)r:
+        qa, da, va = E.engine_input_shardings(mesh, axes)
+        fn = E.make_distributed_search(mesh, n_levels=4, k=10, backend="xla", shard_axes=axes)
+        save(f"axes/{name}", fn(jax.device_put(jnp.asarray(cq), qa),
+                                jax.device_put(jnp.asarray(cd), da),
+                                jax.device_put(jnp.asarray(inv), va)))
+        fn = E.make_distributed_search(mesh, n_levels=1, k=40, backend="xla", shard_axes=axes)
+        save(f"axes_ties/{name}", fn(jax.device_put(jnp.asarray(tq), qa),
+                                     jax.device_put(jnp.asarray(td), da),
+                                     jax.device_put(jnp.asarray(tinv), va)))
     for name, k, alive in (("leaf3", 10, [i != 3 for i in range(8)]),
                            ("only5", %(WIDE_K)d, [i == 5 for i in range(8)])):
         fn = E.make_failover_search(mesh, n_levels=4, k=k, backend="xla")
@@ -148,7 +162,8 @@ for index, extra in (("flat", {}), ("hnsw", {}), ("flat_rr", %(RR_ARGS)r)):
                    repr(L.builder_version(b, snap).build_params)]
 np.savez(sys.argv[2], **out)
 json.dump({"msgs": msgs, "tags": tags}, open(sys.argv[3], "w"))
-""" % dict(WIDE_K=WIDE_K, HNSW_KW=HNSW_KW, HNSW_SEARCH=HNSW_SEARCH, RR_ARGS=RR_ARGS)
+""" % dict(WIDE_K=WIDE_K, HNSW_KW=HNSW_KW, HNSW_SEARCH=HNSW_SEARCH, RR_ARGS=RR_ARGS,
+           AXES=AXES)
 
 
 def _inputs(seed=20):
@@ -277,6 +292,21 @@ def test_ties_equal_reference(ref, k):
     _same(ref, f"ties/{k}", got)
     v = got[0].numpy()
     assert (v[:, 1:] == v[:, :-1]).any()  # the case really holds ties
+
+
+@pytest.mark.parametrize("name, axes", AXES)
+def test_shard_axes_equal_reference(ref, name, axes):
+    """A reversed ``shard_axes`` and a subset of the mesh's axes: the leaves
+    and the merge order follow the reference, ties included."""
+    mesh = _mesh()
+    fn = PE.make_distributed_search(mesh, n_levels=LEVELS, k=10, shard_axes=axes)
+    _same(ref, f"axes/{name}", fn(_t(ref["cq"]), _t(ref["cd"]), _t(ref["inv"])))
+    fn = PE.make_distributed_search(mesh, n_levels=1, k=40, shard_axes=axes)
+    got = fn(_t(ref["tq"]), _t(ref["td"]), _t(ref["tinv"]))
+    _same(ref, f"axes_ties/{name}", got)
+    v = got[0].numpy()
+    assert (v[:, 1:] == v[:, :-1]).any()  # the case really holds ties
+    assert len(mesh.leaf_devices(axes)) == (8 if len(axes) == 2 else 4)
 
 
 @pytest.mark.parametrize("case", ["leaf3", "only5"])

@@ -109,9 +109,12 @@ def test_pipeline_bit_identical_to_sequential_fifo(slice_data, packed):
     assert stats["requests"] == 2 * len(batches)
     for (v, i), (sv, si) in zip(results, seq * 2):
         assert torch.equal(v, sv) and torch.equal(i, si)
-    results, _, sheds = PSV.serve_pipelined(
-        encode, search, batches, PSERV.ServingConfig(queue_depth=1, policy="shed"))
-    for (v, i), (sv, si) in zip(results, seq):
+    # the CLI's routed run under the shed policy: shed submits are retried
+    run = PSV.serve_routed(encode, search, batches, warm_batches=batches, replicas=2,
+                           config=PSERV.ServingConfig(queue_depth=1, policy="shed"),
+                           device="cpu")
+    assert len(run.results) == len(seq) and run.stats["requests"] == len(batches)
+    for (v, i), (sv, si) in zip(run.results, seq):
         assert torch.equal(v, sv) and torch.equal(i, si)
 
 
@@ -154,7 +157,7 @@ def test_serve_cli_runs_on_cpu(capsys):
               "--code-dim", "16", "--batch", "8", "--rounds", "2", "--packed"])
     out = capsys.readouterr().out
     for tag in ("[data]", "[index] flat:", "[serve] recall@10:", "[serve] sequential:",
-                "[serve] pipelined:", "UNTRAINED", "on CPU"):
+                "[serve] routed (1 replica(s), round-robin):", "UNTRAINED", "on CPU"):
         assert tag in out, (tag, out)
 
 

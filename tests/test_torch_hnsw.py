@@ -300,7 +300,7 @@ def test_cli_serves_hnsw_on_the_cpu(capsys, extra):
     out = capsys.readouterr().out
     assert "[index] building NSW graph (host-side, O(N^2) incremental construction" in out
     assert "[index] hnsw: " in out and "MiB (float flat: " in out
-    assert "[serve] recall@10" in out and "[serve] pipelined" in out
+    assert "[serve] recall@10" in out and "[serve] routed" in out
     if extra and extra[0] == "--coarse-levels":
         assert "[index] bi-granular tiers (serialized): coarse" in out
 

@@ -37,7 +37,9 @@ from repro_torch.kernels.sdc import gather as PG  # noqa: E402
 from repro_torch.kernels.sdc import ops as PO  # noqa: E402
 from repro_torch.kernels.sdc import rerank as PRK  # noqa: E402
 from repro_torch.kernels.sdc import sdc as PSDC  # noqa: E402
+from repro_torch.launch import autoscale as PA  # noqa: E402
 from repro_torch.launch import lifecycle as PL  # noqa: E402
+from repro_torch.launch import proxy as PP  # noqa: E402
 from repro_torch.launch import mesh as PM  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.recsys import dlrm as PD  # noqa: E402
@@ -59,7 +61,9 @@ print(len(names), "modules;", "foreign:", bad)
 assert not bad, bad
 assert len(names) >= 12, names
 for name in ("repro_torch.index.engine", "repro_torch.launch.mesh",
-             "repro_torch.launch.lifecycle"):
+             "repro_torch.launch.lifecycle", "repro_torch.launch.clock",
+             "repro_torch.launch.faults", "repro_torch.launch.proxy",
+             "repro_torch.launch.autoscale"):
     assert name in names, name
 """
 
@@ -202,6 +206,41 @@ def test_engine_and_builders_default_to_the_card():
         kw = dict(nlist=4, nprobe=2) if kind == "ivf" else {}
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PL.make_builder(kind, k=5, **kw).build(snap)
+
+
+def test_routed_tier_defaults_to_the_card():
+    """The routed CLI, the autoscaler's scale-up builds and ``make_builder``
+    run on the card by default, and raise without one unless asked for the
+    CPU; a tier spec loads anywhere (its builder resolves no device)."""
+    codes = np.random.default_rng(0).integers(0, 16, (64, 32)).astype(np.int8)
+    snap = PL.CorpusSnapshot(codes, 4, "v1")
+    spec = PA.TierSpec(min_replicas=1, max_replicas=2, build_params={"k": 5},
+                       cooldown_s=0.0, window_s=1.0, tick_s=1.0)
+    assert spec.make_index_builder().device == "cuda"
+
+    def scale_up(**kw):
+        router = PP.QueryRouter(PP.ReplicaSet([(lambda q: q, lambda q: (q, q))]))
+        scaler = PA.Autoscaler(router, spec, snapshot=snap, encode_fn=lambda q: q,
+                               canary=codes[:2], pressure_fn=lambda: 1.0, **kw)
+        try:
+            return scaler.tick(), router.states()
+        finally:
+            router.close()
+
+    assert scale_up(device="cpu") == ("scale-up", {0: "healthy", 1: "healthy"})
+    assert PL.make_builder("flat", k=5, device="cpu").build(snap)(codes[:2])[0].shape == (2, 5)
+    if torch.cuda.is_available():
+        assert scale_up()[0] == "scale-up"
+        v, _ = PL.make_builder("flat", k=5).build(snap)(codes[:2])
+        assert v.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scale_up()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PL.make_builder("flat", k=5).build(snap)
+    for extra in ([], ["--replicas", "2", "--chaos", "r1.fail@0"], ["--swap-after", "1"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--docs", "10", *extra])
 
 
 @pytest.mark.gpu

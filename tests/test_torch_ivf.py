@@ -236,7 +236,7 @@ def test_cli_serves_ivf_on_the_cpu(capsys, extra):
     out = capsys.readouterr().out
     assert "[index] ivf:" in out and "MiB" in out
     assert "[serve] recall@10:" in out
-    assert "[serve] sequential:" in out and "[serve] pipelined:" in out
+    assert "[serve] sequential:" in out and "[serve] routed" in out
 
 
 def test_cli_refuses_probe_budget_without_ivf(capsys):

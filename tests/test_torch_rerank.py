@@ -384,7 +384,7 @@ def test_cli_serves_bigranular_on_the_cpu(capsys, index):
     out = capsys.readouterr().out
     assert "[index] bi-granular tiers (serialized): coarse" in out
     assert "(hot, 2/4 levels)" in out and "rerank k'=64" in out
-    assert "[serve] recall@10" in out and "[serve] pipelined" in out
+    assert "[serve] recall@10" in out and "[serve] routed" in out
 
 
 @pytest.mark.parametrize("extra, message", [
