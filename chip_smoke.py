@@ -135,11 +135,34 @@ that fails:
      logits against forwards with the plain interaction (exactly) and with
      the Gram-matrix formulation (within float32 rounding); times the
      kernel (and its device time by torch.profiler), its plain version,
-     its bound and the torch.bmm yardstick.
+     its bound and the torch.bmm yardstick;
+ 10. trains the binarizer at the reference CLI's width (the CLI's
+     20,000-document numpy corpus, dim 256, code_dim 128, n_levels 4,
+     hidden 512, queue 4,096 mining the top 64, batch 256, 300 steps,
+     through serve.train_binarizer and its digest cache): (a) twice from
+     one seed, bit-identical, then a bit-identical cache hit; (b) one
+     train_step on the card against the port's CPU step from the same
+     state and batch (loss, gradient norm, Adam's moments, parameters,
+     statistics within STEP_TOL, the queue exactly; rows whose codes take
+     the other sign on the two devices are set aside and counted); (c)
+     FlatSDC over the trained codes, recall@10 over 2,048 queries trained,
+     untrained and float, the trained weights differing from the initial
+     ones and their recall within RECALL_MARGIN of the reference's, above
+     or below (reference_figures/cli_recall.py), and the reference tests' claims
+     (test_system, test_compat with COMPAT_RECALL_FLOOR) at their widths
+     on the card; (d) the CLI's --upgrade-after through serve_routed, two
+     replicas on the card: BC training 300 steps, compat encoders both
+     ways, a rolling swap to v2's snapshot under mixed-version traffic
+     with the sdc_topk count zeroed just before and read just after
+     (nothing lost, every answer one of its version's, compat dispatches,
+     both replicas on v2), the BC weights differing from v1's and the BC
+     queries' recall on the v1 index within RECALL_MARGIN of the
+     reference's; (e) times train_step and bc_train_step (ms a step,
+     launches, device-busy share) and the 300-step walls.
 
 Its last two lines are a JSON object of the kernels' numbers and
-``{"ok": true, "device": {...}}``. The binarizer's weights are seeded and
-untrained, so the recall it prints is information only.
+``{"ok": true, "device": {...}}``. Phases 3-9 use seeded, untrained
+weights (their recall is information only); phase 10 trains them.
 """
 
 from __future__ import annotations
@@ -207,6 +230,25 @@ ROUTED_POLICIES = ("round-robin", "least-outstanding")
 CHAOS_ROUNDS, AUTOSCALE_ROUNDS, SWAP_AFTER = 8, 16, 12
 PROBE_EVERY_S, WATCHDOG_BUDGET_S, DEADLINE_S = 0.02, 0.1, 2.0
 GATE_SERVING_RATIO, GATE_REPLICA_RATIO = 1.0, 0.9
+# binarizer training (phase 10) at the reference CLI's width: its corpus
+# (clustered_corpus(seed, 20000, ., 256)), --steps and batch; recall over
+# TRAIN_QUERIES queries of that corpus (its documents do not depend on the
+# query count; the CLI's 64 give recall a standard deviation near 0.055);
+# the card's step held against the CPU's after STEP_WARM steps, within
+# STEP_TOL; TIME_STEPS timed steps
+TRAIN_DOCS, TRAIN_QUERIES, TRAIN_STEPS, TRAIN_BATCH = 20_000, 2048, 300, 256
+STEP_WARM, STEP_TOL, TIME_STEPS = 3, 1e-5, 20
+# the JAX reference's recall@10 at seed 0 over those 2048 queries, on the
+# CPU (PYTHONPATH=src JAX_PLATFORMS=cpu python reference_figures/cli_recall.py):
+# the trained binarizer through a flat SDC index, and the BC-trained next
+# version's queries on the v1 index, to which the port is held within
+# RECALL_MARGIN; and the untrained binarizer (printed beside the port's:
+# at this width the CLI's training lowers recall)
+REF_CLI_RECALL, REF_BC_RECALL, RECALL_MARGIN = 0.7124, 0.1445, 0.05
+REF_UNTRAINED_RECALL = 0.9468
+# the CLI's upgrade (--replicas 2 --upgrade-after 16) over the 8 requests
+# of 64 in both versions, replayed ROUTED_ROUNDS times
+UPGRADE_REPLICAS, UPGRADE_AFTER = 2, 16
 
 
 def ivf_params():
@@ -1909,6 +1951,442 @@ def routed_phase(d_codes, indexes, encode, batches, cfg, device, name, smi, hnsw
                     launches=got[1])])
 
 
+def _flat_tree(tree, prefix=""):
+    """A nested dict/list of arrays as {"W/0/in/b": array}, dict keys sorted."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(_flat_tree(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _state_errors(start, card, host, cfg):
+    """One step from ``start`` (``train_state_to_numpy``) on the card
+    against the same step on the CPU, as the tests hold the port against
+    the reference, each leaf against its own largest entry on the CPU:
+    Adam's moments (the bias that batch norm follows, ``in.b``, against
+    its MLP's ``in.w``, after checking that its gradient is rounding noise,
+    at most STEP_TOL of that leaf); the card's parameters against Adam's
+    update of ``start`` from the card's own moments, and its momentum copy
+    against the EMA towards them (so a parameter is held as far as its
+    gradient determines it, with no allowance); the running statistics.
+    Returns a dict of the largest relative differences and whether the
+    queue is exact and every ``in.b`` gradient noise."""
+    import numpy as np
+
+    from repro_torch.core import trainer as T
+
+    a, b = T.train_state_to_numpy(card), T.train_state_to_numpy(host)
+    f32, adam = np.float32, cfg.adam
+    assert adam.weight_decay == 0 and adam.schedule is None
+    step = int(a.opt_state.step)
+    bc1, bc2 = f32(1) - f32(adam.b1) ** f32(step), f32(1) - f32(adam.b2) ** f32(step)
+    p0, m0 = _flat_tree(start.params), _flat_tree(start.m_params)
+    out = {"noise": True}
+    for name in ("mu", "nu"):
+        x, y = _flat_tree(getattr(a.opt_state, name)), _flat_tree(getattr(b.opt_state, name))
+        worst = 0.0
+        for k in y:
+            scale = float(np.abs(y[k[:-1] + "w" if k.endswith("in/b") else k]).max())
+            if k.endswith("in/b"):
+                out["noise"] &= float(np.abs(y[k]).max()) <= STEP_TOL * scale
+            worst = max(worst, float(np.abs(x[k] - y[k]).max()) / max(scale, 1e-30))
+        out[name] = worst
+    mu, nu = _flat_tree(a.opt_state.mu), _flat_tree(a.opt_state.nu)
+    params, host_p = _flat_tree(a.params), _flat_tree(b.params)
+    want = {k: p0[k] - f32(adam.lr) * ((mu[k] / bc1) / (np.sqrt(nu[k] / bc2) + f32(adam.eps)))
+            for k in p0}
+    out["params"] = max(float(np.abs(params[k] - want[k]).max()) / float(np.abs(host_p[k]).max())
+                        for k in want)
+    m_params, host_m = _flat_tree(a.m_params), _flat_tree(b.m_params)
+    out["m_params"] = max(
+        float(np.abs(m_params[k] - (f32(cfg.ema_decay) * m0[k]
+                                    + f32(1.0 - cfg.ema_decay) * params[k])).max())
+        / float(np.abs(host_m[k]).max()) for k in m0)
+    for name, field in (("stats", "bn_state"), ("m_stats", "m_bn_state")):
+        x, y = _flat_tree(getattr(a, field)), _flat_tree(getattr(b, field))
+        out[name] = max(float(np.abs(x[k] - y[k]).max()) / float(np.abs(y[k]).max()) for k in y)
+    out["queue"] = all(np.array_equal(np.asarray(a.queue[k]), np.asarray(b.queue[k]))
+                       for k in b.queue)
+    return out
+
+
+def training_phase(seed, device, name, smi):
+    """Phase 10: binarizer training at the reference CLI's width, then the
+    CLI's upgrade through the routed tier. Returns the JSON row of
+    sdc_topk on this path (its launches in the upgrade's routed run, its
+    times at the trained index's shape)."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import binarize_lib as B
+    from repro_torch.core import trainer as T
+    from repro_torch.data import synthetic as S
+    from repro_torch.index.flat import FlatFloat, FlatSDC
+    from repro_torch.kernels.sdc import sdc as sdc_mod
+    from repro_torch.launch import lifecycle, proxy, serving
+    from repro_torch.launch.serve import (
+        bc_train_binarizer,
+        cli_builder,
+        cli_train_config,
+        encode_codes,
+        recall_at_k,
+        serve_routed,
+        train_binarizer,
+    )
+
+    t_phase = time.perf_counter()
+    topk = sdc_mod.sdc_topk
+    cfg = cli_train_config(DIM, CODE_DIM, LEVELS)
+    docs, queries, gt = S.clustered_corpus(seed, TRAIN_DOCS, TRAIN_QUERIES, DIM)
+    log(f"[train] the CLI's corpus: {TRAIN_DOCS} x {DIM} (numpy), {TRAIN_QUERIES} queries; "
+        f"binarizer {cfg.binarizer.total_bits} bits, hidden {cfg.binarizer.hidden_dim}, queue "
+        f"{cfg.queue.length} x {cfg.queue.dim} mining the top {cfg.queue.top_k}, batch "
+        f"{TRAIN_BATCH}, {TRAIN_STEPS} steps")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_", dir=os.path.join(ROOT, "build"))
+
+    def leaves(model):
+        return list(B.param_leaves(model).values()) + list(B.state_leaves(model).values())
+
+    def identical(a, b):
+        return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+    try:
+        # -- (a) two trainings from one seed, then a cache hit ---------------------
+        runs = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck = train_binarizer(docs, cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seed=seed,
+                                 cache_dir=os.path.join(cache, str(i)), device=device)
+            torch.cuda.synchronize()
+            runs.append((ck, time.perf_counter() - t0))
+            check(ck.trained, f"training run {i} was a cache hit")
+        (first, wall0), (second, wall1) = runs
+        check(first.digest == second.digest, "two runs of one training digest differently")
+        check(identical(first.model, second.model),
+              "two card trainings from one seed are not bit-identical")
+        t0 = time.perf_counter()
+        hit = train_binarizer(docs, cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seed=seed,
+                              cache_dir=os.path.join(cache, "0"), device=device)
+        hit_s = time.perf_counter() - t0
+        check(not hit.trained and hit.digest == first.digest and identical(hit.model, first.model),
+              "the third call is not a bit-identical cache hit")
+        log(f"[train] (a) {TRAIN_STEPS} steps on the card twice from seed {seed}: {wall0:.2f} s, "
+            f"{wall1:.2f} s wall (pairs drawn in numpy and uploaded), bit-identical weights and "
+            f"statistics; digest {first.digest}; the third call a bit-identical cache hit in "
+            f"{1e3 * hit_s:.1f} ms")
+
+        # -- (b) one step on the card against the port's CPU step ------------------
+        state = T.init_train_state(cfg, torch.Generator(device=device).manual_seed(seed), device)
+        gen = S.pair_batches(docs, seed + 1, TRAIN_BATCH, device=device)
+        for _ in range(STEP_WARM):
+            state, _ = T.train_step(state, *next(gen), cfg)
+        tree = T.train_state_to_numpy(state)
+        a, p = next(gen)
+        rows, set_aside = torch.arange(TRAIN_BATCH), 0
+        flips = edges = 0
+        ste = B.ste_sign
+        for _ in range(4):
+            codes, windows = [], []
+            for dev in (device, "cpu"):
+                st = T.train_state_from_numpy(tree, cfg, dev)
+                seen = []
+                # the STE's gradient window |h| <= 1 of each level, read
+                # from the online encoder's pre-activations
+                B.ste_sign = lambda h: (seen.append((h.abs() <= 1).cpu()), ste(h))[1]
+                try:
+                    with torch.no_grad():
+                        codes.append(torch.cat(
+                            [B.binarize(st.m_model, p[rows].to(dev), train=True)[1],
+                             B.binarize(st.model, a[rows].to(dev), train=True)[1]], 1).cpu())
+                finally:
+                    B.ste_sign = ste
+                windows.append(torch.cat(seen[LEVELS:], 1))
+            differ, edge = codes[0] != codes[1], windows[0] != windows[1]
+            flips, edges = flips + int(differ.sum()), edges + int(edge.sum())
+            bad = differ.any(1) | edge.any(1)
+            if not bool(bad.any()):
+                break
+            rows, set_aside = rows[~bad], set_aside + int(bad.sum())
+        check(not bool(bad.any()), "card and CPU codes still differ after setting rows aside")
+        check(flips <= 1e-3 * 2 * TRAIN_BATCH * CODE_DIM,
+              f"{flips} codes differ between the card and the CPU (TF32?)")
+        check(edges <= 1e-3 * TRAIN_BATCH * LEVELS * CODE_DIM,
+              f"{edges} STE windows differ between the card and the CPU (TF32?)")
+        card = T.train_state_from_numpy(tree, cfg, device)
+        host = T.train_state_from_numpy(tree, cfg, "cpu")
+        card, cm = T.train_step(card, a[rows], p[rows], cfg)
+        host, hm = T.train_step(host, a[rows].cpu(), p[rows].cpu(), cfg)
+        loss_err = abs(float(cm["loss"]) - float(hm["loss"])) / abs(float(hm["loss"]))
+        norm_err = abs(float(cm["grad_norm"]) - float(hm["grad_norm"])) / float(hm["grad_norm"])
+        err = _state_errors(tree, card, host, cfg)
+        check(loss_err <= STEP_TOL and norm_err <= STEP_TOL,
+              f"card step: loss {loss_err:.2e}, gradient norm {norm_err:.2e} from the CPU's")
+        check(max(err["mu"], err["nu"], err["params"], err["m_params"], err["stats"],
+                  err["m_stats"]) <= STEP_TOL and err["noise"] and err["queue"],
+              f"card step differs from the CPU's: {err}")
+        log(f"[train] (b) one step after {STEP_WARM} on the card against the CPU's from the same "
+            f"state and batch ({len(rows)} rows; {set_aside} set aside where {flips} codes took "
+            f"the other sign or {edges} pre-activations the other side of the STE's |h| <= 1, "
+            f"within rounding of the edge): loss {loss_err:.2e}, gradient norm {norm_err:.2e}, "
+            f"gradients (Adam's moments, each leaf against its largest entry; in.b's, rounding "
+            f"noise, against in.w's) {err['mu']:.2e} / {err['nu']:.2e}, parameters against "
+            f"Adam's update from the card's moments {err['params']:.2e} (momentum copy against "
+            f"its EMA {err['m_params']:.2e}), statistics {err['stats']:.2e} / "
+            f"{err['m_stats']:.2e}, queue exact; tolerance {STEP_TOL}")
+
+        # -- (c) recall@10: trained, untrained, float ----------------------------------
+        untrained = B.init_binarizer(cfg.binarizer,
+                                     torch.Generator(device=device).manual_seed(seed), device)
+        recalls, searches = {}, 0
+        topk.launches = 0
+        for tag, model in (("trained", first.model), ("untrained", untrained)):
+            index = FlatSDC.build(encode_codes(model, docs), LEVELS, device=device)
+            recalls[tag] = recall_at_k(index.search(B.make_encode_fn(model)(queries), K)[1], gt)
+            searches += 1
+        check(topk.launches >= searches, f"(c) launched sdc_topk {topk.launches} times")
+        recalls["float"] = recall_at_k(
+            FlatFloat.build(docs, device=device).search(queries, K)[1], gt)
+        check(not identical(first.model, untrained),
+              "the trained weights equal the initial weights of the same seed")
+        check(abs(recalls["trained"] - REF_CLI_RECALL) <= RECALL_MARGIN,
+              f"trained recall {recalls['trained']:.4f} is not within {RECALL_MARGIN} of the "
+              f"reference's {REF_CLI_RECALL}")
+        log(f"[train] (c) recall@{K} over {TRAIN_QUERIES} queries, FlatSDC through sdc_topk "
+            f"({topk.launches} launches): trained {recalls['trained']:.4f}, untrained (seed "
+            f"{seed}) {recalls['untrained']:.4f}, float {recalls['float']:.4f}; the reference's "
+            f"trained {REF_CLI_RECALL} (held to within {RECALL_MARGIN}) and untrained "
+            f"{REF_UNTRAINED_RECALL} (reference_figures/cli_recall.py); trained / float "
+            f"{recalls['trained'] / recalls['float']:.3f}")
+        claims = _paper_claims(seed, device)
+        log(f"[train] (c) the reference tests' claims on the card (1,024 queries): "
+            f"{claims['system']}; {claims['compat']}")
+
+        # -- (d) the upgrade through the routed tier, 2 replicas on the card --------
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_docs = S.backbone_upgrade(docs, 5)
+        new_queries = S.backbone_upgrade(queries, 5)
+        bc = bc_train_binarizer(first.model, docs, new_docs, cfg, steps=TRAIN_STEPS,
+                                batch=TRAIN_BATCH, device=device).model
+        torch.cuda.synchronize()
+        bc_wall = time.perf_counter() - t0
+        enc_v1, enc_v2 = B.make_encode_fn(first.model), B.make_encode_fn(bc)
+        builder = cli_builder("flat", k=K, device=device)
+        snaps = {v: lifecycle.CorpusSnapshot(codes=encode_codes(m, d).cpu().numpy(),
+                                             n_levels=LEVELS, embedding_version=v)
+                 for v, m, d in (("v1", first.model, docs), ("v2", bc, new_docs))}
+        search_v1, search_v2 = builder.build(snaps["v1"]), builder.build(snaps["v2"])
+        bc_recall = recall_at_k(search_v1(enc_v2(new_queries))[1], gt)
+        warm_recall = recall_at_k(search_v1(enc_v1(new_queries))[1], gt)
+        check(not identical(bc, first.model),
+              "BC training left the warm-started v1 weights unchanged")
+        check(abs(bc_recall - REF_BC_RECALL) <= RECALL_MARGIN,
+              f"BC recall on v1 {bc_recall:.4f} is not within {RECALL_MARGIN} of the "
+              f"reference's {REF_BC_RECALL}")
+        compat = proxy.CompatibilityMatrix()
+        compat.register("v2", "v1", enc_v2)
+        compat.register("v1", "v2", enc_v1)
+        n_up = SERVE_Q * SERVE_REQUESTS
+        batches = [queries[i:i + SERVE_Q] for i in range(0, n_up, SERVE_Q)]
+        new_batches = [new_queries[i:i + SERVE_Q] for i in range(0, n_up, SERVE_Q)]
+        stream, meta = [], []
+        for _ in range(ROUTED_ROUNDS):
+            for b, nb in zip(batches, new_batches):
+                stream += [serving.SearchRequest(queries=b, embedding_version="v1"),
+                           serving.SearchRequest(queries=nb, embedding_version="v2")]
+                meta += [(enc_v1, b), (enc_v2, nb)]
+        serving.warmup(enc_v1, search_v1, batches)
+        serving.warmup_replicas([(enc_v2, search_v1)], batches[:1])
+        topk.launches = 0
+        run = serve_routed(enc_v1, search_v1, stream, warm_batches=batches,
+                           replicas=UPGRADE_REPLICAS, builder=builder, snapshot=snaps["v2"],
+                           swap_after=UPGRADE_AFTER, compat=compat, swap_encode=enc_v2,
+                           embedding_version="v1", device=device)
+        upgrade_launches = topk.launches
+        check(len(run.results) == len(stream) and all(r is not None for r in run.results),
+              "the upgrade lost a request")
+        for (enc, q), (v, i) in zip(meta, run.results):
+            check(any(torch.equal(v, av) and torch.equal(i, ai)
+                      for av, ai in (search_v1(enc(q)), search_v2(enc(q)))),
+                  "an upgrade result is none its version's (encoder, index) pairs give")
+        st = run.stats
+        finals = [r["embedding_version"] for r in st["per_replica"]]
+        check(st["compat_dispatches"] >= 1, "no compat dispatch during the upgrade")
+        check(finals == ["v2"] * UPGRADE_REPLICAS, f"replicas ended on {finals}")
+        check(run.swap is not None and run.swap.swapped == UPGRADE_REPLICAS, "the swap failed")
+        check(upgrade_launches >= len(stream),
+              f"the upgrade's requests launched sdc_topk {upgrade_launches} times")
+        log(f"[upgrade] v1 -> v2 on {UPGRADE_REPLICAS} replicas sharing the card: BC training "
+            f"{TRAIN_STEPS} steps {bc_wall:.2f} s wall; {len(stream)} mixed-version requests of "
+            f"{SERVE_Q}, the swap after {UPGRADE_AFTER}: none lost, each the answer of its "
+            f"version's encoder on the v1 or v2 index, {st['compat_dispatches']} compat "
+            f"dispatches, replicas ended on {finals}, swap {1e3 * run.swap.total_s:.0f} ms, "
+            f"{upgrade_launches} sdc_topk launches (requests, warm-ups and canaries)")
+        log(f"[upgrade] recall@{K} over {TRAIN_QUERIES} queries on the v1 index: v2 queries "
+            f"through the BC-trained binarizer {bc_recall:.4f} (the reference {REF_BC_RECALL}, "
+            f"held to within {RECALL_MARGIN}), through the v1 binarizer {warm_recall:.4f}; "
+            f"COMPAT_RECALL_FLOOR {lifecycle.COMPAT_RECALL_FLOOR} is held at the reference "
+            f"test's width in (c)")
+
+        # -- (e) times -------------------------------------------------------------
+        def stepper(step_fn, st, *extra):
+            holder = [st]
+
+            def fn():
+                holder[0] = step_fn(holder[0], *extra, cfg)[0]
+            return fn
+
+        ta, tp = next(gen)
+        fresh = T.init_train_state(cfg, torch.Generator(device=device).manual_seed(seed), device)
+        bc_state = fresh._replace(model=copy.deepcopy(first.model),
+                                  m_model=copy.deepcopy(first.model))
+        for tag, fn in (("train_step", stepper(T.train_step, state, ta, tp)),
+                        ("bc_train_step", stepper(lambda s, a_, p_, c: T.bc_train_step(
+                            s, first.model, a_, p_, c), bc_state, ta, tp))):
+            ms = host_ms(fn, TIME_STEPS)
+            calls, kernels_run = launches_per_call(fn)
+            busy = device_busy_ms(fn, 5)
+            share = busy / ms if isinstance(busy, float) else "not measured"
+            log(f"[time] {tag} on {name} ({smi}): {ms:.3f} ms a step (host clock, synced, "
+                f"{TIME_STEPS} steps), {calls} launch calls and {kernels_run} device kernels a "
+                f"step, device busy {busy if isinstance(busy, str) else f'{busy:.3f} ms'} "
+                f"({share if isinstance(share, str) else f'{100 * share:.1f}%'} of the step)")
+        log(f"[time] training wall: {TRAIN_STEPS} steps {wall0:.2f} / {wall1:.2f} s "
+            f"({1e3 * wall0 / TRAIN_STEPS:.2f} ms a step with the numpy pairs and their upload), "
+            f"BC {bc_wall:.2f} s on {name} ({smi})")
+
+        # the scan at this path's shape, for the kernels line
+        index = FlatSDC.build(snaps["v1"].codes, LEVELS, device=device)
+        q = enc_v1(batches[0])
+        args_k = dict(n_levels=LEVELS, k=K, packed=False)
+        v, i = topk(q, index.codes, index.inv_norm, **args_k)
+        pv, pi = sdc_mod.sdc_topk_torch(q, index.codes, index.inv_norm, **args_k)
+        check(torch.equal(v, pv) and torch.equal(i, pi), "sdc_topk differs from its plain version")
+        ms = cuda_ms(lambda: topk(q, index.codes, index.inv_norm, **args_k), 20)
+        plain_ms = cuda_ms(lambda: sdc_mod.sdc_topk_torch(q, index.codes, index.inv_norm,
+                                                          **args_k), 5)
+        n = index.codes.shape[0]
+        nbytes = n * (CODE_DIM + 4) + q.numel() + SERVE_Q * K * 8
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * 2 * SERVE_Q * n * CODE_DIM / INT8_OPS_PER_S
+        n8 = n - n % 8
+        sq = q.to(torch.int32).sum(-1, keepdim=True)
+        sd = index.codes[:n8].to(torch.int32).sum(-1)[None, :]
+
+        def library():
+            dot = torch._int_mm(q, index.codes[:n8].t())
+            s = B.sdc_affine_epilogue(dot, sq + sd, dim=CODE_DIM, n_levels=LEVELS,
+                                      inv_norm=index.inv_norm[:n8][None, :])
+            return torch.topk(s, K)
+
+        library_ms = cuda_ms(library, 5)
+        log(f"[time] sdc_topk int8 Q={SERVE_Q} N={n} D={CODE_DIM} k={K} (the trained codes) on "
+            f"{name} ({smi}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, HBM bound "
+            f"{bytes_ms:.5f} ms, int8 op bound {ops_ms:.5f} ms, library {library_ms:.4f} ms")
+        log(f"[train] phase passed in {time.perf_counter() - t_phase:.1f} s")
+        return dict(name="sdc_topk_int8_trained", route="cuda", source=SOURCE,
+                    replaces=REPLACES[False], launches=upgrade_launches,
+                    max_abs_err=float((v - pv).abs().max()), ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    library_ms=library_ms)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def _paper_claims(seed, device):
+    """The reference tests' claims on the card, at their widths, recall over
+    1,024 queries of their corpora: ``tests/test_system.py`` (ours >= the
+    1-bit hash, ours >= 0.85 x float) and ``tests/test_compat.py`` (the
+    Table 4 ordering, and COMPAT_RECALL_FLOOR through the v1 flat index).
+    Returns their lines."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import binarize_lib as B
+    from repro_torch.core import losses as L
+    from repro_torch.core import trainer as T
+    from repro_torch.data import synthetic as S
+    from repro_torch.index.flat import FlatFloat, FlatSDC
+    from repro_torch.launch import lifecycle
+    from repro_torch.launch.serve import bc_train_binarizer, recall_at_k
+    from repro_torch.train import optim
+
+    def train(cfg, docs, steps, s, batch):
+        st = T.init_train_state(cfg, torch.Generator(device=device).manual_seed(s), device)
+        gen = S.pair_batches(docs, s + 1, batch, device=device)
+        for _ in range(steps):
+            st, _ = T.train_step(st, *next(gen), cfg)
+        return st.model
+
+    dim, code = 64, 32
+    docs, queries, gt = S.clustered_corpus(seed, 4000, 1024, dim, n_clusters=128)
+    r = {"float": recall_at_k(FlatFloat.build(docs, device=device).search(queries, K)[1], gt)}
+    for tag, levels, s in (("ours", 4, seed), ("hash", 1, seed + 3)):
+        cfg = T.TrainConfig(
+            binarizer=B.BinarizerConfig(input_dim=dim, code_dim=code, n_levels=levels,
+                                        hidden_dim=128),
+            queue=L.QueueConfig(length=1024, dim=code, top_k=32),
+            adam=optim.AdamConfig(lr=2e-3, clip_norm=5.0, schedule=optim.cosine_schedule(
+                300, warmup=30, floor=0.05)))
+        model = train(cfg, docs, 300, s, 128)
+        enc = B.make_encode_fn(model)
+        index = FlatSDC.build(enc(docs), levels, device=device)
+        r[tag] = recall_at_k(index.search(enc(queries), K)[1], gt)
+    check(r["ours"] >= r["hash"] and r["ours"] >= 0.85 * r["float"],
+          f"test_system's claims fail on the card: {r}")
+    system = (f"test_system: ours {r['ours']:.4f} >= hash {r['hash']:.4f}, >= 0.85 x float "
+              f"{r['float']:.4f}")
+
+    cfg = T.TrainConfig(
+        binarizer=B.BinarizerConfig(input_dim=dim, code_dim=code, n_levels=3, hidden_dim=48),
+        queue=L.QueueConfig(length=512, dim=code, top_k=16),
+        adam=optim.AdamConfig(lr=1e-3, clip_norm=5.0),
+        temperature=0.2, bc_weight=1.0, bc_influence_weight=4.0)
+    docs, queries, gt = S.clustered_corpus(seed, 3000, 1024, dim, n_clusters=128)
+    new_docs, new_queries = S.backbone_upgrade(docs, 5), S.backbone_upgrade(queries, 5)
+    old = train(cfg, docs, 150, seed, 64)
+    bc = bc_train_binarizer(old, docs, new_docs, cfg, steps=300, batch=128, device=device).model
+    free = train(cfg, new_docs, 150, 99, 64)
+
+    def cross(qm, dm, q_emb, d_emb):
+        bq = B.binarize_eval(qm, torch.as_tensor(np.asarray(q_emb, np.float32), device=device))
+        bd = B.binarize_eval(dm, torch.as_tensor(np.asarray(d_emb, np.float32), device=device))
+        idx = torch.sort(L.cosine(bq, bd), dim=1, descending=True, stable=True).indices[:, :K]
+        return recall_at_k(idx, gt)
+
+    c = {"baseline": cross(old, old, queries, docs), "incompatible": cross(free, old, new_queries,
+                                                                           docs),
+         "warm_only": cross(old, old, new_queries, docs), "compatible": cross(bc, old, new_queries,
+                                                                              docs)}
+    snap = lifecycle.CorpusSnapshot(codes=B.make_encode_fn(old)(docs).cpu().numpy(), n_levels=3,
+                                    embedding_version="v1")
+    search = lifecycle.make_builder("flat", k=K, device=device).build(snap)
+    c["v1_index"] = recall_at_k(search(B.make_encode_fn(bc)(new_queries))[1], gt)
+    check(c["baseline"] > 0.8 and c["incompatible"] < 0.2
+          and c["compatible"] > c["warm_only"] + 0.05
+          and c["compatible"] > c["incompatible"] + 0.3
+          and c["compatible"] >= c["baseline"] - 0.2
+          and c["v1_index"] >= lifecycle.COMPAT_RECALL_FLOOR,
+          f"test_compat's claims fail on the card: {c}")
+    compat = ("test_compat: " + ", ".join(f"{k} {v:.4f}" for k, v in c.items())
+              + f" (floor {lifecycle.COMPAT_RECALL_FLOOR})")
+    return {"system": system, "compat": compat}
+
+
 def dlrm_phase(seed, device, name, smi):
     """Phase 9: the dlrm-rm2 serving forward at full width. Returns the kernel's JSON row."""
     import torch
@@ -2483,6 +2961,10 @@ def main() -> None:
     del indexes, d_codes
     torch.cuda.empty_cache()
     kernels.append(dlrm_phase(args.seed, device, name, smi))
+
+    # -- 10. binarizer training and the upgrade at the CLI's width -----------------
+    torch.cuda.empty_cache()
+    kernels.append(training_phase(args.seed, device, name, smi))
     log(f"[smoke] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
     log("kernels: " + ", ".join(f"{k['name']} matched, launches={k['launches']}"

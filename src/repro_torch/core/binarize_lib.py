@@ -1,23 +1,26 @@
-"""Recurrent binarization module (BEBR §3.2.1), eval mode, in PyTorch.
+"""Recurrent binarization module (BEBR §3.2.1) in PyTorch.
 
 Ports ``repro/core/binarize_lib.py``: the code arithmetic (affine
-constants, the SDC epilogue, code and nibble packing) and the eval-mode
-recurrent binarizer
+constants, the SDC epilogue, code and nibble packing) and the recurrent
+binarizer
 
     b_0   = sign(W_0(f))
     f̂_t   = normalize(R_t(b_t))
     r_t   = sign(W_{t+1}(f - f̂_t))
     b_t+1 = b_t + 2^{-(t+1)} r_t
 
-with ``W_*``/``R_*`` the MLPs linear -> batchnorm -> ReLU -> linear. The
-reference holds its weights as a pytree of ``(d_in, d_out)`` matrices;
-here they are ``nn.Linear`` modules, which store ``w.T``, and
-``binarizer_from_numpy`` / ``load_checkpoint`` transpose on the way in.
-Batch norm keeps the reference's op order (explicit ``bn_mean``/
-``bn_var`` buffers, not ``nn.BatchNorm1d``) and every matrix product
-runs in full float32, as the reference does. Training (the STE
-gradient, running-stat updates) is not ported yet: ``ste_sign`` is the
-forward ``where(x > 0, 1, -1)`` only.
+with ``W_*``/``R_*`` the MLPs linear -> batchnorm -> ReLU -> linear, in
+eval mode and in train mode (``sign`` through a straight-through
+estimator; batch norm on the batch's statistics, which it folds into the
+running ones). The reference holds its weights as a pytree of
+``(d_in, d_out)`` matrices; here they are ``nn.Linear`` modules, which
+store ``w.T``: ``binarizer_from_numpy`` / ``binarizer_to_numpy``
+transpose on the way in and out, and ``param_leaves`` names every
+parameter by its path in the reference's tree. Batch norm keeps the
+reference's op order (explicit ``bn_mean``/``bn_var`` buffers, not
+``nn.BatchNorm1d``, whose running variance is unbiased and whose
+momentum weighs the batch) and every matrix product runs in full
+float32, as the reference does.
 """
 
 from __future__ import annotations
@@ -233,14 +236,29 @@ def unpack_codes_nibbles(packed: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Eval-mode recurrent binarizer.
+# Recurrent binarizer.
 # ---------------------------------------------------------------------------
 
 
+class _SteSign(torch.autograd.Function):
+    """sign with the straight-through estimator: the gradient passes where
+    |x| <= 1 (inclusive) and is 0 elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        one = torch.ones((), dtype=x.dtype, device=x.device)
+        return torch.where(x > 0, one, -one)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x.abs() <= 1.0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+
 def ste_sign(x: torch.Tensor) -> torch.Tensor:
-    """sign(x) in {-1, +1} (forward only; the STE gradient comes with training)."""
-    one = torch.ones((), dtype=x.dtype, device=x.device)
-    return torch.where(x > 0, one, -one)
+    """sign(x) in {-1, +1}, 0 mapping to -1; gradient identity clipped to |x| <= 1."""
+    return _SteSign.apply(x)
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -250,11 +268,12 @@ def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 class MLP(nn.Module):
-    """linear -> eval batch norm -> ReLU -> linear (hidden 0: one linear)."""
+    """linear -> batch norm -> ReLU -> linear (hidden 0: one linear)."""
 
-    def __init__(self, d_in: int, d_hidden: int, d_out: int, device=None):
+    def __init__(self, d_in: int, d_hidden: int, d_out: int, device=None, momentum: float = 0.9):
         super().__init__()
         self.hidden = d_hidden
+        self.momentum = momentum
         if d_hidden > 0:
             self.inp = nn.Linear(d_in, d_hidden, device=device)
             self.bn_scale = nn.Parameter(torch.ones(d_hidden, device=device))
@@ -265,11 +284,24 @@ class MLP(nn.Module):
         else:
             self.out = nn.Linear(d_in, d_out, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Eval mode normalises by the running statistics. Train mode
+        normalises by the batch's mean and biased variance and replaces the
+        running ones by ``m * running + (1 - m) * batch`` (the reference's
+        ``_apply_mlp``)."""
         if self.hidden <= 0:
             return _linear(self.out, x)
         h = _linear(self.inp, x)
-        h = (h - self.bn_mean) * torch.rsqrt(self.bn_var + 1e-5)
+        if train:
+            mean = torch.mean(h, dim=0)
+            var = torch.mean(torch.square(h - mean), dim=0)  # jnp.var: biased, two-pass
+            m = self.momentum
+            with torch.no_grad():
+                self.bn_mean = m * self.bn_mean + (1 - m) * mean
+                self.bn_var = m * self.bn_var + (1 - m) * var
+        else:
+            mean, var = self.bn_mean, self.bn_var
+        h = (h - mean) * torch.rsqrt(var + 1e-5)
         h = h * self.bn_scale + self.bn_bias
         h = torch.relu(h)
         return _linear(self.out, h)
@@ -284,11 +316,12 @@ class RecurrentBinarizer(nn.Module):
         super().__init__()
         self.cfg = cfg
         n, h = cfg.n_levels, cfg.hidden_dim
+        m = cfg.bn_momentum
         self.W = nn.ModuleList(
-            [MLP(cfg.input_dim, h, cfg.code_dim, device) for _ in range(n)]
+            [MLP(cfg.input_dim, h, cfg.code_dim, device, m) for _ in range(n)]
         )
         self.R = nn.ModuleList(
-            [MLP(cfg.code_dim, h, cfg.input_dim, device) for _ in range(n - 1)]
+            [MLP(cfg.code_dim, h, cfg.input_dim, device, m) for _ in range(n - 1)]
         )
         self.P: Optional[nn.Parameter] = None
         if cfg.input_map:
@@ -322,28 +355,33 @@ def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt(torch.sum(x * x, dim=-1, keepdim=True) + eps)
 
 
-@torch.no_grad()
-def binarize(model: RecurrentBinarizer, f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval-mode recurrent binarization of ``f`` [batch, input_dim].
+def binarize(
+    model: RecurrentBinarizer, f: torch.Tensor, train: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Recurrent binarization of ``f`` [batch, input_dim].
 
     Returns (bits [batch, n_levels, code_dim] in {-1, +1}, b_u [batch,
-    code_dim] the recurrent binary embedding). Products run in full
-    float32 (TF32 is switched off for the process).
+    code_dim] the recurrent binary embedding). Eval mode runs without
+    autograd. Train mode records the graph (the STE carries the gradient
+    through every sign) and updates the model's running batch-norm
+    statistics in place: the reference returns them as ``new_state``.
+    Products run in full float32 (TF32 is switched off for the process).
     """
     full_fp32_matmul()
-    n = model.cfg.n_levels
-    if model.P is not None:
-        f = _l2norm(f @ model.P)
-    b = ste_sign(model.W[0](f))
-    levels: List[torch.Tensor] = [b]
-    acc = b
-    for t in range(n - 1):
-        recon = _l2norm(model.R[t](acc))
-        resid = _l2norm(f) - recon
-        r = ste_sign(model.W[t + 1](resid))
-        levels.append(r)
-        acc = acc + (2.0 ** -(t + 1)) * r
-    return torch.stack(levels, dim=-2), acc
+    with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+        n = model.cfg.n_levels
+        if model.P is not None:
+            f = _l2norm(f @ model.P)
+        b = ste_sign(model.W[0](f, train))
+        levels: List[torch.Tensor] = [b]
+        acc = b
+        for t in range(n - 1):
+            recon = _l2norm(model.R[t](acc, train))
+            resid = _l2norm(f) - recon
+            r = ste_sign(model.W[t + 1](resid, train))
+            levels.append(r)
+            acc = acc + (2.0 ** -(t + 1)) * r
+        return torch.stack(levels, dim=-2), acc
 
 
 def binarize_eval(model: RecurrentBinarizer, f: torch.Tensor) -> torch.Tensor:
@@ -367,8 +405,124 @@ def make_encode_fn(model: RecurrentBinarizer):
 
 
 # ---------------------------------------------------------------------------
-# Weight conversion from the reference's (params, bn_state) pytree.
+# Weight conversion to and from the reference's (params, bn_state) pytree.
+#
+# ``jax.tree_util`` flattens dictionaries by sorted key and lists in order,
+# so the reference's leaves come as
+#
+#     params: [P,] R[0..n-2], W[0..n-1]    (each MLP: bn_bias, bn_scale,
+#                                           in.b, in.w, out.b, out.w;
+#                                           without a hidden layer: out.b, out.w)
+#     state:  R[0..n-2], W[0..n-1]          (each: bn_mean, bn_var; none
+#                                           without a hidden layer)
+#
+# (42 parameters and 14 statistics for n_levels 4 with a hidden layer). The
+# optimizer sums its global norm in this order, and checkpoints store it.
 # ---------------------------------------------------------------------------
+
+
+def _mlp_leaf_shapes(d_in: int, d_hidden: int, d_out: int):
+    if d_hidden <= 0:
+        return [("out.b", (d_out,)), ("out.w", (d_in, d_out))]
+    return [
+        ("bn_bias", (d_hidden,)), ("bn_scale", (d_hidden,)),
+        ("in.b", (d_hidden,)), ("in.w", (d_in, d_hidden)),
+        ("out.b", (d_out,)), ("out.w", (d_hidden, d_out)),
+    ]
+
+
+def _state_leaf_shapes(d_hidden: int):
+    if d_hidden <= 0:
+        return []
+    return [("bn_mean", (d_hidden,)), ("bn_var", (d_hidden,))]
+
+
+def leaf_layout(cfg: BinarizerConfig) -> List[tuple]:
+    """(tree, group, index, leaf name, reference shape) of every leaf, in the
+    reference's tree-leaf order: the parameters, then the statistics."""
+    n, h, d, m = cfg.n_levels, cfg.hidden_dim, cfg.input_dim, cfg.code_dim
+    out = []
+    if cfg.input_map:
+        out.append(("params", "P", 0, "P", (d, d)))
+    for t in range(n - 1):
+        out += [("params", "R", t, name, s) for name, s in _mlp_leaf_shapes(m, h, d)]
+    for t in range(n):
+        out += [("params", "W", t, name, s) for name, s in _mlp_leaf_shapes(d, h, m)]
+    for t in range(n - 1):
+        out += [("state", "R", t, name, s) for name, s in _state_leaf_shapes(h)]
+    for t in range(n):
+        out += [("state", "W", t, name, s) for name, s in _state_leaf_shapes(h)]
+    return out
+
+
+_MODULE_NAMES = {"in.w": ("inp", "weight"), "in.b": ("inp", "bias"),
+                 "out.w": ("out", "weight"), "out.b": ("out", "bias")}
+
+
+def _module_leaf(model: RecurrentBinarizer, group: str, t: int, name: str) -> torch.Tensor:
+    if group == "P":
+        return model.P
+    mlp = getattr(model, group)[t]
+    if name in _MODULE_NAMES:
+        layer, attr = _MODULE_NAMES[name]
+        return getattr(getattr(mlp, layer), attr)
+    return getattr(mlp, name)
+
+
+def _leaves(model: RecurrentBinarizer, tree: str) -> Dict[str, torch.Tensor]:
+    return {
+        "P" if group == "P" else f"{group}/{t}/{name.replace('.', '/')}":
+            _module_leaf(model, group, t, name)
+        for tr, group, t, name, _ in leaf_layout(model.cfg) if tr == tree
+    }
+
+
+def param_leaves(model: RecurrentBinarizer) -> Dict[str, torch.Tensor]:
+    """The model's parameters by reference path (``"W/0/in/w"``, ``"P"``),
+    in the reference's tree-leaf order. A ``w`` leaf is the module's
+    ``weight``, the transpose of the reference's array."""
+    return _leaves(model, "params")
+
+
+def state_leaves(model: RecurrentBinarizer) -> Dict[str, torch.Tensor]:
+    """The running batch-norm statistics by reference path (``"R/0/bn_mean"``),
+    in the reference's tree-leaf order. Train mode replaces these tensors,
+    so read them anew after a step."""
+    return _leaves(model, "state")
+
+
+def numpy_leaves(model: RecurrentBinarizer) -> List[np.ndarray]:
+    """Every leaf as a float32 numpy array in ``leaf_layout`` order, linear
+    weights as the reference's ``(d_in, d_out)``."""
+    out = []
+    for _, group, t, name, _ in leaf_layout(model.cfg):
+        leaf = _module_leaf(model, group, t, name).detach()
+        out.append((leaf.t() if name.endswith(".w") else leaf).cpu().numpy().copy())
+    return out
+
+
+def nest_leaves(cfg: BinarizerConfig, leaves: List[Any]):
+    """Leaves in ``leaf_layout`` order -> the reference's ``(params, state)`` tree."""
+    n = cfg.n_levels
+    params: Dict = {"W": [{} for _ in range(n)], "R": [{} for _ in range(n - 1)]}
+    state: Dict = {"W": [{} for _ in range(n)], "R": [{} for _ in range(n - 1)]}
+    for (tree, group, t, name, _), leaf in zip(leaf_layout(cfg), leaves):
+        if group == "P":
+            params["P"] = leaf
+            continue
+        node = (params if tree == "params" else state)[group][t]
+        if "." in name:
+            sub, name = name.split(".")
+            node = node.setdefault(sub, {})
+        node[name] = leaf
+    return params, state
+
+
+def binarizer_to_numpy(model: RecurrentBinarizer):
+    """The inverse of ``binarizer_from_numpy``: the reference's ``(params,
+    bn_state)`` tree of float32 numpy arrays, linear weights as ``(d_in,
+    d_out)``."""
+    return nest_leaves(model.cfg, numpy_leaves(model))
 
 
 def _load_mlp(mlp: MLP, params: Dict[str, Any], state: Dict[str, Any]) -> None:

@@ -1,10 +1,12 @@
 """Synthetic data (ports ``repro/data/synthetic.py``: ``clustered_corpus``,
-``upgraded_corpus``, ``backbone_upgrade`` and ``dlrm_batch``).
+``upgraded_corpus``, ``backbone_upgrade``, ``pair_batches`` and
+``dlrm_batch``).
 
 ``clustered_corpus``, ``upgraded_corpus`` (paired old/new-backbone
-corpora) and ``backbone_upgrade`` (a drifted float space) are the
-reference's numpy generators, verbatim, so the same seed gives the same
-arrays bit for bit. ``clustered_corpus_torch``
+corpora), ``backbone_upgrade`` (a drifted float space) and
+``pair_batches`` (the binarizer's training pairs) are the reference's
+numpy generators, verbatim, so the same seed gives the same arrays bit
+for bit. ``clustered_corpus_torch``
 follows the same recipe with a ``torch.Generator`` on the card, for
 corpora whose float64 numpy intermediates would not fit in host memory
 (ten million 256-dim documents); its numbers differ from the numpy ones.
@@ -16,7 +18,7 @@ step, so a step gives the same batch every time. The reference draws from
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -126,6 +128,25 @@ def backbone_upgrade(
     B = rng.normal(size=(d, d)).astype(np.float32) / np.sqrt(d)
     out = emb + strength * emb @ G + nonlinear * np.tanh(emb @ A) @ B
     return out / (np.linalg.norm(out, axis=-1, keepdims=True) + 1e-12)
+
+
+def pair_batches(
+    docs: np.ndarray, seed: int, batch: int, noise: float = 0.1, device="cuda"
+) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Infinite generator of (anchor, positive) float-embedding pairs for
+    emb2emb binarizer training (two noisy views of a sampled doc), drawn
+    in numpy and handed over as float32 tensors on ``device`` (as the
+    reference's ``jnp.asarray`` rounds them)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    n, d = docs.shape
+    while True:
+        idx = rng.integers(0, n, batch)
+        base = docs[idx]
+        a = base + noise * rng.normal(size=(batch, d)).astype(np.float32)
+        p = base + noise * rng.normal(size=(batch, d)).astype(np.float32)
+        yield (torch.from_numpy(a).to(dev, torch.float32),
+               torch.from_numpy(p).to(dev, torch.float32))
 
 
 def clustered_corpus_torch(

@@ -1,47 +1,54 @@
-"""BEBR serving launcher, flat, IVF and HNSW indexes behind the replicated
-serving tier (ports ``repro/launch/serve.py``: the index and bi-granular
-flags and the routed run; not yet the training flags or
-``--upgrade-after``, which needs backward-compatible training).
+"""BEBR serving launcher (ports ``repro/launch/serve.py``): train the
+binarizer, build a flat, IVF or HNSW index, and serve through the
+replicated tier.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --index flat --docs 20000 --queries 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --steps 300 --ckpt-cache DIR
     PYTHONPATH=src python -m repro_torch.launch.serve --index ivf [--probe-budget 2080]
     PYTHONPATH=src python -m repro_torch.launch.serve --index hnsw [--ef 64 --beam 8]
     PYTHONPATH=src python -m repro_torch.launch.serve --index flat|ivf|hnsw \
         --coarse-levels 2 --k-coarse 64
     PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2 \
         --router least-outstanding --chaos r1.fail@2 --probe-every 0.05 --swap-after 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2 --upgrade-after 4
 
-End to end on the card: a clustered synthetic corpus -> eval-mode
-recurrent binarizer -> integer codes (nibble-packed with ``--packed``)
--> ``FlatSDC`` scanned by the CUDA ``sdc_topk`` kernel, or an IVF index
-(nlist 64, nprobe 32, k-means seed 1, the reference CLI's parameters)
-whose probed lists the CUDA ``sdc_gather_topk`` kernel scans, or an NSW
-graph (M 16, ef_construction 64, seed 0, built on the host in O(N^2))
-walked by the batched-frontier search, whose hops the same gather kernel
-scores (``--ef`` results, ``--beam`` nodes expanded a hop, at most 64
-hops). As in the reference CLI the stream is always served through the
-router (``serve_routed``): ``--replicas`` pipelines on the one device,
-sharing its index tensors, behind a ``QueryRouter`` (``--router``), with
-optional chaos, canary re-probe, deadlines, stuck-scan watchdogs, a
-rolling swap from a snapshot of the codes (``--swap-after``) and the
-shed-pressure autoscaler (``--tier-spec``). ``--coarse-levels C
+End to end on the card: a clustered synthetic corpus -> the recurrent
+binarizer, trained emb2emb for ``--steps`` steps with the reference CLI's
+``TrainConfig`` (``cli_train_config``; the checkpoint is cached under a
+content digest, so only the first launch pays for training:
+``--ckpt-cache``, else ``$REPRO_BEBR_CACHE``, else ``~/.cache/repro-bebr``;
+see ``launch/binarizer_cache.py``), or loaded from ``--ckpt`` -> integer
+codes (nibble-packed with ``--packed``) -> ``FlatSDC`` scanned by the
+CUDA ``sdc_topk`` kernel, or an IVF index (nlist 64, nprobe 32, k-means
+seed 1, the reference CLI's parameters) whose probed lists the CUDA
+``sdc_gather_topk`` kernel scans, or an NSW graph (M 16, ef_construction
+64, seed 0, built on the host in O(N^2)) walked by the batched-frontier
+search, whose hops the same gather kernel scores (``--ef`` results,
+``--beam`` nodes expanded a hop, at most 64 hops). As in the reference
+CLI the stream is always served through the router (``serve_routed``):
+``--replicas`` pipelines on the one device, sharing its index tensors,
+behind a ``QueryRouter`` (``--router``), with optional chaos, canary
+re-probe, deadlines, stuck-scan watchdogs, a rolling swap from a
+snapshot of the codes (``--swap-after``), a live embedding-version
+upgrade (``--upgrade-after``: a drifted backbone, the next version's
+binarizer trained backward-compatibly, compat encoders registered both
+ways, then a rolling swap to its index under mixed-version traffic) and
+the shed-pressure autoscaler (``--tier-spec``). ``--coarse-levels C
 --k-coarse K'`` serves any family in bi-granular mode: the index covers
 the first C levels of the codes (hot tier, on the card) and the top-K'
 survivors of each query are reranked on the full-level codes, which
-stay in host memory (cold tier) and are gathered there per request. Recall@k against the
-float-embedding exhaustive baseline, index bytes, and sequential vs
-routed ms/batch. Training is not ported yet: ``--ckpt`` loads a
-checkpoint written by the reference, and without it the binarizer has
-seeded random weights (recall is then low; the run says so). ``--device
-cpu`` runs the plain scoring path on the CPU. As in the reference CLI, a
-lifecycle builder (``cli_builder``) holds every build parameter, and
-bi-granular mode serves that builder's closure over a snapshot of the
-codes.
+stay in host memory (cold tier) and are gathered there per request.
+Recall@k against the float-embedding exhaustive baseline, index bytes,
+and sequential vs routed ms/batch. ``--device cpu`` trains and runs the
+plain scoring path on the CPU. As in the reference CLI, a lifecycle
+builder (``cli_builder``) holds every build parameter, and bi-granular
+mode serves that builder's closure over a snapshot of the codes.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional
@@ -49,12 +56,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.binarize_lib import (
-    BinarizerConfig,
-    RecurrentBinarizer,
-    init_binarizer,
-    make_encode_fn,
-)
+from repro_torch.core import losses
+from repro_torch.core.binarize_lib import BinarizerConfig, RecurrentBinarizer, make_encode_fn
+from repro_torch.core.trainer import TrainConfig, TrainState, bc_train_step, init_train_state
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.index import hnsw_lite, ivf
@@ -68,6 +72,63 @@ from repro_torch.launch import (
     proxy,
     serving,
 )
+from repro_torch.train import optim
+
+
+def cli_train_config(dim: int = 256, code_dim: int = 128, levels: int = 4) -> TrainConfig:
+    """The reference CLI's training configuration (``repro/launch/serve.py``):
+    hidden width 2 * dim, a 4,096-row queue mining the top 64, Adam at lr
+    2e-3 clipped at 5.0, the ``TrainConfig`` defaults otherwise."""
+    bcfg = BinarizerConfig(input_dim=dim, code_dim=code_dim, n_levels=levels,
+                           hidden_dim=2 * dim)
+    return TrainConfig(
+        binarizer=bcfg,
+        queue=losses.QueueConfig(length=4096, dim=code_dim, top_k=64),
+        adam=optim.AdamConfig(lr=2e-3, clip_norm=5.0),
+    )
+
+
+def train_binarizer(docs: np.ndarray, cfg: TrainConfig, steps: int = 300, batch: int = 256,
+                    seed: int = 0, cache_dir: Optional[str] = None,
+                    device="cuda") -> binarizer_cache.BinarizerCheckpoint:
+    """Train the binarizer once per (corpus, config, steps, seed) digest.
+
+    Later launches with identical inputs reload the checkpointed weights
+    instead of re-running the emb2emb loop; see ``launch/binarizer_cache.py``.
+    Returns a ``BinarizerCheckpoint`` (``.model`` is the binarizer).
+    """
+    return binarizer_cache.trained_binarizer(docs, cfg, steps=steps, batch=batch, seed=seed,
+                                             cache_dir=cache_dir, device=device)
+
+
+def bc_train_binarizer(old: RecurrentBinarizer, old_docs: np.ndarray, new_docs: np.ndarray,
+                       cfg: TrainConfig, steps: int = 300, batch: int = 256, seed: int = 7,
+                       device="cuda") -> TrainState:
+    """Backward-compatible training (paper §3.2.3): warm-start phi_new
+    from phi_old and anchor its output space to phi_old's on the shared
+    items, so new-backbone queries can search the old binary index. The
+    batches are the reference's numpy draws; ``old`` stays unchanged."""
+    device = resolve_device(device)
+    state = init_train_state(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    state = state._replace(model=copy.deepcopy(old), m_model=copy.deepcopy(old))
+    rng = np.random.default_rng(seed + 1)
+    dim = old_docs.shape[-1]
+    for _ in range(steps):
+        idx = rng.integers(0, old_docs.shape[0], batch)
+        noise = rng.normal(size=(batch, dim)).astype(np.float32) * 0.02
+        a = new_docs[idx] + noise
+        a /= np.linalg.norm(a, axis=-1, keepdims=True) + 1e-12
+        # float32 as the reference's jnp.asarray makes them (backbone_upgrade
+        # returns float64)
+        state, _ = bc_train_step(state, old, torch.from_numpy(a).to(device, torch.float32),
+                                 torch.from_numpy(old_docs[idx]).to(device, torch.float32), cfg)
+    return state
+
+
+def _next_version(tag: str) -> str:
+    if tag.startswith("v") and tag[1:].isdigit():
+        return f"v{int(tag[1:]) + 1}"
+    return tag + "+1"
 
 
 def cli_builder(index: str, *, k: int = 10, packed: bool = False, ef: int = 64, beam: int = 8,
@@ -119,6 +180,7 @@ def serve_routed(encode, search, stream: List[Any], *, warm_batches: List[Any],
                  swap_after: int = 0, probe_every: float = 0.0,
                  scan_budget_s: float = 0.0, deadline_s: Optional[float] = None,
                  spec: Optional[autoscale.TierSpec] = None, embedding_version: str = "v1",
+                 compat: Optional[proxy.CompatibilityMatrix] = None, swap_encode=None,
                  device="cuda") -> RoutedRun:
     """The reference CLI's routed run (``repro/launch/serve.py``): ``replicas``
     pipelines over the one ``(encode, search)`` pair behind a
@@ -133,13 +195,17 @@ def serve_routed(encode, search, stream: List[Any], *, warm_batches: List[Any],
     ``probe_every`` runs the canary re-probe loop; ``scan_budget_s`` arms
     the stuck-scan watchdogs; ``deadline_s`` gives each batch a budget;
     ``spec`` runs the shed-pressure ``Autoscaler`` over the stream, its
-    replicas built on ``device`` from ``snapshot``. Stuck scans are
-    released and every thread joined before this returns.
+    replicas built on ``device`` from ``snapshot``. ``compat`` is the
+    tier's ``CompatibilityMatrix`` (cross-version encoders) and
+    ``swap_encode`` the encode the swap installs (default ``encode``): an
+    upgrade swaps to the next version's snapshot and encoder. Stuck scans
+    are released and every thread joined before this returns.
     """
     replica_fns, injectors = faults.apply_chaos([(encode, search)] * replicas, chaos)
     share = replicas > 1 or (spec is not None and spec.max_replicas > 1)
     tier = proxy.QueryRouter(
-        proxy.ReplicaSet(replica_fns, config=config, share_device=share), policy=router)
+        proxy.ReplicaSet(replica_fns, config=config, share_device=share), policy=router,
+        compat=compat)
     for r in range(replicas):
         tier.set_version(r, embedding_version)
     if spec is not None and spec.swap_every_s > 0 and not swap_after:
@@ -149,7 +215,8 @@ def serve_routed(encode, search, stream: List[Any], *, warm_batches: List[Any],
     controller = None
     if swap_after:
         controller = lifecycle.RollingSwapController(
-            tier, builder, warm_batches=warm_batches[:1], encode_fn=encode)
+            tier, builder, warm_batches=warm_batches[:1],
+            encode_fn=encode if swap_encode is None else swap_encode)
     scaler = None
     try:
         if probe_every:
@@ -192,6 +259,15 @@ def main(argv=None):
     ap.add_argument("--dim", type=int, default=256)
     ap.add_argument("--code-dim", type=int, default=128)
     ap.add_argument("--levels", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=300,
+                    help="binarizer training steps (and backward-compatible "
+                         "training steps of --upgrade-after)")
+    ap.add_argument("--ckpt-cache", default=None, metavar="DIR",
+                    help="binarizer checkpoint cache dir (default: "
+                         "$REPRO_BEBR_CACHE, else ~/.cache/repro-bebr); "
+                         "training runs once per (corpus, config, steps, "
+                         "seed, device type) digest and later launches "
+                         "reload the weights")
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--coarse-levels", type=int, default=0, metavar="C",
                     help="bi-granular mode: coarse-scan the first C "
@@ -247,16 +323,20 @@ def main(argv=None):
                          "and canary-probed before taking traffic; "
                          "scale-down drains losslessly). swap_every_s > 0 "
                          "schedules one rolling swap mid-stream when "
-                         "--swap-after is unset")
+                         "--swap-after/--upgrade-after are unset")
     ap.add_argument("--embedding-version", default="v1",
-                    help="embedding-version tag of the corpus snapshot and "
-                         "the tier's replicas; typed SearchRequests are "
-                         "routed by this tag")
+                    help="embedding-version tag for the trained binarizer, "
+                         "the corpus snapshot, and the tier's replicas; "
+                         "typed SearchRequests are routed by this tag")
     ap.add_argument("--upgrade-after", type=int, default=0, metavar="N",
-                    help="a live embedding-version migration after N "
-                         "batches; needs backward-compatible binarizer "
-                         "training, which the port does not have yet, so "
-                         "any N > 0 is refused")
+                    help="after N batches, run a LIVE embedding-version "
+                         "migration: bc-train the next-version binarizer "
+                         "against a drifted backbone "
+                         "(data/synthetic.backbone_upgrade), register "
+                         "cross-version compat encoders, and rolling-swap "
+                         "every replica to the new index while the stream "
+                         "mixes old- and new-version queries; 0 disables "
+                         "(mutually exclusive with --swap-after)")
     ap.add_argument("--swap-after", type=int, default=0, metavar="N",
                     help="after N batches of the routed stream, run a "
                          "rolling index swap (drain -> rebuild -> warm -> "
@@ -286,17 +366,17 @@ def main(argv=None):
                          "its in-flight work over to the survivors; "
                          "0 disables")
     ap.add_argument("--seed", type=int, default=0,
-                    help="corpus seed, and the weight seed without --ckpt")
+                    help="corpus seed, and the training seed without --ckpt")
     ap.add_argument("--ckpt", default=None, metavar="PATH",
-                    help="binarizer checkpoint written by the reference "
-                         "(repro.launch.binarizer_cache); default: seeded "
-                         "untrained weights")
+                    help="binarizer checkpoint to load instead of training "
+                         "(the port's cache files or the reference's "
+                         "repro.launch.binarizer_cache archives)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    if args.upgrade_after:
-        ap.error("--upgrade-after needs backward-compatible binarizer training "
-                 "(bc_train_binarizer), which the port does not have yet")
+    if args.swap_after and args.upgrade_after:
+        ap.error("--swap-after and --upgrade-after are mutually exclusive "
+                 "(the upgrade IS a rolling swap, to the next-version index)")
     if bool(args.coarse_levels) != bool(args.k_coarse):
         ap.error("--coarse-levels and --k-coarse must be set together")
     if args.coarse_levels and not 0 < args.coarse_levels < args.levels:
@@ -331,17 +411,21 @@ def main(argv=None):
     print(f"[data] {args.docs} docs, {args.queries} queries, dim={args.dim}")
     docs, queries, gt = synthetic.clustered_corpus(args.seed, args.docs, args.queries, args.dim)
 
-    bcfg = BinarizerConfig(input_dim=args.dim, code_dim=args.code_dim,
-                           n_levels=args.levels, hidden_dim=2 * args.dim)
+    tcfg = cli_train_config(args.dim, args.code_dim, args.levels)
+    bcfg = tcfg.binarizer
     if args.ckpt:
         model = binarizer_cache.load_checkpoint(args.ckpt, bcfg, device)
         print(f"[binarizer] {bcfg.total_bits} bits, loaded {args.ckpt}")
     else:
-        gen = torch.Generator(device=device).manual_seed(args.seed)
-        model = init_binarizer(bcfg, gen, device)
-        print(f"[binarizer] {bcfg.total_bits} bits, weights UNTRAINED (seed "
-              f"{args.seed}; training is not ported yet, pass --ckpt for "
-              "trained weights): recall is not meaningful")
+        print(f"[train] binarizer {bcfg.total_bits} bits "
+              f"({32 * args.dim // bcfg.total_bits}x compression), "
+              f"{args.steps} steps")
+        t0 = time.perf_counter()
+        ckpt = train_binarizer(docs, tcfg, steps=args.steps, seed=args.seed,
+                               cache_dir=args.ckpt_cache, device=device)
+        model = ckpt.model
+        verb = "trained" if ckpt.trained else "loaded cached checkpoint"
+        print(f"[train] {verb} ({ckpt.digest}) in {time.perf_counter() - t0:.1f}s")
 
     d_codes = encode_codes(model, docs)
     flat_float = FlatFloat.build(docs, device=device)
@@ -423,6 +507,42 @@ def main(argv=None):
     serving.serve_sequential(encode, search, stream)
     dt_seq = time.perf_counter() - t0
 
+    from_version = to_version = stream_meta = enc_new = None
+    compat = proxy.CompatibilityMatrix()
+    if args.upgrade_after:
+        # Live embedding-version migration: bc-train the next-version
+        # binarizer against a drifted backbone, register cross-version
+        # compat encoders (v_new queries search the v_old index and vice
+        # versa through the bc-anchored output space), then rolling-swap
+        # the tier to the new index under mixed-version traffic.
+        from_version = args.embedding_version
+        to_version = _next_version(from_version)
+        print(f"[upgrade] backbone drift + bc-training {to_version} "
+              f"binarizer ({args.steps} steps)")
+        new_docs = synthetic.backbone_upgrade(docs, 5)
+        new_queries = synthetic.backbone_upgrade(queries, 5)
+        new_state = bc_train_binarizer(model, docs, new_docs, tcfg, steps=args.steps,
+                                       device=device)
+        enc_new = make_encode_fn(new_state.model)
+        compat.register(to_version, from_version, enc_new)
+        compat.register(from_version, to_version, encode)
+        snapshot = lifecycle.CorpusSnapshot(
+            codes=encode_codes(new_state.model, new_docs).cpu().numpy(),
+            n_levels=bcfg.n_levels, embedding_version=to_version)
+        # the compat hop runs enc_new on the still-v_old replicas before
+        # the swap reaches them: warm it like every other stage
+        serving.warmup_replicas([(enc_new, search)], batches[:1])
+        new_batches = [new_queries[i:i + batch] for i in range(0, args.queries, batch)]
+        # mixed-version stream: each round alternates an old-version and a
+        # new-version request per batch index
+        stream, stream_meta = [], []
+        for _ in range(args.rounds):
+            for i, (b, nb) in enumerate(zip(batches, new_batches)):
+                stream.append(serving.SearchRequest(queries=b, embedding_version=from_version))
+                stream_meta.append((from_version, i))
+                stream.append(serving.SearchRequest(queries=nb, embedding_version=to_version))
+                stream_meta.append((to_version, i))
+
     # Drive the router directly so --policy is honoured: submits that shed
     # off EVERY replica's full admission queue are retried after a short
     # pause (stats["shed"]); the block policy back-pressures inside submit.
@@ -430,14 +550,28 @@ def main(argv=None):
         encode, search, stream, warm_batches=batches, replicas=args.replicas,
         router=args.router,
         config=serving.ServingConfig(queue_depth=args.queue_depth, policy=args.policy),
-        chaos=args.chaos, builder=builder, snapshot=snapshot, swap_after=args.swap_after,
+        chaos=args.chaos, builder=builder, snapshot=snapshot,
+        swap_after=args.swap_after or args.upgrade_after,
         probe_every=args.probe_every, scan_budget_s=args.scan_budget_ms / 1e3,
         deadline_s=(args.deadline_ms / 1e3) if args.deadline_ms else None, spec=spec,
-        embedding_version=args.embedding_version, device=device)
+        embedding_version=args.embedding_version, compat=compat, swap_encode=enc_new,
+        device=device)
     results, stats = run.results, run.stats
 
     first = results[: len(batches)]
-    if all(r is not None for r in first):
+    if stream_meta is not None:
+        # mixed-version stream: per-version recall over every answered
+        # request across the whole migration window
+        hits = {from_version: [], to_version: []}
+        for (ver, i), r in zip(stream_meta, results):
+            if r is None:
+                continue
+            ids = r[1]
+            hits[ver].append(recall_at_k(ids, np.asarray(gt)[i * batch:i * batch + ids.shape[0]]))
+        per_ver = " ".join(f"{v}={np.mean(h):.4f}" if h else f"{v}=n/a" for v, h in hits.items())
+        print(f"[serve] recall@{args.k}: float={recall_at_k(idx_f, gt):.4f} "
+              f"BEBR[{per_ver}] (across the live migration)")
+    elif all(r is not None for r in first):
         idx_b = torch.cat([ids for _, ids in first], 0)
         print(f"[serve] recall@{args.k}: float={recall_at_k(idx_f, gt):.4f} "
               f"BEBR={recall_at_k(idx_b, gt):.4f}")
@@ -473,6 +607,12 @@ def main(argv=None):
                   f"warm {row['warm_s'] * 1e3:.0f} ms, "
                   f"probe {row['probe_s'] * 1e3:.0f} ms "
                   f"(generation {row['generation']})")
+    if to_version is not None and run.swap is not None:
+        finals = [pr["embedding_version"] for pr in stats["per_replica"]]
+        print(f"[upgrade] {from_version} -> {to_version} migration: "
+              f"{stats['compat_dispatches']} compat-encoded dispatch(es) "
+              f"covered the transition window; final replica versions "
+              f"{finals}")
     if args.probe_every:
         print(f"[probe] canary re-probe every {args.probe_every}s: "
               f"{stats['revivals']} revival(s), states {stats['states']}")

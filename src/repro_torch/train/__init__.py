@@ -1,1 +1,1 @@
-"""Step builders (serving steps so far; training comes with its slice)."""
+"""Adam and its schedules, fault-tolerant checkpoints, and step builders."""

@@ -1,7 +1,7 @@
 """Step builders (ports ``repro/train/steps.py``): the serving steps so far.
 
-The training steps (gradient accumulation, clipping, Adam) come with the
-training slice.
+The model zoo's training steps (gradient accumulation, clipping, Adam)
+come with the zoo; the binarizer's are in ``core/trainer.py``.
 """
 
 from __future__ import annotations

@@ -139,3 +139,99 @@ def test_init_binarizer_is_seeded_and_scaled():
     assert float(a.W[0].inp.bias.abs().max()) == 0.0
     assert torch.equal(a.W[0].bn_var, torch.ones(512))
     assert not a.training
+
+
+# ---------------------------------------------------------------------------
+# The training half: the STE, train-mode batch norm, gradients, conversion.
+# ---------------------------------------------------------------------------
+
+
+def test_ste_sign_forward_and_gradient_window_equal_the_reference():
+    """sign maps 0 to -1; the gradient passes where |x| <= 1, inclusive."""
+    x = np.array([-2.0, -1.0, -0.5, -0.0, 0.0, 1e-8, 0.5, 1.0, 1.0000001, 2.0], np.float32)
+    g = np.arange(1, x.size + 1, dtype=np.float32)
+    ref_out, vjp = jax.vjp(RB.ste_sign, jnp.asarray(x))
+    (ref_grad,) = vjp(jnp.asarray(g))
+    t = torch.from_numpy(x).requires_grad_(True)
+    out = PB.ste_sign(t)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(ref_out))
+    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(ref_grad))
+    np.testing.assert_array_equal(out.detach().numpy(), [-1, -1, -1, -1, -1, 1, 1, 1, 1, 1])
+    np.testing.assert_array_equal(t.grad.numpy(), [0, 2, 3, 4, 5, 6, 7, 8, 0, 0])
+
+
+def test_train_mode_batch_norm_equals_the_reference():
+    """Integer inputs through an identity layer make the batch's mean and
+    biased variance exact in both, so the running statistics
+    ``m * old + (1 - m) * batch`` must agree bit for bit; the outputs (one
+    rsqrt and two products) within float32 rounding."""
+    rcfg, pcfg = _configs(8, 4, 1, 8)
+    params, state = _reference_weights(rcfg, seed=7)
+    mlp_p = params["W"][0]
+    mlp_p["in"]["w"] = np.eye(8, dtype=np.float32)
+    mlp_p["in"]["b"] = np.zeros(8, np.float32)
+    h = np.random.default_rng(8).integers(-4, 5, (16, 8)).astype(np.float32)
+    for momentum in (0.9, 0.5):
+        ref_y, ref_s = RB._apply_mlp(_jnp_tree(mlp_p), _jnp_tree(state["W"][0]), jnp.asarray(h),
+                                     train=True, momentum=momentum)
+        mlp = PB.binarizer_from_numpy(params, state, pcfg, device="cpu").W[0]
+        mlp.momentum = momentum
+        y = mlp(torch.from_numpy(h), train=True)
+        np.testing.assert_array_equal(mlp.bn_mean.numpy(), np.asarray(ref_s["bn_mean"]))
+        np.testing.assert_array_equal(mlp.bn_var.numpy(), np.asarray(ref_s["bn_var"]))
+        np.testing.assert_allclose(y.detach().numpy(), np.asarray(ref_y), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("input_map", [False, True])
+def test_train_mode_binarize_gradients_and_stats_agree(input_map):
+    """One train-mode forward and backward of a loss on b_u: the gradient of
+    every parameter and the new running statistics within float32
+    rounding of the reference's (rtol 1e-5 of each leaf's largest entry; a
+    batch-normed bias ``in.b`` has a gradient that is rounding noise, held
+    against the global scale)."""
+    rcfg, pcfg = _configs(32, 16, 3, 24, input_map)
+    params, state = _reference_weights(rcfg, seed=9)
+    f = np.random.default_rng(10).normal(size=(64, 32)).astype(np.float32)
+    w = np.random.default_rng(11).normal(size=(64, 16)).astype(np.float32)
+
+    def loss(p):
+        _, b_u, new_state = RB.binarize(p, _jnp_tree(state), jnp.asarray(f), rcfg, train=True)
+        return jnp.sum(b_u * jnp.asarray(w)) + jnp.sum(b_u ** 2), new_state
+
+    (_, ref_state), ref_grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        _jnp_tree(params))
+    model = PB.binarizer_from_numpy(params, state, pcfg, device="cpu")
+    bits, b_u = PB.binarize(model, torch.from_numpy(f), train=True)
+    assert b_u.requires_grad and bits.shape == (64, 3, 16)
+    (torch.sum(b_u * torch.from_numpy(w)) + torch.sum(b_u ** 2)).backward()
+    ref_leaves = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, ref_grads))
+    got = PB.param_leaves(model)
+    assert len(ref_leaves) == len(got)
+    scale = max(float(np.abs(g).max()) for g in ref_leaves)
+    for (key, p), g in zip(got.items(), ref_leaves):
+        pg = p.grad.numpy().T if key.endswith("/w") else p.grad.numpy()
+        assert pg.shape == g.shape, key
+        tol = 1e-5 * (scale if key.endswith("in/b") else float(np.abs(g).max()))
+        assert float(np.abs(pg - g).max()) <= tol, key
+    ref_stats = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, ref_state))
+    for (key, s), r in zip(PB.state_leaves(model).items(), ref_stats):
+        np.testing.assert_allclose(s.numpy(), r, rtol=1e-5, atol=1e-6, err_msg=key)
+
+
+def test_eval_mode_leaves_stats_and_binarizer_to_numpy_round_trips():
+    rcfg, pcfg = _configs(32, 16, 3, 24, True)
+    params, state = _reference_weights(rcfg, seed=12)
+    model = PB.binarizer_from_numpy(params, state, pcfg, device="cpu")
+    before = {k: v.clone() for k, v in PB.state_leaves(model).items()}
+    PB.binarize(model, torch.randn(8, 32))
+    for k, v in PB.state_leaves(model).items():
+        assert torch.equal(v, before[k]), k
+    p2, s2 = PB.binarizer_to_numpy(model)
+    ref = jax.tree_util.tree_leaves_with_path((params, state))
+    got = jax.tree_util.tree_leaves_with_path((p2, s2))
+    assert [jax.tree_util.keystr(k) for k, _ in ref] == [jax.tree_util.keystr(k) for k, _ in got]
+    for (_, a), (_, b) in zip(ref, got):
+        np.testing.assert_array_equal(a, b)
+    assert list(PB.param_leaves(model))[:3] == ["P", "R/0/bn_bias", "R/0/bn_scale"]
+    assert [x.shape for x in PB.numpy_leaves(model)] == [s for *_, s in PB.leaf_layout(pcfg)]

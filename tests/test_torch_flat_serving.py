@@ -152,12 +152,13 @@ def test_device_sync_hook_is_a_no_op_on_cpu():
     PSERV._wait_ready(None)
 
 
-def test_serve_cli_runs_on_cpu(capsys):
+def test_serve_cli_runs_on_cpu(capsys, tmp_path):
     PSV.main(["--device", "cpu", "--docs", "600", "--queries", "24", "--dim", "32",
-              "--code-dim", "16", "--batch", "8", "--rounds", "2", "--packed"])
+              "--code-dim", "16", "--batch", "8", "--rounds", "2", "--packed", "--steps", "0",
+              "--ckpt-cache", str(tmp_path)])
     out = capsys.readouterr().out
     for tag in ("[data]", "[index] flat:", "[serve] recall@10:", "[serve] sequential:",
-                "[serve] routed (1 replica(s), round-robin):", "UNTRAINED", "on CPU"):
+                "[serve] routed (1 replica(s), round-robin):", "[train] trained (", "on CPU"):
         assert tag in out, (tag, out)
 
 
@@ -171,7 +172,7 @@ def test_serve_cli_loads_a_reference_checkpoint(tmp_path, capsys):
     PSV.main(["--device", "cpu", "--docs", "300", "--queries", "8", "--dim", "32",
               "--code-dim", "16", "--rounds", "1", "--ckpt", path])
     out = capsys.readouterr().out
-    assert f"loaded {path}" in out and "UNTRAINED" not in out
+    assert f"loaded {path}" in out and "[train]" not in out
 
 
 def _card():

@@ -291,12 +291,13 @@ def test_build_hnsw_sharded_equals_reference(n_leaves, packed):
 
 
 CLI = ["--device", "cpu", "--index", "hnsw", "--docs", "600", "--queries", "32", "--dim", "32",
-       "--code-dim", "16", "--batch", "16", "--rounds", "1", "--ef", "32", "--beam", "4"]
+       "--code-dim", "16", "--batch", "16", "--rounds", "1", "--ef", "32", "--beam", "4",
+       "--steps", "0"]
 
 
 @pytest.mark.parametrize("extra", [[], ["--packed"], ["--coarse-levels", "2", "--k-coarse", "64"]])
-def test_cli_serves_hnsw_on_the_cpu(capsys, extra):
-    PSV.main(CLI + extra)
+def test_cli_serves_hnsw_on_the_cpu(capsys, tmp_path, extra):
+    PSV.main(CLI + ["--ckpt-cache", str(tmp_path)] + extra)
     out = capsys.readouterr().out
     assert "[index] building NSW graph (host-side, O(N^2) incremental construction" in out
     assert "[index] hnsw: " in out and "MiB (float flat: " in out

@@ -63,7 +63,9 @@ assert len(names) >= 12, names
 for name in ("repro_torch.index.engine", "repro_torch.launch.mesh",
              "repro_torch.launch.lifecycle", "repro_torch.launch.clock",
              "repro_torch.launch.faults", "repro_torch.launch.proxy",
-             "repro_torch.launch.autoscale"):
+             "repro_torch.launch.autoscale", "repro_torch.core.losses",
+             "repro_torch.core.trainer", "repro_torch.train.optim",
+             "repro_torch.train.checkpoint", "repro_torch.launch.binarizer_cache"):
     assert name in names, name
 """
 
@@ -316,6 +318,79 @@ def test_bigranular_closures_on_card_never_reach_the_plain_versions(monkeypatch)
                                                                          launches[1] + 3)
         for v, i in out:
             assert v.device.type == "cuda" and bool(((i >= 0) & (i < 3000)).all())
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """``init_train_state``, ``trained_binarizer``, ``serve.train_binarizer``,
+    ``serve.bc_train_binarizer`` and the CLI's training and upgrade runs
+    take the card by default and raise without one."""
+    from repro_torch.core import losses as PLS
+    from repro_torch.core import trainer as PTR
+    from repro_torch.launch import binarizer_cache as PBC
+
+    cfg = PTR.TrainConfig(binarizer=PB.BinarizerConfig(input_dim=16, code_dim=8, n_levels=2,
+                                                       hidden_dim=8),
+                          queue=PLS.QueueConfig(length=32, dim=8, top_k=4))
+    docs = np.random.default_rng(0).normal(size=(64, 16)).astype(np.float32)
+    old = PB.init_binarizer(cfg.binarizer, torch.Generator().manual_seed(0), "cpu")
+    calls = {
+        "init_train_state": lambda: PTR.init_train_state(cfg, torch.Generator()),
+        "trained_binarizer": lambda: PBC.trained_binarizer(docs, cfg, steps=1, batch=8,
+                                                           cache_dir=str(tmp_path)),
+        "train_binarizer": lambda: serve.train_binarizer(docs, cfg, steps=1, batch=8,
+                                                         cache_dir=str(tmp_path)),
+        "bc_train_binarizer": lambda: serve.bc_train_binarizer(old, docs, docs, cfg, steps=1,
+                                                               batch=8),
+    }
+    if torch.cuda.is_available():
+        assert calls["init_train_state"]().queue["buf"].device.type == "cuda"
+        return
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for extra in (["--steps", "1"], ["--replicas", "2", "--upgrade-after", "1"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--docs", "10", "--ckpt-cache", str(tmp_path), *extra])
+    assert not list(tmp_path.iterdir())  # nothing trained or written
+
+
+def _cli(args, cache):
+    """The CLI on the CPU in a subprocess, on one intra-op thread (its
+    training steps are thousands of small ops, which oversubscribed cores
+    slow many times over)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu", "--docs", "2000",
+           "--queries", "32", "--steps", "30", "--ckpt-cache", str(cache), *args]
+    env = dict(_env(), OMP_NUM_THREADS="1")
+    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    return out.stdout
+
+
+def test_cli_trains_then_loads_the_cached_checkpoint(tmp_path):
+    first = _cli([], tmp_path)
+    assert "[train] binarizer 512 bits (16x compression), 30 steps" in first
+    assert "[train] trained (" in first
+    second = _cli([], tmp_path)
+    assert "[train] loaded cached checkpoint (" in second
+    digest = first.split("[train] trained (")[1].split(")")[0]
+    assert f"loaded cached checkpoint ({digest})" in second
+    assert [p.name for p in tmp_path.iterdir()] == [f"binarizer-{digest}.npz"]
+    recall = [line for line in second.splitlines() if line.startswith("[serve] recall@10")]
+    assert recall and "BEBR=" in recall[0]
+
+
+def test_cli_runs_the_upgrade(tmp_path):
+    out = _cli(["--replicas", "2", "--upgrade-after", "4", "--batch", "16"], tmp_path)
+    assert "[upgrade] backbone drift + bc-training v2 binarizer (30 steps)" in out
+    line = [ln for ln in out.splitlines() if ln.startswith("[upgrade] v1 -> v2 migration")]
+    assert line and "final replica versions ['v2', 'v2']" in line[0], out
+    assert "(zero results lost)" in out and "BEBR[v1=" in out
+
+
+def test_cli_refuses_swap_and_upgrade_together(capsys):
+    with pytest.raises(SystemExit):
+        serve.main(["--swap-after", "2", "--upgrade-after", "2", "--device", "cpu"])
+    assert "mutually exclusive" in capsys.readouterr().err
 
 
 def test_cpu_only_when_asked():

@@ -230,9 +230,9 @@ def test_carried_index_keeps_the_reference_arrays(ref_indexes):
 
 
 @pytest.mark.parametrize("extra", [[], ["--probe-budget", "80", "--packed"]])
-def test_cli_serves_ivf_on_the_cpu(capsys, extra):
+def test_cli_serves_ivf_on_the_cpu(capsys, tmp_path, extra):
     PSV.main(["--index", "ivf", "--device", "cpu", "--docs", "3000", "--batch", "16",
-              "--rounds", "2", *extra])
+              "--rounds", "2", "--steps", "0", "--ckpt-cache", str(tmp_path), *extra])
     out = capsys.readouterr().out
     assert "[index] ivf:" in out and "MiB" in out
     assert "[serve] recall@10:" in out

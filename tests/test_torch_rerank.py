@@ -375,12 +375,13 @@ def test_effort_knob_equals_reference():
 
 
 CLI = ["--device", "cpu", "--docs", "600", "--queries", "32", "--dim", "32", "--code-dim",
-       "16", "--batch", "16", "--rounds", "1"]
+       "16", "--batch", "16", "--rounds", "1", "--steps", "0"]
 
 
 @pytest.mark.parametrize("index", ["flat", "ivf"])
-def test_cli_serves_bigranular_on_the_cpu(capsys, index):
-    PSV.main(CLI + ["--index", index, "--coarse-levels", "2", "--k-coarse", "64"])
+def test_cli_serves_bigranular_on_the_cpu(capsys, tmp_path, index):
+    PSV.main(CLI + ["--ckpt-cache", str(tmp_path), "--index", index, "--coarse-levels", "2",
+                    "--k-coarse", "64"])
     out = capsys.readouterr().out
     assert "[index] bi-granular tiers (serialized): coarse" in out
     assert "(hot, 2/4 levels)" in out and "rerank k'=64" in out

@@ -622,14 +622,14 @@ def test_engine_replicas_on_their_meshes_route_and_fail_over():
 # ---------------------------------------------------------------------------
 
 CLI = ["--device", "cpu", "--docs", "2000", "--queries", "32", "--dim", "32", "--code-dim", "16",
-       "--batch", "8", "--rounds", "3"]
+       "--batch", "8", "--rounds", "3", "--steps", "0"]
 
 
 @pytest.mark.parametrize("index", ["flat", "ivf"])
-def test_cli_routes_heals_and_swaps_on_the_cpu(capsys, index):
+def test_cli_routes_heals_and_swaps_on_the_cpu(capsys, tmp_path, index):
     from repro_torch.launch import serve
 
-    serve.main(CLI + ["--index", index, "--replicas", "2", "--router", "least-outstanding",
+    serve.main(CLI + ["--ckpt-cache", str(tmp_path), "--index", index, "--replicas", "2", "--router", "least-outstanding",
                       "--chaos", "r0.fail@0", "--probe-every", "0.02", "--swap-after", "4",
                       "--deadline-ms", "60000", "--scan-budget-ms", "60000"])
     out = capsys.readouterr().out
@@ -650,7 +650,7 @@ def test_cli_tier_spec_runs_the_autoscaler_on_the_cpu(tmp_path, capsys):
     spec.write_text('{"min_replicas": 1, "max_replicas": 2, "index": "flat", '
                     '"build_params": {"k": 10}, "queue_depth": 2, "cooldown_s": 0.0, '
                     '"window_s": 0.02, "tick_s": 0.01, "swap_every_s": 1.0}')
-    serve.main(CLI + ["--tier-spec", str(spec)])
+    serve.main(CLI + ["--ckpt-cache", str(tmp_path), "--tier-spec", str(spec)])
     out = capsys.readouterr().out
     assert f"[tier-spec] {spec}: index=flat replicas=[1, 2] router=round-robin policy=shed" in out
     assert "[serve] routed (1 replica(s), round-robin):" in out
@@ -658,16 +658,17 @@ def test_cli_tier_spec_runs_the_autoscaler_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra, message", [
-    (["--upgrade-after", "3"], "--upgrade-after needs backward-compatible binarizer training"),
+    (["--swap-after", "2", "--upgrade-after", "3"],
+     "--swap-after and --upgrade-after are mutually exclusive"),
     (["--chaos", "r1.explode@3"], "bad chaos clause 'r1.explode@3'"),
     (["--router", "random"], "invalid choice: 'random'"),
 ])
-def test_cli_refuses_what_it_cannot_run(capsys, extra, message):
+def test_cli_refuses_what_it_cannot_run(capsys, tmp_path, extra, message):
     from repro_torch.launch import serve
 
-    if extra[0] == "--chaos":
+    if extra[0] == "--chaos":  # refused when the tier is built, after training
         with pytest.raises(ValueError, match=message):
-            serve.main(CLI + extra)
+            serve.main(CLI + ["--ckpt-cache", str(tmp_path)] + extra)
         return
     with pytest.raises(SystemExit) as e:
         serve.main(CLI + extra)
