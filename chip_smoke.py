@@ -19,12 +19,15 @@ that fails:
      stable sort) through FlatSDC;
   3. drives the flat serving path at the serving defaults (dim 256,
      code_dim 128, n_levels 4, hidden 512, k 10) over a clustered corpus
-     of ten million documents made on the card: encode, build FlatSDC
-     int8 and packed, serve 8 requests of 64 queries through
+     of ten million documents made on the card: encode (the captured
+     encode, one CUDA graph a batch shape; its first batch and ragged tail
+     held against the eager twin, bit for bit), build FlatSDC int8 and packed, serve 8 requests of 64 queries through
      ServingPipeline and check them against serve_sequential, against
      each other, against the plain version, and that every search went
      through the kernel (launch counts are zeroed just before and read
-     just after each run);
+     just after each run); the serving drivers with the captured encode and
+     with its eager twin, in turns (the "[time] encode repair" lines, also
+     for IVF, HNSW and the flat engine);
   4. times the kernel, its plain version, the HBM bound and a library
      yardstick at the main path's shapes, and the serving drivers;
   5. holds the gather kernel (int8, packed, masked) and the unfused
@@ -59,7 +62,8 @@ that fails:
      just after; holds the whole [64, N] binary_dot matrix against its
      plain version, exactly; times the kernel at n_levels 1, 2 and 4
      (planes of coarse_codes) beside sdc_scores, its plain version and
-     its popcount bound;
+     its popcount bound, and the torch._int_mm yardstick (the score is
+     2^-2(L-1) X . Y over X = 2c - (2^L - 1)), held equal to the kernel;
  8b. drives bi-granular retrieval over phase 3's codes (a coarse scan
      over the first C levels, each query's top-k' survivors reranked on
      the full-level codes by the gather kernel): flat with the fine tier
@@ -116,9 +120,11 @@ that fails:
      codes, 8 requests of 64 replayed 4 times: 1, 2 and 4 replicas sharing
      the card, round-robin and least-outstanding, int8 and packed, each
      bit-identical to serve_sequential with one sdc_topk launch a request;
-     the encode's host time inside a replica pipeline and alone, with its
-     launches, and the routed/sequential and routed(N)/routed(1) QPS beside
-     the reference bench gate's 1.0 and 0.9 (report only); chaos
+     the captured encode against its eager twin on every batch shape, bit
+     for bit; the encode's host time inside a replica pipeline and alone,
+     with its launches, captured and eager, and the routed/sequential and
+     routed(N)/routed(1) QPS beside the reference bench gate's 1.0 and 0.9
+     (report only), with the eager encode too (int8); chaos
      r1.fail@1 with the canary re-probe (failed over, revived, nothing
      lost; the failed call launches no kernel); r1.stick@1 on two unshared
      replicas under the watchdog and a deadline; a rolling swap mid-stream
@@ -127,6 +133,16 @@ that fails:
      own load (nothing lost, bit-identical, replicas within bounds); two
      replicas over phase 8c's HNSW closure, the gather reached through the
      router. The kernels JSON gains the routed launches' rows;
+ 8f. runs the autotuner (launch/autotune.py) in a temporary cache
+     directory: the scan at the flat path's signature (D 128, N 10,000,037,
+     k 10), int8 and packed, and at an engine leaf's 2,500,009 rows, the
+     rerank at k' 160, each swept at the serving batch; every candidate's
+     scores and ids against the default plan's on the sweep's operands and
+     on 64 real queries, the persisted tuned_ms <= default_ms, the second
+     call a cache hit; 8 requests through FlatSDC (int8, packed) and the
+     flat engine with the tuned plan bit-identical to the default plan's,
+     each launching the plan's grid (sdc_topk.last_geometry); times each
+     candidate, the sweep and the tuned request beside the default's;
   9. drives the dlrm-rm2 serving forward at full width (26 tables of
      1,048,576 x 64 float32, 6.98 GB, seeded): dlrm_serve_step on 3
      batches each at B = 512 and B = 262,144, with the dot_interact
@@ -249,6 +265,9 @@ REF_UNTRAINED_RECALL = 0.9468
 # the CLI's upgrade (--replicas 2 --upgrade-after 16) over the 8 requests
 # of 64 in both versions, replayed ROUTED_ROUNDS times
 UPGRADE_REPLICAS, UPGRADE_AFTER = 2, 16
+# the autotuner (phase 8f): the rerank's survivors (the bi-granular k') and
+# the timed calls a candidate
+TUNE_RERANK_KC, TUNE_REPS = 160, 5
 
 
 def ivf_params():
@@ -680,6 +699,41 @@ def serve_checked(tag, encode, search, batches, cfg, counts):
             stats)
 
 
+def encode_repair(tag, encode, eager, search, batches, cfg, name, smi):
+    """Both serving drivers with the captured encode and with its eager twin,
+    in turns (captured, eager, eager, captured), each warmed first: the
+    sequential and pipelined ms/batch of each, every result bit-identical
+    across the two. Returns {encode: (sequential ms, pipelined ms)}."""
+    import torch
+
+    from repro_torch.launch import serving
+
+    times = {"captured": [], "eager": []}
+    want = None
+    for which in ("captured", "eager", "eager", "captured"):
+        enc = encode if which == "captured" else eager
+        serving.warmup(enc, search, batches)
+        t0 = time.perf_counter()
+        seq = serving.serve_sequential(enc, search, batches)
+        dt_seq = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results, _ = serving.serve_batches(enc, search, batches, config=cfg)
+        dt_pipe = time.perf_counter() - t0
+        want = want or seq
+        for (v, i), (sv, si), (wv, wi) in zip(results, seq, want):
+            check(torch.equal(v, sv) and torch.equal(i, si) and torch.equal(v, wv)
+                  and torch.equal(i, wi), f"encode repair {tag}: {which} results differ")
+        times[which].append((1e3 * dt_seq / len(batches), 1e3 * dt_pipe / len(batches)))
+    out = {w: tuple(sum(x) / len(t) for x in zip(*t)) for w, t in times.items()}
+    log(f"[time] encode repair {tag} on {name} ({smi}): sequential "
+        f"{out['captured'][0]:.3f} ms/batch captured, {out['eager'][0]:.3f} eager; pipelined "
+        f"{out['captured'][1]:.3f} captured, {out['eager'][1]:.3f} eager; pipelined/sequential "
+        f"{out['captured'][1] / out['captured'][0]:.3f} captured, "
+        f"{out['eager'][1] / out['eager'][0]:.3f} eager ({len(batches)} requests of "
+        f"{batches[0].shape[0]}, mean of two runs each, bit-identical)")
+    return out
+
+
 def bitwise_phase(d_codes, encode, batches, cfg, device, name, smi, sm_clock_mhz, sdc_ms):
     """Phase 8: FlatBitwise over the corpus codes. Returns the kernel's JSON row."""
     import torch
@@ -739,15 +793,36 @@ def bitwise_phase(d_codes, encode, batches, cfg, device, name, smi, sm_clock_mhz
         popc = SERVE_Q * N * levels * words
         nbytes = N * words * 4 + SERVE_Q * words * 4 + SERVE_Q * N * 4
         ops_ms, bytes_ms = 1e3 * popc / popc_per_s, 1e3 * nbytes / HBM_BYTES_PER_S
-        plain = ""
+        plain, library = "", "library none"
         if levels == LEVELS:
             plain_ms = cuda_ms(lambda: binary_dot_ref(qpl, dpl, CODE_DIM), 1)
             plain = f", plain {plain_ms:.3f} ms"
+            # yardstick only: with planes weighted 2^-s the score is
+            # 2^-2(L-1) X . Y, X = 2c - (2^L - 1) an odd int8 in [-15, 15],
+            # so one int8 product computes it exactly; _int_mm needs
+            # N % 8 == 0, so on the first N - N % 8 documents
+            n8 = N - N % 8
+            xq = (2 * q_codes.to(torch.int16) - (2**LEVELS - 1)).to(torch.int8)
+            xd = (2 * d_codes[:n8].to(torch.int16) - (2**LEVELS - 1)).to(torch.int8)
+            unit = 2.0 ** (-2 * (LEVELS - 1))
+
+            def int_mm():
+                return torch._int_mm(xq, xd.t()).to(torch.float32) * unit
+
+            live = bd_mod.binary_dot(qpl, dpl, m=CODE_DIM)[:, :n8]
+            check(torch.equal(int_mm(), live),
+                  f"binary_dot yardstick (torch._int_mm) differs from the kernel on {n8} columns")
+            del live
+            library_ms = cuda_ms(int_mm, 5)
+            del xd
+            library = (f"library {library_ms:.3f} ms (torch._int_mm over X = 2c - 15 on "
+                       f"{n8} documents, equal to the kernel there)")
             row = dict(
                 name="binary_dot", route="cuda", source=BINARY_DOT_SOURCE,
                 replaces=BINARY_DOT_REPLACES, launches=launches, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=None,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=library_ms,
             )
         del dpl
         log(f"[time] binary_dot n_levels={levels} Q={SERVE_Q} N={N} m={CODE_DIM} on {name} "
@@ -755,7 +830,7 @@ def bitwise_phase(d_codes, encode, batches, cfg, device, name, smi, sm_clock_mhz
             f"({popc / 1e9:.2f}e9 popc at {POPC_PER_SM_CLOCK}/SM/clock x {sms} SMs x "
             f"{sm_clock_mhz:.0f} MHz), HBM bound {bytes_ms:.3f} ms ({nbytes / 1e9:.2f} GB); "
             f"sdc_scores int8 on the same [{SERVE_Q}, {N}] {sdc_ms:.3f} ms, ratio "
-            f"{ms / sdc_ms:.2f}; library none")
+            f"{ms / sdc_ms:.2f}; {library}")
     log(f"[time] bitwise serving: sequential {seq_ms:.3f} ms/batch, pipelined {pipe_ms:.3f} "
         f"ms/batch (scan stage idle {100 * stats['device_idle_frac']:.0f}%), "
         f"{len(batches)} requests of {SERVE_Q} on {name} ({smi})")
@@ -985,7 +1060,7 @@ def bigranular_phase(d_codes, encode, batches, cfg, device, name, smi, full_scan
     ]
 
 
-def hnsw_phase(model, encode, cfg, seed, device, name, smi):
+def hnsw_phase(model, encode, eager, cfg, seed, device, name, smi):
     """Phase 8c: the HNSW graph search at the CLI's width. Returns its gather's JSON row
     and the corpus (host codes, query batches, their codes) with request 0's time."""
     import numpy as np
@@ -1281,6 +1356,9 @@ def hnsw_phase(model, encode, cfg, seed, device, name, smi):
         log(f"[time] hnsw serving {tag}: sequential {o['seq_ms']:.3f} ms/batch, pipelined "
             f"{o['pipe_ms']:.3f} ms/batch (scan stage idle {100 * o['idle']:.0f}%), "
             f"{len(batches)} requests of {SERVE_Q} on {name} ({smi})")
+    encode_repair("hnsw int8", encode, eager,
+                  lambda q: hl.search_hnsw_batched(tables[False], q, **skw), batches, cfg, name,
+                  smi)
     idx = torch.cat([i for _, i in out["int8"]["results"]], 0)
     idx_c = torch.cat([i for _, i in out[bigr_tag]["results"]], 0)
     log(f"[hnsw] recall@{K} against the positive doc (untrained weights, information only): "
@@ -1309,7 +1387,7 @@ def in_gather_order(v, i, order, shard_n, k):
     return v.gather(1, by_score), i.gather(1, by_score)
 
 
-def engine_phase(d_codes, indexes, encode, batches, cfg, device, name, smi, hnsw):
+def engine_phase(d_codes, indexes, encode, eager, batches, cfg, device, name, smi, hnsw):
     """Phase 8d: the distributed engine, four leaves on the card. Returns the
     JSON rows of the engine leaf's scan and the HNSW engine's hop."""
     import numpy as np
@@ -1391,6 +1469,7 @@ def engine_phase(d_codes, indexes, encode, batches, cfg, device, name, smi, hnsw
             f"{len(batches)} requests), and to the plain leaves on request 0")
     for (a, b), (c, d) in zip(flat_out[False]["results"], flat_out[True]["results"]):
         check(torch.equal(a, c) and torch.equal(b, d), "engine: packed and int8 results differ")
+    encode_repair("engine flat int8", encode, eager, searches[False], batches, cfg, name, smi)
 
     # -- failover: leaf 3 dead, then alive again, no rebuild --------------------
     search = searches[False]
@@ -1659,8 +1738,9 @@ def engine_phase(d_codes, indexes, encode, batches, cfg, device, name, smi, hnsw
 
 def launches_per_call(fn, reps: int = 3):
     """Kernel launches one call of ``fn`` issues (runtime and driver launch
-    calls, by torch.profiler) and the device kernels that ran, per call; or
-    "not measured" where the profiler sees none."""
+    calls, a CUDA graph's launch counting one, by torch.profiler) and the
+    device kernels that ran, per call; or "not measured" where the profiler
+    sees none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1672,13 +1752,14 @@ def launches_per_call(fn, reps: int = 3):
         torch.cuda.synchronize()
     events = prof.key_averages()
     calls = sum(ev.count for ev in events
-                if (ev.key or "").startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+                if (ev.key or "").startswith(("cudaLaunchKernel", "cuLaunchKernel",
+                                              "cudaGraphLaunch")))
     kernels = sum(ev.count for ev in events
                   if ev.device_type == torch.autograd.DeviceType.CUDA)
     return tuple(n / reps if n else "not measured" for n in (calls, kernels))
 
 
-def routed_phase(d_codes, indexes, encode, batches, cfg, device, name, smi, hnsw, rows):
+def routed_phase(d_codes, indexes, encode, eager, batches, cfg, device, name, smi, hnsw, rows):
     """Phase 8e: the replicated serving tier, through the CLI's routed run
     (``serve.serve_routed``) over phase 3's codes. Returns the JSON rows of
     the kernels' launches through the router."""
@@ -1724,11 +1805,11 @@ def routed_phase(d_codes, indexes, encode, batches, cfg, device, name, smi, hnsw
 
         return fn, calls
 
-    def run_routed(tag, packed, search, stream_, want_launches, **kw):
+    def run_routed(tag, packed, search, stream_, want_launches, enc=encode, **kw):
         """serve_routed with the sdc_topk count zeroed just before and read
         just after; ``want_launches(run)`` is what the run must count."""
         topk.launches = 0
-        run = serve_routed(encode, search, stream_, warm_batches=batches, device=device,
+        run = serve_routed(enc, search, stream_, warm_batches=batches, device=device,
                            **{"config": cfg, **kw})
         got = topk.launches
         want = want_launches(run)
@@ -1766,36 +1847,60 @@ def routed_phase(d_codes, indexes, encode, batches, cfg, device, name, smi, hnsw
     seq8, search8 = seqs[False], searches[False]
     seq_long = {r: seq8 * (r // ROUTED_ROUNDS) for r in (CHAOS_ROUNDS, AUTOSCALE_ROUNDS)}
 
-    # -- the pipelined-vs-sequential gap: the encode inside a pipeline and alone ---
-    enc_s = []
+    # -- the encode: the captured graph against its eager twin --------------------
+    # every batch shape the phases serve (and a ragged tail, and one row),
+    # bit for bit
+    shapes = [b for b in batches] + [batches[0][:SERVE_Q - 23], batches[1][:1]]
+    for b in shapes:
+        check(torch.equal(encode(b), eager(b)),
+              f"the captured encode differs from the eager one at batch {b.shape[0]}")
+    log(f"[routed] the captured encode (one CUDA graph a batch shape; {encode.captures} "
+        f"shapes captured so far) equals the eager twin bit for bit on {len(shapes)} batches "
+        f"of {sorted({b.shape[0] for b in shapes})} queries")
 
-    def timed_encode(x):
+    # the same matrix with the eager encode, int8: the repair's effect in one run
+    for policy in ROUTED_POLICIES:
+        serving.warmup(eager, search8, batches)
         t0 = time.perf_counter()
-        y = encode(x)
-        enc_s.append(time.perf_counter() - t0)
-        return y
+        serving.serve_sequential(eager, search8, stream)
+        qps["int8 eager", "sequential"] = SERVE_Q * len(stream) / (time.perf_counter() - t0)
+        for n in ROUTED_REPLICAS:
+            run = run_routed(f"int8 eager x{n} {policy}", False, search8, stream,
+                             lambda run: len(stream), enc=eager, replicas=n, router=policy)
+            held(f"int8 eager x{n} {policy}", run.results, seq8)
+            qps["int8 eager", policy, n] = SERVE_Q * len(stream) / run.seconds
 
-    topk.launches = 0
-    run = serve_routed(timed_encode, search8, stream, warm_batches=batches, config=cfg,
-                       device=device)
-    routed_launches[False] += topk.launches
-    held("encode split", run.results, seq8)
-    in_pipe = 1e3 * float(np.mean(enc_s))
-    enc_s.clear()
-    torch.cuda.synchronize()
-    for b in stream:
-        timed_encode(b)
-    torch.cuda.synchronize()
-    alone = 1e3 * float(np.mean(enc_s))
-    synced = host_ms(lambda: encode(batches[0]), 20)
-    enc_launches, enc_kernels = launches_per_call(lambda: encode(batches[0]))
-    scan_launches, scan_kernels = launches_per_call(lambda: search8(encode(batches[0])))
-    log(f"[time] routed encode on {name} ({smi}): host issue {in_pipe:.4f} ms a batch inside "
-        f"a replica pipeline (encode thread, beside the scan thread), {alone:.4f} ms alone "
-        f"(the same calls back to back), {synced:.4f} ms alone with a device sync; "
-        f"{enc_launches} launch calls and {enc_kernels} device kernels a batch (profiler; "
-        f"encode and scan together: {scan_launches} and {scan_kernels})")
-    for tag in ("int8", "packed"):
+    # -- the pipelined-vs-sequential gap: the encode inside a pipeline and alone ---
+    for which, enc in (("captured", encode), ("eager", eager)):
+        enc_s = []
+
+        def timed_encode(x, enc=enc, enc_s=enc_s):
+            t0 = time.perf_counter()
+            y = enc(x)
+            enc_s.append(time.perf_counter() - t0)
+            return y
+
+        topk.launches = 0
+        run = serve_routed(timed_encode, search8, stream, warm_batches=batches, config=cfg,
+                           device=device)
+        routed_launches[False] += topk.launches
+        held(f"encode split {which}", run.results, seq8)
+        in_pipe = 1e3 * float(np.mean(enc_s))
+        enc_s.clear()
+        torch.cuda.synchronize()
+        for b in stream:
+            timed_encode(b)
+        torch.cuda.synchronize()
+        alone = 1e3 * float(np.mean(enc_s))
+        synced = host_ms(lambda: enc(batches[0]), 20)
+        enc_launches, enc_kernels = launches_per_call(lambda: enc(batches[0]))
+        scan_launches, scan_kernels = launches_per_call(lambda: search8(enc(batches[0])))
+        log(f"[time] routed encode {which} on {name} ({smi}): host issue {in_pipe:.4f} ms a "
+            f"batch inside a replica pipeline (encode thread, beside the scan thread), "
+            f"{alone:.4f} ms alone (the same calls back to back), {synced:.4f} ms alone with a "
+            f"device sync; {enc_launches} launch calls and {enc_kernels} device kernels a "
+            f"batch (profiler; encode and scan together: {scan_launches} and {scan_kernels})")
+    for tag in ("int8", "packed", "int8 eager"):
         for policy in ROUTED_POLICIES:
             r1 = qps[tag, policy, 1] / qps[tag, "sequential"]
             rn = {n: qps[tag, policy, n] / qps[tag, policy, 1] for n in ROUTED_REPLICAS[1:]}
@@ -1949,6 +2054,148 @@ def routed_phase(d_codes, indexes, encode, batches, cfg, device, name, smi, hnsw
              for p, n in routed_launches.items()]
             + [dict(base["sdc_gather_topk_hnsw"], name="sdc_gather_topk_hnsw_routed",
                     launches=got[1])])
+
+
+def autotune_phase(d_codes, indexes, encode, batches, device, name, smi):
+    """Phase 8f: the autotuner (``launch/autotune.py``) over the corpus codes,
+    in a temporary cache directory: the scan at the flat path's signature,
+    int8 and packed, and at an engine leaf's rows; the rerank at k'. Every
+    candidate against the default plan, exactly; tuned <= default; a cache
+    hit; the tuned plan through FlatSDC and the flat engine."""
+    import json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.index import engine as eng
+    from repro_torch.kernels.sdc import sdc as sdc_mod
+    from repro_torch.kernels.sdc.defaults import BlockPlan
+    from repro_torch.kernels.sdc.ops import sdc_search_backend
+    from repro_torch.kernels.sdc.rerank import sdc_rerank_gathered
+    from repro_torch.launch import autotune
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    topk = sdc_mod.sdc_topk
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="chip_smoke_tune_", dir=os.path.join(ROOT, "build"))
+    N = d_codes.shape[0]
+    leaf_n = (N - N % ENGINE_LEAVES) // ENGINE_LEAVES
+    codes_b = [encode(b) for b in batches]
+    real_q = codes_b[0]
+    fine_host = d_codes.cpu().numpy()
+    fine_inv = indexes[False].inv_norm.cpu().numpy()
+    try:
+        sigs = [("scan", False, N, K), ("scan", True, N, K), ("scan", False, leaf_n, K),
+                ("rerank", False, N, TUNE_RERANK_KC)]
+        plans = {}
+        for kind, packed, n, k in sigs:
+            tag = f"{kind} {'packed' if packed else 'int8'} N={n} k={k}"
+            kw = dict(code_dim=CODE_DIM, n_shard=n, packed=packed, k=k, n_levels=LEVELS)
+            t0 = time.perf_counter()
+            tp = autotune.tuned_block_plan(kind, cache_dir=cache, sample_q=SERVE_Q,
+                                           reps=TUNE_REPS, device=device, **kw)
+            sweep_s = time.perf_counter() - t0
+            check(tp.tuned and tp.plan.source == "tuned", f"autotune {tag}: not swept")
+            payload = json.loads(open(tp.path).read())
+            check(payload["tuned_ms"] <= payload["default_ms"],
+                  f"autotune {tag}: tuned {payload['tuned_ms']} ms > default "
+                  f"{payload['default_ms']} ms")
+            again = autotune.tuned_block_plan(kind, cache_dir=cache, sample_q=SERVE_Q,
+                                              device=device, **kw)
+            check(not again.tuned and again.plan.source == "cache"
+                  and again.plan.blocks() == tp.plan.blocks(),
+                  f"autotune {tag}: the second call was not a cache hit")
+            grid = [(c["block_q"], c["block_n"]) for c in payload["candidates"]]
+            # every candidate against the default plan, on the sweep's own
+            # operands and on real queries
+            ops = autotune._sweep_operands(kind, sample_q=SERVE_Q, device=device, **kw)
+            if kind == "scan":
+                q_s, d_s, inv_s = ops
+                d_r, inv_r = indexes[packed].codes[:n], indexes[packed].inv_norm[:n]
+
+                def run(blocks, q, d, inv, packed=packed, k=k):
+                    return sdc_search_backend(q, d, inv, n_levels=LEVELS, k=k, packed=packed,
+                                              block_plan=BlockPlan("scan", *blocks))
+
+                cases = ((q_s, d_s, inv_s), (real_q, d_r, inv_r))
+            else:
+                q_s, f_s, finv_s, cand_s = ops
+                cand_r = indexes[False].search(real_q, k)[1].cpu().numpy()
+
+                def run(blocks, q, f, finv, cand, k=k):
+                    return sdc_rerank_gathered(q, f, finv, cand, n_levels=LEVELS, k=K,
+                                               group=blocks[1])
+
+                cases = ((q_s, f_s, finv_s, cand_s), (real_q, fine_host, fine_inv, cand_r))
+            for case in cases:
+                want = run(grid[0], *case)
+                for blocks in grid[1:]:
+                    got = run(blocks, *case)
+                    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                          f"autotune {tag}: candidate {blocks} differs from the default plan")
+            del ops, cases
+            plans[kind, packed, n] = tp.plan
+            cands = "; ".join(
+                f"({c['block_q']}, {c['block_n']})"
+                + (f" -> grid {c['launched'][0]}q x {c['launched'][1]} slices of "
+                   f"{c['launched'][2]}" if c["launched"] else "")
+                + f" {c['ms']:.4f} ms" for c in payload["candidates"])
+            log(f"[time] autotune {tag} (sample_q {SERVE_Q}, median of {TUNE_REPS}) on {name} "
+                f"({smi}): {cands}; default {payload['default_ms']:.4f} ms, tuned "
+                f"{payload['tuned_ms']:.4f} ms -> {tp.plan.blocks()}; sweep "
+                f"{payload['sweep_s']:.2f} s ({sweep_s:.2f} s with the operands), cache hit "
+                f"on the second call; every candidate bit-identical to the default on the sweep "
+                f"operands and on {SERVE_Q} real queries")
+
+        # the tuned plans through FlatSDC and the flat engine, 8 requests each
+        for packed in (False, True):
+            tag = "packed" if packed else "int8"
+            plan = plans["scan", packed, N]
+            index = indexes[packed]
+            for c in codes_b:
+                dv, di = index.search(c, K)
+                default_geom = topk.last_geometry
+                tv, ti = index.search(c, K, block_plan=plan)
+                check(torch.equal(tv, dv) and torch.equal(ti, di),
+                      f"autotune: FlatSDC {tag} with the tuned plan differs from the default")
+                check(topk.last_geometry == sdc_mod.scan_geometry(
+                    SERVE_Q, N, CODE_DIM, packed, K, device, plan.blocks()),
+                    f"autotune: FlatSDC {tag} did not launch the tuned plan's grid")
+            d_ms = cuda_ms(lambda: index.search(codes_b[0], K), 20)
+            t_ms = cuda_ms(lambda: index.search(codes_b[0], K, block_plan=plan), 20)
+            log(f"[time] autotune FlatSDC {tag} request on {name} ({smi}): default plan "
+                f"{d_ms:.4f} ms (grid {default_geom}), tuned {plan.blocks()} {t_ms:.4f} ms "
+                f"(grid {topk.last_geometry}); {len(codes_b)} requests bit-identical")
+        mesh = make_host_mesh((2, 2), devices=[device] * ENGINE_LEAVES)
+        rows = leaf_n * ENGINE_LEAVES
+        leaf_plan = plans["scan", False, leaf_n]
+        prepared = eng.flat_engine_inputs_from_snapshot(d_codes[:rows], LEVELS, device=device)
+        default_eng = eng.engine_search_from_snapshot(mesh, d_codes[:rows], LEVELS, k=K,
+                                                      prepared=prepared)
+        tuned_eng = eng.engine_search_from_snapshot(mesh, d_codes[:rows], LEVELS, k=K,
+                                                    prepared=prepared,
+                                                    block_plan={"scan": leaf_plan})
+        for c in codes_b:
+            dv, di = default_eng(c)
+            topk.launches = 0
+            tv, ti = tuned_eng(c)
+            check(topk.launches == ENGINE_LEAVES and topk.last_geometry == sdc_mod.scan_geometry(
+                SERVE_Q, leaf_n, CODE_DIM, False, K, device, leaf_plan.blocks()),
+                "autotune: the engine's leaves did not launch the tuned plan's grid")
+            check(torch.equal(tv, dv) and torch.equal(ti, di),
+                  "autotune: the flat engine with the tuned plan differs from the default")
+        d_ms = cuda_ms(lambda: default_eng(codes_b[0]), 10)
+        t_ms = cuda_ms(lambda: tuned_eng(codes_b[0]), 10)
+        log(f"[time] autotune engine (4 leaves of {leaf_n}) request on {name} ({smi}): default "
+            f"{d_ms:.4f} ms, tuned {leaf_plan.blocks()} {t_ms:.4f} ms; {len(codes_b)} requests "
+            f"bit-identical, {ENGINE_LEAVES} sdc_topk launches each at the plan's grid")
+        del default_eng, tuned_eng, prepared
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    log(f"[autotune] phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
 def _flat_tree(tree, prefix=""):
@@ -2495,7 +2742,12 @@ def main() -> None:
         fail(f"{SRC}/repro_torch not found: run chip_smoke.py from a checkout of the repo")
     sys.path.insert(0, SRC)
 
-    from repro_torch.core.binarize_lib import BinarizerConfig, init_binarizer, make_encode_fn
+    from repro_torch.core.binarize_lib import (
+        BinarizerConfig,
+        init_binarizer,
+        make_eager_encode_fn,
+        make_encode_fn,
+    )
     from repro_torch.data.synthetic import clustered_corpus_torch
     from repro_torch.index.flat import FlatFloat, FlatSDC
     from repro_torch.kernels import _build
@@ -2571,6 +2823,13 @@ def main() -> None:
     model = init_binarizer(bcfg, torch.Generator(device=device).manual_seed(args.seed),
                            device)
     d_codes = encode_codes(model, docs, batch=1 << 17)
+    # the corpus went through the captured encode: its first batch and its
+    # ragged tail equal the eager twin's codes
+    eager = make_eager_encode_fn(model)
+    tail = (args.docs - 1) // (1 << 17) * (1 << 17)  # the last batch's first row
+    for lo, hi in ((0, min(args.docs, 1 << 17)), (tail, args.docs)):
+        check(torch.equal(d_codes[lo:hi], eager(docs[lo:hi])),
+              f"corpus codes [{lo}, {hi}) from the captured encode differ from the eager ones")
     flat_float = FlatFloat.build(docs, device=device)
     del docs
     indexes = {p: FlatSDC.build(d_codes, LEVELS, packed=p, device=device)
@@ -2640,6 +2899,8 @@ def main() -> None:
     for (a, b), (c, d) in zip(served[False], served[True]):
         check(torch.equal(a, c) and torch.equal(b, d), "packed and int8 results differ")
     log("[main] packed and int8 results bit-identical")
+    encode_repair("flat int8", encode, eager, lambda q: indexes[False].search(q, K), batches,
+                  cfg, name, smi)
 
     _, idx_f = flat_float.search(queries, K)
     idx_b = torch.cat([i for _, i in served[False]], 0)
@@ -2732,6 +2993,9 @@ def main() -> None:
               "probe budget nprobe * nlist differs from flat nprobe")
     log("[ivf] packed = int8 under nprobe and under the budget; budget "
         f"{IVF_NPROBE * IVF_NLIST} = nprobe {IVF_NPROBE}, bit for bit")
+    encode_repair(f"IVF int8 nprobe {IVF_NPROBE}", encode, eager,
+                  lambda q: ivf.search(ivfs[False], q, nprobe=IVF_NPROBE, k=K), batches, cfg,
+                  name, smi)
 
     # the unfused flat search of one request against the fused one
     scores_launches = {}
@@ -2945,17 +3209,20 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 8c. HNSW graph search at the CLI's width ------------------------------
-    row, hnsw_data = hnsw_phase(model, encode, cfg, args.seed, device, name, smi)
+    row, hnsw_data = hnsw_phase(model, encode, eager, cfg, args.seed, device, name, smi)
     kernels.append(row)
 
     # -- 8d. the distributed engine, four leaves on the card ---------------------
-    kernels += engine_phase(d_codes, indexes, encode, batches, cfg, device, name, smi,
+    kernels += engine_phase(d_codes, indexes, encode, eager, batches, cfg, device, name, smi,
                             hnsw_data)
 
     # -- 8e. the replicated serving tier, the CLI's routed run ----------------------
-    kernels += routed_phase(d_codes, indexes, encode, batches, cfg, device, name, smi,
+    kernels += routed_phase(d_codes, indexes, encode, eager, batches, cfg, device, name, smi,
                             hnsw_data, kernels)
     del hnsw_data
+
+    # -- 8f. the autotuner over the same codes ---------------------------------------
+    autotune_phase(d_codes, indexes, encode, batches, device, name, smi)
 
     # -- 9. the dlrm-rm2 serving forward at full width ------------------------
     del indexes, d_codes

@@ -8,6 +8,7 @@ from repro_torch.core.binarize_lib import (
     code_affine_constants,
     codes_to_values,
     init_binarizer,
+    make_eager_encode_fn,
     make_encode_fn,
     pack_bitplanes,
     pack_codes,

@@ -25,7 +25,9 @@ float32, as the reference does.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -389,19 +391,127 @@ def binarize_eval(model: RecurrentBinarizer, f: torch.Tensor) -> torch.Tensor:
     return binarize(model, f)[1]
 
 
-def make_encode_fn(model: RecurrentBinarizer):
-    """Serving ``EncodeFn``: float embeddings [B, dim] -> codes [B, code_dim] int8.
+def _frozen_copy(model: RecurrentBinarizer) -> RecurrentBinarizer:
+    """An eval-mode copy of ``model`` that nothing trains: the weights an
+    encode closure serves, fixed when it is made, as the reference's jit
+    closes over its arrays."""
+    return copy.deepcopy(model).eval().requires_grad_(False)
 
-    Accepts numpy arrays or tensors; the batch is moved to the model's
-    device, so the codes come back there.
-    """
-    device = next(model.parameters()).device
+
+def _model_device(model: RecurrentBinarizer) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _eager_encode(model: RecurrentBinarizer):
+    device = _model_device(model)
 
     def encode(e):
         x = torch.as_tensor(e, dtype=torch.float32, device=device)
         return pack_codes(binarize(model, x)[0])
 
     return encode
+
+
+def make_eager_encode_fn(model: RecurrentBinarizer):
+    """The plain version of ``make_encode_fn``: the same codes, op by op.
+
+    Float embeddings [B, dim] (numpy or a tensor, moved to the model's
+    device) -> codes [B, code_dim] int8 on that device, from a copy of
+    ``model``'s weights taken now: training the model afterwards does not
+    move the codes. On a card every call issues the forward's some 150
+    launches from the calling thread.
+    """
+    return _eager_encode(_frozen_copy(model))
+
+
+def make_encode_fn(model: RecurrentBinarizer):
+    """Serving ``EncodeFn`` (the reference's jitted encode): float
+    embeddings [B, dim] -> codes [B, code_dim] int8, over a copy of
+    ``model``'s weights taken now, so later training does not move them.
+
+    On a CUDA model each batch shape's forward is captured once as a CUDA
+    graph (``CapturedEncode``) and every call replays it: one graph launch
+    and two copies instead of the forward's some 150 launches. On a CPU
+    model the closure runs eagerly (``make_eager_encode_fn``). Accepts
+    numpy arrays or tensors; the codes come back on the model's device.
+    """
+    model = _frozen_copy(model)
+    if _model_device(model).type != "cuda":
+        return _eager_encode(model)
+    return CapturedEncode(model)
+
+
+class CapturedEncode:
+    """The encode as one CUDA-graph replay per batch shape.
+
+    A shape's first call captures the forward (after one eager warm-up
+    call that sets up the libraries outside the capture) on the closure's
+    own stream, in ``thread_local`` capture mode, so that serving threads
+    synchronising on their events meanwhile do not break it. Every call
+    then copies the batch into the graph's static input, replays the graph
+    and returns a clone of its static output, all on that stream under one
+    lock: replicas share the closure, and the static tensors belong to
+    whichever call holds the lock. The caller's current stream waits for
+    the clone. A capture that fails raises; nothing falls back to eager
+    (and PyTorch's CUDA generator stays registered with the aborted
+    capture, so the process's later random draws on the card fail: treat
+    it as fatal). ``captures`` counts the shapes captured, ``replays`` the
+    calls.
+    """
+
+    def __init__(self, model: RecurrentBinarizer):
+        self._model = model
+        self._device = _model_device(model)
+        self._stream = torch.cuda.Stream(self._device)
+        self._lock = threading.Lock()
+        self._graphs: Dict[tuple, tuple] = {}
+        self.captures = 0
+        self.replays = 0
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        return pack_codes(binarize(self._model, x)[0])
+
+    def _capture(self, shape: tuple):
+        """(graph, static input, static output) of the forward at ``shape``;
+        runs on the closure's stream."""
+        static_in = torch.zeros(shape, dtype=torch.float32, device=self._device)
+        self._forward(static_in)
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            static_out = self._forward(static_in)
+        finally:
+            graph.capture_end()
+        self.captures += 1
+        return graph, static_in, static_out
+
+    def __call__(self, e) -> torch.Tensor:
+        x = torch.as_tensor(e, dtype=torch.float32)
+        if x.dim() != 2 or x.shape[1] != self._model.cfg.input_dim:
+            raise ValueError(f"embeddings {tuple(x.shape)} are not [B, "
+                             f"{self._model.cfg.input_dim}]")
+        if x.shape[0] == 0:
+            return torch.empty((0, self._model.cfg.code_dim), dtype=torch.int8,
+                               device=self._device)
+        caller = torch.cuda.current_stream(self._device)
+        with self._lock:
+            self._stream.wait_stream(caller)
+            with torch.cuda.stream(self._stream):
+                entry = self._graphs.get(tuple(x.shape))
+                if entry is None:
+                    entry = self._graphs[tuple(x.shape)] = self._capture(tuple(x.shape))
+                graph, static_in, static_out = entry
+                static_in.copy_(x)
+                graph.replay()
+                out = static_out.clone()
+            caller.wait_stream(self._stream)
+            self.replays += 1
+        # The caching allocator must not hand either block to its own
+        # stream's next call while the other stream may still use it.
+        if x.is_cuda:
+            x.record_stream(self._stream)
+        out.record_stream(caller)
+        return out
 
 
 # ---------------------------------------------------------------------------

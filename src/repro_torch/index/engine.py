@@ -123,16 +123,18 @@ def _leaf_scan(
     packed: bool = False,
     block_q: int = BLOCK_Q,
     block_n: int = BLOCK_N,
+    block_plan=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Local exhaustive SDC scan + top-k on one leaf.
 
-    The kernel (one ``sdc_topk`` launch) on a card, the plain twin on the
-    CPU; both treat ``shard_inv == 0`` entries as excluded (drained docs).
-    Empty slots come back as -inf with id -1, live ids as global ids.
+    The kernel (one ``sdc_topk`` launch, at ``block_plan``'s geometry when
+    given) on a card, the plain twin on the CPU; both treat ``shard_inv ==
+    0`` entries as excluded (drained docs). Empty slots come back as -inf
+    with id -1, live ids as global ids.
     """
     vals, idx = sdc_search_backend(
         q_codes, shard_codes, shard_inv, n_levels=n_levels, k=k, backend=backend,
-        block_q=block_q, block_n=block_n, packed=packed,
+        block_q=block_q, block_n=block_n, packed=packed, block_plan=block_plan,
     )
     return _globalize(vals, idx, shard_base)
 
@@ -165,7 +167,7 @@ def _merge(parts, order, k: int, device, leaf_alive=None):
 
 
 def _make_search(mesh, *, n_levels, k, shard_axes, backend, packed, block_q, block_n,
-                 failover):
+                 block_plan, failover):
     """Common builder for the plain and failover engines."""
     if block_q < 1 or block_n < 1:
         raise ValueError(f"blocks must be >= 1, got ({block_q}, {block_n})")
@@ -181,7 +183,7 @@ def _make_search(mesh, *, n_levels, k, shard_axes, backend, packed, block_q, blo
         for rank, (q, c, v, b) in enumerate(zip(qs, cs, vs, backends)):
             parts.append(_leaf_scan(q, c, v, rank * c.shape[0], n_levels=n_levels, k=k,
                                     backend=b, packed=packed, block_q=block_q,
-                                    block_n=block_n))
+                                    block_n=block_n, block_plan=block_plan))
         # A dead/drained leaf contributes -inf scores; the merge proceeds
         # from the survivors (paper §3.3.3 proxy timeout).
         leaf_alive = rest[0] if failover else None
@@ -213,15 +215,15 @@ def make_distributed_search(
 
     ``backend`` "auto" runs each leaf on its device's route (the kernel on
     a card, the plain twin on the CPU); "cuda" on a CPU leaf raises.
-    ``block_plan`` (kind "scan") and ``block_q``/``block_n`` are checked
-    and change nothing: the card's scan sizes its own grid.
+    ``block_plan`` (kind "scan", e.g. tuned at a leaf's rows by
+    ``launch/autotune.py``) is every card leaf's ``sdc_topk`` launch
+    geometry; inert on a CPU leaf. ``block_q``/``block_n`` are checked and
+    change nothing. No plan changes a score or an id.
     """
-    plan = plan_for(block_plan, "scan")
-    if plan is not None:
-        block_q, block_n = plan.block_q, plan.block_n
     return _make_search(
         mesh, n_levels=n_levels, k=k, shard_axes=shard_axes, backend=backend,
-        packed=packed, block_q=block_q, block_n=block_n, failover=False,
+        packed=packed, block_q=block_q, block_n=block_n,
+        block_plan=plan_for(block_plan, "scan"), failover=False,
     )
 
 
@@ -254,14 +256,13 @@ def make_failover_search(
     survivors give fewer than k finite results) and the merge proceeds
     from the survivors. The mask is applied on the device with no host
     read, and flipping it between calls needs no rebuild: recall drops by
-    ~|dead|/|leaves| of the corpus, latency does not.
+    ~|dead|/|leaves| of the corpus, latency does not. ``block_plan`` as
+    in ``make_distributed_search``.
     """
-    plan = plan_for(block_plan, "scan")
-    if plan is not None:
-        block_q, block_n = plan.block_q, plan.block_n
     return _make_search(
         mesh, n_levels=n_levels, k=k, shard_axes=shard_axes, backend=backend,
-        packed=packed, block_q=block_q, block_n=block_n, failover=True,
+        packed=packed, block_q=block_q, block_n=block_n,
+        block_plan=plan_for(block_plan, "scan"), failover=True,
     )
 
 
@@ -422,7 +423,7 @@ def engine_search_from_snapshot(
     k, ``split_effort``).
 
     ``block_plan`` (a ``BlockPlan`` or ``{kind: plan}`` mapping) reaches
-    the leaves' scans (kind "scan", inert on this port) and, in
+    the leaves' scans (kind "scan": a card leaf's launch geometry) and, in
     bi-granular mode, the rerank's group size (kind "rerank"). Plans never
     change scores.
     """
@@ -435,8 +436,6 @@ def engine_search_from_snapshot(
     codes, n_levels = resolve_snapshot_args(codes, n_levels)
     rr = resolve_rerank_args(rerank, n_levels)
     scan_plan = plan_for(block_plan, "scan")
-    if scan_plan is not None:
-        block_q, block_n = scan_plan.block_q, scan_plan.block_n
     rerank_plan = plan_for(block_plan, "rerank")
     qspec, *in_specs = engine_input_shardings(mesh, shard_axes)
     dev0 = qspec.devices[0]
@@ -446,7 +445,7 @@ def engine_search_from_snapshot(
                                                         device=dev0)
         search = make_distributed_search(
             mesh, n_levels=n_levels, k=k, shard_axes=shard_axes, backend=backend,
-            packed=packed, block_q=block_q, block_n=block_n,
+            packed=packed, block_q=block_q, block_n=block_n, block_plan=scan_plan,
         )
         ins = [s.place(a) for a, s in zip(prepared, in_specs)]
 
@@ -470,7 +469,7 @@ def engine_search_from_snapshot(
         )
     search = make_distributed_search(
         mesh, n_levels=c_levels, k=k_coarse, shard_axes=shard_axes, backend=backend,
-        packed=packed_c, block_q=block_q, block_n=block_n,
+        packed=packed_c, block_q=block_q, block_n=block_n, block_plan=scan_plan,
     )
     ins = [s.place(a) for a, s in zip(prepared, in_specs)]
     fine_codes = codes if isinstance(codes, np.ndarray) else device_codes(codes, dev0)

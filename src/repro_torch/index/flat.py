@@ -106,7 +106,11 @@ class FlatSDC:
 
     def search(self, q_codes, k: int, block_n: int = BLOCK_N,
                block_q: int = FLAT_BLOCK_Q, block_plan: BlockPlan | None = None):
-        """Top-k SDC search of query codes [Q, m] (moved to the index's device)."""
+        """Top-k SDC search of query codes [Q, m] (moved to the index's device).
+
+        ``block_plan`` (a scan ``BlockPlan``, e.g. from ``launch/autotune``)
+        is the card kernel's launch geometry; inert on the CPU. It changes
+        no score or id."""
         q = torch.as_tensor(q_codes).to(self.codes.device, torch.int8).contiguous()
         return sdc_search_backend(
             q, self.codes, self.inv_norm, n_levels=self.n_levels, k=k,
@@ -216,7 +220,9 @@ def flat_search_from_snapshot(codes, n_levels: int = None, *, k: int, packed: bo
     to ``effort=None``. A flat index has no other cost knob, so ``effort``
     without ``rerank`` is ignored. ``block_plan`` (a ``BlockPlan`` or a
     ``{kind: plan}`` mapping) reaches the scan and, in bi-granular mode,
-    the rerank; plans never change scores.
+    the rerank: on the card a scan plan is ``sdc_topk``'s launch geometry
+    (the coarse scan's in bi-granular mode), a rerank plan the host
+    gather's group. Plans never change scores.
     """
     codes, n_levels = resolve_snapshot_args(codes, n_levels)
     rr = resolve_rerank_args(rerank, n_levels)

@@ -1,13 +1,22 @@
 """Launch-shape defaults of the SDC kernels (ports ``repro/kernels/sdc/defaults.py``).
 
 ``BlockPlan`` is the autotuner's unit: a kernel kind and its
-``(block_q, block_n)``. The values are the reference's, kept so that a
-plan tuned for one package reads the same in the other. The CUDA
-``sdc_topk`` sizes its own grid from the card (one wave of blocks, each
-scanning one slice of the corpus for a chunk of up to 16 queries held in
-shared memory), so on this port a scan plan shapes nothing and changes
-no score. The reference's
-TPU roofline constants are not carried over.
+``(block_q, block_n)``. The table's values are the reference's, kept so
+that a plan read by one package reads the same in the other; they shape
+nothing on this port. What a plan means here, by kind:
+
+  * "scan" on the card: the CUDA ``sdc_topk``'s launch geometry, queries
+    a scan block holds (1-16) and documents a corpus slice holds (a
+    multiple of 256); concrete numbers, which ``launch/autotune.py``
+    tunes and ``sdc.scan_geometry`` checks. Without a plan the kernel
+    sizes its own grid (one wave of blocks of up to 16 queries). On CPU
+    tensors a scan plan is inert.
+  * "rerank": ``block_n`` is the survivors per list of the host-gathered
+    rerank (``rerank.sdc_rerank_gathered``), on every device.
+  * "gather": fixed geometry, never swept.
+
+No plan changes a score or an id. The reference's TPU roofline
+constants are not carried over.
 """
 
 from __future__ import annotations

@@ -64,6 +64,7 @@ def sdc_search(
     block_n: int = BLOCK_N,
     packed: bool = False,
     fused: bool = True,
+    block_plan: BlockPlan | None = None,
 ):
     """Top-k SDC search of queries against a code corpus.
 
@@ -77,6 +78,10 @@ def sdc_search(
       fused: the fused scan + top-k kernel; False writes the [Q, N] score
         matrix (``sdc_scores``) and selects from it, a chunk of queries at
         a time (``sdc.unfused_topk``).
+      block_plan: a scan ``BlockPlan`` whose ``(block_q, block_n)`` is the
+        fused kernel's launch geometry on CUDA tensors (``sdc.scan_geometry``;
+        an illegal one raises ValueError); inert on CPU tensors and on the
+        unfused routes. It changes no score or id.
 
     Returns:
       (scores [Q, k], indices [Q, k]); slots with no valid candidate
@@ -86,16 +91,15 @@ def sdc_search(
     """
     if block_q < 1 or block_n < 1:
         raise ValueError(f"blocks must be >= 1, got ({block_q}, {block_n})")
-    return _search(sdc_topk, sdc_scores, q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
-                   packed=packed, fused=fused)
-
-
-def _search(topk_fn, scores_fn, q_codes, d_codes, d_inv_norm, *, n_levels, k, packed, fused):
-    """The fused top-k ``topk_fn``, or with ``fused=False`` the score matrix
-    of ``scores_fn`` and ``select_topk`` of it (``unfused_topk``)."""
     if fused:
-        return topk_fn(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k, packed=packed)
-    return unfused_topk(scores_fn, q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
+        geometry = None
+        if block_plan is not None:
+            if block_plan.kind != "scan":
+                raise ValueError(f"a scan takes a 'scan' plan, got kind {block_plan.kind!r}")
+            geometry = block_plan.blocks()
+        return sdc_topk(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k, packed=packed,
+                        geometry=geometry)
+    return unfused_topk(sdc_scores, q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
                         packed=packed)
 
 
@@ -119,17 +123,21 @@ def sdc_search_backend(
 ):
     """Dispatch a top-k SDC search to the resolved backend.
 
-    ``block_plan`` overrides ``block_q``/``block_n`` when given. Blocks
-    never change scores or ids, and neither does ``fused``.
+    ``block_plan`` (a scan ``BlockPlan``) is the card's launch geometry on
+    "cuda" (``sdc_search``) and inert on "torch"; ``block_q``/``block_n``
+    stay inert. Plans never change scores or ids, and neither does
+    ``fused``.
     """
     backend = resolve_backend(backend, q_codes.device)
-    if block_plan is not None:
-        block_q, block_n = block_plan.block_q, block_plan.block_n
     if backend == "torch":
-        return _search(sdc_topk_torch, sdc_scores_torch, q_codes, d_codes, d_inv_norm,
-                       n_levels=n_levels, k=k, packed=packed, fused=fused)
+        if fused:
+            return sdc_topk_torch(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
+                                  packed=packed)
+        return unfused_topk(sdc_scores_torch, q_codes, d_codes, d_inv_norm, n_levels=n_levels,
+                            k=k, packed=packed)
     return sdc_search(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
-                      block_q=block_q, block_n=block_n, packed=packed, fused=fused)
+                      block_q=block_q, block_n=block_n, packed=packed, fused=fused,
+                      block_plan=block_plan)
 
 
 def sdc_gather_backend(q_codes, lists_codes, lists_inv_norm, lists_ids, probes, *,

@@ -1,6 +1,6 @@
 """Plain PyTorch oracles for Symmetric Distance Calculation (ports
 ``repro/kernels/sdc/ref.py``: ``doc_inv_norms``, ``sdc_ref``,
-``sdc_ref_affine``).
+``sdc_ref_affine``, ``sdc_ref_lut``).
 
 ``code_dot`` is the exact integer code product used by every plain
 scoring path of the port. ``torch.matmul`` has no int32 kernel on CUDA,
@@ -67,3 +67,50 @@ def sdc_ref_affine(q_codes, d_codes, n_levels: int, d_inv_norm=None) -> torch.Te
     return sdc_affine_epilogue(
         dot, sq + sd, dim=D, n_levels=n_levels, inv_norm=d_inv_norm[None, :]
     )
+
+
+def sdc_ref_lut(q_codes, d_codes, n_levels: int, d_inv_norm=None) -> torch.Tensor:
+    """The paper's CPU algorithm (int8 lookup tables over 4-bit subcodes),
+    emulated: approximate SDC scores [Q, N], a plain reference with no
+    kernel.
+
+    Per query and per group of dims, a 16-entry table holds the partial
+    inner products of the query's grid value(s) with every 4-bit document
+    code: one dim a code at n_levels 4 (the paper's u = 4 layout), two
+    adjacent dims a code at n_levels 2 (u = 2, the entries summed). The
+    tables are quantised to int8 by each query's largest |entry|, and a
+    score is the sum of the gathered entries, scaled back. The reference's
+    op order, in float32; the sums of int8 entries are exact.
+    """
+    if n_levels not in (2, 4):
+        raise ValueError(f"the paper's layout packs 4-bit subcodes: n_levels 2 or 4, "
+                         f"got {n_levels}")
+    vq = codes_to_values(q_codes, n_levels)  # [Q, D]
+    centroids = codes_to_values(
+        torch.arange(2**n_levels, dtype=torch.int8, device=vq.device), n_levels)
+    if n_levels == 4:
+        lut_f = vq[:, :, None] * centroids[None, None, :]  # [Q, D, 16]
+        groups = d_codes.to(torch.int64)  # [N, D]
+    else:
+        Q, D = vq.shape
+        if D % 2:
+            raise ValueError(f"n_levels 2 pairs adjacent dims: the code dim must be even, "
+                             f"got {D}")
+        sub = torch.arange(16, device=vq.device)
+        c_hi, c_lo = centroids[sub >> 2], centroids[sub & 3]
+        vq2 = vq.reshape(Q, D // 2, 2)
+        lut_f = vq2[..., 0:1] * c_hi[None, None, :] + vq2[..., 1:2] * c_lo[None, None, :]
+        d2 = d_codes.to(torch.int64).reshape(d_codes.shape[0], D // 2, 2)
+        groups = d2[..., 0] * 4 + d2[..., 1]  # [N, D // 2]
+
+    scale = torch.amax(torch.abs(lut_f), dim=(1, 2), keepdim=True) + 1e-12
+    lut_i8 = torch.clamp(torch.round(lut_f / scale * 127.0), -128, 127)
+    # gathered[q, n, g] = lut_i8[q, g, groups[n, g]]
+    G = groups.shape[1]
+    gathered = torch.gather(lut_i8[:, None, :, :].expand(-1, groups.shape[0], G, 16), 3,
+                            groups[None, :, :, None].expand(lut_i8.shape[0], -1, -1, 1))[..., 0]
+    acc = torch.sum(gathered, dim=-1)  # [Q, N]
+    scores = acc * (scale[:, :, 0] / 127.0)
+    if d_inv_norm is None:
+        d_inv_norm = doc_inv_norms(d_codes, n_levels)
+    return scores * d_inv_norm[None, :]

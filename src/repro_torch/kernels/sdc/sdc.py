@@ -30,6 +30,15 @@ sort, ``select_topk``, a chunk of queries at a time), chosen before any
 launch and counted by ``sdc_scores.launches``. The plain versions take
 any k and dim.
 
+The kernel's launch geometry is chosen on the host (``scan_geometry``):
+by default one full wave of blocks of up to 16 queries, each over one
+slice of the corpus; a ``geometry=(block_q, block_n)`` (a tuned scan
+``BlockPlan``, ``launch/autotune.py``) sets the queries a block holds and
+the documents a slice holds instead, checked (``check_scan_blocks``) and
+never clamped. Geometry changes no score and no id; the unfused routes
+and the plain versions take none. ``sdc_topk.last_geometry`` is the
+``(queries per block, slices, documents per slice)`` of the last launch.
+
 Both versions return what the reference's ``ops.sdc_search`` returns:
 ``(scores [Q, k] f32, ids [Q, k] int32)``, best first, ties toward the
 lower id, and ``(SDC_NEG_INF, -1)`` in every slot without a candidate
@@ -117,7 +126,8 @@ def check_k(k: int) -> None:
         raise ValueError(f"k must be >= 1, got {k}")
 
 
-def sdc_topk(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int, packed: bool = False):
+def sdc_topk(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int, packed: bool = False,
+             geometry: tuple[int, int] | None = None):
     """Top-k SDC search: (scores [Q, k] f32, ids [Q, k] int32).
 
     ``q_codes`` [Q, D] int8; ``d_codes`` [N, D] int8, or nibble-packed
@@ -128,6 +138,9 @@ def sdc_topk(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int, packed: boo
     above 256 runs ``unfused_topk`` instead (the same bits;
     ``sdc_scores.launches`` counts it), and a code dim that is not in
     ``KERNEL_DIMS`` is padded with zeros, a copy of the corpus.
+    ``geometry=(block_q, block_n)`` sets the kernel's launch geometry
+    (``scan_geometry``; an illegal one raises ValueError); the plain
+    version and the unfused route take none.
     """
     _check_inputs(q_codes, d_codes, d_inv_norm, packed)
     check_k(k)
@@ -139,10 +152,12 @@ def sdc_topk(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int, packed: boo
     if k > K_MAX or q_codes.shape[1] > KERNEL_DIMS[-1]:
         return unfused_topk(sdc_scores, q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
                             packed=packed)
-    return _launch(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k, packed=packed)
+    return _launch(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k, packed=packed,
+                   geometry=geometry)
 
 
 sdc_topk.launches = 0
+sdc_topk.last_geometry = None
 
 
 def cap_for(k: int) -> int:
@@ -205,12 +220,111 @@ def kernel_operands(q: torch.Tensor, codes: torch.Tensor, packed: bool, width: i
 def _corpus_slices(N: int, blocks_per_sm: int, q_chunks: int, device, rows_min: int):
     """(n_slices, slice_docs): one full wave of blocks over the query chunks,
     slices a multiple of ``_THREADS`` documents and at least ``rows_min``."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    wave = max(1, blocks_per_sm * sms // q_chunks)
+    wave = max(1, blocks_per_sm * _sm_count(device) // q_chunks)
     n_slices = max(1, min(wave, -(-N // rows_min)))
     slice_docs = -(-max(N, 1) // n_slices)
     slice_docs = -(-slice_docs // _THREADS) * _THREADS
     return max(1, -(-N // slice_docs)), slice_docs
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def topk_rows_min(k: int) -> int:
+    """Documents a corpus slice of ``sdc_topk`` covers at least (or the whole
+    corpus): each slice hands k partial keys to the merge."""
+    return max(_THREADS, 8 * k)
+
+
+_MAX_SLICES = 65535  # the scan grid's y dimension
+
+
+def _scan_blocks_per_sm(D: int, packed: bool, k: int, qc: int, device) -> int:
+    """Scan blocks of ``qc`` queries an SM holds at once (0: none fits)."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        per_sm = lib.sdc_topk_blocks_per_sm(kernel_dim(D), int(packed), cap_for(k), qc)
+    if per_sm < 0:
+        raise RuntimeError(f"sdc_topk cannot be scheduled: "
+                           f"{lib.sdc_topk_error_string(-per_sm).decode()}")
+    return per_sm
+
+
+def check_scan_blocks(blocks, N: int, D: int, packed: bool, k: int, device) -> None:
+    """Raise ValueError, naming the shapes, unless ``blocks = (block_q,
+    block_n)`` is a legal ``sdc_topk`` geometry for N documents of code dim
+    D at this k: 1 <= block_q <= 16 queries a block, whose shared memory
+    fits on an SM; block_n documents a slice, a multiple of 256, in at most
+    ceil(N / max(256, 8k)) slices (as many as the default sizing may make)
+    and at most 65,535."""
+    bq, bn = blocks
+    where = (f"sdc_topk geometry (block_q={bq!r}, block_n={bn!r}) for N={N}, D={D}, k={k}, "
+             f"packed={packed}")
+    if not all(isinstance(b, int) and not isinstance(b, bool) for b in (bq, bn)):
+        raise ValueError(f"{where}: blocks must be ints")
+    if not 1 <= bq <= _TOPK_QUERIES_PER_BLOCK:
+        raise ValueError(f"{where}: a scan block holds 1 to {_TOPK_QUERIES_PER_BLOCK} queries")
+    if bn < _THREADS or bn % _THREADS:
+        raise ValueError(f"{where}: a slice holds a positive multiple of {_THREADS} documents")
+    n_slices, most = -(-N // bn), -(-N // topk_rows_min(k))
+    if n_slices > max(1, most) or n_slices > _MAX_SLICES:
+        raise ValueError(f"{where}: {n_slices} slices, more than the "
+                         f"{min(max(1, most), _MAX_SLICES)} allowed (a slice covers at least "
+                         f"{topk_rows_min(k)} documents)")
+    if _scan_blocks_per_sm(D, packed, k, bq, device) == 0:
+        smem = _lib().sdc_topk_scan_smem(kernel_dim(D), int(packed), cap_for(k), bq)
+        raise ValueError(f"{where}: a block of {bq} queries ({smem} bytes of shared memory) "
+                         f"does not fit on an SM")
+
+
+def scan_geometry(Q: int, N: int, D: int, packed: bool, k: int, device,
+                  blocks: tuple[int, int] | None = None) -> tuple[int, int, int]:
+    """``sdc_topk``'s launch geometry ``(qc, n_slices, slice_docs)`` for Q >= 1
+    queries over N documents: ceil(Q / qc) x n_slices scan blocks of qc
+    queries, each over slice_docs documents.
+
+    With ``blocks=None``, the default: qc as many queries as let three
+    blocks share an SM (``_queries_per_block``, at most 16), and one full
+    wave of blocks, slices a multiple of 256 documents and at least
+    ``topk_rows_min(k)``. With ``blocks=(block_q, block_n)``, qc =
+    min(Q, block_q) and slice_docs = block_n, checked by
+    ``check_scan_blocks``.
+    """
+    if blocks is not None:
+        check_scan_blocks(blocks, N, D, packed, k, device)
+        bq, bn = blocks
+        return min(Q, bq), max(1, -(-N // bn)), bn
+    qc = min(Q, _queries_per_block(kernel_dim(D), packed, cap_for(k)))
+    per_sm = _scan_blocks_per_sm(D, packed, k, qc, device)
+    if per_sm == 0:
+        raise RuntimeError("sdc_topk cannot be scheduled: no block fits")
+    n_slices, slice_docs = _corpus_slices(N, per_sm, -(-Q // qc), device, topk_rows_min(k))
+    return qc, n_slices, slice_docs
+
+
+def scan_candidates(Q: int, N: int, D: int, packed: bool, k: int, device) -> list:
+    """The ``(block_q, block_n)`` geometries the autotuner sweeps for Q
+    queries a call, the default first (``scan_geometry``'s, with block_q the
+    queries a block may hold, not cut to Q): queries per block in {the
+    default's, 4, 8, 16} x one, two or four waves of blocks. Geometries
+    that launch the same grid at Q are listed once."""
+    qpb = _queries_per_block(kernel_dim(D), packed, cap_for(k))
+    qc, _, slice_docs = scan_geometry(Q, N, D, packed, k, device)
+    out, launched = [(qpb, slice_docs)], {(qc, slice_docs)}
+    for bq in (qpb, 4, 8, 16):
+        per_sm = _scan_blocks_per_sm(D, packed, k, bq, device)
+        if per_sm == 0:
+            continue
+        wave = max(1, per_sm * _sm_count(device) // -(-Q // min(Q, bq)))
+        for waves in (1, 2, 4):
+            n_slices = max(1, min(wave * waves, -(-N // topk_rows_min(k)), _MAX_SLICES))
+            per_slice = -(-max(N, 1) // n_slices)
+            bn = -(-per_slice // _THREADS) * _THREADS
+            if (min(Q, bq), bn) not in launched:
+                launched.add((min(Q, bq), bn))
+                out.append((bq, bn))
+    return out
 
 
 def _check_corpus(d: torch.Tensor, inv: torch.Tensor) -> None:
@@ -223,7 +337,7 @@ def _check_corpus(d: torch.Tensor, inv: torch.Tensor) -> None:
         raise ValueError("d_codes must be 16-byte aligned")
 
 
-def _launch(q, d, inv, *, n_levels, k, packed):
+def _launch(q, d, inv, *, n_levels, k, packed, geometry=None):
     Q, D = q.shape
     N = d.shape[0]
     _check_corpus(d, inv)
@@ -236,13 +350,7 @@ def _launch(q, d, inv, *, n_levels, k, packed):
 
     lib = _lib()
     cap = cap_for(k)
-    qc = min(Q, _queries_per_block(W, packed, cap))
-    with torch.cuda.device(q.device):
-        per_sm = lib.sdc_topk_blocks_per_sm(W, int(packed), cap, qc)
-    if per_sm <= 0:
-        msg = lib.sdc_topk_error_string(-per_sm).decode() if per_sm < 0 else "no block fits"
-        raise RuntimeError(f"sdc_topk cannot be scheduled: {msg}")
-    n_slices, slice_docs = _corpus_slices(N, per_sm, -(-Q // qc), q.device, max(_THREADS, 8 * k))
+    qc, n_slices, slice_docs = scan_geometry(Q, N, D, packed, k, q.device, geometry)
     partial = torch.empty((Q, n_slices, k), dtype=torch.int64, device=q.device)
 
     c1, c2, c3 = affine_terms(n_levels, D)
@@ -257,6 +365,7 @@ def _launch(q, d, inv, *, n_levels, k, packed):
         msg = lib.sdc_topk_error_string(err).decode()
         raise RuntimeError(f"sdc_topk launch failed: CUDA error {err} ({msg})")
     sdc_topk.launches += 1
+    sdc_topk.last_geometry = (qc, n_slices, slice_docs)
     return vals, ids
 
 
@@ -461,6 +570,8 @@ def sdc_topk_torch(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int,
     Goes over the corpus ``chunk`` documents at a time with a running
     ``[Q, k]`` merge, so a corpus of ten million documents fits.
     """
+    _check_inputs(q_codes, d_codes, d_inv_norm, packed)
+    check_k(k)
     Q = q_codes.shape[0]
     N = d_codes.shape[0]
     dev = q_codes.device

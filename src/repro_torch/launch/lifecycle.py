@@ -230,7 +230,9 @@ class FlatBuilder(_SnapshotCachingBuilder):
 
     ``coarse_levels``/``k_coarse`` (set together) switch the build to
     bi-granular mode. ``block_plan`` (a ``BlockPlan`` or ``{kind: plan}``
-    mapping) never changes scores and, being non-scalar, stays out of
+    mapping, e.g. from ``launch/autotune``: on the card a scan plan is
+    ``sdc_topk``'s launch geometry, a rerank plan the host gather's
+    group) never changes scores and, being non-scalar, stays out of
     ``builder_version``. ``backend`` takes the port's names ("auto",
     "cuda", "torch"); its default "auto" runs the kernels on a card.
     """
@@ -326,6 +328,9 @@ class EngineBuilder:
     per snapshot digest, on the first leaf of the first replica built, and
     cached; a replica's placement copies them only to leaves on another
     device, so replicas that share a card share the leaf tensors.
+    ``block_plan`` reaches the flat engine: a scan plan (tuned at a leaf's
+    rows) is every card leaf's ``sdc_topk`` geometry, a rerank plan the
+    bi-granular rerank's group; the HNSW engine takes none.
     """
 
     def __init__(self, meshes: List[Any], *, index: str = "flat",

@@ -11,6 +11,7 @@ replicated tier.
     PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2 \
         --router least-outstanding --chaos r1.fail@2 --probe-every 0.05 --swap-after 4
     PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2 --upgrade-after 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --autotune [--tune-cache DIR]
 
 End to end on the card: a clustered synthetic corpus -> the recurrent
 binarizer, trained emb2emb for ``--steps`` steps with the reference CLI's
@@ -43,6 +44,10 @@ and sequential vs routed ms/batch. ``--device cpu`` trains and runs the
 plain scoring path on the CPU. As in the reference CLI, a lifecycle
 builder (``cli_builder``) holds every build parameter, and bi-granular
 mode serves that builder's closure over a snapshot of the codes.
+``--autotune`` sweeps the scan's launch geometry and the rerank's group
+for the live shapes before serving and persists the winners
+(``launch/autotune.py``, ``--tune-cache``); the encode is one CUDA-graph
+replay a batch on the card (``binarize_lib.make_encode_fn``).
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from repro_torch.device import resolve_device
 from repro_torch.index import hnsw_lite, ivf
 from repro_torch.index.flat import FlatFloat, FlatSDC
 from repro_torch.kernels.sdc import ref as sdc_ref
+from repro_torch.kernels.sdc.defaults import plan_for
 from repro_torch.launch import (
     autoscale,
     binarizer_cache,
@@ -132,15 +138,17 @@ def _next_version(tag: str) -> str:
 
 
 def cli_builder(index: str, *, k: int = 10, packed: bool = False, ef: int = 64, beam: int = 8,
-                coarse_levels=None, k_coarse=None, probe_budget=None, device="cuda"):
+                coarse_levels=None, k_coarse=None, probe_budget=None, block_plan=None,
+                device="cuda"):
     """The lifecycle builder the CLI serves ``index`` from, with the
     reference CLI's parameters (``repro/launch/serve.py``: IVF nlist 64,
     nprobe 32, seed 1; HNSW M 16, ef_construction 64; the builders'
     defaults otherwise). Its ``params`` are the single source of the build
     parameters: every branch of the CLI reads them, so the index served and
-    a rebuild from a snapshot are the same index."""
+    a rebuild from a snapshot are the same index. ``block_plan`` is
+    ``--autotune``'s ``{kind: plan}``."""
     kw = dict(k=k, packed=packed, coarse_levels=coarse_levels, k_coarse=k_coarse,
-              device=device)
+              block_plan=block_plan, device=device)
     if index == "flat":
         return lifecycle.FlatBuilder(**kw)
     if index == "ivf":
@@ -285,6 +293,20 @@ def main(argv=None):
     ap.add_argument("--packed", action="store_true",
                     help="int4 nibble-packed code storage (2 dims/byte; "
                          "halves scan bytes, bit-identical scores)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="sweep launch plans for the live corpus/kernel "
+                         "signatures on startup and serve with the winners "
+                         "(launch/autotune.py): on the card the sdc_topk "
+                         "scan's geometry (queries per block, documents "
+                         "per slice), and the bi-granular rerank's group; "
+                         "winners persist in the tune cache so replicas "
+                         "and later launches share one plan; scores are "
+                         "bit-identical with or without this flag")
+    ap.add_argument("--tune-cache", default=None, metavar="DIR",
+                    help="block-plan tune cache dir (default: "
+                         "$REPRO_BEBR_CACHE, else ~/.cache/repro-bebr); "
+                         "the first launch to tune a signature pays the "
+                         "sweep, everyone else loads its winner")
     ap.add_argument("--probe-budget", type=int, default=0, metavar="B",
                     help="ivf: occupancy-weighted probe allocation — B "
                          "per-centroid rank slots are split across the "
@@ -430,6 +452,26 @@ def main(argv=None):
     d_codes = encode_codes(model, docs)
     flat_float = FlatFloat.build(docs, device=device)
     cl, kc = args.coarse_levels or None, args.k_coarse or None
+
+    # Adaptive execution: tune (or reload) a plan per kernel kind for the
+    # live corpus shapes, at the serving batch's query count (the card's
+    # default scan geometry depends on it). Plans only move launch
+    # geometry: every score below is bit-identical with block_plan=None.
+    block_plan = None
+    if args.autotune:
+        from repro_torch.launch import autotune
+
+        block_plan = {}
+        for kind in ("scan", "rerank"):
+            tp = autotune.tuned_block_plan(
+                kind, code_dim=args.code_dim, n_shard=args.docs, packed=args.packed,
+                k=(kc or args.k), n_levels=args.levels, cache_dir=args.tune_cache,
+                sample_q=args.batch or args.queries, device=device)
+            block_plan[kind] = tp.plan
+            print(f"[tune] {kind}: block_q={tp.plan.block_q} "
+                  f"block_n={tp.plan.block_n} ({tp.plan.source}"
+                  f"{', swept now' if tp.tuned else ''})")
+
     if spec is not None:
         # The spec's build params are the single source of truth: the
         # initial index, every swap and every scale-up build the same index.
@@ -437,7 +479,8 @@ def main(argv=None):
     else:
         builder = cli_builder(args.index, k=args.k, packed=args.packed, ef=args.ef,
                               beam=args.beam, coarse_levels=cl, k_coarse=kc,
-                              probe_budget=args.probe_budget or None, device=device)
+                              probe_budget=args.probe_budget or None, block_plan=block_plan,
+                              device=device)
     p = builder.params
     snapshot = None
     if cl is not None or args.swap_after or spec is not None:
@@ -465,7 +508,8 @@ def main(argv=None):
     elif args.index == "flat":
         index = FlatSDC.build(d_codes, bcfg.n_levels, packed=p["packed"], backend=p["backend"],
                               device=device)
-        search = lambda q: index.search(q, p["k"])  # noqa: E731
+        scan_plan = plan_for(block_plan, "scan")
+        search = lambda q: index.search(q, p["k"], block_plan=scan_plan)  # noqa: E731
         nbytes = index.nbytes()
     elif args.index == "hnsw":
         inv = sdc_ref.doc_inv_norms(d_codes, bcfg.n_levels).cpu().numpy()

@@ -65,7 +65,8 @@ for name in ("repro_torch.index.engine", "repro_torch.launch.mesh",
              "repro_torch.launch.faults", "repro_torch.launch.proxy",
              "repro_torch.launch.autoscale", "repro_torch.core.losses",
              "repro_torch.core.trainer", "repro_torch.train.optim",
-             "repro_torch.train.checkpoint", "repro_torch.launch.binarizer_cache"):
+             "repro_torch.train.checkpoint", "repro_torch.launch.binarizer_cache",
+             "repro_torch.launch.autotune"):
     assert name in names, name
 """
 
@@ -81,6 +82,31 @@ def test_port_imports_neither_jax_nor_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "foreign: []" in out.stdout
+
+
+def test_port_example_imports_neither_jax_nor_the_reference():
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('ex', 'examples/serve_bebr_torch.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_autotune_and_encode_default_to_the_card():
+    from repro_torch.launch import autotune as PAT
+
+    cfg = PB.BinarizerConfig(input_dim=16, code_dim=8, n_levels=2, hidden_dim=8)
+    model = PB.init_binarizer(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert not isinstance(PB.make_encode_fn(model), PB.CapturedEncode)
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PAT.tuned_block_plan("scan", code_dim=32, n_shard=100)
 
 
 def test_chip_smoke_imports_no_jax_and_needs_a_card():
