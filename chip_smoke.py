@@ -56,13 +56,16 @@ that fails:
      and holds the whole sdc_scores matrix at those shapes (int8 and
      packed) against its plain version, exactly;
   8. drives the bitwise baseline over phase 3's codes: FlatBitwise (the
-     codes' bit planes, xor + popcount in the binary_dot kernel) serves
-     the 8 requests of 64 queries, checked against serve_sequential and
-     the plain search, with launch counts zeroed just before and read
-     just after; holds the whole [64, N] binary_dot matrix against its
-     plain version, exactly; times the kernel at n_levels 1, 2 and 4
-     (planes of coarse_codes) beside sdc_scores, its plain version and
-     its popcount bound, and the torch._int_mm yardstick (the score is
+     codes' bit planes, a popcount term per plane pair on the tensor
+     cores' binary path in the binary_dot kernel) serves the 8 requests
+     of 64 queries, checked against serve_sequential and the plain
+     search, with launch counts zeroed just before and read just after;
+     splits a request into the kernel, the sort and the encode; holds
+     the whole [64, N] binary_dot matrix against its plain version,
+     exactly; times the kernel at n_levels 1, 2 and 4 (planes of
+     coarse_codes) beside sdc_scores, its plain version, its bound (bytes,
+     or the same scores as one int8 product; the first design's popcount
+     count as information) and the torch._int_mm yardstick (the score is
      2^-2(L-1) X . Y over X = 2c - (2^L - 1)), held equal to the kernel;
  8b. drives bi-granular retrieval over phase 3's codes (a coarse scan
      over the first C levels, each query's top-k' survivors reranked on
@@ -199,7 +202,8 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 # __popc results per SM per clock, compute capability 9.0 (CUDA C++
 # Programming Guide, throughput of native arithmetic instructions); times
-# the SM count and the maximum SM clock that nvidia-smi reports.
+# the SM count and the maximum SM clock that nvidia-smi reports. Only for
+# the popcount count of binary_dot's first design, printed as information.
 POPC_PER_SM_CLOCK = 16
 SERVE_Q, SERVE_REQUESTS, K = 64, 8, 10
 DIM, CODE_DIM, LEVELS = 256, 128, 4
@@ -743,6 +747,7 @@ def bitwise_phase(d_codes, encode, batches, cfg, device, name, smi, sm_clock_mhz
     from repro_torch.kernels.binary_dot import kernel as bd_mod
     from repro_torch.kernels.binary_dot.ops import binary_dot_search_torch
     from repro_torch.kernels.binary_dot.ref import binary_dot_ref
+    from repro_torch.kernels.sdc.ops import select_topk
 
     N = d_codes.shape[0]
     torch.cuda.synchronize()
@@ -783,57 +788,70 @@ def bitwise_phase(d_codes, encode, batches, cfg, device, name, smi, sm_clock_mhz
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     popc_per_s = POPC_PER_SM_CLOCK * sms * sm_clock_mhz * 1e6
     q_codes = encode(batches[0])
+    n8 = N - N % 8
     row = None
     for levels in (1, 2, LEVELS):
-        qpl = pack_code_planes(coarse_codes(q_codes, LEVELS, levels), levels)
-        dpl = (index.packed if levels == LEVELS
-               else pack_code_planes(coarse_codes(d_codes, LEVELS, levels), levels))
+        cq, cd = ((q_codes, d_codes) if levels == LEVELS
+                  else (coarse_codes(c, LEVELS, levels) for c in (q_codes, d_codes)))
+        qpl = pack_code_planes(cq, levels)
+        dpl = index.packed if levels == LEVELS else pack_code_planes(cd, levels)
         ms = cuda_ms(lambda: bd_mod.binary_dot(qpl, dpl, m=CODE_DIM), 5)
+        plain_ms = cuda_ms(lambda: binary_dot_ref(qpl, dpl, CODE_DIM), 1)
         words = levels * CODE_DIM // 32
-        popc = SERVE_Q * N * levels * words
         nbytes = N * words * 4 + SERVE_Q * words * 4 + SERVE_Q * N * 4
-        ops_ms, bytes_ms = 1e3 * popc / popc_per_s, 1e3 * nbytes / HBM_BYTES_PER_S
-        plain, library = "", "library none"
+        ops = 2 * SERVE_Q * N * CODE_DIM  # the same scores as one int8 product, at any n_levels
+        popc = SERVE_Q * N * levels * words  # the first design's __popc, information only
+        ops_ms, bytes_ms = 1e3 * ops / INT8_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
+        bound_ms = max(ops_ms, bytes_ms)
+        # yardstick only: with planes weighted 2^-s the score is
+        # 2^-2(L-1) X . Y, X = 2c - (2^L - 1) an odd int8 in [-15, 15], so
+        # one int8 product computes it exactly; _int_mm needs N % 8 == 0,
+        # so on the first N - N % 8 documents
+        xq = (2 * cq.to(torch.int16) - (2**levels - 1)).to(torch.int8)
+        xd = (2 * cd[:n8].to(torch.int16) - (2**levels - 1)).to(torch.int8)
+        unit = 2.0 ** (-2 * (levels - 1))
+
+        def int_mm():
+            return torch._int_mm(xq, xd.t()).to(torch.float32) * unit
+
+        live = bd_mod.binary_dot(qpl, dpl, m=CODE_DIM)[:, :n8]
+        check(torch.equal(int_mm(), live), f"binary_dot n_levels={levels} yardstick "
+              f"(torch._int_mm) differs from the kernel on {n8} columns")
+        del live
+        library_ms = cuda_ms(int_mm, 5)
+        del xd, dpl
         if levels == LEVELS:
-            plain_ms = cuda_ms(lambda: binary_dot_ref(qpl, dpl, CODE_DIM), 1)
-            plain = f", plain {plain_ms:.3f} ms"
-            # yardstick only: with planes weighted 2^-s the score is
-            # 2^-2(L-1) X . Y, X = 2c - (2^L - 1) an odd int8 in [-15, 15],
-            # so one int8 product computes it exactly; _int_mm needs
-            # N % 8 == 0, so on the first N - N % 8 documents
-            n8 = N - N % 8
-            xq = (2 * q_codes.to(torch.int16) - (2**LEVELS - 1)).to(torch.int8)
-            xd = (2 * d_codes[:n8].to(torch.int16) - (2**LEVELS - 1)).to(torch.int8)
-            unit = 2.0 ** (-2 * (LEVELS - 1))
-
-            def int_mm():
-                return torch._int_mm(xq, xd.t()).to(torch.float32) * unit
-
-            live = bd_mod.binary_dot(qpl, dpl, m=CODE_DIM)[:, :n8]
-            check(torch.equal(int_mm(), live),
-                  f"binary_dot yardstick (torch._int_mm) differs from the kernel on {n8} columns")
-            del live
-            library_ms = cuda_ms(int_mm, 5)
-            del xd
-            library = (f"library {library_ms:.3f} ms (torch._int_mm over X = 2c - 15 on "
-                       f"{n8} documents, equal to the kernel there)")
             row = dict(
                 name="binary_dot", route="cuda", source=BINARY_DOT_SOURCE,
                 replaces=BINARY_DOT_REPLACES, launches=launches, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+                plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=library_ms,
             )
-        del dpl
         log(f"[time] binary_dot n_levels={levels} Q={SERVE_Q} N={N} m={CODE_DIM} on {name} "
-            f"({smi}): kernel {ms:.3f} ms{plain}, popc bound {ops_ms:.3f} ms "
-            f"({popc / 1e9:.2f}e9 popc at {POPC_PER_SM_CLOCK}/SM/clock x {sms} SMs x "
-            f"{sm_clock_mhz:.0f} MHz), HBM bound {bytes_ms:.3f} ms ({nbytes / 1e9:.2f} GB); "
-            f"sdc_scores int8 on the same [{SERVE_Q}, {N}] {sdc_ms:.3f} ms, ratio "
-            f"{ms / sdc_ms:.2f}; {library}")
+            f"({smi}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms "
+            f"(torch._int_mm over X = 2c - {2**levels - 1} on {n8} documents, equal to the "
+            f"kernel there); bound {bound_ms:.3f} ms by "
+            f"{'operations' if ops_ms >= bytes_ms else 'bytes'} (HBM {bytes_ms:.3f} ms, "
+            f"{nbytes / 1e9:.2f} GB; int8 product {ops_ms:.3f} ms, {ops / 1e9:.1f} GOP); "
+            f"the first design's (CUDA cores) {popc / 1e9:.2f}e9 __popc "
+            f"{1e3 * popc / popc_per_s:.3f} ms at "
+            f"{POPC_PER_SM_CLOCK}/SM/clock x {sms} SMs x {sm_clock_mhz:.0f} MHz (information "
+            f"only); sdc_scores int8 on the same [{SERVE_Q}, {N}] {sdc_ms:.3f} ms, ratio "
+            f"{ms / sdc_ms:.2f}")
+
+    # a request's split: the kernel (timed above), the stable sort of its
+    # [Q, N] scores (select_topk), the encode and the planes' packing
+    scores = bd_mod.binary_dot(pack_code_planes(q_codes, LEVELS), index.packed, m=CODE_DIM)
+    sort_ms = cuda_ms(lambda: select_topk(scores, K), 5)
+    encode_ms = cuda_ms(lambda: pack_code_planes(encode(batches[0]), LEVELS), 5)
+    del scores
     log(f"[time] bitwise serving: sequential {seq_ms:.3f} ms/batch, pipelined {pipe_ms:.3f} "
         f"ms/batch (scan stage idle {100 * stats['device_idle_frac']:.0f}%), "
-        f"{len(batches)} requests of {SERVE_Q} on {name} ({smi})")
+        f"{len(batches)} requests of {SERVE_Q} on {name} ({smi}); a request's split: "
+        f"binary_dot {row['ms']:.3f} ms, select_topk (the stable sort of the [{SERVE_Q}, {N}] "
+        f"scores) {sort_ms:.3f} ms, encode + pack {encode_ms:.3f} ms, the rest "
+        f"{seq_ms - row['ms'] - sort_ms - encode_ms:.3f} ms of the sequential request")
     return row
 
 

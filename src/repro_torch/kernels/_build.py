@@ -26,9 +26,12 @@ _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 
 # Every CUDA source of the port, built together by ``build(SOURCES)``. Code
-# shared between sources lives in headers beside them (``*.cuh``), which
+# shared between sources lives in headers beside them (``*.cuh``) or in
+# INCLUDE_DIRS (the tile products and ``cp.async`` helpers of
+# ``sdc/csrc/tile_mma.cuh``, which ``binary_dot.cu`` uses too), all of which
 # ``library_path`` hashes with the sources.
 _SDC = _KERNELS / "sdc" / "csrc"
+INCLUDE_DIRS = [_SDC]
 BINARY_DOT = _KERNELS / "binary_dot" / "csrc" / "binary_dot.cu"
 DOT_INTERACT = _KERNELS / "dot_interact" / "csrc" / "dot_interact.cu"
 SOURCES: List[Path] = [_SDC / "sdc_topk.cu", _SDC / "gather_topk.cu", _SDC / "sdc_scores.cu",
@@ -55,9 +58,12 @@ def nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where the library of ``source`` lives: keyed by its directory's sources."""
+    """Where the library of ``source`` lives: keyed by its directory's sources
+    and the shared headers."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(source.parent.glob("*.cu*")):
+    files = sorted(source.parent.glob("*.cu*"))
+    files += [f for d in INCLUDE_DIRS for f in sorted(d.glob("*.cuh"))]
+    for f in files:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
@@ -76,7 +82,7 @@ def build(sources: Sequence[Path] = SOURCES) -> List[Path]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc(), *NVCC_FLAGS, *(f"-I{d}" for d in INCLUDE_DIRS), "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((proc, tmp, out, cmd))
     failed = []

@@ -1,4 +1,5 @@
-// Exact int8 tensor-core code products for the SDC scans (sm_90a).
+// Exact int8 tensor-core code products for the SDC scans (sm_90a), the
+// b1 product of binary_dot.cu (mma_b1) and the cp.async helpers both use.
 //
 // A scan block scores one round of kThreads document rows, staged in
 // shared memory, against up to 64 query rows held there too, and writes
@@ -61,6 +62,29 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += popc(A row AND B column) for one 16 x 8 tile of 128 bits (KW = 1:
+// mma.sync m16n8k128) or 256 bits (KW = 2: m16n8k256), b1 x b1 -> s32,
+// with the int8 product's lane layout, 32 bits a word: a[0] row g word t,
+// a[1] row g + 8 word t, b[0] column g word t; at KW = 2 a[2], a[3], b[1]
+// the same rows' and column's word 4 + t. Hopper has .and.popc only.
+template <int KW>
+__device__ __forceinline__ void mma_b1(int (&c)[4], const unsigned (&a)[2 * KW],
+                                       const unsigned (&b)[KW]) {
+  if constexpr (KW == 1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k128.row.col.s32.b1.b1.s32.and.popc "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(b[0]));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
 }
 
 // 16 bytes from global to shared memory, asynchronously (L2 only).

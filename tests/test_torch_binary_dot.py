@@ -7,8 +7,10 @@ to the reference's Pallas kernel in interpret mode and to its oracle,
 at n_levels {1, 2, 4} and m {32, 96, 128}. The bit planes must hold the
 reference's uint32 words; ``binary_dot_search`` and ``FlatBitwise`` must
 give the reference's scores and live ids at a ragged N with ties. The
-CUDA kernel itself is held against the plain version by the ``gpu``
-tests (on the card only) and by ``chip_smoke.py``.
+CUDA kernel's integer arithmetic (plane popcounts, Horner's rule over the
+plane pairs, the biased float conversion) is held here by a numpy twin;
+the kernel itself against the plain version by the ``gpu`` tests (on the
+card only) and by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -189,8 +191,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_only_vector_rows_need_alignment():
-    """Rows whose word count is a multiple of 4 are read as 16-byte
-    vectors and must start aligned; other rows are read word by word, so
+    """Rows whose word count is a multiple of 4 are copied as 16-byte
+    chunks and must start aligned; other rows are copied word by word, so
     a row slice of the index (``packed[1:]``) is taken as it is."""
     PK._check_rows(torch.zeros((5, 1, 3), dtype=torch.int32)[1:])  # 12-byte rows
     PK._check_rows(torch.zeros((5, 1, 4), dtype=torch.int32)[1:])  # 16-byte rows
@@ -202,6 +204,71 @@ def test_only_vector_rows_need_alignment():
         PK._check_rows(torch.zeros((5, 2, 4), dtype=torch.int32)[:, :1])  # not contiguous
 
 
+def _popc(words):
+    """Set bits of each uint32 word."""
+    return np.unpackbits(words.view(np.uint8)).reshape(*words.shape, 32).sum(-1, dtype=np.int64)
+
+
+def _kernel_twin(q, d, m):
+    """binary_dot.cu's arithmetic in numpy: a_st = popc(x_s AND y_t) summed
+    by Horner's rule over e = s + t, the weighted plane popcounts, the
+    integer score added to the float bits of 1.5 * 2^23, one subtraction,
+    one scaling."""
+    q, d = q.numpy().view(np.uint32), d.numpy().view(np.uint32)
+    L = q.shape[1]
+    WT = 2**L - 1
+    a = _popc(q[:, None, :, None, :] & d[None, :, None, :, :]).sum(-1)  # [Q, N, s, t]
+    acc = np.zeros(a.shape[:2], np.int64)
+    for e in range(2 * L - 1):
+        acc = 2 * acc + sum(a[:, :, s, e - s] for s in range(L) if 0 <= e - s < L)
+    w = 2 ** np.arange(L - 1, -1, -1)
+    pq, pd = (_popc(x).sum(-1) @ w for x in (q, d))
+    v = 0x4B400000 + 4 * acc - 2 * WT * (pq[:, None] + pd[None, :]) + m * WT * WT
+    f = v.astype(np.int32).view(np.float32) - np.float32(12582912.0)
+    return f * np.float32(2.0 ** -(2 * (L - 1)))
+
+
+def _extreme_codes(rng, shape, n_levels):
+    """Random codes with rows of every extreme plane pattern: all planes
+    ones (the top code), all zeros (code 0), and alternating planes."""
+    c = _codes(rng, shape, n_levels)
+    top = 2**n_levels - 1
+    for i, v in enumerate((top, 0, 0b1010 & top, 0b0101 & top)):
+        c[i::7] = v
+    return c
+
+
+@pytest.mark.parametrize("m", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("n_levels", [1, 2, 3, 4])
+def test_kernel_arithmetic_equals_plain(n_levels, m):
+    """The popcount identity the kernel computes, with its Horner sum and
+    biased conversion, equals ``binary_dot_ref`` bit for bit, at the
+    extreme popcounts too."""
+    rng = np.random.default_rng(1000 * n_levels + m)
+    pq = PB.pack_code_planes(torch.from_numpy(_extreme_codes(rng, (9, m), n_levels)), n_levels)
+    pd = PB.pack_code_planes(torch.from_numpy(_extreme_codes(rng, (37, m), n_levels)), n_levels)
+    want = PR.binary_dot_ref(pq, pd, m)
+    assert np.array_equal(_kernel_twin(pq, pd, m).view(np.uint32), _bits(want))
+    assert (np.abs(want.numpy()) * 2.0 ** (2 * (n_levels - 1)) <= m * (2**n_levels - 1) ** 2).all()
+
+
+@pytest.mark.parametrize("n_levels,W,N", [(5, 4, 10), (2, 5, 10), (2, 16, 10), (1, 6, 10),
+                                          (4, 4, 2**31)])
+def test_launch_rejects_what_the_kernel_does_not_take(n_levels, W, N):
+    """Shapes outside the kernel's instantiations, or corpora beyond int32
+    ids, raise before anything reaches the card: no fall-back."""
+    q = torch.zeros((2, n_levels, W), dtype=torch.int32)
+    d = torch.zeros((1, n_levels, W), dtype=torch.int32).expand(N, n_levels, W)
+    with pytest.raises(ValueError):
+        PK._launch(q, d, 32 * W)
+
+
+def test_binary_dot_raises_on_other_devices():
+    q = torch.zeros((2, 4, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no binary_dot kernel"):
+        PK.binary_dot(q, q, m=128)
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -211,7 +278,7 @@ def _card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_levels", [1, 2, 3, 4])
 @pytest.mark.parametrize("Q,N,m", [(64, 100_003, 128), (130, 3001, 32), (3, 257, 96),
-                                   (17, 20_011, 256), (1, 1, 64)])
+                                   (17, 20_011, 256), (1, 1, 64), (130, 4099, 96)])
 def test_kernel_matches_plain_on_card(n_levels, Q, N, m):
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(Q * N + n_levels)
@@ -224,6 +291,25 @@ def test_kernel_matches_plain_on_card(n_levels, Q, N, m):
     assert PK.binary_dot.launches == before + 1
     assert torch.equal(got, PR.binary_dot_ref(pq, pd, m))
     assert torch.equal(pq.cpu(), PB.pack_code_planes(cq.cpu(), n_levels))
+    assert got.stride() == (-(-N // 32) * 32, 1)  # rows padded to 128-byte lines
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [32, 96, 128, 256])
+@pytest.mark.parametrize("n_levels", [1, 2, 3, 4])
+def test_kernel_extreme_planes_on_card(n_levels, m):
+    """All-ones and all-zero planes (the extreme popcounts, scores of
+    +-m (2^L - 1)^2 units) at Q = 130 (three query chunks), against the
+    plain version and the numpy twin of the kernel's arithmetic."""
+    dev = _card()
+    rng = np.random.default_rng(n_levels * m)
+    pq = PB.pack_code_planes(torch.from_numpy(_extreme_codes(rng, (130, m), n_levels)), n_levels)
+    pd = PB.pack_code_planes(torch.from_numpy(_extreme_codes(rng, (531, m), n_levels)), n_levels)
+    before = PK.binary_dot.launches
+    got = PK.binary_dot(pq.to(dev), pd.to(dev), m=m).cpu()
+    assert PK.binary_dot.launches == before + 1
+    assert torch.equal(got, PR.binary_dot_ref(pq, pd, m))
+    assert np.array_equal(got.numpy().view(np.uint32), _kernel_twin(pq, pd, m).view(np.uint32))
 
 
 @pytest.mark.gpu
