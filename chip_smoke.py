@@ -177,7 +177,29 @@ that fails:
      both replicas on v2), the BC weights differing from v1's and the BC
      queries' recall on the v1 index within RECALL_MARGIN of the
      reference's; (e) times train_step and bc_train_step (ms a step,
-     launches, device-busy share) and the 300-step walls.
+     launches, device-busy share) and the 300-step walls;
+ 11. trains the recsys zoo at full width through the port's launcher
+     (python -m repro_torch.launch.train --full, in-process): dlrm-rm2
+     (26 tables of 1,048,576 x 64, 6.98 GB), two-tower-retrieval (two
+     2,097,152 x 256 tables), mind and dien, each 20 steps of the CLI's
+     batch of 16 with a checkpoint every 10 (train/checkpoint.py, the
+     reference's layout) under build/chip_smoke_train_* (removed at the
+     end), then the step-20 checkpoint deleted and the run resumed from
+     step 10, its losses and every parameter bit-identical to the
+     unbroken run's; dot_interact launched once a dlrm-rm2 step (the
+     count zeroed just before and read just after), its output inside a
+     training step exactly equal to its plain version; a step's time
+     (host clock, synced), launch calls, device kernels, device-busy share
+     and peak memory per arch; one serving batch through each serve step,
+     and tt_retrieval_bebr_step through sdc_topk over a million codes;
+     dot_interact at the training shape with its backward timed; one SMOKE
+     train step per arch on the card against the CPU's (the loss within
+     1e-5, Adam's moments within 1e-4 of each leaf's largest entry); then
+     examples/{train_two_tower_e2e,quickstart,compat_upgrade}_torch.py at
+     their defaults, the two-tower example's search one sdc_topk launch
+     (timed at its [32, 20,000] shape, k = 100), each quality figure held
+     within 0.05 of the range the reference's examples give over six
+     initial-weight keys (reference_figures/zoo_examples.py).
 
 Its last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Phases 3-9 use seeded, untrained
@@ -269,6 +291,31 @@ REF_UNTRAINED_RECALL = 0.9468
 # the CLI's upgrade (--replicas 2 --upgrade-after 16) over the 8 requests
 # of 64 in both versions, replayed ROUTED_ROUNDS times
 UPGRADE_REPLICAS, UPGRADE_AFTER = 2, 16
+# the recsys zoo (phase 11): the launcher's --batch default, steps and
+# checkpoint interval; timed steps; the tests' tolerances for a SMOKE card
+# step against the CPU's; candidate codes of the BEBR retrieval step
+ZOO_ARCHS = ("dlrm-rm2", "two-tower-retrieval", "mind", "dien")
+ZOO_BATCH, ZOO_STEPS, ZOO_CKPT_EVERY, ZOO_TIME_STEPS = 16, 20, 10, 5
+ZOO_LOSS_TOL, ZOO_GRAD_TOL = 1e-5, 1e-4
+ZOO_BEBR_DOCS = 1_000_000
+# the JAX reference examples' quality figures on the CPU, (key 0, min, max)
+# over REF_ZOO_KEYS initial-weight keys (PYTHONPATH=src JAX_PLATFORMS=cpu
+# python reference_figures/zoo_examples.py): the port's figure on the card
+# is held within FIGURE_MARGIN of that range, above or below
+REF_ZOO_KEYS = 6
+REF_ZOO_FIGURES = {
+    "tt_group_float": (1.0, 1.0, 1.0),
+    "tt_group_bebr": (1.0, 1.0, 1.0),
+    "tt_cover": (0.82, 0.8, 0.84),
+    "qs_recall_float": (1.0, 1.0, 1.0),
+    "qs_recall_bebr": (0.953, 0.938, 0.977),
+    "bc_old_old": (0.828, 0.809, 0.891),
+    "bc_naive": (0.305, 0.262, 0.391),
+    "bc_compat": (0.594, 0.477, 0.617),
+    "bc_mixed_v1": (0.791, 0.791, 0.891),
+    "bc_mixed_v2": (0.647, 0.516, 0.647),
+}
+FIGURE_MARGIN = 0.05
 # the autotuner (phase 8f): the rerank's survivors (the bi-granular k') and
 # the timed calls a candidate
 TUNE_RERANK_KC, TUNE_REPS = 160, 5
@@ -2746,6 +2793,358 @@ def dlrm_phase(seed, device, name, smi):
     return row
 
 
+ZOO_NOISE = {"['att']/[1]/['b']": "['att']/[1]/['w']"}
+
+
+def _zoo_leaf_err(k, got, want):
+    """|card - CPU| of moment leaf ``k`` over its largest CPU entry; DIEN's
+    last attention bias (its gradient is rounding noise: the softmax over
+    the sequence does not see a shift) over its weight's, after checking
+    that it is noise."""
+    ref = want[ZOO_NOISE.get(k, k)].double()
+    scale = max(float(ref.abs().max()), 1e-30)
+    if k in ZOO_NOISE:
+        check(float(want[k].abs().max()) <= ZOO_GRAD_TOL * scale, f"{k}: not rounding noise")
+    return float((got[k].cpu().double() - want[k].double()).abs().max()) / scale
+
+
+def _zoo_smoke_step(arch, device):
+    """One SMOKE train step on the card against the same step on the CPU,
+    from the same weights and batch. Returns (loss, gradient norm, worst
+    moment) relative differences."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.recsys.embedding import tree_map
+    from repro_torch.train import steps
+
+    cfg = get_arch(arch).smoke_config
+    init, builder, batch_of = train_mod.zoo(arch)
+    host = init(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = batch_of(7, ZOO_BATCH, cfg, "cpu")
+    out = []
+    for dev in ("cpu", device):
+        params = tree_map(lambda t: t.detach().clone().to(dev), host)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        out.append(builder(cfg, train_mod.ADAM)(params, steps.init_opt_state(params), b)[1:])
+    (h_opt, h_m), (c_opt, c_m) = out
+    loss = abs(float(c_m["loss"]) - float(h_m["loss"])) / abs(float(h_m["loss"]))
+    norm = abs(float(c_m["grad_norm"]) - float(h_m["grad_norm"])) / float(h_m["grad_norm"])
+    worst = max(_zoo_leaf_err(k, getattr(c_opt, f), getattr(h_opt, f))
+                for f in ("mu", "nu") for k in h_opt.mu)
+    return loss, norm, worst
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def _load_example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "examples",
+                                                                     f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def zoo_phase(device, name, smi):
+    """Phase 11: the recsys zoo trained and served at full width through
+    the port's launcher, SMOKE card steps against the CPU's, then the
+    three examples. Returns the kernels' JSON rows (dot_interact in
+    training, sdc_topk at the two-tower example's shape)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.dot_interact import kernel as di_mod
+    from repro_torch.kernels.dot_interact import ops as di_ops
+    from repro_torch.kernels.dot_interact.ref import dot_interact_torch, tril_indices
+    from repro_torch.kernels.sdc import ref as sdc_ref
+    from repro_torch.kernels.sdc import sdc as sdc_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.recsys import dlrm as dlrm_lib
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import steps
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=os.path.join(ROOT, "build"))
+    rows = []
+    try:
+        # -- (a) the four archs at full width through the launcher ---------------
+        for arch in ZOO_ARCHS:
+            cfg = get_arch(arch).config
+            ckpt = os.path.join(root, arch)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = ["--arch", arch, "--full", "--batch", str(ZOO_BATCH), "--steps",
+                    str(ZOO_STEPS), "--ckpt-dir", ckpt, "--device", str(device)]
+            torch.cuda.synchronize()
+            di_mod.dot_interact.launches = 0
+            t0 = time.perf_counter()
+            whole, text = _quiet(train_mod.main, base + ["--ckpt-every", str(ZOO_CKPT_EVERY)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = di_mod.dot_interact.launches
+            check(launches == (ZOO_STEPS if arch == "dlrm-rm2" else 0),
+                  f"{arch}: {ZOO_STEPS} steps launched dot_interact {launches} times")
+            check(f"[ckpt] step {ZOO_CKPT_EVERY}" in text and text.rstrip().endswith("done.")
+                  and ckpt_lib.latest_step(ckpt) == ZOO_STEPS, f"{arch}: the launcher said {text}")
+            losses = whole["losses"]
+            check(all(bool(torch.isfinite(v)) for v in losses.values()), f"{arch}: loss not finite")
+            params_a = ckpt_lib.flatten_tree(whole["params"])
+            del whole
+            step_dir = os.path.join(ckpt, f"step_{ZOO_CKPT_EVERY:010d}")
+            ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+            # the run is killed after step 10: its step-20 checkpoint never landed
+            shutil.rmtree(os.path.join(ckpt, f"step_{ZOO_STEPS:010d}"))
+            t0 = time.perf_counter()
+            resumed, text2 = _quiet(train_mod.main, base + ["--ckpt-every", "1000", "--resume"])
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t0
+            check(f"[resume] from step {ZOO_CKPT_EVERY}" in text2,
+                  f"{arch}: the resumed launcher said {text2}")
+            tail = list(range(ZOO_CKPT_EVERY + 1, ZOO_STEPS + 1))
+            check(sorted(resumed["losses"]) == tail
+                  and all(torch.equal(resumed["losses"][i], losses[i]) for i in tail),
+                  f"{arch}: the resumed losses differ from the unbroken run's")
+            params_b = ckpt_lib.flatten_tree(resumed["params"])
+            check(list(params_a) == list(params_b)
+                  and all(torch.equal(params_a[k], params_b[k]) for k in params_a),
+                  f"{arch}: the resumed parameters differ from the unbroken run's")
+            del params_a, params_b
+            shutil.rmtree(ckpt)
+            log(f"[zoo] {arch} --full, {ZOO_STEPS} steps of {ZOO_BATCH}, checkpoints every "
+                f"{ZOO_CKPT_EVERY} ({ck_bytes / 1e9:.2f} GB each): {wall:.1f} s wall, losses "
+                f"{float(losses[1]):.4f} -> {float(losses[ZOO_STEPS]):.4f}; resumed from step "
+                f"{ZOO_CKPT_EVERY} to {ZOO_STEPS} in {wall2:.1f} s, bit-identical to the unbroken "
+                f"run (its {len(tail)} losses and every parameter)")
+
+            # times, with the resumed state (it trains on)
+            params, opt = resumed["params"], resumed["opt_state"]
+            del resumed
+            _, builder, batch_of = train_mod.zoo(arch)
+            step = builder(cfg, train_mod.ADAM)
+            batch = batch_of(ZOO_STEPS, ZOO_BATCH, cfg, device)
+            state = [params, opt]
+
+            def fn():
+                state[0], state[1], _ = step(state[0], state[1], batch)
+
+            ms = host_ms(fn, ZOO_TIME_STEPS)
+            calls, kernels_run = launches_per_call(fn, 2)
+            busy = device_busy_ms(fn, 2)
+            share = busy / ms if isinstance(busy, float) else "not measured"
+            leaves = ckpt_lib.flatten_tree(params)
+            nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+            log(f"[time] zoo {arch} train step B={ZOO_BATCH} on {name} ({smi}): "
+                f"{cfg.param_count()} parameters ({nbytes / 1e9:.2f} GB), {ms:.3f} ms a step "
+                f"(host clock, synced, {ZOO_TIME_STEPS} steps), {calls} launch calls and "
+                f"{kernels_run} device kernels a step, device busy "
+                f"{busy if isinstance(busy, str) else f'{busy:.3f} ms'} "
+                f"({share if isinstance(share, str) else f'{100 * share:.1f}%'} of the step), "
+                f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+            # one serving batch through the arch's serve step
+            with torch.no_grad():
+                if arch == "dlrm-rm2":
+                    serve_b = synthetic.dlrm_batch(0, 512, cfg, device)
+                    out = steps.dlrm_serve_step(cfg)(dlrm_lib.DLRM.from_tree(params, cfg),
+                                                     serve_b)
+                    want = (512,)
+                elif arch == "two-tower-retrieval":
+                    serve_b = dict(batch, cand_ids=torch.randint(
+                        0, cfg.item_vocab, (4096,), device=device))
+                    out = steps.tt_serve_step(cfg)(params, serve_b)
+                    want = (ZOO_BATCH, 4096)
+                elif arch == "mind":
+                    out = steps.mind_serve_step(cfg)(params, batch)
+                    want = (ZOO_BATCH, cfg.n_interests, cfg.embed_dim)
+                else:
+                    out = steps.dien_serve_step(cfg)(params, batch)
+                    want = (ZOO_BATCH,)
+            check(tuple(out.shape) == want and bool(torch.isfinite(out).all()),
+                  f"{arch}: the serve step gave {tuple(out.shape)} or non-finite values")
+            msg = f"[zoo] {arch} serve step: {tuple(out.shape)} finite"
+
+            if arch == "two-tower-retrieval":
+                # the BEBR retrieval step: the tower, the linear binarizer, sdc_topk
+                g = torch.Generator(device=device).manual_seed(1)
+                emb, code, levels = cfg.tower_mlp[-1], 64, 4
+                params["binarizer"] = {
+                    "W": [torch.randn((emb, code), generator=g, device=device) / emb**0.5
+                          for _ in range(levels)],
+                    "R": [torch.randn((code, emb), generator=g, device=device) / code**0.5
+                          for _ in range(levels - 1)]}
+                codes = torch.randint(0, 2**levels, (ZOO_BEBR_DOCS, code), generator=g,
+                                      device=device).to(torch.int8)
+                bebr_b = {"hist_ids": batch["hist_ids"][:1], "hist_mask": batch["hist_mask"][:1],
+                          "cand_codes": codes, "cand_inv": sdc_ref.doc_inv_norms(codes, levels)}
+                sdc_mod.sdc_topk.launches = 0
+                v, i = steps.tt_retrieval_bebr_step(cfg, k=100, code_dim=code)(params, bebr_b)
+                torch.cuda.synchronize()
+                check(sdc_mod.sdc_topk.launches == 1 and v.shape == (1, 100)
+                      and bool(((i >= 0) & (i < ZOO_BEBR_DOCS)).all())
+                      and bool((v[:, :-1] >= v[:, 1:]).all()),
+                      "tt_retrieval_bebr_step on the card")
+                msg += (f"; tt_retrieval_bebr_step over {ZOO_BEBR_DOCS} codes: one sdc_topk "
+                        "launch, 100 ids in range, scores descending")
+                del params["binarizer"], codes, bebr_b
+
+            if arch == "dlrm-rm2":
+                # the kernel's output inside one training step against the plain version
+                seen, kernel = [], di_ops.dot_interact
+
+                def recorded(e):
+                    out = kernel(e)
+                    seen.append((e.detach().clone(), out.detach().clone()))
+                    return out
+
+                di_ops.dot_interact = recorded
+                try:
+                    fn()
+                finally:
+                    di_ops.dot_interact = kernel
+                torch.cuda.synchronize()
+                check(len(seen) == 1, f"one dlrm step ran the interaction {len(seen)} times")
+                emb, inter = seen[0]
+                plain = dot_interact_torch(emb)
+                check(torch.equal(inter, plain),
+                      "dot_interact inside a training step differs from its plain version")
+                err = float((inter - plain).abs().max())
+                B, F, D = emb.shape
+                P = F * (F - 1) // 2
+                rows_i, cols_i = tril_indices(F, device)
+                grad = torch.randn((B, P), generator=torch.Generator(device=device).manual_seed(2),
+                                   device=device)
+                ms_f = cuda_ms(lambda: di_mod.dot_interact(emb), 200)
+                plain_ms = cuda_ms(lambda: dot_interact_torch(emb), 20)
+                library_ms = cuda_ms(lambda: torch.bmm(emb, emb.transpose(1, 2))[:, rows_i, cols_i],
+                                     200)
+                ms_b = cuda_ms(lambda: di_ops.dot_interact_backward(emb, grad), 200)
+                nbytes_f = (B * F * D + B * P) * 4
+                bytes_ms, ops_ms = 1e3 * nbytes_f / HBM_BYTES_PER_S, 1e3 * 2 * B * P * D / FP32_FLOPS_PER_S
+                nbytes_b = (2 * B * F * D + B * P) * 4
+                bwd_bytes_ms = 1e3 * nbytes_b / HBM_BYTES_PER_S
+                bwd_ops_ms = 1e3 * 2 * B * F * F * D / FP32_FLOPS_PER_S
+                rows.append(dict(
+                    name="dot_interact_train", route="cuda", source=DOT_INTERACT_SOURCE,
+                    replaces=DOT_INTERACT_REPLACES, launches=launches, max_abs_err=err, ms=ms_f,
+                    plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    library_ms=library_ms, backward_ms=ms_b))
+                msg += (f"; dot_interact inside a training step exactly equal to its plain "
+                        f"version at [{B}, {F}, {D}]")
+                log(f"[time] dot_interact in training B={B} F={F} D={D} on {name} ({smi}): "
+                    f"forward kernel {ms_f:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                    f"{max(bytes_ms, ops_ms):.5f} ms, library (torch.bmm + triangle) "
+                    f"{library_ms:.4f} ms; backward (plain torch: S + S^T, one torch.bmm) "
+                    f"{ms_b:.4f} ms, its bound {max(bwd_bytes_ms, bwd_ops_ms):.5f} ms; "
+                    f"{launches} kernel launches in the {ZOO_STEPS}-step run")
+            log(msg)
+            del params, opt, state, leaves, batch, out
+            torch.cuda.empty_cache()
+
+        # -- SMOKE: one card step per arch against the CPU's ---------------------
+        for arch in ZOO_ARCHS:
+            loss, norm, worst = _zoo_smoke_step(arch, device)
+            check(loss <= ZOO_LOSS_TOL and norm <= ZOO_LOSS_TOL and worst <= ZOO_GRAD_TOL,
+                  f"{arch} SMOKE card step: loss {loss:.2e}, norm {norm:.2e}, moments "
+                  f"{worst:.2e} from the CPU's")
+            log(f"[zoo] {arch} SMOKE: one train step on the card against the CPU's from the same "
+                f"weights and batch: loss {loss:.2e}, gradient norm {norm:.2e} (tolerance "
+                f"{ZOO_LOSS_TOL}), Adam's moments {worst:.2e} of each leaf's largest entry "
+                f"(tolerance {ZOO_GRAD_TOL})")
+
+        # -- (b) the three examples at their defaults -----------------------------------
+        figures, walls = {}, {}
+        sdc_mod.sdc_topk.launches = 0
+        t0 = time.perf_counter()
+        dev_arg = ["--device", str(device)]
+        e2e = _load_example("train_two_tower_e2e_torch").main(
+            ["--ckpt", os.path.join(root, "e2e"), *dev_arg])
+        walls["train_two_tower_e2e_torch"] = time.perf_counter() - t0
+        e2e_launches = sdc_mod.sdc_topk.launches
+        check(e2e_launches == 1, f"the two-tower example launched sdc_topk {e2e_launches} times")
+        figures.update(tt_group_float=e2e["group_float"], tt_group_bebr=e2e["group_bebr"],
+                       tt_cover=e2e["cover"])
+        t0 = time.perf_counter()
+        qs = _load_example("quickstart_torch").main(dev_arg)
+        walls["quickstart_torch"] = time.perf_counter() - t0
+        figures.update(qs_recall_float=qs["recall_float"], qs_recall_bebr=qs["recall_bebr"])
+        t0 = time.perf_counter()
+        cu = _load_example("compat_upgrade_torch").main(dev_arg)
+        walls["compat_upgrade_torch"] = time.perf_counter() - t0
+        check(cu["finals"] == ["v2", "v2"] and cu["lost"] == 0 and cu["compat_dispatches"] >= 1,
+              f"the compat example's migration: {cu}")
+        figures.update(bc_old_old=cu["old_old"], bc_naive=cu["naive"], bc_compat=cu["compat"],
+                       bc_mixed_v1=cu["mixed_v1"], bc_mixed_v2=cu["mixed_v2"])
+        for fig, got in figures.items():
+            default, lo, hi = REF_ZOO_FIGURES[fig]
+            check(lo - FIGURE_MARGIN <= got <= hi + FIGURE_MARGIN,
+                  f"{fig} = {got:.4f} is not within {FIGURE_MARGIN} of the reference's "
+                  f"[{lo}, {hi}] over {REF_ZOO_KEYS} keys")
+        log("[zoo] examples on the card: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+            + f"; the two-tower example's search one sdc_topk launch")
+        log("[zoo] example figures (port on the card | reference key 0, [min, max] over "
+            f"{REF_ZOO_KEYS} keys; held within {FIGURE_MARGIN} of that range): "
+            + ", ".join(f"{k} {v:.4f} | {REF_ZOO_FIGURES[k][0]} [{REF_ZOO_FIGURES[k][1]}, "
+                        f"{REF_ZOO_FIGURES[k][2]}]" for k, v in figures.items()))
+
+        # the scan at the example's shape, for the kernels line
+        index, q = e2e["index"], e2e["q_codes"]
+        args_k = dict(n_levels=index.n_levels, k=100, packed=False)
+        v, i = sdc_mod.sdc_topk(q, index.codes, index.inv_norm, **args_k)
+        pv, pi = sdc_mod.sdc_topk_torch(q, index.codes, index.inv_norm, **args_k)
+        check(torch.equal(v, pv) and torch.equal(i, pi),
+              "sdc_topk at the example's shape differs from its plain version")
+        ms = cuda_ms(lambda: sdc_mod.sdc_topk(q, index.codes, index.inv_norm, **args_k), 50)
+        plain_ms = cuda_ms(lambda: sdc_mod.sdc_topk_torch(q, index.codes, index.inv_norm,
+                                                          **args_k), 10)
+        n, d = index.codes.shape
+        Q = q.shape[0]
+        nbytes = n * (d + 4) + q.numel() + Q * 100 * 8
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * 2 * Q * n * d / INT8_OPS_PER_S
+        sq = q.to(torch.int32).sum(-1, keepdim=True)
+        sd = index.codes.to(torch.int32).sum(-1)[None, :]
+
+        def library():
+            from repro_torch.core.binarize_lib import sdc_affine_epilogue
+            dot = torch._int_mm(q, index.codes.t())
+            s = sdc_affine_epilogue(dot, sq + sd, dim=d, n_levels=index.n_levels,
+                                    inv_norm=index.inv_norm[None, :])
+            return torch.topk(s, 100)
+
+        library_ms = cuda_ms(library, 50)
+        log(f"[time] sdc_topk int8 Q={Q} N={n} D={d} k=100 (the two-tower example's catalog) "
+            f"on {name} ({smi}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, HBM bound "
+            f"{bytes_ms:.5f} ms, int8 op bound {ops_ms:.5f} ms, library {library_ms:.4f} ms")
+        rows.append(dict(name="sdc_topk_int8_example", route="cuda", source=SOURCE,
+                         replaces=REPLACES[False], launches=e2e_launches,
+                         max_abs_err=float((v - pv).abs().max()), ms=ms, plain_ms=plain_ms,
+                         bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                         library_ms=library_ms))
+        log(f"[zoo] phase passed in {time.perf_counter() - t_phase:.1f} s")
+        return rows
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3251,6 +3650,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     kernels.append(training_phase(args.seed, device, name, smi))
     log(f"[smoke] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+    # -- 11. the recsys zoo trained and served, and the examples ----------------------
+    torch.cuda.empty_cache()
+    kernels += zoo_phase(device, name, smi)
 
     log("kernels: " + ", ".join(f"{k['name']} matched, launches={k['launches']}"
                                 for k in kernels))

@@ -1,6 +1,7 @@
 """Synthetic data (ports ``repro/data/synthetic.py``: ``clustered_corpus``,
 ``upgraded_corpus``, ``backbone_upgrade``, ``pair_batches`` and
-``dlrm_batch``).
+the recsys train batches ``dlrm_batch``, ``tt_batch``, ``mind_batch`` and
+``dien_batch``).
 
 ``clustered_corpus``, ``upgraded_corpus`` (paired old/new-backbone
 corpora), ``backbone_upgrade`` (a drifted float space) and
@@ -11,9 +12,10 @@ follows the same recipe with a ``torch.Generator`` on the card, for
 corpora whose float64 numpy intermediates would not fit in host memory
 (ten million 256-dim documents); its numbers differ from the numpy ones.
 
-``dlrm_batch`` draws a DLRM batch from a ``torch.Generator`` seeded by the
-step, so a step gives the same batch every time. The reference draws from
-``jax.random``: tests hand its batches over as arrays.
+The recsys batches are drawn from a ``torch.Generator`` seeded by (step,
+family), so a step gives the same batch every time (what makes a resumed
+run repeat the unbroken one). The reference draws from ``jax.random``:
+tests hand its batches over as arrays.
 """
 
 from __future__ import annotations
@@ -199,4 +201,50 @@ def dlrm_batch(step: int, batch: int, cfg, device="cuda") -> Dict[str, torch.Ten
         "sparse_ids": torch.randint(0, cfg.table_vocab, (batch, cfg.n_sparse), generator=g,
                                     device=dev, dtype=torch.int32),
         "labels": (torch.rand((batch,), generator=g, device=dev) < 0.25).to(torch.float32),
+    }
+
+
+def _ids(g, high: int, shape, dev) -> torch.Tensor:
+    return torch.randint(0, high, shape, generator=g, device=dev, dtype=torch.int32)
+
+
+def tt_batch(step: int, batch: int, cfg, device="cuda") -> Dict[str, torch.Tensor]:
+    """A two-tower batch: hist_ids [B, hist_len] and pos_items [B] int32
+    uniform over the vocabularies, hist_mask ones, item_logq zeros."""
+    dev = resolve_device(device)
+    g = _generator(step, 3, dev)
+    return {
+        "hist_ids": _ids(g, cfg.user_vocab, (batch, cfg.hist_len), dev),
+        "hist_mask": torch.ones((batch, cfg.hist_len), device=dev),
+        "pos_items": _ids(g, cfg.item_vocab, (batch,), dev),
+        "item_logq": torch.zeros((batch,), device=dev),
+    }
+
+
+def mind_batch(step: int, batch: int, cfg, device="cuda") -> Dict[str, torch.Tensor]:
+    """A MIND batch: hist_ids [B, hist_len], pos_items [B], neg_items [B, 8]
+    int32 uniform over the vocabulary, hist_mask ones."""
+    dev = resolve_device(device)
+    g = _generator(step, 4, dev)
+    return {
+        "hist_ids": _ids(g, cfg.item_vocab, (batch, cfg.hist_len), dev),
+        "hist_mask": torch.ones((batch, cfg.hist_len), device=dev),
+        "pos_items": _ids(g, cfg.item_vocab, (batch,), dev),
+        "neg_items": _ids(g, cfg.item_vocab, (batch, 8), dev),
+    }
+
+
+def dien_batch(step: int, batch: int, cfg, device="cuda") -> Dict[str, torch.Tensor]:
+    """A DIEN batch: item and category histories [B, seq_len] and targets
+    [B] int32 uniform over the vocabularies, hist_mask ones, labels [B] f32
+    ~ Bernoulli(0.3)."""
+    dev = resolve_device(device)
+    g = _generator(step, 5, dev)
+    return {
+        "hist_items": _ids(g, cfg.item_vocab, (batch, cfg.seq_len), dev),
+        "hist_cates": _ids(g, cfg.cate_vocab, (batch, cfg.seq_len), dev),
+        "hist_mask": torch.ones((batch, cfg.seq_len), device=dev),
+        "target_item": _ids(g, cfg.item_vocab, (batch,), dev),
+        "target_cate": _ids(g, cfg.cate_vocab, (batch,), dev),
+        "labels": (torch.rand((batch,), generator=g, device=dev) < 0.3).to(torch.float32),
     }

@@ -1,16 +1,19 @@
-"""DLRM-RM2 (arXiv:1906.00091), the serving forward (ports
+"""DLRM-RM2 (arXiv:1906.00091), serving and training (ports
 ``repro/models/recsys/dlrm.py``): bottom MLP + embedding lookups + dot
 interaction + top MLP.
 
 The interaction goes through ``kernels.dot_interact.ops.dot_interaction``:
 on the card that is the hand-written CUDA kernel, on the CPU its plain
-version. (The reference's own forward calls ``dot_interact_ref``; its
+version, inside a ``torch.autograd.Function`` whose backward is plain
+torch. (The reference's own forward calls ``dot_interact_ref``; its
 Pallas kernel is meant for the accelerator.) The concat orders are the
 reference's: ``[x, emb]`` for the features and ``[inter, x]`` for the
 top MLP's input. The 26 tables are one stacked [F, V, D] tensor.
 
-Training (``bce_loss`` and a backward through the interaction) comes with
-the training slice.
+``forward`` and ``bce_loss`` take the reference's parameter tree
+(``{"tables", "bot", "top"}`` of tensors); the ``DLRM`` module holds the
+same tensors as parameters (``DLRM.tree`` / ``DLRM.from_tree`` share
+their storage) and is what ``train/steps.dlrm_serve_step`` serves.
 """
 
 from __future__ import annotations
@@ -18,7 +21,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -30,6 +32,8 @@ from repro_torch.models.recsys.embedding import (
     init_table,
     mlp_apply,
     mlp_params,
+    tree_from_numpy,
+    tree_to_numpy,
 )
 
 
@@ -78,24 +82,78 @@ class DLRM(nn.Module):
         self.bot = bot
         self.top = top
 
+    def tree(self) -> Dict[str, Any]:
+        """The reference's parameter tree of this module's parameters (shared storage)."""
+        return {"tables": self.tables, "bot": _layer_tree(self.bot), "top": _layer_tree(self.top)}
+
+    @staticmethod
+    def from_tree(tree: Dict[str, Any], cfg: DLRMConfig) -> "DLRM":
+        """A DLRM over the tensors of ``tree`` (shared storage, no copy)."""
+        return DLRM(cfg, tree["tables"], _layer_module(tree["bot"], cfg.bot_mlp),
+                    _layer_module(tree["top"], cfg.top_dims))
+
     def features(self, dense, sparse_ids) -> Tuple[torch.Tensor, torch.Tensor]:
         """(x [B, D] the bottom MLP's output, feats [B, n_sparse + 1, D])."""
-        dev = self.tables.device
-        dense = torch.as_tensor(dense, dtype=self.cfg.dtype, device=dev)
-        ids = torch.as_tensor(sparse_ids, device=dev).long()
-        x = mlp_apply(self.bot, dense)
-        F, V, D = self.tables.shape
-        rows = ids + torch.arange(F, device=dev) * V  # field f's table starts at row f * V
-        emb = embedding_lookup(self.tables.reshape(F * V, D), rows)  # [B, F, D]
-        return x, torch.cat([x[:, None, :], emb], dim=1)
+        return features(self.tree(), dense, sparse_ids, self.cfg)
 
     def top_logits(self, inter: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return mlp_apply(self.top, torch.cat([inter, x], dim=-1))[:, 0]
+        return top_logits(self.tree(), inter, x)
 
     def forward(self, dense, sparse_ids, interact_fn=None) -> torch.Tensor:
         """dense [B, n_dense] f32; sparse_ids [B, n_sparse] int -> logits [B]."""
-        x, feats = self.features(dense, sparse_ids)
-        return self.top_logits((interact_fn or dot_interaction)(feats), x)
+        return forward(self.tree(), dense, sparse_ids, self.cfg, interact_fn)
+
+
+def _layer_tree(layers) -> list:
+    return [{"w": layer["w"], "b": layer["b"]} for layer in layers]
+
+
+def _layer_module(tree: list, dims) -> nn.ModuleList:
+    if len(tree) != len(dims) - 1:
+        raise ValueError(f"{len(tree)} layers do not match dims {dims}")
+    out = nn.ModuleList()
+    for p, a, b in zip(tree, dims[:-1], dims[1:]):
+        w, bias = p["w"], p["b"]
+        if tuple(w.shape) != (a, b) or tuple(bias.shape) != (b,):
+            raise ValueError(f"layer {tuple(w.shape)} / {tuple(bias.shape)} != ({a}, {b})")
+        out.append(nn.ParameterDict({"w": nn.Parameter(w), "b": nn.Parameter(bias)}))
+    return out
+
+
+def features(params, dense, sparse_ids, cfg: DLRMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x [B, D] the bottom MLP's output, feats [B, n_sparse + 1, D])."""
+    tables = params["tables"]
+    dev = tables.device
+    dense = torch.as_tensor(dense, dtype=cfg.dtype, device=dev)
+    ids = torch.as_tensor(sparse_ids, device=dev).long()
+    x = mlp_apply(params["bot"], dense)
+    F, V, D = tables.shape
+    rows = ids + torch.arange(F, device=dev) * V  # field f's table starts at row f * V
+    emb = embedding_lookup(tables.reshape(F * V, D), rows)  # [B, F, D]
+    return x, torch.cat([x[:, None, :], emb], dim=1)
+
+
+def top_logits(params, inter: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return mlp_apply(params["top"], torch.cat([inter, x], dim=-1))[:, 0]
+
+
+def forward(params, dense, sparse_ids, cfg: DLRMConfig, interact_fn=None) -> torch.Tensor:
+    """dense [B, n_dense] f32; sparse_ids [B, n_sparse] int -> logits [B]."""
+    x, feats = features(params, dense, sparse_ids, cfg)
+    return top_logits(params, (interact_fn or dot_interaction)(feats), x)
+
+
+def bce_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The reference's binary cross-entropy on logits,
+    mean(max(l, 0) - l y + log1p(exp(-|l|))), in its op order."""
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def bce_loss(params, dense, sparse_ids, labels, cfg: DLRMConfig,
+             interact_fn=None) -> torch.Tensor:
+    logits = forward(params, dense, sparse_ids, cfg, interact_fn=interact_fn)
+    return bce_logits(logits, torch.as_tensor(labels, dtype=logits.dtype, device=logits.device))
 
 
 def init_dlrm(cfg: DLRMConfig, generator: torch.Generator, device="cuda") -> DLRM:
@@ -121,19 +179,10 @@ def dlrm_from_numpy(params: Dict[str, Any], cfg: DLRMConfig, device="cuda") -> D
     """
     device = resolve_device(device)
 
-    def t(a):
-        return torch.tensor(np.array(a), dtype=cfg.dtype, device=device)
+    return DLRM.from_tree(tree_from_numpy(params, cfg.dtype, device), cfg).eval()
 
-    def layers(ps, dims):
-        if len(ps) != len(dims) - 1:
-            raise ValueError(f"{len(ps)} layers do not match dims {dims}")
-        out = nn.ModuleList()
-        for p, a, b in zip(ps, dims[:-1], dims[1:]):
-            w, bias = t(p["w"]), t(p["b"])
-            if tuple(w.shape) != (a, b) or tuple(bias.shape) != (b,):
-                raise ValueError(f"layer {tuple(w.shape)} / {tuple(bias.shape)} != ({a}, {b})")
-            out.append(nn.ParameterDict({"w": nn.Parameter(w), "b": nn.Parameter(bias)}))
-        return out
 
-    return DLRM(cfg, t(params["tables"]), layers(params["bot"], cfg.bot_mlp),
-                layers(params["top"], cfg.top_dims)).eval()
+def dlrm_to_numpy(model_or_tree) -> Dict[str, Any]:
+    """A DLRM (or its parameter tree) as the reference's tree of numpy arrays."""
+    tree = model_or_tree.tree() if isinstance(model_or_tree, DLRM) else model_or_tree
+    return tree_to_numpy(tree)

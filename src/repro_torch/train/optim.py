@@ -65,26 +65,53 @@ def adam_init(params: Tree) -> AdamState:
 
 def adam_update(grads: Tree, state: AdamState, params: Tree,
                 cfg: AdamConfig) -> tuple[Tree, AdamState]:
-    """Returns (new_params, new_state)."""
-    if cfg.clip_norm and cfg.clip_norm > 0:
-        grads = clip_by_global_norm(grads, cfg.clip_norm)
-    step = state.step + 1
-    lr = cfg.lr if cfg.schedule is None else float(np.float32(cfg.lr) * cfg.schedule(step))
-    bc1 = float(np.float32(1.0) - np.float32(cfg.b1) ** np.float32(step))
-    bc2 = float(np.float32(1.0) - np.float32(cfg.b2) ** np.float32(step))
-    new_p, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
-        g32 = grads[k].to(torch.float32)
-        m = cfg.b1 * state.mu[k] + (1 - cfg.b1) * g32
-        v = cfg.b2 * state.nu[k] + (1 - cfg.b2) * torch.square(g32)
-        mhat = m / bc1
-        vhat = v / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if cfg.weight_decay > 0:
-            delta = delta + cfg.weight_decay * p.to(torch.float32)
-        new_p[k] = (p.detach().to(torch.float32) - lr * delta).to(p.dtype)
-        new_m[k], new_v[k] = m, v
-    return new_p, AdamState(step=step, mu=new_m, nu=new_v)
+    """Returns (new_params, new_state): ``adam_update_`` on copies."""
+    new_p = {k: p.detach().clone() for k, p in params.items()}
+    copy = AdamState(step=state.step, mu={k: m.clone() for k, m in state.mu.items()},
+                     nu={k: v.clone() for k, v in state.nu.items()})
+    clipped = {k: g.detach().clone() for k, g in grads.items()}
+    return new_p, adam_update_(clipped, copy, new_p, cfg)
+
+
+def adam_update_(grads: Tree, state: AdamState, params: Tree, cfg: AdamConfig,
+                 norm: Optional[torch.Tensor] = None, chunk: int = 1 << 26) -> AdamState:
+    """Adam in place: the parameters, the moments and (when clipping) the
+    gradients are overwritten, ``chunk`` elements of a leaf at a time
+    (elementwise ops, so the chunk changes no bit; a leaf that is not
+    contiguous goes in one piece). The model zoo's tables
+    need it: dlrm-rm2's are 6.98 GB, and new moments and parameters beside
+    the old ones would not fit with the temporaries. ``norm`` is
+    ``global_norm(grads)`` when the caller already has it. Returns the new
+    state (the same moment tensors, the step advanced).
+    """
+    with torch.no_grad():
+        if cfg.clip_norm and cfg.clip_norm > 0:
+            norm = global_norm(grads) if norm is None else norm
+            scale = torch.clamp(torch.full_like(norm, cfg.clip_norm) / (norm + 1e-12), max=1.0)
+            for g in grads.values():
+                g.mul_(scale.to(g.dtype))
+        step = state.step + 1
+        lr = cfg.lr if cfg.schedule is None else float(np.float32(cfg.lr) * cfg.schedule(step))
+        bc1 = float(np.float32(1.0) - np.float32(cfg.b1) ** np.float32(step))
+        bc2 = float(np.float32(1.0) - np.float32(cfg.b2) ** np.float32(step))
+        for k, p in params.items():
+            leaf = [p.detach(), grads[k], state.mu[k], state.nu[k]]
+            if all(t.is_contiguous() for t in leaf):
+                flat = [t.view(-1) for t in leaf]
+                parts = [[t[s:s + chunk] for t in flat] for s in range(0, flat[0].numel(), chunk)]
+            else:  # a strided leaf in one piece
+                parts = [leaf]
+            for p_, g_, m_, v_ in parts:
+                g32 = g_.to(torch.float32)
+                m = cfg.b1 * m_ + (1 - cfg.b1) * g32
+                v = cfg.b2 * v_ + (1 - cfg.b2) * torch.square(g32)
+                delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+                if cfg.weight_decay > 0:
+                    delta = delta + cfg.weight_decay * p_.to(torch.float32)
+                p_.copy_((p_.to(torch.float32) - lr * delta).to(p_.dtype))
+                m_.copy_(m)
+                v_.copy_(v)
+    return AdamState(step=step, mu=state.mu, nu=state.nu)
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,123 @@
-"""Step builders (ports ``repro/train/steps.py``): the serving steps so far.
+"""Step builders (ports ``repro/train/steps.py``): the recsys zoo's train
+and serve steps.
 
-The model zoo's training steps (gradient accumulation, clipping, Adam)
-come with the zoo; the binarizer's are in ``core/trainer.py``.
+A parameter tree is the reference's pytree layout in dictionaries and
+lists of tensors. A train step is ``step(params, opt_state, batch) ->
+(params, opt_state, metrics)``: gradients (accumulated over microbatches
+in the reference's order), the global norm, clipping and Adam
+(``optim.adam_update_``, the reference's arithmetic in place: the tables
+of dlrm-rm2 and two-tower do not fit a second copy beside their
+moments), so it updates ``params`` and ``opt_state``'s moments in place
+and returns them. ``opt_state`` is an ``optim.AdamState`` over
+``checkpoint.flatten_tree(params)``'s keys; ``train_state_tree`` gives
+the reference's ``(params, AdamState)`` tree for ``train/checkpoint.py``.
+
+Retrieval top-k is the stable sort (``ops.select_topk``): ties go to the
+lower id, as ``jax.lax.top_k`` orders them. The LM and GNN steps wait
+for their models; the binarizer's steps are in ``core/trainer.py``.
 """
 
 from __future__ import annotations
 
+from typing import Any, Callable, Tuple
+
+import numpy as np
 import torch
 
+from repro_torch.device import full_fp32_matmul
+from repro_torch.kernels.sdc.sdc import sdc_topk, select_topk
+from repro_torch.models.recsys import dien as dien_lib
 from repro_torch.models.recsys import dlrm as dlrm_lib
+from repro_torch.models.recsys import mind as mind_lib
+from repro_torch.models.recsys import two_tower as tt_lib
+from repro_torch.models.recsys.embedding import embedding_lookup
+from repro_torch.train import optim
+from repro_torch.train.checkpoint import flatten_tree, unflatten_tree
+
+
+def init_opt_state(params) -> optim.AdamState:
+    """Zero Adam moments over the leaves of ``params`` (``flatten_tree``'s keys)."""
+    return optim.adam_init(flatten_tree(params))
+
+
+def train_state_tree(params, opt_state: optim.AdamState):
+    """``(params, AdamState(step, mu, nu))`` in the reference's layout, the
+    tree its launcher checkpoints (the step as an int32 scalar)."""
+    return (params, optim.AdamState(step=np.asarray(opt_state.step, np.int32),
+                                    mu=unflatten_tree(params, opt_state.mu.values()),
+                                    nu=unflatten_tree(params, opt_state.nu.values())))
+
+
+def train_state_from_tree(tree) -> Tuple[Any, optim.AdamState]:
+    """The inverse of ``train_state_tree`` (e.g. on what ``checkpoint.restore`` returns)."""
+    params, opt = tree
+    return params, optim.AdamState(step=int(np.asarray(opt.step)), mu=flatten_tree(opt.mu),
+                                   nu=flatten_tree(opt.nu))
+
+
+def _value_and_grad(loss_fn, params, batch):
+    flat = flatten_tree(params)
+    leaves = [t.detach().requires_grad_(True) for t in flat.values()]
+    loss = loss_fn(unflatten_tree(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return loss.detach(), dict(zip(flat, grads))
+
+
+def _accumulate_grads(loss_fn, params, batch, microbatches: int):
+    """Gradient accumulation. ``batch`` is a dictionary whose tensors have
+    a leading global-batch dim divisible by ``microbatches``; the sums run
+    in the reference's order (zeros, then each microbatch in turn, the
+    loss first and then the gradients leaf by leaf), then times
+    1 / microbatches."""
+    if microbatches <= 1:
+        return _value_and_grad(loss_fn, params, batch)
+    n = next(iter(batch.values())).shape[0] // microbatches
+    loss_acc = None
+    for i in range(microbatches):
+        mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+        loss, grads = _value_and_grad(loss_fn, params, mb)
+        if loss_acc is None:
+            loss_acc = torch.zeros((), dtype=torch.float32, device=loss.device)
+            grad_acc = {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                        for k, g in grads.items()}
+        loss_acc = loss_acc + loss
+        grad_acc = {k: grad_acc[k] + grads[k] for k in grad_acc}
+        del grads
+    inv = 1.0 / microbatches
+    return loss_acc * inv, {k: g * inv for k, g in grad_acc.items()}
+
+
+def make_train_step(loss_fn: Callable, adam_cfg: optim.AdamConfig, microbatches: int = 1):
+    """Generic ``(params, opt_state, batch) -> (params, opt_state, metrics)``,
+    ``params`` and the moments updated in place."""
+
+    def step(params, opt_state, batch):
+        loss, grads = _accumulate_grads(loss_fn, params, batch, microbatches)
+        norm = optim.global_norm(grads)
+        opt_state = optim.adam_update_(grads, opt_state, flatten_tree(params), adam_cfg,
+                                       norm=norm)
+        return params, opt_state, {"loss": loss, "grad_norm": norm}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# RecSys family.
+# ---------------------------------------------------------------------------
+
+
+def dlrm_train_step(cfg: dlrm_lib.DLRMConfig, adam_cfg, microbatches=1):
+    def loss_fn(params, batch):
+        return dlrm_lib.bce_loss(params, batch["dense"], batch["sparse_ids"], batch["labels"],
+                                 cfg)
+
+    return make_train_step(loss_fn, adam_cfg, microbatches)
 
 
 def dlrm_serve_step(cfg: dlrm_lib.DLRMConfig):
-    """``step(model, batch) -> logits [B]`` for a ``DLRM`` built from ``cfg``."""
+    """``step(model, batch) -> logits [B]`` for a ``DLRM`` built from ``cfg``
+    (``DLRM.from_tree`` serves a trained parameter tree)."""
 
     def step(model: dlrm_lib.DLRM, batch):
         if model.cfg != cfg:
@@ -21,3 +126,135 @@ def dlrm_serve_step(cfg: dlrm_lib.DLRMConfig):
             return model(batch["dense"], batch["sparse_ids"])
 
     return step
+
+
+def tt_train_step(cfg: tt_lib.TwoTowerConfig, adam_cfg, microbatches=1):
+    def loss_fn(params, batch):
+        return tt_lib.sampled_softmax_loss(params, batch["hist_ids"], batch["hist_mask"],
+                                           batch["pos_items"], batch["item_logq"], cfg)
+
+    return make_train_step(loss_fn, adam_cfg, microbatches)
+
+
+def tt_serve_step(cfg: tt_lib.TwoTowerConfig):
+    def step(params, batch):
+        with torch.no_grad():
+            return tt_lib.score_candidates(params, batch["hist_ids"], batch["hist_mask"],
+                                           batch["cand_ids"], cfg)
+
+    return step
+
+
+def tt_retrieval_step(cfg: tt_lib.TwoTowerConfig, k: int = 100):
+    """retrieval_cand: embed the queries, score the candidates, top-k
+    (scores [B, k], ids [B, k] int32 into ``cand_ids``)."""
+    serve = tt_serve_step(cfg)
+
+    def step(params, batch):
+        return select_topk(serve(params, batch), k)
+
+    return step
+
+
+def _sign(x):
+    return torch.where(x > 0, 1.0, -1.0)
+
+
+def _unit(f):
+    return f * torch.rsqrt(torch.sum(f * f, -1, keepdim=True) + 1e-12)
+
+
+def tt_retrieval_bebr_step(cfg: tt_lib.TwoTowerConfig, k: int = 100, code_dim: int = 64,
+                           n_levels: int = 4):
+    """BEBR-optimised retrieval: the query embeds through the tower,
+    binarizes with the linear recurrent binarizer (the reference's
+    ``binarize_linear``) and is scored against precomputed integer codes
+    by ``sdc_topk``: the CUDA kernel on the card, its plain version on the
+    CPU, both with the reference's epilogue (a^2) dot + (a beta)(sum c_q +
+    sum c_d) + C beta^2, then times the inverse norm.
+
+    batch: hist_ids/hist_mask (one query), cand_codes [N, code_dim] int8,
+    cand_inv [N] f32 (a value that is not > 0 excludes its candidate).
+    ``params["binarizer"]``: W [levels] of [emb_out, code_dim] and R
+    [levels - 1] of [code_dim, emb_out]. Returns (scores [1, k], ids [1, k]).
+    """
+
+    def binarize_linear(bparams, f):
+        f = _unit(f)
+        b = _sign(f @ bparams["W"][0])
+        acc = b
+        code = (b + 1.0) * 0.5 * (2 ** (n_levels - 1))
+        for t in range(n_levels - 1):
+            recon = _unit(acc @ bparams["R"][t])
+            r = _sign((f - recon) @ bparams["W"][t + 1])
+            acc = acc + (2.0 ** -(t + 1)) * r
+            code = code + (r + 1.0) * 0.5 * (2 ** (n_levels - 2 - t))
+        return code  # integer codes as f32 [B, code_dim]
+
+    def step(params, batch):
+        full_fp32_matmul()
+        with torch.no_grad():
+            q = tt_lib.query_embed(params, batch["hist_ids"], batch["hist_mask"], cfg)
+            if q.shape[0] != 1:
+                raise ValueError(f"the BEBR step scores one query, got {q.shape[0]}")
+            q_code = binarize_linear(params["binarizer"], q)
+            if q_code.shape[1] != code_dim:
+                raise ValueError(f"binarizer gives {q_code.shape[1]} dims, step built for "
+                                 f"{code_dim}")
+            codes = torch.as_tensor(batch["cand_codes"], device=q.device)
+            inv = torch.as_tensor(batch["cand_inv"], dtype=torch.float32, device=q.device)
+            return sdc_topk(q_code.to(torch.int8), codes.contiguous(), inv.contiguous(),
+                            n_levels=n_levels, k=k)
+
+    return step
+
+
+def mind_train_step(cfg: mind_lib.MINDConfig, adam_cfg, microbatches=1):
+    def loss_fn(params, batch):
+        return mind_lib.label_aware_loss(params, batch["hist_ids"], batch["hist_mask"],
+                                         batch["pos_items"], batch["neg_items"], cfg)
+
+    return make_train_step(loss_fn, adam_cfg, microbatches)
+
+
+def mind_serve_step(cfg: mind_lib.MINDConfig):
+    def step(params, batch):
+        with torch.no_grad():
+            return mind_lib.serve_interests(params, batch["hist_ids"], batch["hist_mask"], cfg)
+
+    return step
+
+
+def mind_retrieval_step(cfg: mind_lib.MINDConfig, k: int = 100):
+    """Multi-interest retrieval: max-over-interests candidate scoring, top-k."""
+    serve = mind_serve_step(cfg)
+
+    def step(params, batch):
+        full_fp32_matmul()
+        caps = serve(params, batch)  # [B, K, D]
+        with torch.no_grad():
+            cand = embedding_lookup(params["item_table"], batch["cand_ids"])
+            scores = torch.einsum("bkd,nd->bkn", caps, cand).amax(dim=1)
+        return select_topk(scores, k)
+
+    return step
+
+
+def dien_train_step(cfg: dien_lib.DIENConfig, adam_cfg, microbatches=1):
+    def loss_fn(params, batch):
+        return dien_lib.bce_loss(params, batch["hist_items"], batch["hist_cates"],
+                                 batch["hist_mask"], batch["target_item"], batch["target_cate"],
+                                 batch["labels"], cfg)
+
+    return make_train_step(loss_fn, adam_cfg, microbatches)
+
+
+def dien_serve_step(cfg: dien_lib.DIENConfig):
+    def step(params, batch):
+        with torch.no_grad():
+            return dien_lib.forward(params, batch["hist_items"], batch["hist_cates"],
+                                    batch["hist_mask"], batch["target_item"],
+                                    batch["target_cate"], cfg)
+
+    return step
+

@@ -66,7 +66,12 @@ for name in ("repro_torch.index.engine", "repro_torch.launch.mesh",
              "repro_torch.launch.autoscale", "repro_torch.core.losses",
              "repro_torch.core.trainer", "repro_torch.train.optim",
              "repro_torch.train.checkpoint", "repro_torch.launch.binarizer_cache",
-             "repro_torch.launch.autotune"):
+             "repro_torch.launch.autotune", "repro_torch.launch.train",
+             "repro_torch.train.steps", "repro_torch.configs.registry",
+             "repro_torch.data.pipeline", "repro_torch.models.recsys.two_tower",
+             "repro_torch.models.recsys.mind", "repro_torch.models.recsys.dien",
+             "repro_torch.configs.archs.two_tower", "repro_torch.configs.archs.mind_cfg",
+             "repro_torch.configs.archs.dien_cfg"):
     assert name in names, name
 """
 
@@ -95,6 +100,54 @@ def test_port_example_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("example", ["train_two_tower_e2e_torch", "quickstart_torch",
+                                     "compat_upgrade_torch"])
+def test_zoo_examples_import_neither_jax_nor_the_reference(example):
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('ex', 'examples/{example}.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_zoo_entry_points_default_to_the_card(tmp_path):
+    """The training launcher, the zoo's initialisers and batches take the
+    card by default and raise without one; ``--device cpu`` runs."""
+    from repro_torch.configs.archs import dien_cfg, mind_cfg, two_tower
+    from repro_torch.launch import train as PTRN
+    from repro_torch.models.recsys import dien as PDN
+    from repro_torch.models.recsys import mind as PMD
+    from repro_torch.models.recsys import two_tower as PTT
+
+    calls = {
+        "tt init": lambda: PTT.init_params(two_tower.SMOKE, torch.Generator()),
+        "mind init": lambda: PMD.init_params(mind_cfg.SMOKE, torch.Generator()),
+        "dien init": lambda: PDN.init_params(dien_cfg.SMOKE, torch.Generator()),
+        "tt batch": lambda: PS.tt_batch(0, 4, two_tower.SMOKE),
+        "mind batch": lambda: PS.mind_batch(0, 4, mind_cfg.SMOKE),
+        "dien batch": lambda: PS.dien_batch(0, 4, dien_cfg.SMOKE),
+        "tree": lambda: PE.tree_from_numpy({"w": np.zeros(3)}),
+    }
+    args = ["--arch", "mind", "--steps", "2", "--ckpt-every", "1",
+            "--ckpt-dir", str(tmp_path / "ck")]
+    if torch.cuda.is_available():
+        assert calls["tt batch"]()["hist_ids"].device.type == "cuda"
+        return
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for arch in ("dlrm-rm2", "two-tower-retrieval", "mind", "dien"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PTRN.main(["--arch", arch, *args[2:]])
+    assert not (tmp_path / "ck").exists()  # nothing trained or written
+    assert sorted(PTRN.main(args + ["--device", "cpu"])["losses"]) == [1, 2]
 
 
 def test_autotune_and_encode_default_to_the_card():
