@@ -182,24 +182,32 @@ that fails:
      (python -m repro_torch.launch.train --full, in-process): dlrm-rm2
      (26 tables of 1,048,576 x 64, 6.98 GB), two-tower-retrieval (two
      2,097,152 x 256 tables), mind and dien, each 20 steps of the CLI's
-     batch of 16 with a checkpoint every 10 (train/checkpoint.py, the
-     reference's layout) under build/chip_smoke_train_* (removed at the
-     end), then the step-20 checkpoint deleted and the run resumed from
-     step 10, its losses and every parameter bit-identical to the
-     unbroken run's; dot_interact launched once a dlrm-rm2 step (the
-     count zeroed just before and read just after), its output inside a
-     training step exactly equal to its plain version; a step's time
-     (host clock, synced), launch calls, device kernels, device-busy share
-     and peak memory per arch; one serving batch through each serve step,
-     and tt_retrieval_bebr_step through sdc_topk over a million codes;
-     dot_interact at the training shape with its backward timed; one SMOKE
-     train step per arch on the card against the CPU's (the loss within
-     1e-5, Adam's moments within 1e-4 of each leaf's largest entry); then
+     batch of 16 in one unbroken run, then a run with a checkpoint every
+     10 (train/checkpoint.py, the reference's layout) under
+     build/chip_smoke_train_* (removed at the end) that ends after step
+     10, resumed from that checkpoint to step 20: its losses and every
+     parameter bit-identical to the unbroken run's; dot_interact launched
+     once a dlrm-rm2 step (the count zeroed just before and read just
+     after), its output inside a training step exactly equal to its plain
+     version; a step's time (host clock, synced), launch calls, device
+     kernels, device-busy share and peak memory per arch; one serving
+     batch through each serve step, and tt_retrieval_bebr_step through
+     sdc_topk over a million codes, the kernel's output exactly its plain
+     version's on the same card tensors; dot_interact at the training
+     shape with its backward timed; one SMOKE train step per arch on the
+     card against the CPU's (the loss within 1e-5, Adam's moments within
+     1e-4 of each leaf's largest entry); then
      examples/{train_two_tower_e2e,quickstart,compat_upgrade}_torch.py at
-     their defaults, the two-tower example's search one sdc_topk launch
-     (timed at its [32, 20,000] shape, k = 100), each quality figure held
-     within 0.05 of the range the reference's examples give over six
-     initial-weight keys (reference_figures/zoo_examples.py).
+     their defaults: every sdc_topk call they make (FlatSDC at [32,
+     20,000] k 100, [128, 20,000] k 10, the replicas' [64, 10,000] k 10)
+     recorded and held exactly against its plain version, every model
+     they train moved from its initial weights with its loss down (a
+     binarizer's on held-out pairs against its initial weights', the
+     two-tower's from its first ten steps to its last ten), each quality
+     figure within 0.05
+     of the range the reference's examples give over six initial-weight
+     keys (reference_figures/zoo_examples.py); sdc_topk timed at the
+     two-tower example's [32, 20,000], k = 100.
 
 Its last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Phases 3-9 use seeded, untrained
@@ -2722,17 +2730,17 @@ def dlrm_phase(seed, device, name, smi):
         f"{CONFIG.embed_dim} f32 ({model.tables.numel() * 4 / 1e9:.2f} GB), bot {CONFIG.bot_mlp}, "
         f"top {CONFIG.top_dims}, {CONFIG.param_count()} parameters, made on the card in "
         f"{time.perf_counter() - t0:.3f} s")
-    step = dlrm_serve_step(CONFIG)
+    step, params = dlrm_serve_step(CONFIG), model.tree()
     batches = {shape: [dlrm_batch(s, B, CONFIG, device) for s in range(DLRM_BATCHES)]
                for shape, B in DLRM_SHAPES}
     for shape, bs in batches.items():
-        step(model, bs[0])  # warm up
+        step(params, bs[0])  # warm up
     torch.cuda.synchronize()
     di_mod.dot_interact.launches = 0
     logits, step_ms = {}, {}
     for shape, bs in batches.items():
         t0 = time.perf_counter()
-        logits[shape] = [step(model, b) for b in bs]
+        logits[shape] = [step(params, b) for b in bs]
         torch.cuda.synchronize()
         step_ms[shape] = 1e3 * (time.perf_counter() - t0) / len(bs)
     launches = di_mod.dot_interact.launches
@@ -2793,17 +2801,16 @@ def dlrm_phase(seed, device, name, smi):
     return row
 
 
-ZOO_NOISE = {"['att']/[1]/['b']": "['att']/[1]/['w']"}
-
-
 def _zoo_leaf_err(k, got, want):
     """|card - CPU| of moment leaf ``k`` over its largest CPU entry; DIEN's
-    last attention bias (its gradient is rounding noise: the softmax over
-    the sequence does not see a shift) over its weight's, after checking
+    last attention bias (its gradient is rounding noise:
+    ``dien.SHIFT_INVARIANT_LEAVES``) over its weight's, after checking
     that it is noise."""
-    ref = want[ZOO_NOISE.get(k, k)].double()
+    from repro_torch.models.recsys.dien import SHIFT_INVARIANT_LEAVES as noise
+
+    ref = want[noise.get(k, k)].double()
     scale = max(float(ref.abs().max()), 1e-30)
-    if k in ZOO_NOISE:
+    if k in noise:
         check(float(want[k].abs().max()) <= ZOO_GRAD_TOL * scale, f"{k}: not rounding noise")
     return float((got[k].cpu().double() - want[k].double()).abs().max()) / scale
 
@@ -2847,6 +2854,73 @@ def _quiet(fn, *args):
     return out, buf.getvalue()
 
 
+class _SdcTopkCalls:
+    """While active, every ``sdc_topk`` call made through the port's call
+    sites (``kernels.sdc.ops`` for the indexes, ``train.steps`` for the
+    BEBR step) is recorded: its inputs and outputs, held against the plain
+    version afterwards (``check``). Recording adds no launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.kernels.sdc import ops as sdc_ops
+        from repro_torch.kernels.sdc import sdc as sdc_mod
+        from repro_torch.train import steps
+
+        kernel, calls = sdc_mod.sdc_topk, self.calls
+
+        def recorded(q, d, inv, **kw):
+            out = kernel(q, d, inv, **kw)
+            calls.append((q.clone(), d, inv, kw, out))
+            return out
+
+        self.sites = [(m, m.sdc_topk) for m in (sdc_ops, steps)]
+        for m, _ in self.sites:
+            m.sdc_topk = recorded
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in self.sites:
+            m.sdc_topk = fn
+
+    def check(self, tag: str, launches: int) -> str:
+        """Every recorded call's scores and ids exactly its plain version's
+        on the same card tensors, and one recorded call for each of the
+        ``launches`` counted; returns the shapes held, for the log."""
+        import torch
+
+        from repro_torch.kernels.sdc import sdc as sdc_mod
+
+        check(len(self.calls) == launches and launches >= 1,
+              f"{tag}: {len(self.calls)} sdc_topk calls recorded, {launches} launches")
+        shapes = {}
+        for q, d, inv, kw, (v, i) in self.calls:
+            plain = dict(n_levels=kw["n_levels"], k=kw["k"], packed=kw.get("packed", False))
+            pv, pi = sdc_mod.sdc_topk_torch(q, d, inv, **plain)
+            shape = f"[{q.shape[0]}, {d.shape[0]}] D {q.shape[1]} k {kw['k']}"
+            check(torch.equal(v, pv) and torch.equal(i, pi),
+                  f"{tag}: sdc_topk at {shape} differs from its plain version")
+            shapes[shape] = shapes.get(shape, 0) + 1
+        self.calls.clear()
+        return ", ".join(f"{n} at {sh}" for sh, n in shapes.items())
+
+
+def _check_trained(tag: str, training: dict) -> str:
+    """Each model an example trained moved from its initial weights and
+    its loss fell (a binarizer's on held-out pairs, initial against
+    trained weights: its training loss rises as the queue fills; the
+    two-tower's over the run); returns the figures."""
+    out = []
+    for model, p in training.items():
+        check(p["moved"], f"{tag}: training left {model}'s initial weights unchanged")
+        check(p["loss_after"] < p["loss_before"],
+              f"{tag}: {model}'s loss ({p['loss']}) went from {p['loss_before']:.4f} to "
+              f"{p['loss_after']:.4f}")
+        out.append(f"{model} loss {p['loss_before']:.4f} -> {p['loss_after']:.4f} ({p['loss']})")
+    return ", ".join(out)
+
+
 def _load_example(name):
     import importlib.util
 
@@ -2875,7 +2949,6 @@ def zoo_phase(device, name, smi):
     from repro_torch.kernels.sdc import ref as sdc_ref
     from repro_torch.kernels.sdc import sdc as sdc_mod
     from repro_torch.launch import train as train_mod
-    from repro_torch.models.recsys import dlrm as dlrm_lib
     from repro_torch.train import checkpoint as ckpt_lib
     from repro_torch.train import steps
 
@@ -2886,36 +2959,53 @@ def zoo_phase(device, name, smi):
     try:
         # -- (a) the four archs at full width through the launcher ---------------
         for arch in ZOO_ARCHS:
+            t_arch = time.perf_counter()
             cfg = get_arch(arch).config
             ckpt = os.path.join(root, arch)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            base = ["--arch", arch, "--full", "--batch", str(ZOO_BATCH), "--steps",
-                    str(ZOO_STEPS), "--ckpt-dir", ckpt, "--device", str(device)]
+            base = ["--arch", arch, "--full", "--batch", str(ZOO_BATCH), "--device", str(device)]
+            # the unbroken run: 20 steps in one process, nothing written
             torch.cuda.synchronize()
             di_mod.dot_interact.launches = 0
             t0 = time.perf_counter()
-            whole, text = _quiet(train_mod.main, base + ["--ckpt-every", str(ZOO_CKPT_EVERY)])
+            whole, text = _quiet(train_mod.main, base + ["--steps", str(ZOO_STEPS)])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = di_mod.dot_interact.launches
             check(launches == (ZOO_STEPS if arch == "dlrm-rm2" else 0),
                   f"{arch}: {ZOO_STEPS} steps launched dot_interact {launches} times")
-            check(f"[ckpt] step {ZOO_CKPT_EVERY}" in text and text.rstrip().endswith("done.")
-                  and ckpt_lib.latest_step(ckpt) == ZOO_STEPS, f"{arch}: the launcher said {text}")
+            check(text.rstrip().endswith("done."), f"{arch}: the launcher said {text}")
             losses = whole["losses"]
-            check(all(bool(torch.isfinite(v)) for v in losses.values()), f"{arch}: loss not finite")
+            check(sorted(losses) == list(range(1, ZOO_STEPS + 1))
+                  and all(bool(torch.isfinite(v)) for v in losses.values()),
+                  f"{arch}: losses missing or not finite")
             params_a = ckpt_lib.flatten_tree(whole["params"])
             del whole
+            # the broken run: a checkpoint every 10 steps, ended after step 10
+            t0 = time.perf_counter()
+            first, text1 = _quiet(train_mod.main, base + [
+                "--steps", str(ZOO_CKPT_EVERY), "--ckpt-dir", ckpt,
+                "--ckpt-every", str(ZOO_CKPT_EVERY)])
+            torch.cuda.synchronize()
+            wall1 = time.perf_counter() - t0
+            check(f"[ckpt] step {ZOO_CKPT_EVERY}" in text1
+                  and ckpt_lib.latest_step(ckpt) == ZOO_CKPT_EVERY,
+                  f"{arch}: the launcher said {text1}")
+            check(all(torch.equal(first["losses"][i], losses[i])
+                      for i in range(1, ZOO_CKPT_EVERY + 1)),
+                  f"{arch}: the first {ZOO_CKPT_EVERY} losses differ between two runs")
+            del first
             step_dir = os.path.join(ckpt, f"step_{ZOO_CKPT_EVERY:010d}")
             ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
-            # the run is killed after step 10: its step-20 checkpoint never landed
-            shutil.rmtree(os.path.join(ckpt, f"step_{ZOO_STEPS:010d}"))
+            # resumed to step 20, writing no checkpoint (one at step 20 would go unread)
             t0 = time.perf_counter()
-            resumed, text2 = _quiet(train_mod.main, base + ["--ckpt-every", "1000", "--resume"])
+            resumed, text2 = _quiet(train_mod.main, base + [
+                "--steps", str(ZOO_STEPS), "--ckpt-dir", ckpt, "--ckpt-every",
+                str(ZOO_STEPS + 1), "--resume"])
             torch.cuda.synchronize()
             wall2 = time.perf_counter() - t0
-            check(f"[resume] from step {ZOO_CKPT_EVERY}" in text2,
+            check(f"[resume] from step {ZOO_CKPT_EVERY}" in text2 and "[ckpt]" not in text2,
                   f"{arch}: the resumed launcher said {text2}")
             tail = list(range(ZOO_CKPT_EVERY + 1, ZOO_STEPS + 1))
             check(sorted(resumed["losses"]) == tail
@@ -2927,11 +3017,12 @@ def zoo_phase(device, name, smi):
                   f"{arch}: the resumed parameters differ from the unbroken run's")
             del params_a, params_b
             shutil.rmtree(ckpt)
-            log(f"[zoo] {arch} --full, {ZOO_STEPS} steps of {ZOO_BATCH}, checkpoints every "
-                f"{ZOO_CKPT_EVERY} ({ck_bytes / 1e9:.2f} GB each): {wall:.1f} s wall, losses "
-                f"{float(losses[1]):.4f} -> {float(losses[ZOO_STEPS]):.4f}; resumed from step "
-                f"{ZOO_CKPT_EVERY} to {ZOO_STEPS} in {wall2:.1f} s, bit-identical to the unbroken "
-                f"run (its {len(tail)} losses and every parameter)")
+            log(f"[zoo] {arch} --full, {ZOO_STEPS} steps of {ZOO_BATCH}: unbroken {wall:.1f} s "
+                f"wall, losses {float(losses[1]):.4f} -> {float(losses[ZOO_STEPS]):.4f}; "
+                f"{ZOO_CKPT_EVERY} steps and a checkpoint ({ck_bytes / 1e9:.2f} GB) "
+                f"{wall1:.1f} s, resumed from it to step {ZOO_STEPS} "
+                f"{wall2:.1f} s, bit-identical to the unbroken run (its {len(tail)} losses and "
+                f"every parameter)")
 
             # times, with the resumed state (it trains on)
             params, opt = resumed["params"], resumed["opt_state"]
@@ -2962,8 +3053,7 @@ def zoo_phase(device, name, smi):
             with torch.no_grad():
                 if arch == "dlrm-rm2":
                     serve_b = synthetic.dlrm_batch(0, 512, cfg, device)
-                    out = steps.dlrm_serve_step(cfg)(dlrm_lib.DLRM.from_tree(params, cfg),
-                                                     serve_b)
+                    out = steps.dlrm_serve_step(cfg)(params, serve_b)
                     want = (512,)
                 elif arch == "two-tower-retrieval":
                     serve_b = dict(batch, cand_ids=torch.randint(
@@ -2994,15 +3084,18 @@ def zoo_phase(device, name, smi):
                 bebr_b = {"hist_ids": batch["hist_ids"][:1], "hist_mask": batch["hist_mask"][:1],
                           "cand_codes": codes, "cand_inv": sdc_ref.doc_inv_norms(codes, levels)}
                 sdc_mod.sdc_topk.launches = 0
-                v, i = steps.tt_retrieval_bebr_step(cfg, k=100, code_dim=code)(params, bebr_b)
+                with _SdcTopkCalls() as seen:
+                    v, i = steps.tt_retrieval_bebr_step(cfg, k=100, code_dim=code)(params,
+                                                                                  bebr_b)
                 torch.cuda.synchronize()
-                check(sdc_mod.sdc_topk.launches == 1 and v.shape == (1, 100)
-                      and bool(((i >= 0) & (i < ZOO_BEBR_DOCS)).all())
+                check(v.shape == (1, 100) and bool(((i >= 0) & (i < ZOO_BEBR_DOCS)).all())
                       and bool((v[:, :-1] >= v[:, 1:]).all()),
                       "tt_retrieval_bebr_step on the card")
-                msg += (f"; tt_retrieval_bebr_step over {ZOO_BEBR_DOCS} codes: one sdc_topk "
-                        "launch, 100 ids in range, scores descending")
-                del params["binarizer"], codes, bebr_b
+                held = seen.check("tt_retrieval_bebr_step", sdc_mod.sdc_topk.launches)
+                msg += (f"; tt_retrieval_bebr_step over {ZOO_BEBR_DOCS} codes: "
+                        f"{sdc_mod.sdc_topk.launches} sdc_topk launch ({held}), exactly its "
+                        "plain version's scores and ids")
+                del params["binarizer"], codes, bebr_b, seen
 
             if arch == "dlrm-rm2":
                 # the kernel's output inside one training step against the plain version
@@ -3070,35 +3163,46 @@ def zoo_phase(device, name, smi):
                 f"(tolerance {ZOO_GRAD_TOL})")
 
         # -- (b) the three examples at their defaults -----------------------------------
-        figures, walls = {}, {}
-        sdc_mod.sdc_topk.launches = 0
-        t0 = time.perf_counter()
+        figures, walls, held, trained = {}, {}, {}, {}
         dev_arg = ["--device", str(device)]
-        e2e = _load_example("train_two_tower_e2e_torch").main(
-            ["--ckpt", os.path.join(root, "e2e"), *dev_arg])
-        walls["train_two_tower_e2e_torch"] = time.perf_counter() - t0
-        e2e_launches = sdc_mod.sdc_topk.launches
-        check(e2e_launches == 1, f"the two-tower example launched sdc_topk {e2e_launches} times")
-        figures.update(tt_group_float=e2e["group_float"], tt_group_bebr=e2e["group_bebr"],
-                       tt_cover=e2e["cover"])
-        t0 = time.perf_counter()
-        qs = _load_example("quickstart_torch").main(dev_arg)
-        walls["quickstart_torch"] = time.perf_counter() - t0
-        figures.update(qs_recall_float=qs["recall_float"], qs_recall_bebr=qs["recall_bebr"])
-        t0 = time.perf_counter()
-        cu = _load_example("compat_upgrade_torch").main(dev_arg)
-        walls["compat_upgrade_torch"] = time.perf_counter() - t0
-        check(cu["finals"] == ["v2", "v2"] and cu["lost"] == 0 and cu["compat_dispatches"] >= 1,
-              f"the compat example's migration: {cu}")
-        figures.update(bc_old_old=cu["old_old"], bc_naive=cu["naive"], bc_compat=cu["compat"],
-                       bc_mixed_v1=cu["mixed_v1"], bc_mixed_v2=cu["mixed_v2"])
+        for example, argv in (
+                ("train_two_tower_e2e_torch", ["--ckpt", os.path.join(root, "e2e")]),
+                ("quickstart_torch", []), ("compat_upgrade_torch", [])):
+            sdc_mod.sdc_topk.launches = 0
+            t0 = time.perf_counter()
+            with _SdcTopkCalls() as seen:
+                out = _load_example(example).main(argv + dev_arg)
+            torch.cuda.synchronize()
+            walls[example] = time.perf_counter() - t0
+            launches_ex = sdc_mod.sdc_topk.launches
+            held[example] = seen.check(example, launches_ex)
+            trained[example] = _check_trained(example, out["training"])
+            if example.startswith("train_two_tower"):
+                check(launches_ex == 1,
+                      f"the two-tower example launched sdc_topk {launches_ex} times")
+                e2e, e2e_launches = out, launches_ex
+                figures.update(tt_group_float=out["group_float"], tt_group_bebr=out["group_bebr"],
+                               tt_cover=out["cover"])
+            elif example.startswith("quickstart"):
+                figures.update(qs_recall_float=out["recall_float"],
+                               qs_recall_bebr=out["recall_bebr"])
+            else:
+                check(out["finals"] == ["v2", "v2"] and out["lost"] == 0
+                      and out["compat_dispatches"] >= 1,
+                      f"the compat example's migration: {out}")
+                figures.update(bc_old_old=out["old_old"], bc_naive=out["naive"],
+                               bc_compat=out["compat"], bc_mixed_v1=out["mixed_v1"],
+                               bc_mixed_v2=out["mixed_v2"])
+            del out, seen
         for fig, got in figures.items():
             default, lo, hi = REF_ZOO_FIGURES[fig]
             check(lo - FIGURE_MARGIN <= got <= hi + FIGURE_MARGIN,
                   f"{fig} = {got:.4f} is not within {FIGURE_MARGIN} of the reference's "
                   f"[{lo}, {hi}] over {REF_ZOO_KEYS} keys")
-        log("[zoo] examples on the card: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
-            + f"; the two-tower example's search one sdc_topk launch")
+        for example in walls:
+            log(f"[zoo] {example} on the card: {walls[example]:.1f} s; sdc_topk calls held "
+                f"exactly against the plain version: {held[example]}; trained: "
+                f"{trained[example]} (each model's weights moved)")
         log("[zoo] example figures (port on the card | reference key 0, [min, max] over "
             f"{REF_ZOO_KEYS} keys; held within {FIGURE_MARGIN} of that range): "
             + ", ".join(f"{k} {v:.4f} | {REF_ZOO_FIGURES[k][0]} [{REF_ZOO_FIGURES[k][1]}, "

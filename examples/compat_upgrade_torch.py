@@ -24,7 +24,13 @@ import torch
 
 import repro_torch.core.losses as L
 from repro_torch.core.binarize_lib import BinarizerConfig, binarize_eval, make_encode_fn
-from repro_torch.core.trainer import TrainConfig, bc_train_step, init_train_state, train_step
+from repro_torch.core.trainer import (
+    TrainConfig,
+    bc_train_step,
+    binarizer_progress,
+    init_train_state,
+    train_step,
+)
 from repro_torch.data.synthetic import pair_batches, upgraded_corpus
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sdc.sdc import select_topk
@@ -61,10 +67,12 @@ def main(argv=None):
 
     print("1) v1 in production: train phi_old, build the binary index")
     old = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    initial = copy.deepcopy(old.model)
     gen = pair_batches(old_docs, 1, 128, noise=0.05, device=dev)
     for _ in range(args.steps):
         a, p = next(gen)
         old, _ = train_step(old, a, p, cfg)
+    training = {"v1": binarizer_progress(old, initial, *next(gen), cfg)}  # held-out pairs
     out = {"old_old": recall(old.model, old_queries, old.model, old_docs)}
     print(f"   (old q, old index) recall@10 = {out['old_old']:.3f}")
 
@@ -80,6 +88,10 @@ def main(argv=None):
     for _ in range(args.bc_steps):
         idx = rng.integers(0, old_docs.shape[0], 128)
         new, _ = bc_train_step(new, old.model, t(new_docs[idx]), t(old_docs[idx]), cfg)
+    # L_BC on held-out documents: phi_old (the warm start) against phi_new
+    idx = np.random.default_rng(12).integers(0, old_docs.shape[0], 128)
+    training["v2_bc"] = binarizer_progress(new, old.model, t(new_docs[idx]), t(old_docs[idx]),
+                                           cfg, old=old.model)
     out["compat"] = recall(new.model, new_queries, old.model, old_docs)
     print(f"   (new q through phi_new, OLD index, zero backfill) recall@10 = {out['compat']:.3f}")
     print("   -> the new model serves immediately; the index refresh "
@@ -147,7 +159,7 @@ def main(argv=None):
           f"covered the window, final versions {finals}, "
           "zero results lost.")
     out.update(swapped=report.swapped, finals=finals, lost=sum(r is None for r in results),
-               compat_dispatches=stats["compat_dispatches"])
+               compat_dispatches=stats["compat_dispatches"], training=training)
     return out
 
 

@@ -12,6 +12,7 @@ statistically.
 """
 
 import argparse
+import copy
 import time
 
 import numpy as np
@@ -19,7 +20,12 @@ import torch
 
 import repro_torch.core.losses as L
 from repro_torch.core.binarize_lib import BinarizerConfig, make_encode_fn
-from repro_torch.core.trainer import TrainConfig, init_train_state, train_step
+from repro_torch.core.trainer import (
+    TrainConfig,
+    binarizer_progress,
+    init_train_state,
+    train_step,
+)
 from repro_torch.data.synthetic import clustered_corpus, pair_batches
 from repro_torch.device import resolve_device
 from repro_torch.index.flat import FlatFloat, FlatSDC
@@ -47,6 +53,7 @@ def main(argv=None):
     )
     state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     gen = pair_batches(docs, 1, 256, noise=0.08, device=dev)
+    initial = copy.deepcopy(state.model)
     t0 = time.time()
     loss = float("nan")
     for _ in range(args.steps):
@@ -54,6 +61,7 @@ def main(argv=None):
         state, metrics = train_step(state, a, p, cfg)
         loss = metrics["loss"]
     print(f"   trained {args.steps} steps in {time.time()-t0:.0f}s, loss={float(loss):.3f}")
+    trained = binarizer_progress(state, initial, *next(gen), cfg)  # held-out pairs
 
     print("3) encode corpus to recurrent binary codes")
     enc = make_encode_fn(state.model)
@@ -71,7 +79,7 @@ def main(argv=None):
     print(f"   float index: {ff.nbytes()/2**20:6.1f} MiB  recall@10={r(idx_f):.3f}")
     print(f"   BEBR  index: {sdc.nbytes()/2**20:6.1f} MiB  recall@10={r(idx_b):.3f}  "
           f"({100*(1-sdc.nbytes()/ff.nbytes()):.0f}% smaller)")
-    return {"recall_float": r(idx_f), "recall_bebr": r(idx_b)}
+    return {"recall_float": r(idx_f), "recall_bebr": r(idx_b), "training": {"binarizer": trained}}
 
 
 if __name__ == "__main__":

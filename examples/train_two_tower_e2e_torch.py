@@ -18,6 +18,7 @@ quality figures match the reference's statistically, not bit for bit.
 """
 
 import argparse
+import copy
 import os
 import time
 
@@ -26,7 +27,13 @@ import torch
 
 from repro_torch.core import losses as L
 from repro_torch.core.binarize_lib import BinarizerConfig, make_encode_fn
-from repro_torch.core.trainer import TrainConfig, init_train_state, train_step
+from repro_torch.core.trainer import (
+    TrainConfig,
+    binarizer_progress,
+    init_train_state,
+    train_step,
+    training_progress,
+)
 from repro_torch.device import resolve_device
 from repro_torch.index.flat import FlatSDC
 from repro_torch.models.recsys import two_tower as tt
@@ -80,9 +87,12 @@ def main(argv=None):
         params, opt = steps.train_state_from_tree(tree)
         print(f"[resume] from step {start}")
 
+    initial = {k: t.detach().clone() for k, t in ck.flatten_tree(params).items()}
+    losses = []
     t0 = time.time()
     for i in range(start, args.steps):
         params, opt, metrics = step(params, opt, make_batch(i))
+        losses.append(metrics["loss"])
         if (i + 1) % 50 == 0:
             print(f"step {i+1}: loss={float(metrics['loss']):.4f} ({time.time()-t0:.0f}s)")
             ck.save(args.ckpt, i + 1, steps.train_state_tree(params, opt))
@@ -106,12 +116,19 @@ def main(argv=None):
         adam=optim.AdamConfig(lr=2e-3, clip_norm=5.0),
     )
     bstate = init_train_state(bcfg, torch.Generator(device=dev).manual_seed(1), dev)
-    for i in range(args.binarizer_steps):
-        b = make_batch(5000 + i)
+    b_initial = copy.deepcopy(bstate.model)
+
+    def pairs(i):
+        b = make_batch(i)
         with torch.no_grad():
-            q = tt.query_embed(params, b["hist_ids"], b["hist_mask"], cfg)
-            it = tt.item_embed(params, b["pos_items"], cfg)
-        bstate, _ = train_step(bstate, q, it, bcfg)
+            return (tt.query_embed(params, b["hist_ids"], b["hist_mask"], cfg),
+                    tt.item_embed(params, b["pos_items"], cfg))
+
+    for i in range(args.binarizer_steps):
+        bstate, _ = train_step(bstate, *pairs(5000 + i), bcfg)
+    training = {"binarizer": binarizer_progress(bstate, b_initial, *pairs(9000), bcfg)}
+    if losses:  # the backbone trained in this run, not only restored
+        training["two_tower"] = training_progress(initial, ck.flatten_tree(params), losses)
 
     enc = make_encode_fn(bstate.model)
     index = FlatSDC.build(enc(item_emb), 4, device=dev)
@@ -142,7 +159,7 @@ def main(argv=None):
     print(f"float top-10 covered by BEBR top-100: {cover:.2f}")
     print("done.")
     return {"group_float": float(grp_float), "group_bebr": float(grp_bebr),
-            "cover": float(cover), "index": index, "q_codes": q_codes}
+            "cover": float(cover), "index": index, "q_codes": q_codes, "training": training}
 
 
 if __name__ == "__main__":

@@ -248,3 +248,54 @@ def train_state_from_numpy(tree, cfg: TrainConfig, device="cuda") -> TrainState:
                "ptr": int(np.asarray(queue["ptr"])), "filled": int(np.asarray(queue["filled"]))},
         step=int(np.asarray(tree.step)),
     )
+
+
+
+def training_progress(initial: Dict[str, torch.Tensor], final: Dict[str, torch.Tensor],
+                      losses, window: int = 10) -> Dict[str, Any]:
+    """What a training run did, for a check that it trained: whether any
+    tensor of ``final`` differs from the one of the same key in ``initial``
+    (copies taken before the run), and the mean loss of its first and
+    last ``window`` steps (``losses``: one scalar tensor a step), for an
+    objective whose loss is comparable across the run."""
+    return {"moved": any(not torch.equal(initial[k], t.detach()) for k, t in final.items()),
+            "loss_before": float(torch.stack(losses[:window]).mean()),
+            "loss_after": float(torch.stack(losses[-window:]).mean()),
+            "loss": f"training, first and last {window} steps"}
+
+
+def held_out_loss(state: TrainState, model: B.RecurrentBinarizer, anchors: torch.Tensor,
+                  positives: torch.Tensor, cfg: TrainConfig,
+                  old: B.RecurrentBinarizer | None = None) -> float:
+    """The contrastive loss (Eq. 4) of ``model`` on pairs it was not trained
+    on, every encoder in eval mode and nothing updated: the anchors' codes
+    against the positives' keys from ``state``'s momentum encoder and the
+    hard negatives its queue gives them (``train_step``'s L), or, given
+    ``old``, against phi_old's keys (``bc_train_step``'s L_BC)."""
+    with torch.no_grad():
+        if old is None:
+            keys = B.binarize_eval(state.m_model, positives)
+            negatives = L.mine_hard_negatives(state.queue, keys, cfg.queue.top_k, positives=keys)
+        else:
+            keys = B.binarize_eval(old, positives)
+            negatives = L.mine_hard_negatives(state.queue, keys, cfg.queue.top_k, positives=keys,
+                                              pos_exclusion_sim=cfg.bc_pos_exclusion)
+        return float(L.info_nce(B.binarize_eval(model, anchors), keys, negatives,
+                                temperature=cfg.temperature))
+
+
+def binarizer_progress(state: TrainState, initial: B.RecurrentBinarizer, anchors: torch.Tensor,
+                       positives: torch.Tensor, cfg: TrainConfig,
+                       old: B.RecurrentBinarizer | None = None) -> Dict[str, Any]:
+    """``training_progress`` for a binarizer, whose training loss is not
+    comparable across a run (the queue fills and its negatives harden, so
+    it rises while the model learns): whether the weights moved from
+    ``initial`` (a copy taken before the run), and ``held_out_loss`` of
+    ``initial`` and of the trained model on the same held-out pairs, keys
+    and negatives."""
+    moved = any(not torch.equal(p0, p) for p0, p in zip(initial.parameters(),
+                                                        state.model.parameters()))
+    return {"moved": moved,
+            "loss_before": held_out_loss(state, initial, anchors, positives, cfg, old),
+            "loss_after": held_out_loss(state, state.model, anchors, positives, cfg, old),
+            "loss": "held-out pairs, initial and trained weights"}

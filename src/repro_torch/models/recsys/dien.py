@@ -56,6 +56,14 @@ class DIENConfig:
         return emb + gru + augru + att + mlp
 
 
+# The attention logits go through a softmax over the sequence, which a
+# shift does not move: the gradient of the attention MLP's last bias is zero
+# in exact arithmetic and float32 rounding noise in practice. Each such leaf
+# (a ``checkpoint.flatten_tree`` key) maps to the leaf whose gradient sets
+# its scale, for comparisons of two computations' gradients.
+SHIFT_INVARIANT_LEAVES = {"['att']/[1]/['b']": "['att']/[1]/['w']"}
+
+
 def _init_gru(generator, d_in, d_h, dtype, device):
     def gate():
         wx = torch.randn((d_in, d_h), generator=generator, device=device) / math.sqrt(d_in)

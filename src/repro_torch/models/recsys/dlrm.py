@@ -11,9 +11,10 @@ reference's: ``[x, emb]`` for the features and ``[inter, x]`` for the
 top MLP's input. The 26 tables are one stacked [F, V, D] tensor.
 
 ``forward`` and ``bce_loss`` take the reference's parameter tree
-(``{"tables", "bot", "top"}`` of tensors); the ``DLRM`` module holds the
-same tensors as parameters (``DLRM.tree`` / ``DLRM.from_tree`` share
-their storage) and is what ``train/steps.dlrm_serve_step`` serves.
+(``{"tables", "bot", "top"}`` of tensors), and so do the train and serve
+steps (``train/steps.py``); the ``DLRM`` module holds the same tensors as
+parameters (``DLRM.tree`` / ``DLRM.from_tree`` share their storage), for
+callers that want a module.
 """
 
 from __future__ import annotations
@@ -74,9 +75,6 @@ class DLRM(nn.Module):
     def __init__(self, cfg: DLRMConfig, tables: torch.Tensor, bot: nn.ModuleList,
                  top: nn.ModuleList):
         super().__init__()
-        want = (cfg.n_sparse, cfg.table_vocab, cfg.embed_dim)
-        if tuple(tables.shape) != want:
-            raise ValueError(f"tables {tuple(tables.shape)} != {want}")
         self.cfg = cfg
         self.tables = nn.Parameter(tables)
         self.bot = bot
@@ -89,8 +87,8 @@ class DLRM(nn.Module):
     @staticmethod
     def from_tree(tree: Dict[str, Any], cfg: DLRMConfig) -> "DLRM":
         """A DLRM over the tensors of ``tree`` (shared storage, no copy)."""
-        return DLRM(cfg, tree["tables"], _layer_module(tree["bot"], cfg.bot_mlp),
-                    _layer_module(tree["top"], cfg.top_dims))
+        check_tree(tree, cfg)
+        return DLRM(cfg, tree["tables"], _layer_module(tree["bot"]), _layer_module(tree["top"]))
 
     def features(self, dense, sparse_ids) -> Tuple[torch.Tensor, torch.Tensor]:
         """(x [B, D] the bottom MLP's output, feats [B, n_sparse + 1, D])."""
@@ -108,16 +106,23 @@ def _layer_tree(layers) -> list:
     return [{"w": layer["w"], "b": layer["b"]} for layer in layers]
 
 
-def _layer_module(tree: list, dims) -> nn.ModuleList:
-    if len(tree) != len(dims) - 1:
-        raise ValueError(f"{len(tree)} layers do not match dims {dims}")
-    out = nn.ModuleList()
-    for p, a, b in zip(tree, dims[:-1], dims[1:]):
-        w, bias = p["w"], p["b"]
-        if tuple(w.shape) != (a, b) or tuple(bias.shape) != (b,):
-            raise ValueError(f"layer {tuple(w.shape)} / {tuple(bias.shape)} != ({a}, {b})")
-        out.append(nn.ParameterDict({"w": nn.Parameter(w), "b": nn.Parameter(bias)}))
-    return out
+def _layer_module(tree: list) -> nn.ModuleList:
+    return nn.ModuleList(nn.ParameterDict({"w": nn.Parameter(p["w"]), "b": nn.Parameter(p["b"])})
+                         for p in tree)
+
+
+def check_tree(tree: Dict[str, Any], cfg: DLRMConfig) -> None:
+    """Raise ValueError unless ``tree``'s tables and MLP layers have ``cfg``'s shapes."""
+    want = (cfg.n_sparse, cfg.table_vocab, cfg.embed_dim)
+    if tuple(tree["tables"].shape) != want:
+        raise ValueError(f"tables {tuple(tree['tables'].shape)} != {want} ({cfg.name})")
+    for part, dims in (("bot", cfg.bot_mlp), ("top", cfg.top_dims)):
+        if len(tree[part]) != len(dims) - 1:
+            raise ValueError(f"{len(tree[part])} {part} layers do not match dims {dims}")
+        for p, a, b in zip(tree[part], dims[:-1], dims[1:]):
+            w, bias = p["w"], p["b"]
+            if tuple(w.shape) != (a, b) or tuple(bias.shape) != (b,):
+                raise ValueError(f"layer {tuple(w.shape)} / {tuple(bias.shape)} != ({a}, {b})")
 
 
 def features(params, dense, sparse_ids, cfg: DLRMConfig) -> Tuple[torch.Tensor, torch.Tensor]:

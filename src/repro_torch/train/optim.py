@@ -6,8 +6,13 @@ The reference's own expression, not ``torch.optim.Adam``'s: clip by
 in float32, then ``mhat / (sqrt(vhat) + eps)``. A tree here is a
 dictionary of tensors whose order is the reference's tree-leaf order
 (``binarize_lib.param_leaves``), so the global norm sums its leaves as the
-reference does. Every function returns new tensors; the step count and
-the schedules live on the host, so no step reads the device.
+reference does. ``adam_update_`` overwrites the parameters, the moments
+and (when clipping) the gradients in place, as the model zoo's train
+steps need (``train/steps.py``); ``adam_update`` runs the same arithmetic
+on copies and returns new tensors, for the binarizer's trainer
+(``core/trainer.py``), which keeps the old parameters beside the new. The
+step count and the schedules live on the host, so no step reads the
+device.
 """
 
 from __future__ import annotations

@@ -116,14 +116,14 @@ def dlrm_train_step(cfg: dlrm_lib.DLRMConfig, adam_cfg, microbatches=1):
 
 
 def dlrm_serve_step(cfg: dlrm_lib.DLRMConfig):
-    """``step(model, batch) -> logits [B]`` for a ``DLRM`` built from ``cfg``
-    (``DLRM.from_tree`` serves a trained parameter tree)."""
+    """``step(params, batch) -> logits [B]`` over the reference's parameter
+    tree (``dlrm_lib.forward``), as the other serve steps take theirs; a
+    tree whose shapes are not ``cfg``'s raises ValueError."""
 
-    def step(model: dlrm_lib.DLRM, batch):
-        if model.cfg != cfg:
-            raise ValueError(f"model built for {model.cfg.name}, step for {cfg.name}")
+    def step(params, batch):
+        dlrm_lib.check_tree(params, cfg)
         with torch.no_grad():
-            return model(batch["dense"], batch["sparse_ids"])
+            return dlrm_lib.forward(params, batch["dense"], batch["sparse_ids"], cfg)
 
     return step
 

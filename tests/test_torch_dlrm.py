@@ -148,7 +148,7 @@ def test_smoke_forward_matches_reference(step, batch):
         interact_fn=lambda f: RO.dot_interaction(f, block_b=16, interpret=True)))
     step_fn = dlrm_serve_step(cfg_p)
     b = {k: np.array(v) for k, v in b.items()}
-    got = step_fn(model, b)
+    got = step_fn(model.tree(), b)
     assert got.shape == (batch,) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, rtol=LOGIT_TOL, atol=LOGIT_TOL)
     np.testing.assert_allclose(got.numpy(), ref_kernel, rtol=LOGIT_TOL, atol=LOGIT_TOL)
@@ -167,10 +167,11 @@ def test_smoke_forward_matches_reference(step, batch):
 
 def test_serve_step_refuses_another_config():
     model = PD.init_dlrm(PC.SMOKE, torch.Generator().manual_seed(0), device="cpu")
-    other = dataclasses.replace(PC.SMOKE, name="other")
     batch = PS.dlrm_batch(0, 4, PC.SMOKE, device="cpu")
-    with pytest.raises(ValueError):
-        dlrm_serve_step(other)(model, batch)
+    for other in (dataclasses.replace(PC.SMOKE, name="other", table_vocab=PC.SMOKE.table_vocab + 1),
+                  dataclasses.replace(PC.SMOKE, name="other", bot_mlp=(13, 32, 8, 16))):
+        with pytest.raises(ValueError):
+            dlrm_serve_step(other)(model.tree(), batch)
 
 
 def test_init_dlrm_draws_the_reference_distributions():
@@ -188,7 +189,7 @@ def test_init_dlrm_draws_the_reference_distributions():
     w = model.top[0]["w"].detach()
     assert abs(float(w.std()) - (2 / cfg.interact_dim) ** 0.5) < 0.01
     batch = PS.dlrm_batch(0, 33, cfg, device="cpu")
-    logits = dlrm_serve_step(cfg)(model, batch)
+    logits = dlrm_serve_step(cfg)(model.tree(), batch)
     assert logits.shape == (33,) and bool(torch.isfinite(logits).all())
 
 
@@ -252,7 +253,7 @@ def test_smoke_forward_on_card_never_reaches_the_plain_version(monkeypatch):
     assert model.tables.device.type == dev.type
     batch = PS.dlrm_batch(0, 129, PC.SMOKE)
     before = PK.dot_interact.launches
-    logits = dlrm_serve_step(PC.SMOKE)(model, batch)
+    logits = dlrm_serve_step(PC.SMOKE)(model.tree(), batch)
     torch.cuda.synchronize()
     assert PK.dot_interact.launches == before + 1
     cpu = PD.dlrm_from_numpy(params, PC.SMOKE, device="cpu")

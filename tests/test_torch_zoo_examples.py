@@ -6,7 +6,9 @@ query-item pairs, FlatSDC at k = 100 and the three quality figures),
 and ``examples/compat_upgrade_torch.py`` (BC training, then the live
 two-replica migration: both replicas end on v2, nothing lost, compat
 dispatches). At these few steps the figures are checked for range and
-structure only; ``chip_smoke.py`` phase 11 holds the card's figures at
+structure only, and every model an example trains for having moved from
+its initial weights (``training``, what phase 11 also holds to a falling
+loss); ``chip_smoke.py`` phase 11 holds the card's figures at
 the defaults against the reference's (``reference_figures/zoo_examples.py``).
 The ``gpu`` case runs the two-tower example on the card.
 """
@@ -14,6 +16,7 @@ The ``gpu`` case runs the two-tower example on the card.
 import importlib.util
 import os
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -38,6 +41,12 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+def _assert_trained(out, models):
+    assert sorted(out["training"]) == sorted(models)
+    for p in out["training"].values():
+        assert p["moved"] and np.isfinite(p["loss_before"]) and np.isfinite(p["loss_after"])
+
+
 def test_two_tower_e2e_on_cpu(tmp_path, capsys):
     from repro_torch.train import checkpoint as ck
 
@@ -51,6 +60,7 @@ def test_two_tower_e2e_on_cpu(tmp_path, capsys):
     assert text.rstrip().endswith("done.")
     for k in ("group_float", "group_bebr", "cover"):
         assert 0.0 <= out[k] <= 1.0
+    _assert_trained(out, ["two_tower", "binarizer"])
     assert ck.latest_step(str(tmp_path / "ck")) == 50
 
 
@@ -60,6 +70,7 @@ def test_quickstart_on_cpu(capsys):
     assert "float index:   19.5 MiB" in text and "BEBR  index:    1.3 MiB" in text
     assert out["recall_float"] == 1.0  # the corpus is the reference's; exact float search
     assert 0.0 <= out["recall_bebr"] <= 1.0
+    _assert_trained(out, ["binarizer"])
 
 
 def test_compat_upgrade_on_cpu(capsys):
@@ -71,6 +82,7 @@ def test_compat_upgrade_on_cpu(capsys):
     assert out["compat_dispatches"] >= 1
     for k in ("old_old", "naive", "compat", "mixed_v1", "mixed_v2"):
         assert 0.0 <= out[k] <= 1.0
+    _assert_trained(out, ["v1", "v2_bc"])
 
 
 @pytest.mark.parametrize("name", ["train_two_tower_e2e_torch", "quickstart_torch",

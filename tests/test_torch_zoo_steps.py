@@ -50,6 +50,7 @@ from repro_torch.configs.archs import dien_cfg as PDC  # noqa: E402
 from repro_torch.configs.archs import dlrm_rm2 as PDL  # noqa: E402
 from repro_torch.configs.archs import mind_cfg as PMC  # noqa: E402
 from repro_torch.configs.archs import two_tower as PTC  # noqa: E402
+from repro_torch.models.recsys import dien as PDI  # noqa: E402
 from repro_torch.models.recsys import dlrm as PD  # noqa: E402
 from repro_torch.models.recsys import embedding as PE  # noqa: E402
 from repro_torch.train import optim as PO  # noqa: E402
@@ -79,12 +80,11 @@ def _t(batch):
     return {k: torch.from_numpy(np.array(v)) for k, v in _np(batch).items()}
 
 
-# DIEN's attention logits go through a softmax over the sequence, which a
-# shift does not move: the gradient of the last attention bias is zero in
-# exact arithmetic and float32 rounding noise in both packages. It is held
-# to be noise (at most GRAD_TOL of its layer's weight gradient's largest
-# entry) and within GRAD_TOL of that entry.
-NOISE_LEAVES = {"['att']/[1]/['b']": "['att']/[1]/['w']"}
+# DIEN's last attention bias has a gradient of rounding noise in both
+# packages (``dien.SHIFT_INVARIANT_LEAVES``, shared with chip_smoke.py). It
+# is held to be noise (at most GRAD_TOL of its layer's weight gradient's
+# largest entry) and within GRAD_TOL of that entry.
+NOISE_LEAVES = PDI.SHIFT_INVARIANT_LEAVES
 
 
 def _leaf_err(k, got, want):
@@ -231,8 +231,7 @@ def test_serve_steps_match_the_reference():
     rng = np.random.default_rng(3)
     # dlrm-rm2
     params, batch, rcfg, pcfg, _, _ = _world("dlrm-rm2", seed=2)
-    model = PD.DLRM.from_tree(_port_tree(params), pcfg)
-    got = PST.dlrm_serve_step(pcfg)(model, _t(batch))
+    got = PST.dlrm_serve_step(pcfg)(_port_tree(params), _t(batch))
     assert _rel(got, RST.dlrm_serve_step(rcfg)(params, batch)) <= SERVE_TOL
     # two-tower
     params, batch, rcfg, pcfg, _, _ = _world("two-tower-retrieval", seed=2)
@@ -309,6 +308,43 @@ def test_tt_retrieval_bebr_step_matches_the_reference(seed, k):
         _port_tree(params), _t(batch))
     np.testing.assert_array_equal(pi.numpy(), np.asarray(ri))
     assert _rel(pv, rv) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,k,N", [(0, 20, 500), (1, 100, 500), (2, 1, 500),
+                                      (3, 100, 300_007)])
+def test_tt_retrieval_bebr_step_on_the_card_matches_the_reference(seed, k, N, monkeypatch):
+    """The step on CUDA tensors: one ``sdc_topk`` launch, the reference's
+    ids exactly and its scores within 1e-6 relative, and the kernel's
+    output exactly its plain version's (``sdc_topk_torch``) on the same
+    card tensors (the query code as the step made it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.sdc import sdc as PSDC
+
+    params, batch = _bebr_world(seed, N=N)
+    rv, ri = jax.jit(RST.tt_retrieval_bebr_step(RTC.SMOKE, k=k, code_dim=16, n_levels=4))(
+        params, batch)
+    seen = []
+
+    def recorded(*args, **kwargs):
+        out = PSDC.sdc_topk(*args, **kwargs)
+        seen.append((args, kwargs, out))
+        return out
+
+    monkeypatch.setattr(PST, "sdc_topk", recorded)
+    tree = PE.tree_from_numpy(params, device="cuda")
+    before = PSDC.sdc_topk.launches
+    pv, pi = PST.tt_retrieval_bebr_step(PTC.SMOKE, k=k, code_dim=16, n_levels=4)(
+        tree, {key: v.cuda() for key, v in _t(batch).items()})
+    torch.cuda.synchronize()
+    assert PSDC.sdc_topk.launches == before + 1 and len(seen) == 1
+    assert pv.device.type == "cuda"
+    np.testing.assert_array_equal(pi.cpu().numpy(), np.asarray(ri))
+    assert _rel(pv.cpu(), rv) <= 1e-6
+    args, kwargs, (kv, ki) = seen[0]
+    wv, wi = PSDC.sdc_topk_torch(*args, **kwargs)
+    assert torch.equal(kv, wv) and torch.equal(ki, wi)
 
 
 def test_tt_retrieval_bebr_step_refuses_a_batch_of_queries():
