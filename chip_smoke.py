@@ -209,6 +209,26 @@ that fails:
      keys (reference_figures/zoo_examples.py); sdc_topk timed at the
      two-tower example's [32, 20,000], k = 100.
 
+ 12. the LM and GNN families (no kernel: the reference's models reach
+     no Pallas kernel): llama3.2-1b at its full config (1.24B parameters,
+     bf16) through the launcher (--full, batch 16 x 128 tokens, 4 steps,
+     every leaf moved; 2 steps and a checkpoint, resumed to step 4
+     bit-identical), one repeated batch through lm_train_step (its loss
+     falls over 10 steps), lm_prefill_step against forward's last position
+     at 2,048 tokens (the chunked attention), a prefill of 32,768 tokens
+     (prefill_32k, batch cut from 32 to 1), decode token by token against
+     forward, decode at a 32,768-token cache (decode_32k, batch cut from
+     128 to 16) with a bf16 and an int8 cache, the int8 logits within
+     0.05 of the bf16 ones; llama4-scout at full width cut to 2 layers
+     (prefill of 4,096 tokens in 2,048-token routing groups against
+     forward, a few decode steps); the five full LM configs on the meta
+     device (elements == param_count); one SMOKE card step of each LM and
+     of meshgraphnet against the CPU's; meshgraphnet --full through the
+     launcher, then gnn_train_step and gnn_infer_step at the reference's
+     minibatch_lg size (169,984 nodes, 168,960 edges) twice from one
+     seed, bit-identical; times (tokens/s), device-busy shares and peak
+     memory printed, not gated.
+
 Its last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Phases 3-9 use seeded, untrained
 weights (their recall is information only); phase 10 trains them.
@@ -218,6 +238,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -306,6 +327,30 @@ ZOO_ARCHS = ("dlrm-rm2", "two-tower-retrieval", "mind", "dien")
 ZOO_BATCH, ZOO_STEPS, ZOO_CKPT_EVERY, ZOO_TIME_STEPS = 16, 20, 10, 5
 ZOO_LOSS_TOL, ZOO_GRAD_TOL = 1e-5, 1e-4
 ZOO_BEBR_DOCS = 1_000_000
+# the LM and GNN families (phase 12): llama3.2-1b at full width through the
+# launcher (--batch ZOO_BATCH rows of 128 tokens), LM_STEPS steps unbroken and
+# through one checkpoint at LM_RESUME_AT; LM_FIT_STEPS steps on one repeated
+# batch; prefill against forward at LM_CHUNKED_S (the chunked attention:
+# > attn_chunk 1,024, a multiple); prefill_32k's and decode_32k's length
+# LM_LONG with their batches cut from 32 and 128 to LM_PREFILL_BATCH and
+# LM_DECODE_BATCH (one chunk's float32 logits are 4.3 GB at batch 1, a
+# bfloat16 cache 17 GB at batch 16); decode against forward over a prompt
+# of LM_PROMPT tokens within LM_DECODE_TOL of each row's largest |logit| and
+# the int8 cache within LM_INT8_TOL of the bfloat16 one (the reference's
+# bound, tests/test_models_lm.py); prefill against forward's last position
+# within one bfloat16 rounding of the largest (LM_PREFILL_TOL); llama4-scout
+# cut to MOE_LAYERS layers (48 do not fit one card), a prefill of
+# MOE_PREFILL_S tokens (two 2,048-token routing groups); meshgraphnet at the
+# reference's minibatch_lg size (configs/cells.py:143)
+LM_ARCH, MOE_ARCH, GNN_ARCH = "llama3.2-1b", "llama4-scout-17b-a16e", "meshgraphnet"
+LM_IDS = ("llama3-405b", "llama3.2-1b", "mistral-large-123b", "llama4-scout-17b-a16e",
+          "grok-1-314b")
+LM_STEPS, LM_RESUME_AT, LM_FIT_STEPS, LM_TIME_STEPS = 4, 2, 10, 3
+LM_CHUNKED_S, LM_LONG, LM_PREFILL_BATCH, LM_DECODE_BATCH, LM_DECODE_STEPS = 2048, 32768, 1, 16, 8
+LM_PROMPT, LM_PROMPT_BATCH = 16, 2
+LM_DECODE_TOL, LM_INT8_TOL, LM_PREFILL_TOL = 0.05, 0.05, 2.0 ** -7
+MOE_LAYERS, MOE_PREFILL_S, MOE_DECODE_BATCH, MOE_DECODE_STEPS = 2, 4096, 4, 4
+GNN_LG_NODES, GNN_LG_EDGES, GNN_LG_FEAT, GNN_STEPS, GNN_TIME_STEPS = 169_984, 168_960, 100, 4, 3
 # the JAX reference examples' quality figures on the CPU, (key 0, min, max)
 # over REF_ZOO_KEYS initial-weight keys (PYTHONPATH=src JAX_PLATFORMS=cpu
 # python reference_figures/zoo_examples.py): the port's figure on the card
@@ -3249,6 +3294,403 @@ def zoo_phase(device, name, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _profiled(fn):
+    """(host ms, device-busy ms or "not measured") of one call of ``fn``
+    under torch.profiler, after a warm-up call; for calls of seconds,
+    where a second warm-up would cost more than it tells."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    us = sum(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
+             for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return ms, (us / 1e3 if us else "not measured")
+
+
+def _busy(ms, busy) -> str:
+    if isinstance(busy, str):
+        return busy
+    return f"{busy:.1f} ms ({100 * busy / ms:.1f}% of the call)"
+
+
+def _row_rel(got, want) -> float:
+    """max over rows of |got - want| / the row's largest |want| (float32)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs().amax(-1) / want.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def _equal_trees(a, b) -> bool:
+    """Two parameter trees (or moment dictionaries) equal bit for bit."""
+    import torch
+
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    a, b = ckpt_lib.flatten_tree(a), ckpt_lib.flatten_tree(b)
+    return list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def lm_gnn_phase(device, name, smi):
+    """Phase 12: the LM family (llama3.2-1b at full width through the
+    launcher, a repeated batch, prefill and decode at 32,768 tokens with a
+    bfloat16 and an int8 cache, llama4-scout's MoE at full width and two
+    layers, the five full configs on the meta device) and meshgraphnet
+    (through the launcher, and twice at minibatch_lg's size, bit-identical),
+    with one SMOKE card step each against the CPU's. Adds no kernel."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import gnn as gnn_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import steps
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_lm_", dir=os.path.join(ROOT, "build"))
+    try:
+        # -- (a) llama3.2-1b --full through the launcher, and one resume ----------
+        cfg = get_arch(LM_ARCH).config
+        tokens_a_step = ZOO_BATCH * train_mod.LM_SEQ
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = ["--arch", LM_ARCH, "--full", "--batch", str(ZOO_BATCH), "--device", str(device)]
+        t0 = time.perf_counter()
+        whole, text = _quiet(train_mod.main, base + ["--steps", str(LM_STEPS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses, lnorms = whole["losses"], whole["grad_norms"]
+        check(text.rstrip().endswith("done.") and sorted(losses) == list(range(1, LM_STEPS + 1))
+              and all(bool(torch.isfinite(v)) for v in (*losses.values(), *lnorms.values())),
+              f"{LM_ARCH}: the launcher said {text} (gradient norms {lnorms})")
+        params_a = ckpt_lib.flatten_tree(whole["params"])
+        del whole
+        start, _, _ = train_mod._build(LM_ARCH, False, ZOO_BATCH, device)
+        start = ckpt_lib.flatten_tree(start)
+        # the norm scales start at 1.0, where an Adam step of lr 3e-4 is below
+        # half of bf16's spacing (2^-8): they stay, in the reference too
+        unmoved = [k for k in start if torch.equal(start[k], params_a[k])]
+        check(all("norm" in k for k in unmoved) and len(unmoved) < len(start),
+              f"{LM_ARCH}: {LM_STEPS} steps left {unmoved} at their initial values")
+        del start
+        ckpt = os.path.join(root, LM_ARCH)
+        t0 = time.perf_counter()
+        first, text1 = _quiet(train_mod.main, base + [
+            "--steps", str(LM_RESUME_AT), "--ckpt-dir", ckpt, "--ckpt-every", str(LM_RESUME_AT)])
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        check(f"[ckpt] step {LM_RESUME_AT}" in text1 and all(
+            torch.equal(first["losses"][i], losses[i]) for i in range(1, LM_RESUME_AT + 1)),
+            f"{LM_ARCH}: the checkpointed run differs from the unbroken one: {text1}")
+        del first
+        step_dir = os.path.join(ckpt, f"step_{LM_RESUME_AT:010d}")
+        ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        t0 = time.perf_counter()
+        resumed, text2 = _quiet(train_mod.main, base + [
+            "--steps", str(LM_STEPS), "--ckpt-dir", ckpt, "--ckpt-every", str(LM_STEPS + 1),
+            "--resume"])
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        tail = list(range(LM_RESUME_AT + 1, LM_STEPS + 1))
+        check(f"[resume] from step {LM_RESUME_AT}" in text2
+              and sorted(resumed["losses"]) == tail
+              and all(torch.equal(resumed["losses"][i], losses[i]) for i in tail),
+              f"{LM_ARCH}: the resumed losses differ from the unbroken run's: {text2}")
+        params_b = ckpt_lib.flatten_tree(resumed["params"])
+        check(all(torch.equal(params_a[k], params_b[k]) for k in params_a),
+              f"{LM_ARCH}: the resumed parameters differ from the unbroken run's")
+        del params_a, params_b
+        shutil.rmtree(ckpt)
+        log(f"[lm] {LM_ARCH} --full ({cfg.param_count()} parameters, bf16), {LM_STEPS} steps of "
+            f"{ZOO_BATCH} x {train_mod.LM_SEQ} tokens through the launcher: {wall:.1f} s wall, "
+            f"losses {', '.join(f'{float(losses[i]):.4f}' for i in sorted(losses))}, gradient "
+            f"norms {', '.join(f'{float(lnorms[i]):.3f}' for i in sorted(lnorms))}, every "
+            f"weight moved ({len(unmoved)} bf16 norm scales at 1.0 stay); {LM_RESUME_AT} steps and a checkpoint ({ck_bytes / 1e9:.2f} GB) "
+            f"{wall1:.1f} s, resumed to step {LM_STEPS} {wall2:.1f} s, bit-identical to the "
+            f"unbroken run (losses and every parameter)")
+
+        # -- (b) one repeated batch through the step builder: the loss falls ------
+        params, opt = resumed["params"], resumed["opt_state"]
+        del resumed
+        step = steps.lm_train_step(cfg, train_mod.ADAM)
+        batch = synthetic.lm_batch(LM_STEPS, ZOO_BATCH, train_mod.LM_SEQ, cfg.vocab, device)
+        fit, norms = [], []
+        for _ in range(LM_FIT_STEPS):
+            params, opt, m = step(params, opt, batch)
+            fit.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        check(all(map(math.isfinite, fit + norms)) and fit[-1] < fit[0],
+              f"{LM_ARCH}: a repeated batch's loss went {fit} (gradient norms {norms})")
+        state = [params, opt]
+
+        def train_fn():
+            state[0], state[1], _ = step(state[0], state[1], batch)
+
+        ms = host_ms(train_fn, LM_TIME_STEPS)
+        calls, kernels_run = launches_per_call(train_fn, 1)
+        busy = device_busy_ms(train_fn, 1)
+        peak_train = torch.cuda.max_memory_allocated() / 1e9
+        params = state[0]
+        del state, opt, step, batch
+        torch.cuda.empty_cache()
+        log(f"[lm] {LM_ARCH}: one repeated batch through lm_train_step, {LM_FIT_STEPS} steps: "
+            f"loss {fit[0]:.4f} -> {fit[-1]:.4f}, gradient norms {norms[0]:.3f} -> "
+            f"{norms[-1]:.3f} (finite)")
+        log(f"[time] lm {LM_ARCH} train step B={ZOO_BATCH} S={train_mod.LM_SEQ} on {name} ({smi}): "
+            f"{ms:.2f} ms a step (host clock, synced, {LM_TIME_STEPS} steps), "
+            f"{tokens_a_step / ms * 1e3:.0f} tokens/s, {calls} launch calls and {kernels_run} "
+            f"device kernels a step, device busy {_busy(ms, busy)}, peak memory "
+            f"{peak_train:.1f} GB")
+
+        # -- (c) prefill == forward's last position, the chunked attention --------
+        prefill = steps.lm_prefill_step(cfg)
+        toks = synthetic.lm_batch(0, 1, LM_CHUNKED_S, cfg.vocab, device)["tokens"]
+        with torch.no_grad():
+            full, _ = tf.forward(params, toks, cfg)
+            last_full = full[:, -1].clone()
+            del full
+        last = prefill(params, {"tokens": toks})
+        err = _row_rel(last, last_full)
+        check(last.shape == (1, cfg.vocab) and bool(torch.isfinite(last.float()).all())
+              and err <= LM_PREFILL_TOL,
+              f"{LM_ARCH}: prefill at S={LM_CHUNKED_S} is {err:.2e} from forward's last position")
+        log(f"[lm] {LM_ARCH}: lm_prefill_step at S={LM_CHUNKED_S} (chunked attention, chunk "
+            f"{cfg.attn_chunk}) against forward's last position: {err:.2e} of the largest "
+            f"|logit| (tolerance {LM_PREFILL_TOL:.2e}, one bf16 rounding)")
+
+        # -- (d) prefill at prefill_32k's length ------------------------------------
+        toks = synthetic.lm_batch(1, LM_PREFILL_BATCH, LM_LONG, cfg.vocab, device)["tokens"]
+        torch.cuda.reset_peak_memory_stats()
+        out = prefill(params, {"tokens": toks})
+        check(out.shape == (LM_PREFILL_BATCH, cfg.vocab) and bool(torch.isfinite(out.float()).all()),
+              f"{LM_ARCH}: the {LM_LONG}-token prefill gave {tuple(out.shape)} or non-finite logits")
+        ms, busy = _profiled(lambda: prefill(params, {"tokens": toks}))
+        log(f"[time] lm {LM_ARCH} prefill B={LM_PREFILL_BATCH} S={LM_LONG} (prefill_32k, batch "
+            f"cut from 32) on {name} ({smi}): {ms:.1f} ms, "
+            f"{LM_PREFILL_BATCH * LM_LONG / ms * 1e3:.0f} tokens/s, device busy {_busy(ms, busy)}, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB; logits finite")
+        del toks, out
+
+        # -- (e) decode token by token == forward ---------------------------------
+        decode = steps.lm_decode_step(cfg)
+        toks = synthetic.lm_batch(2, LM_PROMPT_BATCH, LM_PROMPT, cfg.vocab, device)["tokens"]
+        with torch.no_grad():
+            full, _ = tf.forward(params, toks, cfg)
+        cache = tf.init_kv_cache(cfg, LM_PROMPT_BATCH, LM_PROMPT, device=device)
+        dec_err = 0.0
+        for t in range(LM_PROMPT):
+            lg, cache = decode(params, {"token": toks[:, t]}, cache)
+            dec_err = max(dec_err, _row_rel(lg, full[:, t]))
+        check(cache["length"] == LM_PROMPT and dec_err <= LM_DECODE_TOL,
+              f"{LM_ARCH}: decode is {dec_err:.3e} from forward (tolerance {LM_DECODE_TOL})")
+        log(f"[lm] {LM_ARCH}: lm_decode_step token by token over {LM_PROMPT_BATCH} x {LM_PROMPT} "
+            f"tokens (bf16 cache) against forward: {dec_err:.3e} of each row's largest |logit| "
+            f"(tolerance {LM_DECODE_TOL})")
+        del full, cache
+
+        # -- (f) decode at decode_32k's cache length, bf16 and int8 caches ---------
+        B, L, KV, hd = LM_DECODE_BATCH, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        filled = LM_LONG - LM_DECODE_STEPS
+        torch.cuda.reset_peak_memory_stats()
+        c16 = tf.init_kv_cache(cfg, B, LM_LONG, dtype=torch.bfloat16, device=device)
+        c8 = tf.init_kv_cache(cfg, B, LM_LONG, dtype=torch.int8, device=device)
+        g = torch.Generator(device=device).manual_seed(5)
+        for i in range(L):  # the first ``filled`` positions: N(0, 1) keys and values
+            for plane in ("k", "v"):
+                kv = torch.randn((B, KV, filled, hd), generator=g, device=device,
+                                 dtype=torch.bfloat16)
+                c16[plane][i, :, :, :filled] = kv
+                q8, s8 = tf._quantize_kv(kv)
+                c8[plane][i, :, :, :filled] = q8
+                c8[f"{plane}_scale"][i, :, :, :filled] = s8
+                del kv, q8, s8
+        c16["length"] = c8["length"] = filled
+        cache_gb = {n: sum(t.numel() * t.element_size() for k, t in c.items() if k != "length")
+                    / 1e9 for n, c in (("bf16", c16), ("int8", c8))}
+        toks = synthetic.lm_batch(3, B, LM_DECODE_STEPS, cfg.vocab, device)["tokens"]
+        caches = {"bf16": c16, "int8": c8}
+        del c16, c8
+        rel, times, busy = 0.0, {"bf16": [], "int8": []}, {}
+        for t in range(LM_DECODE_STEPS):
+            out = {}
+            for tag in caches:
+                def one():
+                    out[tag], caches[tag] = decode(params, {"token": toks[:, t]}, caches[tag])
+
+                if t == LM_DECODE_STEPS - 1:  # the last step under the profiler
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        one()
+                        torch.cuda.synchronize()
+                    us = sum(getattr(ev, "self_device_time_total",
+                                     getattr(ev, "self_cuda_time_total", 0))
+                             for ev in prof.key_averages()
+                             if ev.device_type == torch.autograd.DeviceType.CUDA)
+                    busy[tag] = f"{us / 1e3:.2f} ms a step" if us else "not measured"
+                    continue
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one()
+                torch.cuda.synchronize()
+                if t > 0:  # step 0 warms up
+                    times[tag].append(1e3 * (time.perf_counter() - t0))
+            check(all(bool(torch.isfinite(o.float()).all()) for o in out.values()),
+                  f"{LM_ARCH}: decode at position {filled + t} gave non-finite logits")
+            rel = max(rel, float((out["bf16"].float() - out["int8"].float()).abs().max()
+                                 / out["bf16"].float().abs().max()))
+        check(all(c["length"] == LM_LONG for c in caches.values()) and rel < LM_INT8_TOL,
+              f"{LM_ARCH}: the int8 cache's logits are {rel:.4f} from the bf16 cache's")
+        peak_dec = torch.cuda.max_memory_allocated() / 1e9
+        del caches, toks, out
+        torch.cuda.empty_cache()
+        for tag in ("bf16", "int8"):
+            ms = sum(times[tag]) / len(times[tag])
+            log(f"[time] lm {LM_ARCH} decode B={B} at a {LM_LONG}-token cache (decode_32k, batch "
+                f"cut from 128), {tag} cache ({cache_gb[tag]:.2f} GB) on {name} ({smi}): "
+                f"{ms:.2f} ms a step (host clock, synced, {len(times[tag])} steps), "
+                f"{B / ms * 1e3:.0f} tokens/s, device busy {busy[tag]} (profiled step), peak memory "
+                f"{peak_dec:.1f} GB")
+        log(f"[lm] {LM_ARCH}: decode at positions {filled}..{LM_LONG - 1} of a {LM_LONG}-token "
+            f"cache, batch {B}: int8 cache logits within {rel:.4f} of the bf16 cache's "
+            f"(tolerance {LM_INT8_TOL}, the reference's)")
+        del params
+        torch.cuda.empty_cache()
+
+        # -- (g) llama4-scout's MoE at full width, MOE_LAYERS layers ---------------
+        mcfg = dataclasses.replace(get_arch(MOE_ARCH).config, n_layers=MOE_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        mparams = tf.init_params(mcfg, torch.Generator(device=device).manual_seed(0), device)
+        mprefill = steps.lm_prefill_step(mcfg)
+        toks = synthetic.lm_batch(4, 1, MOE_PREFILL_S, mcfg.vocab, device)["tokens"]
+        with torch.no_grad():
+            full, aux = tf.forward(mparams, toks, mcfg)
+            last_full = full[:, -1].clone()
+            del full
+        last = mprefill(mparams, {"tokens": toks})
+        err = _row_rel(last, last_full)
+        check(last.shape == (1, mcfg.vocab) and bool(torch.isfinite(last.float()).all())
+              and err <= LM_PREFILL_TOL and math.isfinite(float(aux)),
+              f"{MOE_ARCH}: prefill at S={MOE_PREFILL_S} is {err:.2e} from forward")
+        ms, busy = _profiled(lambda: mprefill(mparams, {"tokens": toks}))
+        log(f"[lm] {MOE_ARCH} at full width cut to {MOE_LAYERS} of {get_arch(MOE_ARCH).config.n_layers} "
+            f"layers ({mcfg.param_count()} parameters, bf16; {mcfg.n_experts} experts top-"
+            f"{mcfg.top_k}, routing groups of {mcfg.moe_group}): prefill S={MOE_PREFILL_S} against "
+            f"forward's last position {err:.2e} (tolerance {LM_PREFILL_TOL:.2e}), aux "
+            f"{float(aux):.4f}")
+        log(f"[time] lm {MOE_ARCH} ({MOE_LAYERS} layers) prefill B=1 S={MOE_PREFILL_S} on {name} "
+            f"({smi}): {ms:.1f} ms, {MOE_PREFILL_S / ms * 1e3:.0f} tokens/s, device busy "
+            f"{_busy(ms, busy)}, peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        mdecode = steps.lm_decode_step(mcfg)
+        toks = synthetic.lm_batch(5, MOE_DECODE_BATCH, MOE_DECODE_STEPS, mcfg.vocab,
+                                  device)["tokens"]
+        cache = tf.init_kv_cache(mcfg, MOE_DECODE_BATCH, MOE_DECODE_STEPS, device=device)
+        mtimes = []
+        for t in range(MOE_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = mdecode(mparams, {"token": toks[:, t]}, cache)
+            torch.cuda.synchronize()
+            mtimes.append(1e3 * (time.perf_counter() - t0))
+            check(lg.shape == (MOE_DECODE_BATCH, mcfg.vocab)
+                  and bool(torch.isfinite(lg.float()).all()),
+                  f"{MOE_ARCH}: decode step {t} gave non-finite logits")
+        ms = sum(mtimes[1:]) / (len(mtimes) - 1)
+        log(f"[time] lm {MOE_ARCH} ({MOE_LAYERS} layers) decode B={MOE_DECODE_BATCH} on {name} "
+            f"({smi}): {ms:.2f} ms a step after the first ({MOE_DECODE_STEPS} steps, logits "
+            f"finite), {MOE_DECODE_BATCH / ms * 1e3:.0f} tokens/s")
+        del mparams, cache, toks, last, last_full
+        torch.cuda.empty_cache()
+
+        # -- (h) the five full configs on the meta device ------------------------------
+        counts = []
+        for arch in LM_IDS:
+            full_cfg = get_arch(arch).config
+            meta = ckpt_lib.flatten_tree(tf.init_params(full_cfg, device="meta"))
+            n = sum(t.numel() for t in meta.values())
+            check(n == full_cfg.param_count() and all(t.is_meta for t in meta.values()),
+                  f"{arch}: {n} elements on the meta device, param_count {full_cfg.param_count()}")
+            counts.append(f"{arch} {n}")
+        log(f"[lm] the full configs' trees on the meta device, elements == param_count: "
+            + ", ".join(counts))
+
+        # -- (i) SMOKE: one card step per arch against the CPU's ------------------------
+        for arch in LM_IDS + (GNN_ARCH,):
+            loss, norm, worst = _zoo_smoke_step(arch, device)
+            check(loss <= ZOO_LOSS_TOL and norm <= ZOO_LOSS_TOL and worst <= ZOO_GRAD_TOL,
+                  f"{arch} SMOKE card step: loss {loss:.2e}, norm {norm:.2e}, moments "
+                  f"{worst:.2e} from the CPU's")
+            log(f"[lm] {arch} SMOKE: one train step on the card against the CPU's from the same "
+                f"weights and batch: loss {loss:.2e}, gradient norm {norm:.2e} (tolerance "
+                f"{ZOO_LOSS_TOL}), Adam's moments {worst:.2e} of each leaf's largest entry "
+                f"(tolerance {ZOO_GRAD_TOL})")
+
+        # -- (j) meshgraphnet: the launcher, then minibatch_lg twice -------------------
+        gbase = ["--arch", GNN_ARCH, "--full", "--device", str(device), "--steps", str(GNN_STEPS)]
+        gout, gtext = _quiet(train_mod.main, gbase)
+        glosses = gout["losses"]
+        check(gtext.rstrip().endswith("done.") and sorted(glosses) == list(range(1, GNN_STEPS + 1))
+              and all(bool(torch.isfinite(v)) for v in glosses.values()),
+              f"{GNN_ARCH}: the launcher said {gtext}")
+        del gout
+        gcfg = dataclasses.replace(get_arch(GNN_ARCH).config, d_node_in=GNN_LG_FEAT)
+        gbatch = synthetic.gnn_batch(0, GNN_LG_NODES, GNN_LG_EDGES, gcfg, device)
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(2):
+            gparams = gnn_lib.init_params(gcfg, torch.Generator(device=device).manual_seed(0),
+                                          device)
+            gp, gopt, gm = steps.gnn_train_step(gcfg, train_mod.ADAM)(
+                gparams, steps.init_opt_state(gparams), gbatch)
+            gy = steps.gnn_infer_step(gcfg)(gp, gbatch)
+            runs.append((gm["loss"], gm["grad_norm"], gp, gopt, gy))
+        (l1, n1, p1, o1, y1), (l2, n2, p2, o2, y2) = runs
+        check(torch.equal(l1, l2) and torch.equal(n1, n2) and _equal_trees(p1, p2)
+              and _equal_trees(o1.mu, o2.mu) and _equal_trees(o1.nu, o2.nu)
+              and torch.equal(y1, y2),
+              f"{GNN_ARCH}: two runs at minibatch_lg's size differ")
+        check(math.isfinite(float(l1)) and math.isfinite(float(n1))
+              and y1.shape == (GNN_LG_NODES, gcfg.d_out) and bool(torch.isfinite(y1).all()),
+              f"{GNN_ARCH}: loss {float(l1)}, norm {float(n1)} at minibatch_lg's size")
+        gstate = [p1, o1]
+        gstep, ginfer = steps.gnn_train_step(gcfg, train_mod.ADAM), steps.gnn_infer_step(gcfg)
+
+        def gnn_train_fn():
+            gstate[0], gstate[1], _ = gstep(gstate[0], gstate[1], gbatch)
+
+        gms = host_ms(gnn_train_fn, GNN_TIME_STEPS)
+        gbusy = device_busy_ms(gnn_train_fn, 1)
+        ims = host_ms(lambda: ginfer(gstate[0], gbatch), GNN_TIME_STEPS)
+        ibusy = device_busy_ms(lambda: ginfer(gstate[0], gbatch), 1)
+        log(f"[gnn] {GNN_ARCH} --full through the launcher ({GNN_STEPS} steps on "
+            f"{train_mod.GNN_NODES} nodes, {train_mod.GNN_EDGES} edges): losses "
+            f"{', '.join(f'{float(glosses[i]):.4f}' for i in sorted(glosses))}; at minibatch_lg's "
+            f"size ({GNN_LG_NODES} nodes, {GNN_LG_EDGES} edges, d_feat {GNN_LG_FEAT}, "
+            f"{gcfg.param_count()} parameters by param_count) gnn_train_step then gnn_infer_step "
+            f"twice from one seed: loss {float(l1):.6f}, gradient norm {float(n1):.6f}, the "
+            f"parameters, Adam's moments and the outputs bit-identical between the runs")
+        log(f"[time] gnn {GNN_ARCH} minibatch_lg on {name} ({smi}): train step {gms:.2f} ms "
+            f"(host clock, synced, {GNN_TIME_STEPS} steps; device busy {_busy(gms, gbusy)}), "
+            f"infer {ims:.2f} ms (device busy {_busy(ims, ibusy)}), "
+            f"{GNN_LG_EDGES / gms * 1e3:.0f} edges/s trained, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        del runs, gstate, p1, p2, o1, o2, y1, y2, gbatch, gparams
+        torch.cuda.empty_cache()
+        log(f"[lm] phase passed in {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3758,6 +4200,10 @@ def main() -> None:
     # -- 11. the recsys zoo trained and served, and the examples ----------------------
     torch.cuda.empty_cache()
     kernels += zoo_phase(device, name, smi)
+
+    # -- 12. the LM and GNN families at full width ------------------------------------
+    torch.cuda.empty_cache()
+    lm_gnn_phase(device, name, smi)
 
     log("kernels: " + ", ".join(f"{k['name']} matched, launches={k['launches']}"
                                 for k in kernels))

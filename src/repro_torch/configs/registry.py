@@ -1,11 +1,10 @@
 """Architecture registry (ports ``repro/configs/registry.py``): ``--arch
 <id>`` resolves here.
 
-Each entry: family, full production config, reduced smoke config and
-shape ids. The port holds the recsys family; the reference's LM and GNN
-ids are known by name and refused with their family, which is not yet
-ported. The reference's cell builders (``configs/cells.py``, the dry-run's
-launch specification) are not ported either.
+Each entry: family (lm | gnn | recsys), full production config, reduced
+smoke config and shape ids, for all ten of the reference's ids. The
+reference's cell builders (``configs/cells.py``, the dry-run's launch
+specification) are not ported.
 """
 
 from __future__ import annotations
@@ -13,26 +12,33 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Tuple
 
-from repro_torch.configs.archs import dien_cfg, dlrm_rm2, mind_cfg, two_tower
+from repro_torch.configs.archs import (
+    dien_cfg,
+    dlrm_rm2,
+    grok_1_314b,
+    llama3_405b,
+    llama3_2_1b,
+    llama4_scout,
+    meshgraphnet,
+    mind_cfg,
+    mistral_large_123b,
+    two_tower,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchEntry:
     arch_id: str
-    family: str  # recsys (lm | gnn in the reference)
+    family: str  # lm | gnn | recsys
     config: Any
     smoke_config: Any
     shapes: Tuple[str, ...]
     notes: str = ""
 
 
+LM_SHAPE_IDS = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+GNN_SHAPE_IDS = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
 RS_SHAPE_IDS = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
-
-# The reference's other arch ids, by family: not yet ported.
-NOT_PORTED = {
-    "llama3-405b": "lm", "llama3.2-1b": "lm", "mistral-large-123b": "lm",
-    "llama4-scout-17b-a16e": "lm", "grok-1-314b": "lm", "meshgraphnet": "gnn",
-}
 
 REGISTRY: Dict[str, ArchEntry] = {}
 
@@ -41,6 +47,19 @@ def _register(entry: ArchEntry):
     REGISTRY[entry.arch_id] = entry
 
 
+_register(ArchEntry("llama3-405b", "lm", llama3_405b.CONFIG, llama3_405b.SMOKE, LM_SHAPE_IDS,
+                    notes="dense GQA, 128k vocab [arXiv:2407.21783]"))
+_register(ArchEntry("llama3.2-1b", "lm", llama3_2_1b.CONFIG, llama3_2_1b.SMOKE, LM_SHAPE_IDS,
+                    notes="small llama3 [hf:meta-llama/Llama-3.2-1B]"))
+_register(ArchEntry("mistral-large-123b", "lm", mistral_large_123b.CONFIG,
+                    mistral_large_123b.SMOKE, LM_SHAPE_IDS,
+                    notes="[hf:mistralai/Mistral-Large-Instruct-2407]"))
+_register(ArchEntry("llama4-scout-17b-a16e", "lm", llama4_scout.CONFIG, llama4_scout.SMOKE,
+                    LM_SHAPE_IDS, notes="MoE 16e top-1 [hf:meta-llama/Llama-4-Scout-17B-16E]"))
+_register(ArchEntry("grok-1-314b", "lm", grok_1_314b.CONFIG, grok_1_314b.SMOKE, LM_SHAPE_IDS,
+                    notes="MoE 8e top-2 [hf:xai-org/grok-1]"))
+_register(ArchEntry("meshgraphnet", "gnn", meshgraphnet.CONFIG, meshgraphnet.SMOKE,
+                    GNN_SHAPE_IDS, notes="[arXiv:2010.03409]"))
 _register(ArchEntry("mind", "recsys", mind_cfg.CONFIG, mind_cfg.SMOKE, RS_SHAPE_IDS,
                     notes="[arXiv:1904.08030]"))
 _register(ArchEntry("dlrm-rm2", "recsys", dlrm_rm2.CONFIG, dlrm_rm2.SMOKE, RS_SHAPE_IDS,
@@ -53,10 +72,6 @@ _register(ArchEntry("dien", "recsys", dien_cfg.CONFIG, dien_cfg.SMOKE, RS_SHAPE_
 
 
 def get_arch(arch_id: str) -> ArchEntry:
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is of the {NOT_PORTED[arch_id]} family, which is not yet ported "
-            f"to repro_torch; ported: {sorted(REGISTRY)}")
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[arch_id]

@@ -1,7 +1,7 @@
 """Synthetic data (ports ``repro/data/synthetic.py``: ``clustered_corpus``,
 ``upgraded_corpus``, ``backbone_upgrade``, ``pair_batches`` and
-the recsys train batches ``dlrm_batch``, ``tt_batch``, ``mind_batch`` and
-``dien_batch``).
+the model zoo's train batches ``lm_batch``, ``gnn_batch``, ``dlrm_batch``,
+``tt_batch``, ``mind_batch`` and ``dien_batch``).
 
 ``clustered_corpus``, ``upgraded_corpus`` (paired old/new-backbone
 corpora), ``backbone_upgrade`` (a drifted float space) and
@@ -12,7 +12,7 @@ follows the same recipe with a ``torch.Generator`` on the card, for
 corpora whose float64 numpy intermediates would not fit in host memory
 (ten million 256-dim documents); its numbers differ from the numpy ones.
 
-The recsys batches are drawn from a ``torch.Generator`` seeded by (step,
+The model batches are drawn from a ``torch.Generator`` seeded by (step,
 family), so a step gives the same batch every time (what makes a resumed
 run repeat the unbroken one). The reference draws from ``jax.random``:
 tests hand its batches over as arrays.
@@ -188,6 +188,32 @@ def clustered_corpus_torch(
 def _generator(step: int, salt: int, device) -> torch.Generator:
     """A generator that is a pure function of (step, salt), like the reference's ``_key``."""
     return torch.Generator(device=device).manual_seed((20230713 + salt) * 1_000_003 + step)
+
+
+def lm_batch(step: int, batch: int, seq: int, vocab: int,
+             device="cuda") -> Dict[str, torch.Tensor]:
+    """An LM batch: ``seq + 1`` int32 tokens a row uniform in [0, vocab),
+    split into tokens [B, seq] and the next-token labels [B, seq]."""
+    dev = resolve_device(device)
+    tokens = _ids(_generator(step, 0, dev), vocab, (batch, seq + 1), dev)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+def gnn_batch(step: int, n_nodes: int, n_edges: int, cfg,
+              device="cuda") -> Dict[str, torch.Tensor]:
+    """A graph batch: node_feat [N, d_node_in], edge_feat [E, d_edge_in] and
+    targets [N, d_out] ~ N(0, 1), senders/receivers [E] int32 uniform over
+    the nodes, edge_mask all True."""
+    dev = resolve_device(device)
+    g = _generator(step, 1, dev)
+    return {
+        "node_feat": torch.randn((n_nodes, cfg.d_node_in), generator=g, device=dev),
+        "edge_feat": torch.randn((n_edges, cfg.d_edge_in), generator=g, device=dev),
+        "senders": _ids(g, n_nodes, (n_edges,), dev),
+        "receivers": _ids(g, n_nodes, (n_edges,), dev),
+        "edge_mask": torch.ones((n_edges,), dtype=torch.bool, device=dev),
+        "targets": torch.randn((n_nodes, cfg.d_out), generator=g, device=dev),
+    }
 
 
 def dlrm_batch(step: int, batch: int, cfg, device="cuda") -> Dict[str, torch.Tensor]:

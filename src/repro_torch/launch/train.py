@@ -1,6 +1,6 @@
-"""Training launcher for the recsys zoo (ports ``repro/launch/train.py``).
+"""Training launcher for the model zoo (ports ``repro/launch/train.py``).
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --steps 100 --ckpt-dir build/ckpt [--resume] [--smoke|--full] [--device cpu]
 
 Runs the arch's train step on one device (the card unless ``--device
@@ -14,10 +14,14 @@ cpu``), with:
   * the reference's log lines: ``step N: loss=...``, ``[ckpt] step N``,
     ``[resume] from step N``, ``done.``.
 
-The recsys family is ported (dlrm-rm2, two-tower-retrieval, mind, dien);
-an LM or GNN arch id is refused with its family named. ``main`` returns
-the parameters, the optimizer state and each step's loss (a tensor on
-the device, read only at the log lines), for callers that check a run.
+Every reference arch id is ported: the LM family (a batch of ``--batch``
+rows of ``LM_SEQ`` = 128 tokens), the GNN family (a graph of
+``GNN_NODES`` = 256 nodes and ``GNN_EDGES`` = 1,024 edges a step,
+whatever ``--batch``) and the recsys family (``--batch`` examples), as
+the reference's launcher builds them. ``main`` returns the parameters,
+the optimizer state and each step's loss and gradient norm (tensors on
+the device, the loss read only at the log lines), for callers that check
+a run.
 """
 
 from __future__ import annotations
@@ -35,12 +39,25 @@ from repro_torch.train import optim, steps
 
 
 ADAM = optim.AdamConfig(lr=3e-4, clip_norm=1.0)
+LM_SEQ = 128
+GNN_NODES, GNN_EDGES = 256, 1024
 
 
 def zoo(arch_id: str):
     """(init_params(cfg, generator, device), train step builder, batch fn(step,
-    batch, cfg, device)) of a ported arch."""
-    family = get_arch(arch_id).config.name
+    batch, cfg, device)) of an arch."""
+    entry = get_arch(arch_id)
+    if entry.family == "lm":
+        from repro_torch.models import transformer
+
+        return (transformer.init_params, steps.lm_train_step,
+                lambda i, batch, cfg, dev: synthetic.lm_batch(i, batch, LM_SEQ, cfg.vocab, dev))
+    if entry.family == "gnn":
+        from repro_torch.models import gnn
+
+        return (gnn.init_params, steps.gnn_train_step,
+                lambda i, batch, cfg, dev: synthetic.gnn_batch(i, GNN_NODES, GNN_EDGES, cfg, dev))
+    family = entry.config.name
     if "dlrm" in family:
         from repro_torch.models.recsys import dlrm
 
@@ -97,12 +114,12 @@ def main(argv=None):
             params, opt_state = steps.train_state_from_tree(tree)
             print(f"[resume] from step {start}")
 
-    losses = {}
+    losses, grad_norms = {}, {}
     t0 = time.time()
     for i in range(start, args.steps):
         batch = batch_fn(i)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
-        losses[i + 1] = metrics["loss"]
+        losses[i + 1], grad_norms[i + 1] = metrics["loss"], metrics["grad_norm"]
         if (i + 1) % 10 == 0 or i == start:
             loss = float(metrics["loss"])
             dt = time.time() - t0
@@ -111,7 +128,8 @@ def main(argv=None):
             ckpt_lib.save(args.ckpt_dir, i + 1, steps.train_state_tree(params, opt_state))
             print(f"[ckpt] step {i+1}", flush=True)
     print("done.")
-    return {"params": params, "opt_state": opt_state, "losses": losses}
+    return {"params": params, "opt_state": opt_state, "losses": losses,
+            "grad_norms": grad_norms}
 
 
 if __name__ == "__main__":

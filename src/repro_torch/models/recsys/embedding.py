@@ -77,7 +77,11 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return _GatherRows.apply(table, torch.as_tensor(ids, device=table.device).long())
 
 
-def _segment_sum(rows: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
+def segment_sum(rows: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
+    """``jax.ops.segment_sum``: rows [n, ...] summed into [num_segments,
+    ...] by ``segment_ids`` [n] (int64), through ``index_put`` with
+    ``accumulate=True``, each segment's rows in their order (deterministic
+    on the card, see the module's docstring)."""
     out = torch.zeros((num_segments,) + tuple(rows.shape[1:]), dtype=rows.dtype,
                       device=rows.device)
     return out.index_put((segment_ids,), rows, accumulate=True)
@@ -102,9 +106,9 @@ def embedding_bag(
     if weights is not None:
         rows = rows * torch.as_tensor(weights, device=table.device)[:, None]
     seg = torch.as_tensor(segment_ids, device=table.device).long()
-    summed = _segment_sum(rows, seg, num_bags)
+    summed = segment_sum(rows, seg, num_bags)
     if combiner == "mean":
-        counts = _segment_sum(torch.ones(seg.shape, dtype=table.dtype, device=table.device),
+        counts = segment_sum(torch.ones(seg.shape, dtype=table.dtype, device=table.device),
                               seg, num_bags)
         summed = summed / torch.clamp(counts, min=1.0)[:, None]
     return summed
@@ -193,9 +197,23 @@ def tree_map(fn: Callable[[Any], Any], tree):
     return fn(tree)
 
 
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
+    """An array as a tensor of its own dtype, a bfloat16 array (the
+    reference's ``ml_dtypes`` type, known here by name) bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
 def tree_from_numpy(tree, dtype=torch.float32, device="cuda"):
-    """A tree of arrays (the reference's parameters as numpy) as tensors on ``device``."""
+    """A tree of arrays (the reference's parameters as numpy) as tensors on
+    ``device``, cast to ``dtype``, or each of its own dtype when ``dtype``
+    is None (``tensor_from_numpy``: bfloat16 leaves exactly)."""
     device = resolve_device(device)
+    if dtype is None:
+        return tree_map(lambda a: tensor_from_numpy(a, device), tree)
     return tree_map(lambda a: torch.tensor(np.array(a), dtype=dtype, device=device), tree)
 
 

@@ -1,5 +1,5 @@
-"""Step builders (ports ``repro/train/steps.py``): the recsys zoo's train
-and serve steps.
+"""Step builders (ports ``repro/train/steps.py``): the model zoo's train
+and serve steps (LM, GNN and recsys).
 
 A parameter tree is the reference's pytree layout in dictionaries and
 lists of tensors. A train step is ``step(params, opt_state, batch) ->
@@ -13,8 +13,9 @@ and returns them. ``opt_state`` is an ``optim.AdamState`` over
 the reference's ``(params, AdamState)`` tree for ``train/checkpoint.py``.
 
 Retrieval top-k is the stable sort (``ops.select_topk``): ties go to the
-lower id, as ``jax.lax.top_k`` orders them. The LM and GNN steps wait
-for their models; the binarizer's steps are in ``core/trainer.py``.
+lower id, as ``jax.lax.top_k`` orders them. Serve, prefill and decode
+steps run without recording gradients; the binarizer's steps are in
+``core/trainer.py``.
 """
 
 from __future__ import annotations
@@ -24,8 +25,12 @@ from typing import Any, Callable, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.binarize_lib import SDC_NEG_INF, sdc_affine_epilogue
 from repro_torch.device import full_fp32_matmul
+from repro_torch.kernels.sdc.ref import code_dot
 from repro_torch.kernels.sdc.sdc import sdc_topk, select_topk
+from repro_torch.models import gnn as gnn_lib
+from repro_torch.models import transformer as tf
 from repro_torch.models.recsys import dien as dien_lib
 from repro_torch.models.recsys import dlrm as dlrm_lib
 from repro_torch.models.recsys import mind as mind_lib
@@ -103,6 +108,74 @@ def make_train_step(loss_fn: Callable, adam_cfg: optim.AdamConfig, microbatches:
 
 
 # ---------------------------------------------------------------------------
+# LM family.
+# ---------------------------------------------------------------------------
+
+
+def lm_train_step(cfg: tf.TransformerConfig, adam_cfg: optim.AdamConfig, constrain=None):
+    """Next-token cross-entropy (+ 0.01 x the MoE aux loss), accumulated
+    over ``cfg.microbatches``."""
+
+    def loss_fn(params, batch):
+        return tf.lm_loss(params, batch["tokens"], batch["labels"], cfg, constrain=constrain)
+
+    return make_train_step(loss_fn, adam_cfg, cfg.microbatches)
+
+
+def lm_prefill_step(cfg: tf.TransformerConfig):
+    """``step(params, batch) -> last-position logits [B, V]`` (batch["tokens"] [B, S])."""
+
+    def step(params, batch):
+        with torch.no_grad():
+            return tf.prefill(params, batch["tokens"], cfg)
+
+    return step
+
+
+def lm_decode_step(cfg: tf.TransformerConfig):
+    """``step(params, batch, cache) -> (logits [B, V], cache)`` for
+    batch["token"] [B]; the cache is written in place (``tf.decode_step``)."""
+
+    def step(params, batch, cache):
+        with torch.no_grad():
+            return tf.decode_step(params, batch["token"], cache, cfg)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# GNN family.
+# ---------------------------------------------------------------------------
+
+
+def gnn_train_step(cfg: gnn_lib.GNNConfig, adam_cfg: optim.AdamConfig, microbatches: int = 1,
+                   node_constrain=None):
+    """Masked MSE over the nodes; a graph batch is not split along its
+    edges, so ``microbatches`` is ignored, as in the reference."""
+
+    def loss_fn(params, batch):
+        return gnn_lib.mse_loss(params, batch["node_feat"], batch["edge_feat"], batch["senders"],
+                                batch["receivers"], batch["targets"],
+                                node_mask=batch.get("node_mask"),
+                                edge_mask=batch.get("edge_mask"), cfg=cfg,
+                                node_constrain=node_constrain)
+
+    return make_train_step(loss_fn, adam_cfg, 1)
+
+
+def gnn_infer_step(cfg: gnn_lib.GNNConfig):
+    """``step(params, batch) -> per-node outputs [N, d_out]``."""
+
+    def step(params, batch):
+        with torch.no_grad():
+            return gnn_lib.forward(params, batch["node_feat"], batch["edge_feat"],
+                                   batch["senders"], batch["receivers"],
+                                   edge_mask=batch.get("edge_mask"), cfg=cfg)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
 # RecSys family.
 # ---------------------------------------------------------------------------
 
@@ -164,6 +237,29 @@ def _unit(f):
     return f * torch.rsqrt(torch.sum(f * f, -1, keepdim=True) + 1e-12)
 
 
+def _total_order(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 keys in IEEE total order (-0.0 below +0.0), the
+    order in which ``jax.lax.top_k`` ranks scores."""
+    bits = v.view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def _merge_topk(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """The top ``k`` of candidates ``scores`` [n] f32 with distinct ``ids``
+    [n] int32 as ``jax.lax.top_k`` ranks them (score descending in total
+    order, ties to the lower id), as ([1, k], [1, k]); fewer than ``k``
+    candidates are padded with SDC_NEG_INF and id -1."""
+    order = torch.sort(ids, stable=True).indices
+    scores, ids = scores[order], ids[order]
+    order = torch.sort(_total_order(scores), descending=True, stable=True).indices[:k]
+    scores, ids = scores[order], ids[order]
+    pad = k - scores.shape[0]
+    if pad > 0:
+        scores = torch.cat([scores, scores.new_full((pad,), SDC_NEG_INF)])
+        ids = torch.cat([ids, ids.new_full((pad,), -1)])
+    return scores[None], ids[None]
+
+
 def tt_retrieval_bebr_step(cfg: tt_lib.TwoTowerConfig, k: int = 100, code_dim: int = 64,
                            n_levels: int = 4):
     """BEBR-optimised retrieval: the query embeds through the tower,
@@ -174,7 +270,13 @@ def tt_retrieval_bebr_step(cfg: tt_lib.TwoTowerConfig, k: int = 100, code_dim: i
     sum c_d) + C beta^2, then times the inverse norm.
 
     batch: hist_ids/hist_mask (one query), cand_codes [N, code_dim] int8,
-    cand_inv [N] f32 (a value that is not > 0 excludes its candidate).
+    cand_inv [N] f32. Every candidate competes, as in the reference, which
+    scores without a kernel: ``sdc_topk`` excludes a candidate whose
+    inverse norm is not > 0, so those rows are scored here in plain torch
+    (the exact integer parts, the same epilogue, times their inverse norm:
+    0 for 0, the sign flipped for a negative value) and merged with the
+    kernel's k by ``jax.lax.top_k``'s order (``_merge_topk``). Finding
+    whether there are such rows reads the device once a call.
     ``params["binarizer"]``: W [levels] of [emb_out, code_dim] and R
     [levels - 1] of [code_dim, emb_out]. Returns (scores [1, k], ids [1, k]).
     """
@@ -201,10 +303,21 @@ def tt_retrieval_bebr_step(cfg: tt_lib.TwoTowerConfig, k: int = 100, code_dim: i
             if q_code.shape[1] != code_dim:
                 raise ValueError(f"binarizer gives {q_code.shape[1]} dims, step built for "
                                  f"{code_dim}")
-            codes = torch.as_tensor(batch["cand_codes"], device=q.device)
-            inv = torch.as_tensor(batch["cand_inv"], dtype=torch.float32, device=q.device)
-            return sdc_topk(q_code.to(torch.int8), codes.contiguous(), inv.contiguous(),
-                            n_levels=n_levels, k=k)
+            codes = torch.as_tensor(batch["cand_codes"], device=q.device).contiguous()
+            inv = torch.as_tensor(batch["cand_inv"], dtype=torch.float32,
+                                  device=q.device).contiguous()
+            q8 = q_code.to(torch.int8)
+            vals, ids = sdc_topk(q8, codes, inv, n_levels=n_levels, k=k)
+            off = torch.nonzero(~(inv > 0)).flatten()
+            if off.numel() == 0:
+                return vals, ids
+            rows = codes[off]
+            off_scores = sdc_affine_epilogue(
+                code_dot(q8, rows)[0], q8.to(torch.int32).sum() + rows.to(torch.int32).sum(-1),
+                dim=code_dim, n_levels=n_levels, inv_norm=inv[off])
+            keep = ids[0] >= 0
+            return _merge_topk(torch.cat([vals[0][keep], off_scores]),
+                               torch.cat([ids[0][keep], off.to(torch.int32)]), k)
 
     return step
 

@@ -71,7 +71,9 @@ for name in ("repro_torch.index.engine", "repro_torch.launch.mesh",
              "repro_torch.data.pipeline", "repro_torch.models.recsys.two_tower",
              "repro_torch.models.recsys.mind", "repro_torch.models.recsys.dien",
              "repro_torch.configs.archs.two_tower", "repro_torch.configs.archs.mind_cfg",
-             "repro_torch.configs.archs.dien_cfg"):
+             "repro_torch.configs.archs.dien_cfg", "repro_torch.models.transformer",
+             "repro_torch.models.gnn", "repro_torch.models.sampler",
+             "repro_torch.configs.archs.llama3_2_1b", "repro_torch.configs.archs.meshgraphnet"):
     assert name in names, name
 """
 
@@ -148,6 +150,37 @@ def test_zoo_entry_points_default_to_the_card(tmp_path):
             PTRN.main(["--arch", arch, *args[2:]])
     assert not (tmp_path / "ck").exists()  # nothing trained or written
     assert sorted(PTRN.main(args + ["--device", "cpu"])["losses"]) == [1, 2]
+
+
+def test_lm_and_gnn_entry_points_default_to_the_card(tmp_path):
+    """The LM and GNN initialisers, batches, caches and launcher runs take
+    the card by default and raise without one; ``--device cpu`` runs."""
+    from repro_torch.configs.archs import llama3_2_1b, meshgraphnet
+    from repro_torch.launch import train as PTRN
+    from repro_torch.models import gnn as PGN
+    from repro_torch.models import transformer as PTF
+
+    calls = {
+        "lm init": lambda: PTF.init_params(llama3_2_1b.SMOKE, torch.Generator()),
+        "gnn init": lambda: PGN.init_params(meshgraphnet.SMOKE, torch.Generator()),
+        "lm batch": lambda: PS.lm_batch(0, 2, 8, 256),
+        "gnn batch": lambda: PS.gnn_batch(0, 8, 16, meshgraphnet.SMOKE),
+        "kv cache": lambda: PTF.init_kv_cache(llama3_2_1b.SMOKE, 1, 8),
+    }
+    if torch.cuda.is_available():
+        assert calls["lm batch"]()["tokens"].device.type == "cuda"
+        return
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for arch in ("llama3.2-1b", "meshgraphnet"):
+        args = ["--arch", arch, "--steps", "1", "--ckpt-dir", str(tmp_path / arch)]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PTRN.main(args)
+        assert not (tmp_path / arch).exists()
+        assert sorted(PTRN.main(args + ["--device", "cpu"])["losses"]) == [1]
+    # the full configs' shapes need no card and no memory
+    assert PTF.init_params(llama3_2_1b.CONFIG, device="meta")["embed"].is_meta
 
 
 def test_autotune_and_encode_default_to_the_card():

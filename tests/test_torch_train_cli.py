@@ -1,5 +1,6 @@
 """The port's training launcher (``python -m repro_torch.launch.train``) on
-the CPU, for the four recsys archs at their SMOKE configs:
+the CPU, for all ten archs (five LM, meshgraphnet, four recsys) at their
+SMOKE configs:
 
   * 4 steps with a checkpoint every 2; a run killed after step 2 and
     resumed from its checkpoint repeats the unbroken run bit for bit
@@ -9,8 +10,9 @@ the CPU, for the four recsys archs at their SMOKE configs:
     restores into the port's tree exactly and the port's launcher
     resumes from it; the port's next checkpoint restores into the
     reference's tree exactly, and the reference steps on from it;
-  * the reference's log lines, an LM or GNN arch refused with its family
-    named, and the module entry point in a subprocess.
+  * a bfloat16 LM tree (the full configs' dtype) checkpointed by either
+    package restores into the other's bit for bit;
+  * the reference's log lines and the module entry point in a subprocess.
 The ``gpu`` case runs the launcher on the card (resume bit-identical,
 ``dot_interact`` launched once a dlrm-rm2 step).
 """
@@ -34,7 +36,8 @@ from repro_torch.train import checkpoint as PCK  # noqa: E402
 from repro_torch.train import steps as PST  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ["dlrm-rm2", "two-tower-retrieval", "mind", "dien"]
+ARCHS = ["llama3-405b", "llama3.2-1b", "mistral-large-123b", "llama4-scout-17b-a16e",
+         "grok-1-314b", "meshgraphnet", "dlrm-rm2", "two-tower-retrieval", "mind", "dien"]
 
 
 @pytest.fixture(autouse=True)
@@ -77,22 +80,29 @@ def test_resume_repeats_the_unbroken_run(arch, tmp_path, capsys):
     for f in a:
         np.testing.assert_array_equal(a[f], b[f])
     assert all(np.isfinite(float(v)) for v in whole["losses"].values())
+    assert sorted(whole["grad_norms"]) == [1, 2, 3, 4]
+    assert all(np.isfinite(float(v)) and float(v) > 0 for v in whole["grad_norms"].values())
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_checkpoints_interchange_with_the_reference(arch, tmp_path, capsys):
     from repro.data import synthetic as RS
+    from repro.models import gnn, transformer
     from repro.models.recsys import dien, dlrm, mind, two_tower
     from repro.train import steps as RST
 
     entry = ref_arch(arch)
     cfg = entry.smoke_config
+    # the reference launcher's batches: 16 rows of 128 tokens, a graph of
+    # 256 nodes and 1,024 edges, 16 examples
     mod, batch_fn, step_fn = {
+        "lm": (transformer, lambda i, b, c: RS.lm_batch(i, b, 128, c.vocab), RST.lm_train_step),
+        "gnn": (gnn, lambda i, b, c: RS.gnn_batch(i, 256, 1024, c), RST.gnn_train_step),
         "dlrm-rm2": (dlrm, RS.dlrm_batch, RST.dlrm_train_step),
         "two-tower-retrieval": (two_tower, RS.tt_batch, RST.tt_train_step),
         "mind": (mind, RS.mind_batch, RST.mind_train_step),
         "dien": (dien, RS.dien_batch, RST.dien_train_step),
-    }[arch]
+    }[arch if entry.family == "recsys" else entry.family]
     adam = RO.AdamConfig(lr=3e-4, clip_norm=1.0)
     step = jax.jit(step_fn(cfg, adam))
     params = mod.init_params(jax.random.PRNGKey(0), cfg)
@@ -130,10 +140,44 @@ def test_checkpoints_interchange_with_the_reference(arch, tmp_path, capsys):
     assert np.isfinite(float(metrics["loss"]))
 
 
-@pytest.mark.parametrize("arch,family", [("llama3.2-1b", "lm"), ("meshgraphnet", "gnn")])
-def test_lm_and_gnn_archs_are_refused_with_their_family(arch, family):
-    with pytest.raises(NotImplementedError, match=f"{family} family, which is not yet ported"):
-        PTR.main(["--arch", arch, "--device", "cpu", "--steps", "1"])
+def test_bfloat16_lm_checkpoint_interchanges(tmp_path):
+    """A bfloat16 LM tree and its Adam state (llama3.2-1b SMOKE at the full
+    config's dtype): the reference's checkpoint restores into the port's
+    tree bit for bit, as bfloat16 tensors, and the port's into the
+    reference's."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from repro.models import transformer as RT
+    from repro_torch.models import transformer as PT
+
+    rcfg = dataclasses.replace(ref_arch("llama3.2-1b").smoke_config, dtype=jnp.bfloat16)
+    params = RT.init_params(jax.random.PRNGKey(3), rcfg)
+    opt = RO.adam_init(params)
+    opt = opt._replace(step=opt.step + 5, mu=jax.tree_util.tree_map(
+        lambda p: p.astype(jnp.float32) * 0.5, params))
+    RCK.save(str(tmp_path / "ref"), 5, (params, opt))
+    from repro_torch.configs.registry import get_arch as port_arch
+
+    pcfg = dataclasses.replace(port_arch("llama3.2-1b").smoke_config, dtype=torch.bfloat16)
+    tree = PT.init_params(pcfg, torch.Generator().manual_seed(0), "cpu")
+    restored, at = PCK.restore(str(tmp_path / "ref"),
+                               PST.train_state_tree(tree, PST.init_opt_state(tree)))
+    assert at == 5
+    p_params, p_opt = PST.train_state_from_tree(restored)
+    assert p_opt.step == 5
+    want = PCK.flatten_tree(jax.tree_util.tree_map(np.asarray, params))
+    for k, t in PCK.flatten_tree(p_params).items():
+        assert t.dtype == torch.bfloat16, k
+        np.testing.assert_array_equal(t.view(torch.int16).numpy(), want[k].view(np.int16))
+    PCK.save(str(tmp_path / "port"), 6, PST.train_state_tree(p_params, p_opt._replace(step=6)))
+    (r_params, r_opt), at = RCK.restore(str(tmp_path / "port"), (params, opt))
+    assert at == 6 and int(r_opt.step) == 6
+    for a, b in zip(jax.tree_util.tree_leaves((params, opt.mu, opt.nu)),
+                    jax.tree_util.tree_leaves((r_params, r_opt.mu, r_opt.nu))):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a).view(np.uint8), np.asarray(b).view(np.uint8))
 
 
 def test_module_entry_point_on_the_cpu(tmp_path):

@@ -314,14 +314,24 @@ def test_configs_match_the_reference(arch):
         assert got.param_count() == want.param_count()
 
 
-@pytest.mark.parametrize("arch,family", [("llama3.2-1b", "lm"), ("grok-1-314b", "lm"),
-                                         ("meshgraphnet", "gnn")])
-def test_lm_and_gnn_ids_are_named_as_not_ported(arch, family):
+@pytest.mark.parametrize("arch,family", [
+    ("llama3-405b", "lm"), ("llama3.2-1b", "lm"), ("mistral-large-123b", "lm"),
+    ("llama4-scout-17b-a16e", "lm"), ("grok-1-314b", "lm"), ("meshgraphnet", "gnn")])
+def test_lm_and_gnn_ids_resolve(arch, family):
+    """The LM and GNN ids resolve to their family and to configs equal to
+    the reference's field for field (dtypes by name), with equal parameter
+    counts and shape ids."""
     from repro.configs.registry import REGISTRY
 
-    assert REGISTRY[arch].family == family
-    with pytest.raises(NotImplementedError, match=f"{family} family, which is not yet ported"):
-        PREG.get_arch(arch)
+    ref, entry = REGISTRY[arch], PREG.get_arch(arch)
+    assert entry.family == ref.family == family and entry.shapes == ref.shapes
+    for got, want in ((entry.config, ref.config), (entry.smoke_config, ref.smoke_config)):
+        for field in type(want).__dataclass_fields__:
+            g, w = getattr(got, field), getattr(want, field)
+            if field in ("dtype", "kv_cache_dtype"):
+                g, w = str(g).split(".")[-1], np.dtype(w).name
+            assert g == w, field
+        assert got.param_count() == want.param_count()
     with pytest.raises(KeyError, match="unknown arch"):
         PREG.get_arch("no-such-arch")
 
@@ -329,6 +339,7 @@ def test_lm_and_gnn_ids_are_named_as_not_ported(arch, family):
 def test_registry_covers_the_reference():
     from repro.configs.registry import REGISTRY
 
-    assert set(REGISTRY) == set(PREG.REGISTRY) | set(PREG.NOT_PORTED)
-    for arch, family in PREG.NOT_PORTED.items():
-        assert REGISTRY[arch].family == family
+    assert list(PREG.REGISTRY) == list(REGISTRY)
+    for arch, entry in REGISTRY.items():
+        assert PREG.REGISTRY[arch].family == entry.family
+        assert PREG.REGISTRY[arch].shapes == entry.shapes

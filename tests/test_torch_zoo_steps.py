@@ -23,7 +23,8 @@ Serve outputs: within 1e-5 relative to their largest entry. Retrieval
 ids: exactly, ties toward the lower id (duplicated candidates make exact
 ties); scores within 1e-5 relative. ``tt_retrieval_bebr_step`` with the
 candidate codes and inverse norms handed over: the same top-k ids, the
-scores within 1e-6 relative.
+scores within 1e-6 relative, also where inverse norms are 0 or negative
+(those candidates compete, as in the reference).
 """
 
 import numpy as np
@@ -308,6 +309,85 @@ def test_tt_retrieval_bebr_step_matches_the_reference(seed, k):
         _port_tree(params), _t(batch))
     np.testing.assert_array_equal(pi.numpy(), np.asarray(ri))
     assert _rel(pv, rv) <= 1e-6
+
+
+# cand_inv <= 0 at chosen docs: (seed, N, k, {doc: inverse norm}). The
+# reference scores such a doc affine x inv (0, or the sign flipped) and
+# ranks it among the others; the first case is the SMOKE check that found
+# the port dropping them (N 40, k 40, docs 3 and 17 at 0).
+NONPOSITIVE_CASES = [
+    (0, 40, 40, {3: 0.0, 17: 0.0}),
+    (1, 40, 10, {3: 0.0, 17: 0.0, 20: -0.0}),
+    (2, 60, 25, {0: -0.5, 5: 0.0, 59: -3.0}),
+    (3, 50, 60, {1: -1.0, 2: 0.0, 10: -1e-3}),
+    (4, 200, 5, {i: 0.0 for i in range(0, 200, 2)}),
+    (5, 30, 30, {i: -0.25 for i in range(30)}),
+]
+
+
+def _nonpositive_world(seed, N, overrides):
+    params, batch = _bebr_world(seed, N=N)
+    inv = batch["cand_inv"].copy()
+    for doc, value in overrides.items():
+        inv[doc] = value
+    batch["cand_inv"] = inv
+    return params, batch
+
+
+@pytest.mark.parametrize("seed,N,k,overrides", NONPOSITIVE_CASES)
+def test_tt_retrieval_bebr_step_ranks_nonpositive_inverse_norms(seed, N, k, overrides):
+    """A candidate whose inverse norm is 0 or negative competes with the
+    reference's score: ids exactly (ties to the lower id, -0.0 below
+    +0.0, as ``jax.lax.top_k`` ranks them), scores within 1e-6 relative."""
+    params, batch = _nonpositive_world(seed, N, overrides)
+    kk = min(k, N)  # jax.lax.top_k takes no k above N
+    rv, ri = jax.jit(RST.tt_retrieval_bebr_step(RTC.SMOKE, k=kk, code_dim=16, n_levels=4))(
+        params, batch)
+    pv, pi = PST.tt_retrieval_bebr_step(PTC.SMOKE, k=k, code_dim=16, n_levels=4)(
+        _port_tree(params), _t(batch))
+    assert pv.shape == (1, k) and pi.dtype == torch.int32
+    np.testing.assert_array_equal(pi[:, :kk].numpy(), np.asarray(ri))
+    assert _rel(pv[:, :kk], rv) <= 1e-6
+    np.testing.assert_array_equal(np.signbit(pv[:, :kk].numpy()), np.signbit(np.asarray(rv)))
+    assert bool((pi[:, kk:] == -1).all())
+    if kk == N:  # every candidate ranked, the nonpositive ones included
+        assert sorted(pi[0, :N].tolist()) == list(range(N))
+
+
+def test_merge_topk_breaks_ties_as_the_reference():
+    """``_merge_topk`` against ``jax.lax.top_k`` on scores with signed
+    zeros and repeated values, the candidates given out of id order."""
+    rng = np.random.default_rng(0)
+    scores = rng.choice(np.float32([1.5, 0.0, -0.0, -2.0, 7.0]), 64).astype(np.float32)
+    ids = rng.permutation(64).astype(np.int32)
+    full = np.empty(64, np.float32)
+    full[ids] = scores
+    rv, ri = jax.lax.top_k(jnp.asarray(full)[None], 20)
+    pv, pi = PST._merge_topk(torch.from_numpy(scores), torch.from_numpy(ids), 20)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(pv.numpy().view(np.int32), np.asarray(rv).view(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,N,k,overrides", NONPOSITIVE_CASES)
+def test_tt_retrieval_bebr_step_nonpositive_on_the_card(seed, N, k, overrides):
+    """The same cases on CUDA tensors: the same scores and ids as the CPU
+    step, bit for bit, with one ``sdc_topk`` launch for the rows with
+    inv > 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.sdc import sdc as PSDC
+
+    params, batch = _nonpositive_world(seed, N, overrides)
+    step = PST.tt_retrieval_bebr_step(PTC.SMOKE, k=k, code_dim=16, n_levels=4)
+    hv, hi = step(_port_tree(params), _t(batch))
+    before = PSDC.sdc_topk.launches
+    cv, ci = step(PE.tree_from_numpy(params, device="cuda"),
+                  {key: v.cuda() for key, v in _t(batch).items()})
+    torch.cuda.synchronize()
+    assert PSDC.sdc_topk.launches == before + 1
+    assert torch.equal(ci.cpu(), hi)
+    assert torch.equal(cv.cpu().view(torch.int32), hv.view(torch.int32))
 
 
 @pytest.mark.gpu
