@@ -228,6 +228,19 @@ that fails:
      minibatch_lg size (169,984 nodes, 168,960 edges) twice from one
      seed, bit-identical; times (tokens/s), device-busy shares and peak
      memory printed, not gated.
+ 13. the port's tooling (no kernel): compress_with_feedback over
+     llama3.2-1b's 1.24B float32 gradients, three rounds held bit for bit
+     against the CPU, and compressed_psum over a one-rank NCCL group equal
+     to the dequantized tree; meanwhile, in worker processes, the dry run
+     of all 40 cells on both production meshes (the meta device; every
+     record ok, parameter elements against meta["params"]); five cells at
+     their production shapes on one leaf of the card (two-tower
+     retrieval_cand, MIND and DIEN serve_p99, dlrm-rm2 serve_bulk through
+     dot_interact, meshgraphnet minibatch_lg train), their arguments'
+     bytes equal to the dry run's and their FLOPs to the meta count;
+     llama3.2-1b's parameters laid out over a (4, 2) mesh of the card,
+     each leaf's bytes equal to the dry run's, and gathered back bit for
+     bit.
 
 Its last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Phases 3-9 use seeded, untrained
@@ -372,6 +385,19 @@ FIGURE_MARGIN = 0.05
 # the autotuner (phase 8f): the rerank's survivors (the bi-granular k') and
 # the timed calls a candidate
 TUNE_RERANK_KC, TUNE_REPS = 160, 5
+# the port's tooling (phase 13): gradient compression over COMP_ROUNDS rounds
+# at LM_ARCH's full size, the host check of every leaf while its first round
+# stays under COMP_HOST_S_A_ROUND (else the embedding and the stacked leaves
+# under COMP_SMALL elements); the dry run of all 40 cells on both production
+# meshes over DRYRUN_WORKERS processes; CARD_CELLS at their production shapes
+# on one leaf of the card, CELL_TIME_STEPS timed steps each; the sharded
+# state's mesh
+COMP_ROUNDS, COMP_HOST_S_A_ROUND, COMP_SMALL = 3, 10.0, 1 << 26
+DRYRUN_WORKERS = 7
+CARD_CELLS = (("two-tower-retrieval", "retrieval_cand"), ("mind", "serve_p99"),
+              ("dien", "serve_p99"), ("dlrm-rm2", "serve_bulk"), ("meshgraphnet", "minibatch_lg"))
+CELL_TIME_STEPS = 5
+SHARD_MESH = ((4, 2), ("data", "model"))
 
 
 def ivf_params():
@@ -3691,6 +3717,300 @@ def lm_gnn_phase(device, name, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _dryrun_cell(cell):
+    """The dry run of one (arch, shape) on both production meshes (a worker
+    process: the step's costs are counted once when the shapes agree)."""
+    import torch
+
+    torch.set_num_threads(1)
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    from repro_torch.launch.dryrun import run_cell
+
+    cache = {}
+    return [run_cell(cell[0], cell[1], multi_pod, cache) for multi_pod in (False, True)]
+
+
+def _dryrun_order(cells):
+    """The longest first: the LM train cells, then the LM prefills, by size."""
+    from repro_torch.configs.registry import get_arch
+
+    def cost(cell):
+        entry = get_arch(cell[0])
+        size = entry.config.param_count() if entry.family == "lm" else 0
+        return (cell[1] == "train_4k", cell[1] == "prefill_32k", size)
+
+    return sorted(cells, key=cost, reverse=True)
+
+
+def _cell_args(cell, device, gen):
+    """``cell``'s meta arguments drawn on ``device`` in valid ranges: ids below
+    the rows of the table they index (or the graph's nodes), masks mostly
+    ones, Adam's moments zeros, other floats N(0, 1) x 0.05."""
+    import torch
+
+    from repro_torch.train.checkpoint import flatten_tree, unflatten_tree
+
+    params = cell.abstract_args[0]
+
+    def high(name):
+        if name in ("senders", "receivers"):
+            return cell.meta["nodes"]
+        if name == "sparse_ids":
+            return params["tables"].shape[1]
+        if name in ("hist_cates", "target_cate"):
+            return params["cate_table"].shape[0]
+        if name == "hist_ids" and "user_table" in params:
+            return params["user_table"].shape[0]
+        return params["item_table"].shape[0]
+
+    def draw(key, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        name = re.findall(r"\['(\w+)'\]", key)[-1]
+        if "/.mu/" in key or "/.nu/" in key:
+            return torch.zeros(leaf.shape, dtype=leaf.dtype, device=device)
+        if leaf.dtype == torch.bool:
+            return torch.rand(leaf.shape, generator=gen, device=device) < 0.95
+        if not leaf.dtype.is_floating_point:
+            return torch.randint(0, high(name), leaf.shape, generator=gen, device=device,
+                                 dtype=leaf.dtype)
+        if name.endswith("_mask"):
+            mask = (torch.rand(leaf.shape, generator=gen, device=device) < 0.9).to(leaf.dtype)
+            mask[..., 0] = 1.0
+            return mask
+        return (torch.randn(leaf.shape, generator=gen, device=device) * 0.05).to(leaf.dtype)
+
+    flat = flatten_tree(cell.abstract_args)
+    return unflatten_tree(cell.abstract_args, [draw(k, v) for k, v in flat.items()])
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        view = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.reshape(-1).view(view), b.reshape(-1).view(view))
+    return torch.equal(a, b)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def tooling_phase(seed, device, name, smi):
+    """Phase 13: gradient compression at llama3.2-1b's full size, the dry run
+    of every cell on both production meshes (worker processes, while the
+    card works), five cells at their production shapes on the card, and
+    llama3.2-1b's parameters laid out over a (4, 2) mesh and gathered back.
+    Adds no kernel."""
+    import multiprocessing
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_cost import step_costs
+    from repro_torch.launch.mesh import LeafMesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import compression as comp
+    from repro_torch.train.checkpoint import flatten_tree
+
+    t_phase = time.perf_counter()
+    pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
+    try:
+        # -- (b) the dry run starts: all 40 cells, both meshes, on the meta device --
+        t_dry = time.perf_counter()
+        dry = pool.map_async(_dryrun_cell, _dryrun_order(registry.all_cells()), chunksize=1)
+
+        # -- (a) gradient compression at llama3.2-1b's full size --------------------
+        cfg = registry.get_arch(LM_ARCH).config
+        shapes = {k: tuple(t.shape) for k, t in
+                  flatten_tree(tf.init_params(cfg, device="meta")).items()}
+        n_elems = sum(math.prod(v) for v in shapes.values())
+        check(n_elems == cfg.param_count(), f"{LM_ARCH}: {n_elems} gradient elements")
+        gen = torch.Generator(device=device).manual_seed(seed)
+        grads = {k: torch.empty(v, dtype=torch.float32, device=device) for k, v in shapes.items()}
+        err = comp.init_error_feedback(grads)
+        round_ms, host_s, checked = [], [], list(shapes)
+        for r in range(COMP_ROUNDS):
+            for g in grads.values():
+                g.normal_(generator=gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q, scales, new_err = comp.compress_with_feedback(grads, err)
+            torch.cuda.synchronize()
+            round_ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            for k in checked:
+                hq, hs, he = comp.compress_with_feedback({"x": grads[k].cpu()}, {"x": err[k].cpu()})
+                check(_bits_equal(q[k].cpu(), hq["x"]) and _bits_equal(scales[k].cpu(), hs["x"])
+                      and _bits_equal(new_err[k].cpu(), he["x"]),
+                      f"compression round {r}, {k}: the card's payload, scale or error differs "
+                      f"from the CPU's")
+            host_s.append(time.perf_counter() - t0)
+            if r == 0 and host_s[0] > COMP_HOST_S_A_ROUND:
+                checked = [k for k in shapes if k == "['embed']"
+                           or math.prod(shapes[k]) < COMP_SMALL]
+            err = new_err
+            del q, scales, new_err
+        which = ("every leaf" if len(checked) == len(shapes) else
+                 f"every leaf in round 0, then {', '.join(checked)} "
+                 f"({sum(math.prod(shapes[k]) for k in checked)} elements)")
+        one_pass, two_pass = 13 * n_elems, 21 * n_elems
+        log(f"[tools] compress_with_feedback over {LM_ARCH}'s {len(shapes)} gradient leaves "
+            f"({n_elems} f32 elements) on {name} ({smi}): rounds "
+            f"{', '.join(f'{ms:.2f}' for ms in round_ms)} ms; HBM bound "
+            f"{1e3 * two_pass / HBM_BYTES_PER_S:.2f} ms ({two_pass / 1e9:.1f} GB: g and e read "
+            f"twice, once for the max, q and e written; one pass would be "
+            f"{1e3 * one_pass / HBM_BYTES_PER_S:.2f} ms, {one_pass / 1e9:.1f} GB); q, scale and "
+            f"the new error bit-identical to the CPU's ({which}; host side "
+            f"{', '.join(f'{t:.1f}' for t in host_s)} s a round)")
+        addr = f"tcp://127.0.0.1:{_free_port()}"
+        dist.init_process_group("nccl", init_method=addr, world_size=1, rank=0,
+                                device_id=torch.device(device))
+        try:
+            q, scales, want_err = comp.compress_with_feedback(grads, err)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, got_err = comp.compressed_psum(grads, err)
+            torch.cuda.synchronize()
+            psum_ms = 1e3 * (time.perf_counter() - t0)
+            for k in shapes:
+                check(_bits_equal(mean[k], comp.dequantize_int8(q[k], scales[k]))
+                      and _bits_equal(got_err[k], want_err[k]),
+                      f"compressed_psum over one NCCL rank: {k} differs from the dequantized tree")
+        finally:
+            dist.destroy_process_group()
+        del grads, err, q, scales, want_err, mean, got_err
+        torch.cuda.empty_cache()
+        log(f"[tools] compressed_psum over a one-rank NCCL group ({addr}): the mean equals the "
+            f"dequantized tree and the new error the compression's, every leaf, bit for bit "
+            f"({psum_ms:.1f} ms); group destroyed")
+
+        # -- (c) five cells at their production shapes on one leaf of the card --------
+        card = LeafMesh((1, 1), ("data", "model"), [device])
+        gen = torch.Generator(device=device).manual_seed(seed)
+        for arch, shape in CARD_CELLS:
+            cell = registry.build_cell(arch, shape, card)
+            meta = step_costs(cell.fn, *cell.abstract_args)
+            want_bytes = dryrun.argument_bytes(cell)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            args = _cell_args(cell, device, gen)
+            leaves = [t for t in flatten_tree(args).values() if isinstance(t, torch.Tensor)]
+            got_bytes = sum(t.untyped_storage().nbytes() for t in leaves)
+            check(all(t.device == torch.device(device) for t in leaves) and got_bytes == want_bytes,
+                  f"{arch}/{shape}: its arguments take {got_bytes} bytes on the card, the dry "
+                  f"run says {want_bytes}")
+            torch.cuda.reset_peak_memory_stats()
+            costs = step_costs(cell.fn, *args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            check(costs["flops"] == meta["flops"],
+                  f"{arch}/{shape}: {costs['flops']} FLOPs on the card, {meta['flops']} on meta")
+            out = cell.fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CELL_TIME_STEPS):
+                out = cell.fn(*args)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / CELL_TIME_STEPS
+            floats = [t for t in flatten_tree(out).values()
+                      if isinstance(t, torch.Tensor) and t.dtype.is_floating_point]
+            check(floats and all(bool(torch.isfinite(t).all()) for t in floats),
+                  f"{arch}/{shape}: the step's outputs are not finite")
+            log(f"[tools] {arch}/{shape} ({cell.kind}) on one leaf of {name} ({smi}): arguments "
+                f"{got_bytes / 1e9:.3f} GB == the dry run's; {costs['flops']:.4e} FLOPs a step on "
+                f"the card == meta; {ms:.3f} ms a step ({costs['flops'] / ms / 1e9:.2f} TFLOP/s); "
+                f"peak {peak / 1e9:.3f} GB on the card beside "
+                f"{meta['unsharded_peak_bytes'] / 1e9:.3f} GB on meta (not gated)")
+            del args, leaves, out, floats
+            torch.cuda.empty_cache()
+
+        # -- (d) llama3.2-1b's parameters over a (4, 2) mesh of the card ---------------
+        params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                                device=device)
+        mesh = LeafMesh(*SHARD_MESH, [device] * math.prod(SHARD_MESH[0]))
+        meta_mesh = LeafMesh(*SHARD_MESH, ["meta"] * math.prod(SHARD_MESH[0]))
+        want_leaf = shd.tree_leaf_bytes(tf.init_params(cfg, device="meta"),
+                                        shd.lm_param_sharding(meta_mesh, cfg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded = shd.shard_tree(params, shd.lm_param_sharding(mesh, cfg))
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        pieces = list(flatten_tree(sharded).values())
+        per_leaf = [sum(v.leaf_bytes()[i] for v in pieces) for i in range(mesh.n_leaves)]
+        check(set(per_leaf) == {want_leaf},
+              f"sharded {LM_ARCH}: leaves hold {per_leaf} bytes, the dry run says {want_leaf}")
+        t0 = time.perf_counter()
+        back = shd.gather_tree(sharded, device)
+        torch.cuda.synchronize()
+        gather_s = time.perf_counter() - t0
+        check(all(_bits_equal(a, b) for a, b in zip(flatten_tree(back).values(),
+                                                    flatten_tree(params).values())),
+              f"sharded {LM_ARCH}: gather_tree did not give the parameters back bit for bit")
+        log(f"[tools] {LM_ARCH}'s parameters ({cfg.param_count()} bf16) over LeafMesh"
+            f"{SHARD_MESH[0]} on {name}: {want_leaf / 1e9:.4f} GB on each of the "
+            f"{mesh.n_leaves} leaves == the dry run's per-leaf figure; laid out in "
+            f"{shard_s:.2f} s, gathered back bit-identical in {gather_s:.2f} s")
+        del params, sharded, pieces, back
+        torch.cuda.empty_cache()
+
+        # -- (b) the dry run's records ----------------------------------------------------
+        t0 = time.perf_counter()
+        records = [r for pair in dry.get(timeout=1200) for r in pair]
+        dry_s = time.perf_counter() - t_dry
+        waited = time.perf_counter() - t0
+    finally:
+        pool.terminate()
+        pool.join()
+    bad = [f"{r['arch']}|{r['shape']}|{r['mesh']}: {r.get('error')}"
+           for r in records if not r.get("ok")]
+    check(len(records) == 80 and not bad, f"dry run: {len(records)} records, failed {bad}")
+    by_family = {}
+    for r in records:
+        entry = registry.get_arch(r["arch"])
+        by_family.setdefault(entry.family, []).append(r)
+        if r["mesh"] != "16x16":
+            continue
+        n = 256
+        cell = registry.build_cell(r["arch"], r["shape"], LeafMesh(
+            (16, 16), ("data", "model"), ["meta"] * n))
+        elems = sum(t.numel() for t in flatten_tree(cell.abstract_args[0]).values())
+        # two param_counts of the reference miss parts of their own trees
+        # (ROADMAP, reference-side caveats): those cells are held to the tree
+        want = r["meta"]["params"]
+        if entry.family == "gnn":  # mlp_layers layers an MLP counted, mlp_layers + 1 built
+            h = cell.meta["d_hidden"]
+            want += (3 + 2 * cell.meta["n_layers"]) * (h * h + h)
+        elif r["arch"] == "dien":  # target_proj and the attention's 36 -> 1 layer uncounted
+            want += entry.config.beh_dim * entry.config.gru_dim + 36 + 1
+        check(elems == want, f"dry run {r['arch']}/{r['shape']}: {elems} parameter elements, "
+                             f"want {want}")
+    log(f"[tools] dry run: {len(records)} (cell, mesh) pairs on the meta device in {dry_s:.1f} s "
+        f"over {DRYRUN_WORKERS} processes ({sum(r['run_s'] for r in records):.1f} s of steps; "
+        f"{waited:.1f} s waited after (a), (c) and (d)); parameter elements == meta['params'] "
+        f"(meshgraphnet and dien, whose param_count misses part of the tree: == the tree)")
+    for family, recs in sorted(by_family.items()):
+        top = max(recs, key=lambda r: r["memory"]["argument_bytes"])
+        flops = ", ".join(f"{r['arch']}/{r['shape']} {r['cost']['flops_per_step']:.3e}"
+                          for r in recs if r["mesh"] == "16x16")
+        log(f"[tools] dry run {family}: largest per-leaf arguments "
+            f"{top['memory']['argument_bytes'] / 1e9:.3f} GB ({top['arch']}/{top['shape']} on "
+            f"{top['mesh']}); FLOPs a step: {flops}")
+    log(f"[tools] phase passed in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4204,6 +4524,10 @@ def main() -> None:
     # -- 12. the LM and GNN families at full width ------------------------------------
     torch.cuda.empty_cache()
     lm_gnn_phase(device, name, smi)
+
+    # -- 13. compression, the dry run of every cell, cells and sharded state on the card --
+    torch.cuda.empty_cache()
+    tooling_phase(args.seed, device, name, smi)
 
     log("kernels: " + ", ".join(f"{k['name']} matched, launches={k['launches']}"
                                 for k in kernels))

@@ -13,6 +13,17 @@ Its bound on the card is bytes: the [B, F, D] input read once and the
 one wave of them, several to an SM, walks the batch in stages of up to 8
 examples, one block's copies in flight while the others compute
 (``csrc/dot_interact.cu`` says more).
+
+The custom operator ``repro_torch::dot_interact``
+(``torch.library.custom_op``) runs the same two routes; its fake
+implementation gives a meta tensor's output shape, so a step runs on the
+meta device (``launch/dryrun.py``), and its FLOP formula (2 B D
+F(F-1)/2, the products the kernel computes) is registered with
+``torch.utils.flop_counter``, so ``FlopCounterMode`` and
+``launch/hlo_cost.step_costs`` count the kernel. A CPU or CUDA tensor
+goes through the operator only while a dispatch mode is active (a
+counter, a fake-tensor trace): otherwise its dispatch, which costs more
+than the kernel at serving batches, is skipped.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dot_interact.ref import dot_interact_torch
@@ -35,12 +47,23 @@ def dot_interact(emb: torch.Tensor) -> torch.Tensor:
     """[B, F, D] f32 -> [B, F*(F-1)//2] f32, pairs in ``np.tril_indices(F, -1)`` order.
 
     CUDA tensors run the kernel (``dot_interact.launches`` counts its
-    launches), CPU tensors the plain version.
+    launches), CPU tensors the plain version; a meta tensor gets its shape.
     """
     if not isinstance(emb, torch.Tensor) or emb.dim() != 3 or emb.dtype != torch.float32:
         raise ValueError("emb must be a float32 tensor [B, F, D]")
     if emb.shape[1] < 2 or emb.shape[2] < 1:
         raise ValueError(f"emb needs F >= 2 features of D >= 1, got {tuple(emb.shape)}")
+    if emb.device.type in ("cpu", "cuda") and torch._C._len_torch_dispatch_stack() == 0:
+        # no dispatch mode to see the operator: skip the custom operator's
+        # dispatch (about 45 us a call on an H100 machine's host)
+        return _dot_interact(emb)
+    return _dot_interact_op(emb)
+
+
+dot_interact.launches = 0
+
+
+def _dot_interact(emb: torch.Tensor) -> torch.Tensor:
     if emb.device.type == "cpu":
         return dot_interact_torch(emb)
     if emb.device.type != "cuda":
@@ -48,7 +71,21 @@ def dot_interact(emb: torch.Tensor) -> torch.Tensor:
     return _launch(emb)
 
 
-dot_interact.launches = 0
+@torch.library.custom_op("repro_torch::dot_interact", mutates_args=())
+def _dot_interact_op(emb: torch.Tensor) -> torch.Tensor:
+    return _dot_interact(emb)
+
+
+@_dot_interact_op.register_fake
+def _dot_interact_fake(emb: torch.Tensor) -> torch.Tensor:
+    B, F, _ = emb.shape
+    return emb.new_empty((B, F * (F - 1) // 2))
+
+
+@register_flop_formula(torch.ops.repro_torch.dot_interact)
+def _dot_interact_flops(emb_shape, *args, out_shape=None, **kwargs) -> int:
+    B, F, D = emb_shape
+    return 2 * B * (F * (F - 1) // 2) * D
 
 
 def _launch(emb: torch.Tensor) -> torch.Tensor:

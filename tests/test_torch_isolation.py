@@ -2,7 +2,10 @@
 
 Importing every module of ``repro_torch`` must load neither ``jax`` nor
 the reference package ``repro``; entry points default to the card and
-raise when there is none (no silent fall back to the CPU).
+raise when there is none (no silent fall back to the CPU). The one entry
+point that does not is the dry run (``launch/dryrun.py``): it runs on the
+meta device by design, as the reference's runs on fake host devices, and
+touches no card and no CPU data.
 """
 
 import os
@@ -73,7 +76,10 @@ for name in ("repro_torch.index.engine", "repro_torch.launch.mesh",
              "repro_torch.configs.archs.two_tower", "repro_torch.configs.archs.mind_cfg",
              "repro_torch.configs.archs.dien_cfg", "repro_torch.models.transformer",
              "repro_torch.models.gnn", "repro_torch.models.sampler",
-             "repro_torch.configs.archs.llama3_2_1b", "repro_torch.configs.archs.meshgraphnet"):
+             "repro_torch.configs.archs.llama3_2_1b", "repro_torch.configs.archs.meshgraphnet",
+             "repro_torch.train.compression", "repro_torch.parallel.sharding",
+             "repro_torch.configs.cells", "repro_torch.launch.hlo_cost",
+             "repro_torch.launch.dryrun"):
     assert name in names, name
 """
 
@@ -514,3 +520,24 @@ def test_cpu_only_when_asked():
     docs, queries, gt = PS.clustered_corpus_torch(0, 100, 4, 8, device="cpu")
     assert docs.shape == (100, 8) and queries.shape == (4, 8) and gt.shape == (4,)
     assert torch.allclose(docs.norm(dim=-1), torch.ones(100), atol=1e-5)
+
+
+def test_dry_run_is_the_meta_device_entry_point(tmp_path):
+    """The dry run needs no card: its cells' arguments are meta tensors,
+    its step runs on them, and CUDA is never initialised."""
+    code = (
+        "import sys, torch\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.configs.registry import build_cell\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "cell = build_cell('mind', 'serve_p99', make_production_mesh(devices=['meta'] * 256))\n"
+        "assert all(t.is_meta for t in cell.abstract_args[1].values())\n"
+        f"dryrun.main(['--arch', 'mind', '--shape', 'serve_p99', '--out', {str(tmp_path / 'd.json')!r}])\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "1/1 cells OK" in out.stdout
