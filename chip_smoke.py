@@ -240,7 +240,21 @@ that fails:
      bytes equal to the dry run's and their FLOPs to the meta count;
      llama3.2-1b's parameters laid out over a (4, 2) mesh of the card,
      each leaf's bytes equal to the dry run's, and gathered back bit for
-     bit.
+     bit. The dry run's records now carry each cell's per-device FLOPs,
+     bytes and collectives from its sharded step (DTensor over a fake
+     process group), every one ok;
+ 14. the hillclimb (launch/hillclimb.py): (a) the card's rates beside the
+     H100 roofline constants of kernels/sdc/defaults.py, a 4 GiB
+     device-to-device copy (HBM bytes/s), an 8192^3 bf16 torch.matmul and
+     an 8192^3 torch._int_mm; (b) tt_retrieval's five variants at their
+     production shapes on the card (the full two-tower, 1,000,000
+     candidates, code_dim 64, k 100), bebr_sdc_merge's collectives over a
+     one-rank NCCL group, each timed by CUDA events beside its one-device
+     roofline terms; bebr_sdc, bebr_sdc_fullmesh and bebr_sdc_merge give
+     identical scores and ids with inverse norms of 0 and below planted,
+     and every sdc_topk call is held exactly against its plain version;
+     (c) meanwhile, in worker processes, hillclimb's 26 variants dry on
+     16x16 (the meta device, a fake process group), every record ok.
 
 Its last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Phases 3-9 use seeded, untrained
@@ -398,6 +412,17 @@ CARD_CELLS = (("two-tower-retrieval", "retrieval_cand"), ("mind", "serve_p99"),
               ("dien", "serve_p99"), ("dlrm-rm2", "serve_bulk"), ("meshgraphnet", "minibatch_lg"))
 CELL_TIME_STEPS = 5
 SHARD_MESH = ((4, 2), ("data", "model"))
+# the hillclimb (phase 14): its variants dry over HILLCLIMB_WORKERS processes;
+# the card's rates from a RATE_COPY_BYTES copy and RATE_MM_N^3 products;
+# tt_retrieval's variants at HC_CANDIDATES candidates, HC_TIME_REPS timed
+# calls each, the inverse norms of HC_PLANTED set to 0 and below (-50 flips a
+# negative affine score far above the rest, so planted rows reach the top k)
+HILLCLIMB_WORKERS = 8
+RATE_COPY_BYTES, RATE_MM_N, RATE_REPS = 4 << 30, 8192, 10
+HC_CANDIDATES, HC_CODE_DIM, HC_LEVELS, HC_K = 1_000_000, 64, 4, 100
+HC_TIME_REPS = 5
+HC_PLANTED = {5: 0.0, 250_001: -0.0, 500_002: -0.5, 999_999: 0.0,
+              **{i: -50.0 for i in range(17, 1_000_000, 41_667)}}
 
 
 def ivf_params():
@@ -4011,6 +4036,246 @@ def tooling_phase(seed, device, name, smi):
     log(f"[tools] phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
+def _hillclimb_variant(item):
+    """One hillclimb variant's record on 16x16 (a worker process: the meta
+    device and a fake process group, nothing on the card)."""
+    import logging
+
+    import torch
+
+    torch.set_num_threads(1)
+    logging.disable(logging.WARNING)  # DTensor's note on the CPU mesh's all-to-all
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    from repro_torch.launch import hillclimb as hc
+
+    cell, variant = item
+    try:
+        return cell, variant, hc.run_variant(cell, variant, False)
+    except Exception as e:  # noqa: BLE001 — reported and failed by the phase
+        return cell, variant, {"ok": False, "error": f"{type(e).__name__}: {e}"}
+
+
+def _hillclimb_order(variants):
+    """The longest first: llama3-405b's train step, grok's prefill, the GNN,
+    then the two-tower cell."""
+    rank = {"llama405b_train": 0, "grok_prefill": 1, "gnn_ogb": 2, "tt_retrieval": 3}
+    return sorted(((c, v) for c in variants for v in variants[c]), key=lambda cv: rank[cv[0]])
+
+
+def _tt_variant_args(abstract, cfg, device, gen):
+    """Real arguments for a tt_retrieval variant's meta ``abstract`` ones on
+    ``device``: the two-tower's seeded parameters and a linear binarizer,
+    one query's history, codes in [0, 2^levels), their inverse norms with
+    ``HC_PLANTED`` set, f32 candidate embeddings or candidate ids."""
+    import torch
+
+    from repro_torch.kernels.sdc import ref as sdc_ref
+    from repro_torch.models.recsys import two_tower as tt
+
+    params_s, batch_s = abstract
+    params = tt.init_params(cfg, gen, device=device)
+    if "binarizer" in params_s:
+        emb, code = params_s["binarizer"]["W"][0].shape
+        params["binarizer"] = {
+            "W": [torch.randn((emb, code), generator=gen, device=device) / emb**0.5
+                  for _ in params_s["binarizer"]["W"]],
+            "R": [torch.randn((code, emb), generator=gen, device=device) / code**0.5
+                  for _ in params_s["binarizer"]["R"]]}
+    batch = {"hist_ids": torch.randint(0, cfg.user_vocab, tuple(batch_s["hist_ids"].shape),
+                                       generator=gen, device=device, dtype=torch.int32),
+             "hist_mask": torch.ones(tuple(batch_s["hist_mask"].shape), device=device)}
+    if "cand_codes" in batch_s:
+        n, code = batch_s["cand_codes"].shape
+        codes = torch.randint(0, 2**HC_LEVELS, (n, code), generator=gen, device=device,
+                              dtype=torch.int32).to(torch.int8)
+        inv = sdc_ref.doc_inv_norms(codes, HC_LEVELS)
+        for doc, value in HC_PLANTED.items():
+            inv[doc] = value
+        batch.update(cand_codes=codes, cand_inv=inv)
+    if "cand_emb" in batch_s:
+        batch["cand_emb"] = torch.randn(tuple(batch_s["cand_emb"].shape), generator=gen,
+                                        device=device)
+    if "cand_ids" in batch_s:
+        batch["cand_ids"] = torch.randint(0, cfg.item_vocab, tuple(batch_s["cand_ids"].shape),
+                                          generator=gen, device=device, dtype=torch.int32)
+    return params, batch
+
+
+def hillclimb_phase(seed, device, name, smi):
+    """Phase 14: the card's rates beside the roofline constants, the
+    two-tower cell's five variants at production shapes on the card (three
+    BEBR variants identical, every sdc_topk call held against its plain
+    version), and hillclimb's 26 variants dry in worker processes. Returns
+    the kernels JSON row of the BEBR variants' sdc_topk."""
+    import multiprocessing
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.sdc import defaults
+    from repro_torch.kernels.sdc import sdc as sdc_mod
+    from repro_torch.launch import hillclimb as hc
+    from repro_torch.launch.mesh import LeafMesh
+    from repro_torch.parallel import spmd
+
+    t_phase = time.perf_counter()
+    pool = multiprocessing.get_context("spawn").Pool(HILLCLIMB_WORKERS)
+    try:
+        # -- (c) the 26 variants start, dry, in the workers ---------------------------
+        t_dry = time.perf_counter()
+        dry = pool.map_async(_hillclimb_variant, _hillclimb_order(hc.VARIANTS), chunksize=1)
+
+        # -- (a) the card's rates beside the constants --------------------------------
+        x = torch.empty(RATE_COPY_BYTES, dtype=torch.uint8, device=device)
+        y = torch.empty_like(x)
+        copy_ms = cuda_ms(lambda: y.copy_(x), RATE_REPS)
+        hbm = 2 * RATE_COPY_BYTES / (copy_ms / 1e3)  # read once, written once
+        del x, y
+        gen = torch.Generator(device=device).manual_seed(seed)
+        n = RATE_MM_N
+        a = torch.randn((n, n), generator=gen, device=device).to(torch.bfloat16)
+        b = torch.randn((n, n), generator=gen, device=device).to(torch.bfloat16)
+        bf16_ms = cuda_ms(lambda: torch.matmul(a, b), RATE_REPS)
+        ai = torch.randint(-128, 128, (n, n), generator=gen, device=device,
+                           dtype=torch.int32).to(torch.int8)
+        bi = torch.randint(-128, 128, (n, n), generator=gen, device=device,
+                           dtype=torch.int32).to(torch.int8)
+        int8_ms = cuda_ms(lambda: torch._int_mm(ai, bi), RATE_REPS)
+        del a, b, ai, bi
+        torch.cuda.empty_cache()
+        bf16 = 2 * n**3 / (bf16_ms / 1e3)
+        int8 = 2 * n**3 / (int8_ms / 1e3)
+        log(f"[hillclimb] rates of {name} ({smi}): HBM {hbm / 1e12:.4f} TB/s (a "
+            f"{RATE_COPY_BYTES / 2**30:.0f} GiB device-to-device copy, {copy_ms:.3f} ms) beside "
+            f"HBM_BW {defaults.HBM_BW / 1e12:.2f}; bf16 torch.matmul {n}^3 {bf16 / 1e12:.2f} "
+            f"TFLOP/s ({bf16_ms:.3f} ms) beside PEAK_FLOPS {defaults.PEAK_FLOPS / 1e12:.1f}; "
+            f"torch._int_mm {n}^3 {int8 / 1e12:.2f} TOP/s ({int8_ms:.3f} ms) beside the int8 "
+            f"peak {2 * defaults.PEAK_FLOPS / 1e12:.1f}; LINK_BW {defaults.LINK_BW / 1e9:.0f} "
+            f"GB/s x N_LINKS {defaults.N_LINKS}: not measured (one card, no NVLink peer)")
+
+        # -- (b) tt_retrieval's five variants at production shapes on the card -------
+        cfg = get_arch("two-tower-retrieval").config
+        one = LeafMesh((1, 1), ("data", "model"), [device])
+        meta_one = LeafMesh((1, 1), ("data", "model"), ["meta"])
+        terms, outs, times = {}, {}, {}
+        for variant, build in hc.VARIANTS["tt_retrieval"].items():
+            terms[variant] = hc._measure(*build(meta_one), meta_one)  # one device, on meta
+        addr = f"tcp://127.0.0.1:{_free_port()}"
+        dist.init_process_group("nccl", init_method=addr, world_size=1, rank=0,
+                                device_id=torch.device(device))
+        try:
+            with spmd.bind(one):
+                sdc_mod.sdc_topk.launches = 0
+                with _SdcTopkCalls() as seen:
+                    for variant, build in hc.VARIANTS["tt_retrieval"].items():
+                        fn, shardings, abstract = build(one)
+                        args = _tt_variant_args(abstract, cfg, device,
+                                                torch.Generator(device=device).manual_seed(seed))
+                        if variant == "bebr_sdc_merge":
+                            def call(fn=fn, args=args, shardings=shardings):
+                                v, i = spmd.run(fn, args, shardings)
+                                return v.to_local(), i.to_local()
+                        else:
+                            def call(fn=fn, args=args):
+                                return fn(*args)
+                        outs[variant] = call()
+                        torch.cuda.synchronize()
+                        if variant == "bebr_sdc_merge":  # the main path's launches end here
+                            launches = sdc_mod.sdc_topk.launches
+                            held = seen.check("tt_retrieval BEBR variants", launches)
+                        times[variant] = (call, args)
+                for variant, (call, args) in times.items():
+                    times[variant] = cuda_ms(call, HC_TIME_REPS)
+                del args
+        finally:
+            dist.destroy_process_group()
+        check(launches == 3, f"the three BEBR variants launched sdc_topk {launches} times")
+        (vb, ib), (vf, i_f), (vm, im) = (outs[v] for v in ("bebr_sdc", "bebr_sdc_fullmesh",
+                                                          "bebr_sdc_merge"))
+        check(_bits_equal(vb, vf) and _bits_equal(vb, vm) and torch.equal(ib, i_f)
+              and torch.equal(ib, im),
+              "bebr_sdc, bebr_sdc_fullmesh and bebr_sdc_merge differ on the card")
+        top = set(ib[0].tolist())
+        planted = sorted(d for d in HC_PLANTED if d in top)
+        check(bool(planted), "no candidate with an inverse norm <= 0 reached the top k")
+        for variant, (v, i) in outs.items():
+            check(tuple(v.shape) == (1, HC_K) and bool(torch.isfinite(v).all())
+                  and bool((v[:, :-1] >= v[:, 1:]).all()), f"tt_retrieval {variant} on the card")
+        log(f"[hillclimb] tt_retrieval on {name} ({smi}): bebr_sdc, bebr_sdc_fullmesh and "
+            f"bebr_sdc_merge (one-rank NCCL group) give identical scores and ids over "
+            f"{HC_CANDIDATES} codes, {len(planted)} candidates with an inverse norm <= 0 in "
+            f"the top {HC_K}; sdc_topk launched {launches} times ({held}), each exactly its "
+            f"plain version")
+        for variant in hc.VARIANTS["tt_retrieval"]:
+            t = terms[variant]
+            log(f"[time] hillclimb tt_retrieval|{variant} on {name} ({smi}): {times[variant]:.3f} "
+                f"ms a call (CUDA events, {HC_TIME_REPS} calls) beside its one-device roofline "
+                f"terms compute {t['compute_ms']:.4f} ms, memory {t['memory_ms']:.4f} ms "
+                f"({t['flops']:.4e} FLOPs, {t['bytes']:.4e} eager bytes)")
+        del outs
+
+        # the kernel at the variants' shape, for the kernels line
+        g = torch.Generator(device=device).manual_seed(seed)
+        codes = torch.randint(0, 2**HC_LEVELS, (HC_CANDIDATES, HC_CODE_DIM), generator=g,
+                              device=device, dtype=torch.int32).to(torch.int8)
+        from repro_torch.kernels.sdc import ref as sdc_ref
+
+        inv = sdc_ref.doc_inv_norms(codes, HC_LEVELS)
+        q = torch.randint(0, 2**HC_LEVELS, (1, HC_CODE_DIM), generator=g, device=device,
+                          dtype=torch.int32).to(torch.int8)
+        kw = dict(n_levels=HC_LEVELS, k=HC_K)
+        v, i = sdc_mod.sdc_topk(q, codes, inv, **kw)
+        pv, pi = sdc_mod.sdc_topk_torch(q, codes, inv, **kw)
+        check(torch.equal(v, pv) and torch.equal(i, pi),
+              "sdc_topk at [1, 1,000,000] differs from its plain version")
+        ms = cuda_ms(lambda: sdc_mod.sdc_topk(q, codes, inv, **kw), 50)
+        plain_ms = cuda_ms(lambda: sdc_mod.sdc_topk_torch(q, codes, inv, **kw), 5)
+        nbytes = HC_CANDIDATES * (HC_CODE_DIM + 4) + HC_CODE_DIM + HC_K * 8
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * (2 * HC_CANDIDATES * HC_CODE_DIM * 2) / INT8_OPS_PER_S
+        log(f"[time] sdc_topk int8 Q=1 N={HC_CANDIDATES} D={HC_CODE_DIM} k={HC_K} (the BEBR "
+            f"variants' scan) on {name} ({smi}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"HBM bound {bytes_ms:.5f} ms, int8 op bound {ops_ms:.5f} ms, library n/a "
+            f"(torch._int_mm takes no single query)")
+        row = dict(name="sdc_topk_int8_bebr", route="cuda", source=SOURCE,
+                   replaces=REPLACES[False], launches=launches,
+                   max_abs_err=float((v - pv).abs().max()), ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
+        del codes, inv, q
+        torch.cuda.empty_cache()
+
+        # -- (c) the dry records -------------------------------------------------------
+        t0 = time.perf_counter()
+        records = dry.get(timeout=1000)
+        dry_s = time.perf_counter() - t_dry
+        waited = time.perf_counter() - t0
+    finally:
+        pool.terminate()
+        pool.join()
+    bad = [f"{c}|{v}: {r.get('error')}" for c, v, r in records if not r.get("ok")]
+    check(len(records) == 26 and not bad, f"hillclimb: {len(records)} records, failed {bad}")
+    for c, v, r in records:
+        wire = ", ".join(f"{k} {x:.4e}" for k, x in r["collectives"].items() if x)
+        log(f"[hillclimb] {c}|{v}|16x16: {r['flops']:.4e} FLOPs, {r['bytes']:.4e} bytes, wire "
+            f"{r['wire_bytes']:.4e} B ({wire or 'none'}) a device; compute "
+            f"{r['compute_ms']:.4f} ms, memory {r['memory_ms']:.4f} ms, collective "
+            f"{r['collective_ms']:.4f} ms (H100 constants); peak {r['peak_gib']:.3f} GiB; "
+            f"replicated {r['replicated'] or 'none'}; {r['run_s']} s")
+    rec = {(c, v): r for c, v, r in records}
+    merge, bebr = rec[("tt_retrieval", "bebr_sdc_merge")], rec[("tt_retrieval", "bebr_sdc")]
+    check(merge["flops"] == bebr["flops"] == 18_064_384
+          and merge["collectives"]["all-gather"] == 12_000,
+          "hillclimb tt_retrieval: the merge's FLOPs or all-gather wire moved")
+    log(f"[hillclimb] 26 variants dry on 16x16 in {dry_s:.1f} s over {HILLCLIMB_WORKERS} "
+        f"processes ({sum(r['run_s'] for r in rec.values()):.1f} s of steps; {waited:.1f} s "
+        f"waited after (a) and (b))")
+    log(f"[hillclimb] phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4528,6 +4793,10 @@ def main() -> None:
     # -- 13. compression, the dry run of every cell, cells and sharded state on the card --
     torch.cuda.empty_cache()
     tooling_phase(args.seed, device, name, smi)
+
+    # -- 14. the hillclimb: rates, the two-tower variants on the card, 26 variants dry ------
+    torch.cuda.empty_cache()
+    kernels.append(hillclimb_phase(args.seed, device, name, smi))
 
     log("kernels: " + ", ".join(f"{k['name']} matched, launches={k['launches']}"
                                 for k in kernels))

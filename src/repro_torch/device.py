@@ -22,6 +22,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def is_dtensor(x) -> bool:
+    """True for a ``torch.distributed.tensor.DTensor`` (a step sharded by
+    ``parallel/spmd.py``), known by its type's name so that a check costs
+    no import of the distributed package."""
+    return type(x).__name__ == "DTensor"
+
+
 def full_fp32_matmul() -> None:
     """Run float32 products in full float32 on the card (no TF32).
 

@@ -20,7 +20,8 @@ implementation gives a meta tensor's output shape, so a step runs on the
 meta device (``launch/dryrun.py``), and its FLOP formula (2 B D
 F(F-1)/2, the products the kernel computes) is registered with
 ``torch.utils.flop_counter``, so ``FlopCounterMode`` and
-``launch/hlo_cost.step_costs`` count the kernel. A CPU or CUDA tensor
+``launch/hlo_cost.step_costs`` count the kernel; its DTensor sharding
+strategy (``register_sharding_strategies``) keeps the batch sharded. A CPU or CUDA tensor
 goes through the operator only while a dispatch mode is active (a
 counter, a fake-tensor trace): otherwise its dispatch, which costs more
 than the kernel at serving batches, is skipped.
@@ -34,6 +35,7 @@ import functools
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.device import is_dtensor
 from repro_torch.kernels import _build
 from repro_torch.kernels.dot_interact.ref import dot_interact_torch
 
@@ -53,7 +55,8 @@ def dot_interact(emb: torch.Tensor) -> torch.Tensor:
         raise ValueError("emb must be a float32 tensor [B, F, D]")
     if emb.shape[1] < 2 or emb.shape[2] < 1:
         raise ValueError(f"emb needs F >= 2 features of D >= 1, got {tuple(emb.shape)}")
-    if emb.device.type in ("cpu", "cuda") and torch._C._len_torch_dispatch_stack() == 0:
+    if emb.device.type in ("cpu", "cuda") and torch._C._len_torch_dispatch_stack() == 0 \
+            and not is_dtensor(emb):
         # no dispatch mode to see the operator: skip the custom operator's
         # dispatch (about 45 us a call on an H100 machine's host)
         return _dot_interact(emb)
@@ -86,6 +89,18 @@ def _dot_interact_fake(emb: torch.Tensor) -> torch.Tensor:
 def _dot_interact_flops(emb_shape, *args, out_shape=None, **kwargs) -> int:
     B, F, D = emb_shape
     return 2 * B * (F * (F - 1) // 2) * D
+
+
+@functools.cache
+def register_sharding_strategies() -> None:
+    """The operator's DTensor sharding strategies (``parallel/spmd.py``
+    registers them once a mesh is bound): the batch sharded, or replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.dot_interact.default)
+    def _strategies(emb):
+        return [([Shard(0)], [Shard(0)]), ([Replicate()], [Replicate()])]
 
 
 def _launch(emb: torch.Tensor) -> torch.Tensor:

@@ -15,14 +15,15 @@ The backward is ``dot_interact_backward``, plain torch: the reference has
 no backward kernel either (JAX differentiates ``dot_interact_ref``'s
 ``dot_general`` outside any Pallas kernel). The [B, P] gradient goes into
 the strict lower triangle of a [B, F, F] matrix S, and the input's
-gradient is (S + S^T) E, one ``torch.bmm``.
+gradient is (S + S^T) E, one ``torch.bmm``; on DTensors it runs on each
+rank's examples (``parallel/spmd.py``'s sharded steps).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.device import full_fp32_matmul
+from repro_torch.device import full_fp32_matmul, is_dtensor
 from repro_torch.kernels.dot_interact.kernel import dot_interact
 from repro_torch.kernels.dot_interact.ref import tril_indices
 
@@ -47,7 +48,23 @@ class DotInteract(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (emb,) = ctx.saved_tensors
+        if is_dtensor(emb):
+            return _sharded_backward(emb, grad)
         return dot_interact_backward(emb, grad.contiguous())
+
+
+def _sharded_backward(emb, grad):
+    """``dot_interact_backward`` of DTensors (a sharded step): each example's
+    gradient is its own, so it runs on each rank's examples, the batch split
+    as ``emb``'s is (any other split of ``emb`` gathered first)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    places = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                   for p in emb.placements)
+    return local_map(lambda e, g: dot_interact_backward(e, g.contiguous()),
+                     out_placements=(places,), in_placements=(places, places),
+                     device_mesh=emb.device_mesh, redistribute_inputs=True)(emb, grad)
 
 
 def dot_interaction(emb: torch.Tensor) -> torch.Tensor:

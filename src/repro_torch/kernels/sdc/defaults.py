@@ -15,8 +15,12 @@ nothing on this port. What a plan means here, by kind:
     rerank (``rerank.sdc_rerank_gathered``), on every device.
   * "gather": fixed geometry, never swept.
 
-No plan changes a score or an id. The reference's TPU roofline
-constants are not carried over.
+No plan changes a score or an id.
+
+The roofline constants at the end price a step for
+``launch/hillclimb.py``'s cost model under the reference's names. They
+are an H100 SXM5 80GB's datasheet figures, not the reference's TPU ones:
+bounds, which ``chip_smoke.py`` prints beside the card's measured rates.
 """
 
 from __future__ import annotations
@@ -71,3 +75,13 @@ def plan_for(block_plan, kind: str) -> BlockPlan | None:
     if plan is not None and plan.kind != kind:
         raise ValueError(f"plan under key {kind!r} has kind {plan.kind!r}")
     return plan
+
+
+# Roofline constants of one H100 SXM5 80GB (datasheet figures) for the
+# hillclimb cost model, under the reference's names.
+PEAK_FLOPS = 989.4e12  # dense bf16 tensor-core peak, FLOP/s (int8: twice that, ops/s)
+HBM_BW = 3.35e12  # HBM3, bytes/s
+# NVLink 4: 18 links, 25e9 bytes/s each way each. One card has no peer, so
+# chip_smoke.py cannot measure this rate; it is the datasheet's.
+LINK_BW = 25e9  # bytes/s per link, one direction
+N_LINKS = 18

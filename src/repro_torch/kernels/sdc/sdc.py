@@ -39,6 +39,12 @@ never clamped. Geometry changes no score and no id; the unfused routes
 and the plain versions take none. ``sdc_topk.last_geometry`` is the
 ``(queries per block, slices, documents per slice)`` of the last launch.
 
+Each wrapper also runs as a custom operator (``repro_torch::sdc_topk``,
+``repro_torch::sdc_scores``) on meta tensors and under a dispatch mode,
+with a fake and a FLOP formula, and ``sdc_topk`` on DTensors
+(``parallel/spmd.py``) scores the corpus rows where they lie and takes the
+top k of the gathered scores; ``register_sharding_strategies`` says more.
+
 Both versions return what the reference's ``ops.sdc_search`` returns:
 ``(scores [Q, k] f32, ids [Q, k] int32)``, best first, ties toward the
 lower id, and ``(SDC_NEG_INF, -1)`` in every slot without a candidate
@@ -60,6 +66,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.binarize_lib import (
     SDC_NEG_INF,
@@ -67,6 +74,7 @@ from repro_torch.core.binarize_lib import (
     sdc_affine_epilogue,
     unpack_nibble_planes,
 )
+from repro_torch.device import is_dtensor
 from repro_torch.kernels import _build
 from repro_torch.kernels.sdc.ref import code_dot
 
@@ -144,6 +152,19 @@ def sdc_topk(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int, packed: boo
     """
     _check_inputs(q_codes, d_codes, d_inv_norm, packed)
     check_k(k)
+    if any(map(is_dtensor, (q_codes, d_codes, d_inv_norm))):
+        # sharded (parallel/spmd.py): score the corpus rows where they lie,
+        # gather the scores, take the top k, as GSPMD partitions the
+        # reference's scoring and top_k
+        return select_topk(sdc_scores(q_codes, d_codes, d_inv_norm, n_levels=n_levels,
+                                      packed=packed), k)
+    if q_codes.device.type == "meta" or (geometry is None and _dispatch_mode_active()):
+        return _sdc_topk_op(q_codes, d_codes, d_inv_norm, n_levels, k, packed)
+    return _sdc_topk(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k, packed=packed,
+                     geometry=geometry)
+
+
+def _sdc_topk(q_codes, d_codes, d_inv_norm, *, n_levels, k, packed, geometry=None):
     if q_codes.device.type == "cpu":
         return sdc_topk_torch(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k,
                               packed=packed)
@@ -158,6 +179,47 @@ def sdc_topk(q_codes, d_codes, d_inv_norm, *, n_levels: int, k: int, packed: boo
 
 sdc_topk.launches = 0
 sdc_topk.last_geometry = None
+
+
+def _dispatch_mode_active() -> bool:
+    return torch._C._len_torch_dispatch_stack() > 0
+
+
+def scan_flops(q_shape, d_shape, packed: bool) -> int:
+    """The products of an SDC scan of Q queries over N documents of code dim
+    D, as the reference's step counts its two ``dot_general``s: the q . d
+    products (2 Q N D) and the code sums (2 N D, a product with ones)."""
+    Q, D = q_shape
+    N = d_shape[0]
+    return 2 * Q * N * D + 2 * N * D
+
+
+# The custom operators ``repro_torch::sdc_topk`` and ``repro_torch::sdc_scores``
+# run the same routes as the wrappers (kernel on CUDA, plain version on
+# CPU); their fakes give a meta tensor's result shapes, so a step runs on
+# the meta device, and their FLOP formula (``scan_flops``) is registered
+# with ``torch.utils.flop_counter``, so ``launch/hlo_cost`` counts them. A
+# CPU or CUDA tensor goes through them only while a dispatch mode is active
+# (a counter): otherwise their dispatch is skipped, as ``dot_interact``'s is.
+
+
+@torch.library.custom_op("repro_torch::sdc_topk", mutates_args=())
+def _sdc_topk_op(q_codes: torch.Tensor, d_codes: torch.Tensor, d_inv_norm: torch.Tensor,
+                 n_levels: int, k: int, packed: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return _sdc_topk(q_codes, d_codes, d_inv_norm, n_levels=n_levels, k=k, packed=packed)
+
+
+@_sdc_topk_op.register_fake
+def _sdc_topk_fake(q_codes, d_codes, d_inv_norm, n_levels, k, packed):
+    Q = q_codes.shape[0]
+    return (q_codes.new_empty((Q, k), dtype=torch.float32),
+            q_codes.new_empty((Q, k), dtype=torch.int32))
+
+
+@register_flop_formula(torch.ops.repro_torch.sdc_topk)
+def _sdc_topk_flops(q_shape, d_shape, inv_shape, n_levels, k, packed, *args, out_shape=None,
+                    **kwargs) -> int:
+    return scan_flops(q_shape, d_shape, packed)
 
 
 def cap_for(k: int) -> int:
@@ -424,6 +486,13 @@ def sdc_scores(q_codes, d_codes, d_inv_norm, *, n_levels: int, packed: bool = Fa
     version.
     """
     _check_inputs(q_codes, d_codes, d_inv_norm, packed)
+    if any(map(is_dtensor, (q_codes, d_codes, d_inv_norm))) or q_codes.device.type == "meta" \
+            or _dispatch_mode_active():
+        return _sdc_scores_op(q_codes, d_codes, d_inv_norm, n_levels, packed)
+    return _sdc_scores(q_codes, d_codes, d_inv_norm, n_levels=n_levels, packed=packed)
+
+
+def _sdc_scores(q_codes, d_codes, d_inv_norm, *, n_levels, packed):
     if q_codes.device.type == "cpu":
         return sdc_scores_torch(q_codes, d_codes, d_inv_norm, n_levels=n_levels, packed=packed)
     if q_codes.device.type != "cuda":
@@ -461,6 +530,48 @@ def sdc_scores(q_codes, d_codes, d_inv_norm, *, n_levels: int, packed: bool = Fa
 
 
 sdc_scores.launches = 0
+
+
+@torch.library.custom_op("repro_torch::sdc_scores", mutates_args=())
+def _sdc_scores_op(q_codes: torch.Tensor, d_codes: torch.Tensor, d_inv_norm: torch.Tensor,
+                   n_levels: int, packed: bool) -> torch.Tensor:
+    # a custom operator's result may not alias: the kernel's is a view of padded rows
+    return _sdc_scores(q_codes, d_codes, d_inv_norm, n_levels=n_levels,
+                       packed=packed).contiguous()
+
+
+@_sdc_scores_op.register_fake
+def _sdc_scores_fake(q_codes, d_codes, d_inv_norm, n_levels, packed):
+    return q_codes.new_empty((q_codes.shape[0], d_codes.shape[0]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.sdc_scores)
+def _sdc_scores_flops(q_shape, d_shape, inv_shape, n_levels, packed, *args, out_shape=None,
+                      **kwargs) -> int:
+    return scan_flops(q_shape, d_shape, packed)
+
+
+@functools.cache
+def register_sharding_strategies() -> None:
+    """The operators' DTensor sharding strategies (``parallel/spmd.py``
+    registers them once a mesh is bound). ``sdc_scores``: the corpus rows
+    (codes and inverse norms) sharded alike give the score columns sharded
+    so, the queries whole; or everything replicated. ``sdc_topk``:
+    replicated only (the top k of a piece is not a piece of the top k);
+    ``sdc_topk`` on DTensors does not reach it: it runs ``sdc_scores``
+    sharded and the top k of the gathered scores."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.sdc_scores.default)
+    def _scores(q_codes, d_codes, d_inv_norm, n_levels, packed):
+        return [([Shard(1)], [Replicate(), Shard(0), Shard(0), None, None]),
+                ([Replicate()], [Replicate(), Replicate(), Replicate(), None, None])]
+
+    @register_sharding(torch.ops.repro_torch.sdc_topk.default)
+    def _topk(q_codes, d_codes, d_inv_norm, n_levels, k, packed):
+        return [([Replicate(), Replicate()],
+                 [Replicate(), Replicate(), Replicate(), None, None, None])]
 
 
 @functools.cache

@@ -8,28 +8,37 @@
 The reference lowers and compiles each cell's step for 256 or 512 fake
 host devices and reads XLA's memory and cost analyses. The port builds the
 cell on ``make_production_mesh(devices=["meta"] * n)`` and runs its step
-once on the meta-device arguments under ``hlo_cost.step_costs``: shapes
+on the meta-device arguments twice: whole, as one device would run it,
+under ``hlo_cost.step_costs``, and sharded, on DTensors over a fake
+process group of n ranks, under ``hlo_cost.sharded_step_costs``: shapes
 and dtypes flow through every operator, nothing is allocated and nothing
-touches a card. The meta device is the dry run's by design, as the
-reference's fake host devices are its; it is not a fall back to the CPU.
+touches a card. The meta device and the fake group are the dry run's by
+design, as the reference's fake host devices are its; they are not a fall
+back to the CPU.
 
 Per cell it records the reference's keys (``arch``, ``shape``, ``kind``,
 ``mesh``, ``n_devices``, ``ok``, ``memory``, ``cost``, ``collectives``,
 ``meta``), merged into ``--out`` as the reference merges:
 
   * ``memory.argument_bytes``: the bytes one leaf holds of the arguments,
-    exact from the shardings (``parallel/sharding.tree_leaf_bytes``);
+    exact from the shardings (``parallel/sharding.tree_leaf_bytes``), and
+    ``memory.peak_bytes_per_device``: the most bytes rank 0 had alive at
+    once in the sharded step, its pieces of the arguments included;
   * ``memory.unsharded_*``: the step as one device would run it whole
     (arguments, peak of live bytes, and the peak less the arguments),
     not a per-device figure;
-  * ``cost``: the step's FLOPs (products only, as the reference counts
-    them), its eager bytes (no fusion) and the operators dispatched,
-    for the whole step, not per device;
-  * ``collectives``: null. The port runs no SPMD program, so there is no
-    collective to count yet.
+  * ``cost``: per device (the sharded step) ``flops_per_device`` and
+    ``bytes_per_device``; for the whole step (unsharded) the FLOPs
+    (products only, as the reference counts them), its eager bytes (no
+    fusion) and the operators dispatched;
+  * ``collectives``: per device, the wire bytes of each collective kind
+    (``wire_bytes_per_device``, the reference's ring model) and their
+    ``counts``, from the sharded step, and ``replicated``: operators whose
+    sharding DTensor could not propagate, run on replicated operands.
 
-Cells whose arguments have the same shapes and dtypes on both meshes (all
-but meshgraphnet's, whose graph pads to the mesh) run their step once.
+The unsharded step runs once for a cell whose arguments have the same
+shapes and dtypes on both meshes (all but meshgraphnet's, whose graph
+pads to the mesh); the sharded step runs on each mesh.
 """
 
 from __future__ import annotations
@@ -42,10 +51,6 @@ import traceback
 from typing import Any, Dict, Optional
 
 import torch
-
-COLLECTIVES_NOTE = ("not counted: the port runs no SPMD program; collective counts "
-                    "need a sharded execution (DTensor over a process group)")
-
 
 def _mesh_name(multi_pod: bool) -> str:
     return "2x16x16" if multi_pod else "16x16"
@@ -71,7 +76,7 @@ def run_cell(arch_id: str, shape_id: str, multi_pod: bool,
     """The dry-run record of one cell. ``costs_cache`` (a dictionary kept
     across calls) reuses a step's costs for arguments of the same shapes."""
     from repro_torch.configs.registry import build_cell
-    from repro_torch.launch.hlo_cost import step_costs
+    from repro_torch.launch.hlo_cost import sharded_step_costs, step_costs
     from repro_torch.launch.mesh import make_production_mesh
 
     n = 512 if multi_pod else 256
@@ -84,8 +89,12 @@ def run_cell(arch_id: str, shape_id: str, multi_pod: bool,
         costs = step_costs(cell.fn, *cell.abstract_args)
         if costs_cache is not None:
             costs_cache[key] = costs
+    sharded = sharded_step_costs(cell.fn, cell.abstract_args, cell.in_shardings, mesh)
     run_s = time.perf_counter() - t0
     arg_bytes = argument_bytes(cell)
+    if sharded["argument_bytes"] != arg_bytes:
+        raise AssertionError(f"the sharded step's pieces of the arguments take "
+                             f"{sharded['argument_bytes']} bytes, the shardings say {arg_bytes}")
     return {
         "arch": arch_id,
         "shape": shape_id,
@@ -96,18 +105,24 @@ def run_cell(arch_id: str, shape_id: str, multi_pod: bool,
         "run_s": round(run_s, 2),
         "memory": {
             "argument_bytes": arg_bytes,
+            "peak_bytes_per_device": sharded["peak_bytes"],
             "unsharded_argument_bytes": costs["unsharded_argument_bytes"],
             "unsharded_temp_bytes": costs["unsharded_peak_bytes"]
             - costs["unsharded_argument_bytes"],
             "unsharded_peak_bytes": costs["unsharded_peak_bytes"],
         },
         "cost": {
+            "flops_per_device": sharded["flops"],
+            "bytes_per_device": sharded["bytes"],
             "flops_per_step": costs["flops"],
             "eager_bytes_per_step": costs["bytes"],
             "ops": costs["ops"],
         },
-        "collectives": None,
-        "collectives_note": COLLECTIVES_NOTE,
+        "collectives": {
+            "wire_bytes_per_device": sharded["collectives"],
+            "counts": sharded["counts"],
+            "replicated": sharded["replicated"],
+        },
         "meta": cell.meta,
     }
 
@@ -149,8 +164,11 @@ def main(argv=None):
             try:
                 res = run_cell(arch_id, shape_id, mp, costs_cache)
                 gib = res["memory"]["argument_bytes"] / 2**30
+                wire = sum(res["collectives"]["wire_bytes_per_device"].values())
                 print(f"[ ok ] {key}: run={res['run_s']}s args={gib:.2f} GiB/leaf "
-                      f"flops={res['cost']['flops_per_step']:.3e}/step", flush=True)
+                      f"flops={res['cost']['flops_per_step']:.3e}/step "
+                      f"{res['cost']['flops_per_device']:.3e}/device wire={wire:.3e} B/device",
+                      flush=True)
             except Exception as e:  # noqa: BLE001 — record and continue
                 res = {
                     "arch": arch_id, "shape": shape_id, "mesh": _mesh_name(mp),

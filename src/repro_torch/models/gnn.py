@@ -16,7 +16,9 @@ run). The ``max`` aggregator is ``scatter_reduce`` with ``amax``, an
 order-free reduction; an empty segment's -inf becomes 0 as in the
 reference. ``remat`` is ``torch.utils.checkpoint`` of each layer while
 gradients are recorded; ``node_constrain`` (a GSPMD sharding constraint
-in the reference) is an identity on one device and is not applied.
+in the reference) is applied where the reference applies it, to each
+layer's aggregate and node states: it redistributes a DTensor
+(``parallel/spmd.constrain``) and is an identity on one device.
 A parameter tree is the reference's: ``{"node_enc", "edge_enc",
 "decoder": [{"w", "b"}, ...], "layers": [{"edge_mlp", "node_mlp"}, ...]}``.
 """
@@ -112,7 +114,7 @@ def segment_max(rows: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     return out.scatter_reduce(0, idx, rows, "amax", include_self=True)
 
 
-def _layer(lp, v, e, senders, receivers, edge_mask, n_nodes, aggregator):
+def _layer(lp, v, e, senders, receivers, edge_mask, n_nodes, aggregator, node_constrain=None):
     # edge update: concat(e, v_s, v_r) -> MLP, residual
     vs = embedding_lookup(v, senders)
     vr = embedding_lookup(v, receivers)
@@ -126,7 +128,11 @@ def _layer(lp, v, e, senders, receivers, edge_mask, n_nodes, aggregator):
         agg = torch.where(torch.isfinite(agg), agg, 0.0)
     else:
         agg = segment_sum(e, receivers, n_nodes)
+    if node_constrain is not None:
+        agg = node_constrain(agg)
     v = v + mlp_apply(lp["node_mlp"], torch.cat([v, agg], dim=-1))
+    if node_constrain is not None:
+        v = node_constrain(v)
     return v, e
 
 
@@ -145,7 +151,7 @@ def forward(params: Params, node_feat, edge_feat, senders, receivers, edge_mask=
     aggregator = cfg.aggregator if cfg is not None else "sum"
     remat = cfg is not None and cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
-        args = (lp, v, e, senders, receivers, edge_mask, n_nodes, aggregator)
+        args = (lp, v, e, senders, receivers, edge_mask, n_nodes, aggregator, node_constrain)
         v, e = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
     return mlp_apply(params["decoder"], v)
 

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.device import full_fp32_matmul, resolve_device
+from repro_torch.device import full_fp32_matmul, is_dtensor, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +73,13 @@ class _GatherRows(torch.autograd.Function):
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """One-hot field lookup (the reference's ``jnp.take``): rows of ``table``
     [V, D] at ``ids`` [...] -> [..., D], with the deterministic gradient
-    described in the module's docstring."""
+    described in the module's docstring. A DTensor table (a sharded step,
+    ``parallel/spmd.py``) is looked up where its rows lie
+    (``spmd.sharded_take``)."""
+    if is_dtensor(table):
+        from repro_torch.parallel import spmd
+
+        return spmd.sharded_take(table, ids)
     return _GatherRows.apply(table, torch.as_tensor(ids, device=table.device).long())
 
 
@@ -81,7 +87,12 @@ def segment_sum(rows: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     """``jax.ops.segment_sum``: rows [n, ...] summed into [num_segments,
     ...] by ``segment_ids`` [n] (int64), through ``index_put`` with
     ``accumulate=True``, each segment's rows in their order (deterministic
-    on the card, see the module's docstring)."""
+    on the card, see the module's docstring). DTensor rows are summed where
+    they lie (``spmd.sharded_segment_sum``)."""
+    if is_dtensor(rows):
+        from repro_torch.parallel import spmd
+
+        return spmd.sharded_segment_sum(rows, segment_ids, num_segments)
     out = torch.zeros((num_segments,) + tuple(rows.shape[1:]), dtype=rows.dtype,
                       device=rows.device)
     return out.index_put((segment_ids,), rows, accumulate=True)

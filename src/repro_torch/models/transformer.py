@@ -19,9 +19,12 @@ tensor's dtype first, as JAX's weakly typed scalars do (``new_full``).
 
 The reference's ``remat`` (``jax.checkpoint`` of each layer) is
 ``torch.utils.checkpoint`` of each layer while gradients are recorded.
-Its ``constrain`` hooks are GSPMD sharding constraints; on the one
-device the port runs on they are identities, so the argument is taken
-and nothing is applied. A decode cache is a dictionary of tensors and a
+Its ``constrain`` hooks are GSPMD sharding constraints, applied where the
+reference applies them: under a sharded step (``parallel/spmd.py``) they
+redistribute the residual stream, on one device they are identities. The
+projections (``spmd.matmul``) and the heads' split and merge
+(``spmd.split_dim``, ``merge_dims``) are plain products and reshapes on
+one device and place DTensors where DTensor cannot by itself. A decode cache is a dictionary of tensors and a
 host integer ``length`` (the reference's int32 scalar): ``decode_step``
 writes the new token's keys and values into the cache's tensors in place
 and returns the cache with ``length`` advanced, so a step reads nothing
@@ -38,8 +41,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import full_fp32_matmul, resolve_device
+from repro_torch.device import full_fp32_matmul, is_dtensor, resolve_device
 from repro_torch.models.recsys.embedding import embedding_lookup, tree_from_numpy
+from repro_torch.parallel import spmd
 
 Params = Dict[str, Any]
 
@@ -204,9 +208,9 @@ def _attention(lp, x, positions, cfg: TransformerConfig, mask=None, kv_cache=Non
     new keys and values at ``length`` and attends to the cache."""
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ lp["wq"]).reshape(B, S, H, hd)
-    k = (x @ lp["wk"]).reshape(B, S, KV, hd)
-    v = (x @ lp["wv"]).reshape(B, S, KV, hd)
+    q = spmd.split_dim(spmd.matmul(x, lp["wq"]), 2, (H, hd))
+    k = spmd.split_dim(spmd.matmul(x, lp["wk"]), 2, (KV, hd))
+    v = spmd.split_dim(spmd.matmul(x, lp["wv"]), 2, (KV, hd))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     q = q * q.new_full((), hd ** -0.5)
@@ -232,18 +236,18 @@ def _attention(lp, x, positions, cfg: TransformerConfig, mask=None, kv_cache=Non
             cv[:, :, length:length + S] = v_new.to(cv.dtype)
             keys, vals = ck.to(q.dtype), cv.to(q.dtype)
         T = keys.shape[2]
-        qg = q.transpose(1, 2).reshape(B, KV, groups * S, hd)
+        qg = spmd.split_dim(q.transpose(1, 2), 1, (KV, groups)).reshape(B, KV, groups * S, hd)
         logits = torch.einsum("bkqh,bkth->bkqt", qg, keys)
         valid = torch.arange(T, device=x.device) <= length
         logits = torch.where(valid, logits, -1e30)
         probs = torch.softmax(logits.to(torch.float32), -1).to(q.dtype)
         ctx = torch.einsum("bkqt,bkth->bkqh", probs, vals)
-        ctx = ctx.reshape(B, KV, groups, S, hd).permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
-        return ctx @ lp["wo"], new_cache
+        ctx = spmd.merge_dims(spmd.split_dim(ctx, 2, (groups, S)).permute(0, 3, 1, 2, 4), 2, 3)
+        return spmd.matmul(ctx, lp["wo"]), new_cache
 
     # training / prefill: causal attention, GQA via head grouping; query
     # chunking bounds the logits working set at [.., chunk, S]
-    qh = q.transpose(1, 2).reshape(B, KV, groups, S, hd)
+    qh = spmd.split_dim(q.transpose(1, 2), 1, (KV, groups))
     kh = k.transpose(1, 2)  # [B, KV, S, hd]
     vh = v.transpose(1, 2)
     if cfg.attn_chunk and S > cfg.attn_chunk and S % cfg.attn_chunk == 0 and mask is None:
@@ -256,14 +260,14 @@ def _attention(lp, x, positions, cfg: TransformerConfig, mask=None, kv_cache=Non
         logits = torch.where(causal, logits, -1e30)
         probs = torch.softmax(logits.to(torch.float32), -1).to(x.dtype)
         ctx = torch.einsum("bkgqt,bkth->bkgqh", probs, vh)
-    ctx = ctx.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
-    return ctx @ lp["wo"], None
+    ctx = spmd.merge_dims(ctx.permute(0, 3, 1, 2, 4), 2, 3)  # [B, S, H * hd]
+    return spmd.matmul(ctx, lp["wo"]), None
 
 
 def _dense_ffn(lp, x):
-    gate = F.silu(x @ lp["w_gate"])
-    up = x @ lp["w_up"]
-    return (gate * up) @ lp["w_down"]
+    gate = F.silu(spmd.matmul(x, lp["w_gate"]))
+    up = spmd.matmul(x, lp["w_up"])
+    return spmd.matmul(gate * up, lp["w_down"])
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -285,6 +289,8 @@ def _moe_ffn(lp, x, cfg: TransformerConfig):
     past C is dropped. Returns (out [B, S, d], Switch aux loss)."""
     B0, S0, d = x.shape
     if cfg.moe_group and S0 > cfg.moe_group and S0 % cfg.moe_group == 0:
+        if is_dtensor(x):  # a split sequence is gathered first
+            x = spmd.whole_dims(x, (1,))
         x = x.reshape(B0 * S0 // cfg.moe_group, cfg.moe_group, d)
     B, S, _ = x.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -319,15 +325,20 @@ def _moe_ffn(lp, x, cfg: TransformerConfig):
     return out.reshape(B0, S0, d), aux
 
 
-def _layer(lp, x, positions, cfg: TransformerConfig, kv_cache=None):
+def _layer(lp, x, positions, cfg: TransformerConfig, kv_cache=None, constrain=None):
     h, new_cache = _attention(lp, rms_norm(x, lp["attn_norm"]), positions, cfg,
                               kv_cache=kv_cache)
     x = x + h
+    if constrain is not None:  # Megatron-SP: the residual stream after each add
+        x = constrain(x)
     if cfg.is_moe:
         h, aux = _moe_ffn(lp, rms_norm(x, lp["ffn_norm"]), cfg)
     else:
         h, aux = _dense_ffn(lp, rms_norm(x, lp["ffn_norm"])), 0.0
-    return x + h, aux, new_cache
+    x = x + h
+    if constrain is not None:
+        x = constrain(x)
+    return x, aux, new_cache
 
 
 def _layer_params(params: Params):
@@ -346,8 +357,9 @@ def _layer_params(params: Params):
 def backbone(params: Params, tokens, cfg: TransformerConfig,
              constrain=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The trunk: tokens [B, S] -> (hidden [B, S, d], aux). ``constrain``
-    (a sharding constraint in the reference) is an identity on one device
-    and is not applied."""
+    (a sharding constraint) pins the residual stream before each layer, or
+    after each residual add with ``activation_sharding="seq_residual"``, as
+    in the reference; an identity on one device."""
     full_fp32_matmul()
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device)
@@ -356,11 +368,20 @@ def backbone(params: Params, tokens, cfg: TransformerConfig,
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    if constrain is None and is_dtensor(x):
+        # no constraint given (prefill): keep the residual stream laid out as
+        # the embedded tokens are, as GSPMD propagates the input's layout
+        layout = x.placements
+        constrain = lambda y: y.redistribute(y.device_mesh, layout)  # noqa: E731
+    inner = constrain if cfg.activation_sharding == "seq_residual" else None
     for lp in _layer_params(params):
+        if constrain is not None and inner is None:
+            x = constrain(x)
         if remat:
-            x, a, _ = checkpoint(_layer, lp, x, positions, cfg, use_reentrant=False)
+            x, a, _ = checkpoint(_layer, lp, x, positions, cfg, None, inner,
+                                 use_reentrant=False)
         else:
-            x, a, _ = _layer(lp, x, positions, cfg)
+            x, a, _ = _layer(lp, x, positions, cfg, constrain=inner)
         aux = aux + a
     return rms_norm(x, params["final_norm"]), aux / cfg.n_layers
 
@@ -369,13 +390,15 @@ def forward(params: Params, tokens, cfg: TransformerConfig,
             constrain=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward: tokens [B, S] -> (logits [B, S, V], aux loss)."""
     x, aux = backbone(params, tokens, cfg, constrain=constrain)
-    logits = x @ params["embed"].T.to(cfg.dtype)
+    logits = spmd.matmul(x, params["embed"].T.to(cfg.dtype))
     return logits, aux
 
 
 def lm_loss(params: Params, tokens, labels, cfg: TransformerConfig,
             constrain=None) -> torch.Tensor:
     logits, aux = forward(params, tokens, cfg, constrain=constrain)
+    if is_dtensor(logits):  # a sharded step: the vocabulary stays sharded
+        return torch.mean(spmd.class_nll(logits, labels.long())) + 0.01 * aux
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     labels = torch.as_tensor(labels, device=logp.device).long()
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
@@ -418,7 +441,7 @@ def decode_step(params: Params, token, cache: Dict[str, Any],
         lc["length"] = length
         x, _, _ = _layer(lp, x, pos, cfg, kv_cache=lc)
     x = rms_norm(x, params["final_norm"])
-    logits = (x @ embed.T.to(cfg.dtype))[:, 0, :]
+    logits = spmd.matmul(x, embed.T.to(cfg.dtype))[:, 0, :]
     return logits, dict(cache, length=length + 1)
 
 
@@ -426,4 +449,4 @@ def prefill(params: Params, tokens, cfg: TransformerConfig) -> torch.Tensor:
     """Prefill forward: last-position logits [B, V]. The unembed runs on
     the final position only — never materialises [B, S, V]."""
     x, _ = backbone(params, tokens, cfg)
-    return x[:, -1, :] @ params["embed"].T.to(cfg.dtype)
+    return spmd.matmul(x[:, -1, :], params["embed"].T.to(cfg.dtype))

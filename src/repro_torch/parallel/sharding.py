@@ -236,16 +236,18 @@ def lm_batch_sharding(mesh: LeafMesh) -> Sharding:
 
 
 def lm_activation_constraint(mesh: LeafMesh, cfg):
-    """The constraint on the residual stream between layers. One process
-    has nothing to constrain (the reference's ``with_sharding_constraint``
-    changes no value), so it is an identity that checks the rank."""
+    """The constraint on the residual stream between layers (the
+    reference's ``with_sharding_constraint``): a DTensor is redistributed
+    to the spec (``parallel/spmd.constrain``); on one device it is an
+    identity that checks the rank."""
     dp = dp_axes(mesh)
     spec = Sharding(mesh, (dp, "model", None) if cfg.activation_sharding == "seq"
                     else (dp, None, None))
 
     def constrain(x):
-        spec.shard_shape(x.shape)  # raises on a rank the spec does not fit
-        return x
+        from repro_torch.parallel import spmd
+
+        return spmd.constrain(x, spec)
 
     constrain.sharding = spec
     return constrain

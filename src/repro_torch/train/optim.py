@@ -23,6 +23,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import is_dtensor
+
 Tree = Dict[str, torch.Tensor]
 
 
@@ -101,10 +103,10 @@ def adam_update_(grads: Tree, state: AdamState, params: Tree, cfg: AdamConfig,
         bc2 = float(np.float32(1.0) - np.float32(cfg.b2) ** np.float32(step))
         for k, p in params.items():
             leaf = [p.detach(), grads[k], state.mu[k], state.nu[k]]
-            if all(t.is_contiguous() for t in leaf):
+            if all(t.is_contiguous() and not is_dtensor(t) for t in leaf):
                 flat = [t.view(-1) for t in leaf]
                 parts = [[t[s:s + chunk] for t in flat] for s in range(0, flat[0].numel(), chunk)]
-            else:  # a strided leaf in one piece
+            else:  # a strided leaf, or a DTensor's (each rank its own piece), in one piece
                 parts = [leaf]
             for p_, g_, m_, v_ in parts:
                 g32 = g_.to(torch.float32)

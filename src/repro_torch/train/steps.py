@@ -20,13 +20,14 @@ steps run without recording gradients; the binarizer's steps are in
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.binarize_lib import SDC_NEG_INF, sdc_affine_epilogue
-from repro_torch.device import full_fp32_matmul
+from repro_torch.device import full_fp32_matmul, is_dtensor
 from repro_torch.kernels.sdc.ref import code_dot
 from repro_torch.kernels.sdc.sdc import sdc_topk, select_topk
 from repro_torch.models import gnn as gnn_lib
@@ -79,18 +80,48 @@ def _accumulate_grads(loss_fn, params, batch, microbatches: int):
         return _value_and_grad(loss_fn, params, batch)
     n = next(iter(batch.values())).shape[0] // microbatches
     loss_acc = None
-    for i in range(microbatches):
-        mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-        loss, grads = _value_and_grad(loss_fn, params, mb)
-        if loss_acc is None:
-            loss_acc = torch.zeros((), dtype=torch.float32, device=loss.device)
-            grad_acc = {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
-                        for k, g in grads.items()}
-        loss_acc = loss_acc + loss
-        grad_acc = {k: grad_acc[k] + grads[k] for k in grad_acc}
+    counter = _loop_counter(batch)
+    # on meta tensors under a cost counter the trips after the first have the
+    # same shapes and layouts: the second runs once and counts for all of them
+    for i in range(microbatches) if counter is None else [0, 1]:
+        trips = 1 if counter is None or i == 0 else microbatches - 1
+        with _each_trip(counter, trips):
+            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            loss, grads = _value_and_grad(loss_fn, params, mb)
+            if loss_acc is None:
+                loss_acc = torch.zeros((), dtype=torch.float32, device=loss.device)
+                grad_acc = {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                            for k, g in grads.items()}
+            loss_acc = loss_acc + loss
+            grad_acc = {k: grad_acc[k] + grads[k] for k in grad_acc}
         del grads
     inv = 1.0 / microbatches
     return loss_acc * inv, {k: g * inv for k, g in grad_acc.items()}
+
+
+def _loop_counter(batch):
+    """The active cost counter (``launch/hlo_cost``) that counts a loop's
+    body once times its trip count, when ``batch``'s tensors are meta tensors
+    (no values, every microbatch alike); else None."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    leaves = [v for v in batch.values() if isinstance(v, torch.Tensor)]
+    if not leaves or any(_local(v).device.type != "meta" for v in leaves):
+        return None
+    for mode in _get_current_dispatch_mode_stack():
+        if getattr(mode, "counts_loops", False):
+            return mode
+    return None
+
+
+def _local(t):
+    return t._local_tensor if is_dtensor(t) else t
+
+
+def _each_trip(counter, trips: int):
+    """What runs inside counts once for each of ``trips`` (the counter's
+    ``repeat``); nothing when there is no counter or one trip."""
+    return contextlib.nullcontext() if counter is None or trips == 1 else counter.repeat(trips)
 
 
 def make_train_step(loss_fn: Callable, adam_cfg: optim.AdamConfig, microbatches: int = 1):
@@ -260,6 +291,22 @@ def _merge_topk(scores: torch.Tensor, ids: torch.Tensor, k: int):
     return scores[None], ids[None]
 
 
+def binarize_linear(bparams, f: torch.Tensor, n_levels: int) -> torch.Tensor:
+    """The reference's linear recurrent binarization of embeddings ``f``
+    [B, d] with ``bparams`` (W [levels] of [d, code_dim], R [levels - 1]
+    of [code_dim, d]): integer codes as f32 [B, code_dim]."""
+    f = _unit(f)
+    b = _sign(f @ bparams["W"][0])
+    acc = b
+    code = (b + 1.0) * 0.5 * (2 ** (n_levels - 1))
+    for t in range(n_levels - 1):
+        recon = _unit(acc @ bparams["R"][t])
+        r = _sign((f - recon) @ bparams["W"][t + 1])
+        acc = acc + (2.0 ** -(t + 1)) * r
+        code = code + (r + 1.0) * 0.5 * (2 ** (n_levels - 2 - t))
+    return code
+
+
 def tt_retrieval_bebr_step(cfg: tt_lib.TwoTowerConfig, k: int = 100, code_dim: int = 64,
                            n_levels: int = 4):
     """BEBR-optimised retrieval: the query embeds through the tower,
@@ -275,23 +322,11 @@ def tt_retrieval_bebr_step(cfg: tt_lib.TwoTowerConfig, k: int = 100, code_dim: i
     inverse norm is not > 0, so those rows are scored here in plain torch
     (the exact integer parts, the same epilogue, times their inverse norm:
     0 for 0, the sign flipped for a negative value) and merged with the
-    kernel's k by ``jax.lax.top_k``'s order (``_merge_topk``). Finding
-    whether there are such rows reads the device once a call.
+    kernel's k by ``jax.lax.top_k``'s order (``sdc_topk_every_row``; on
+    meta tensors and DTensors the kernel's result alone).
     ``params["binarizer"]``: W [levels] of [emb_out, code_dim] and R
     [levels - 1] of [code_dim, emb_out]. Returns (scores [1, k], ids [1, k]).
     """
-
-    def binarize_linear(bparams, f):
-        f = _unit(f)
-        b = _sign(f @ bparams["W"][0])
-        acc = b
-        code = (b + 1.0) * 0.5 * (2 ** (n_levels - 1))
-        for t in range(n_levels - 1):
-            recon = _unit(acc @ bparams["R"][t])
-            r = _sign((f - recon) @ bparams["W"][t + 1])
-            acc = acc + (2.0 ** -(t + 1)) * r
-            code = code + (r + 1.0) * 0.5 * (2 ** (n_levels - 2 - t))
-        return code  # integer codes as f32 [B, code_dim]
 
     def step(params, batch):
         full_fp32_matmul()
@@ -299,27 +334,46 @@ def tt_retrieval_bebr_step(cfg: tt_lib.TwoTowerConfig, k: int = 100, code_dim: i
             q = tt_lib.query_embed(params, batch["hist_ids"], batch["hist_mask"], cfg)
             if q.shape[0] != 1:
                 raise ValueError(f"the BEBR step scores one query, got {q.shape[0]}")
-            q_code = binarize_linear(params["binarizer"], q)
+            q_code = binarize_linear(params["binarizer"], q, n_levels)
             if q_code.shape[1] != code_dim:
                 raise ValueError(f"binarizer gives {q_code.shape[1]} dims, step built for "
                                  f"{code_dim}")
-            codes = torch.as_tensor(batch["cand_codes"], device=q.device).contiguous()
-            inv = torch.as_tensor(batch["cand_inv"], dtype=torch.float32,
-                                  device=q.device).contiguous()
-            q8 = q_code.to(torch.int8)
-            vals, ids = sdc_topk(q8, codes, inv, n_levels=n_levels, k=k)
-            off = torch.nonzero(~(inv > 0)).flatten()
-            if off.numel() == 0:
-                return vals, ids
-            rows = codes[off]
-            off_scores = sdc_affine_epilogue(
-                code_dot(q8, rows)[0], q8.to(torch.int32).sum() + rows.to(torch.int32).sum(-1),
-                dim=code_dim, n_levels=n_levels, inv_norm=inv[off])
-            keep = ids[0] >= 0
-            return _merge_topk(torch.cat([vals[0][keep], off_scores]),
-                               torch.cat([ids[0][keep], off.to(torch.int32)]), k)
+            codes, inv = batch["cand_codes"], batch["cand_inv"]
+            if not is_dtensor(codes):
+                codes = torch.as_tensor(codes, device=q.device).contiguous()
+                inv = torch.as_tensor(inv, dtype=torch.float32, device=q.device).contiguous()
+            return sdc_topk_every_row(q_code.to(torch.int8), codes, inv, n_levels=n_levels, k=k)
 
     return step
+
+
+def sdc_topk_every_row(q8: torch.Tensor, codes: torch.Tensor, inv: torch.Tensor, *,
+                       n_levels: int, k: int):
+    """Top ``k`` of one query ``q8`` [1, D] int8 over every row of ``codes``
+    [N, D] int8 with inverse norms ``inv`` [N], as the reference scores them
+    (no row excluded): ``sdc_topk``, whose kernel excludes a row whose
+    inverse norm is not > 0, then those rows scored in plain torch (the
+    exact integer parts, the same epilogue, times their inverse norm: 0 for
+    0, the sign flipped for a negative value) and merged with the kernel's
+    k in ``jax.lax.top_k``'s order (``_merge_topk``). Finding whether there
+    are such rows reads the device once a call.
+
+    On meta tensors and DTensors (a dry run, ``launch/hlo_cost``) nothing
+    can be read: the result is ``sdc_topk``'s alone, as if no row had an
+    inverse norm <= 0."""
+    vals, ids = sdc_topk(q8, codes, inv, n_levels=n_levels, k=k)
+    if is_dtensor(codes) or codes.device.type == "meta":
+        return vals, ids
+    off = torch.nonzero(~(inv > 0)).flatten()
+    if off.numel() == 0:
+        return vals, ids
+    rows = codes[off]
+    off_scores = sdc_affine_epilogue(
+        code_dot(q8, rows)[0], q8.to(torch.int32).sum() + rows.to(torch.int32).sum(-1),
+        dim=q8.shape[1], n_levels=n_levels, inv_norm=inv[off])
+    keep = ids[0] >= 0
+    return _merge_topk(torch.cat([vals[0][keep], off_scores]),
+                       torch.cat([ids[0][keep], off.to(torch.int32)]), k)
 
 
 def mind_train_step(cfg: mind_lib.MINDConfig, adam_cfg, microbatches=1):

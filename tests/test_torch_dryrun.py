@@ -195,7 +195,15 @@ def test_cli_writes_the_reference_record(tmp_path):
     assert {"arch", "shape", "kind", "mesh", "n_devices", "ok", "memory", "cost",
             "collectives", "meta"} <= set(rec)
     assert (rec["kind"], rec["mesh"], rec["n_devices"], rec["ok"]) == ("train", "16x16", 256, True)
-    assert rec["collectives"] is None and rec["collectives_note"]
+    coll = rec["collectives"]
+    assert set(coll["wire_bytes_per_device"]) == set(coll["counts"]) == {
+        "all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute"}
+    # the data-parallel gradients are reduced and the FSDP weights gathered
+    assert coll["counts"]["all-gather"] > 0 and coll["wire_bytes_per_device"]["all-gather"] > 0
+    assert coll["counts"]["all-reduce"] + coll["counts"]["reduce-scatter"] > 0
+    assert coll["replicated"] == {}
+    assert 0 < rec["cost"]["flops_per_device"] < rec["cost"]["flops_per_step"]
+    assert rec["memory"]["peak_bytes_per_device"] >= rec["memory"]["argument_bytes"]
     mesh = make_production_mesh(devices=["meta"] * 256)
     cell = build_cell("llama3.2-1b", "train_4k", mesh)
     want = 0
@@ -213,3 +221,113 @@ def test_cli_writes_the_reference_record(tmp_path):
     assert rec["cost"]["flops_per_step"] > 6 * cell.meta["params"] * cell.meta["tokens_per_step"]
     again = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert again.returncode == 0 and "[skip] llama3.2-1b|train_4k|16x16 (cached)" in again.stdout
+
+
+# ---------------------------------------------------------------------------
+# sharded_step_costs: per-device counts of a step on DTensors.
+# ---------------------------------------------------------------------------
+
+
+def _mesh16():
+    return LeafMesh((16, 16), ("data", "model"), ["meta"] * 256)
+
+
+def test_sharded_product_counts_the_local_flops():
+    """x [512, 4096] rows over data times w [4096, 8192] columns over model:
+    each device multiplies [32, 4096] by [4096, 512], 2 M N K of the local
+    shapes. DTensor's sharding propagation runs the product once on fake
+    tensors of the global shapes (2 x 512 x 4096 x 8192); that is not
+    counted, nor are its operators."""
+    from repro_torch.launch.hlo_cost import sharded_step_costs
+    from repro_torch.parallel.sharding import Sharding
+
+    mesh = _mesh16()
+    x = torch.empty((512, 4096), device="meta")
+    w = torch.empty((4096, 8192), device="meta")
+    got = sharded_step_costs(lambda a, b: a @ b, (x, w),
+                             (Sharding(mesh, ("data", None)), Sharding(mesh, (None, "model"))),
+                             mesh)
+    assert got["flops"] == 2 * 32 * 4096 * 512
+    assert got["ops"] == 1 and got["replicated"] == {}
+    assert got["argument_bytes"] == (32 * 4096 + 4096 * 512) * 4
+    assert got["bytes"] == (32 * 4096 + 4096 * 512 + 32 * 512) * 4
+    assert sum(got["counts"].values()) == 0
+    assert not torch.distributed.is_initialized()  # the fake group is gone
+
+
+def test_all_to_all_is_counted_as_one_on_the_cpu_mesh():
+    """Gloo has no all-to-all: on the CPU mesh type both the hand-written
+    ``spmd.all_to_all`` and DTensor's shard-to-shard redistribution run as
+    an all-gather and a chunk, and both are counted as the all-to-all they
+    stand for (B (g - 1) / g of the operand's bytes)."""
+    from repro_torch.launch.hlo_cost import sharded_step_costs
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import Sharding
+
+    mesh = _mesh16()
+    axes = ("data", "model")
+
+    def exchange(x):
+        return spmd.shard_map(lambda a: spmd.all_to_all(a, mesh, axes, 0, 0), mesh,
+                              in_specs=(("data",),), out_specs=("data",))(x)
+
+    got = sharded_step_costs(exchange, (torch.empty((256 * 256, 8), device="meta"),),
+                             (Sharding(mesh, ("data",)),), mesh)
+    assert got["counts"] == {"all-reduce": 0, "all-gather": 0, "reduce-scatter": 0,
+                             "all-to-all": 1, "collective-permute": 0}
+    assert got["collectives"]["all-to-all"] == 4096 * 8 * 4 * 255 / 256
+
+    def reshard(x):
+        return spmd.constrain(x, Sharding(mesh, (None, "model")))
+
+    got = sharded_step_costs(reshard, (torch.empty((64, 64), device="meta"),),
+                             (Sharding(mesh, ("model", None)),), mesh)
+    assert got["counts"]["all-to-all"] == 1 and got["counts"]["all-gather"] == 0
+    assert got["collectives"]["all-to-all"] == 4 * 64 * 4 * 15 / 16
+
+
+def test_meta_microbatches_count_as_every_trip(monkeypatch):
+    """Under a counter, a meta step's microbatch loop runs its first trip
+    and its second, which counts for the rest (``steps._accumulate_grads``):
+    the counts equal those of running every trip, whole and sharded."""
+    import dataclasses
+
+    from repro_torch.configs import cells as cells_mod
+    from repro_torch.launch.hlo_cost import sharded_step_costs
+    from repro_torch.train import steps
+
+    mesh = LeafMesh((4, 2), ("data", "model"), ["meta"] * 8)
+    cfg = dataclasses.replace(get_arch("llama3.2-1b").smoke_config, microbatches=4)
+    cell = cells_mod.lm_cell(cfg, "train_4k", mesh)
+    trips = (step_costs(cell.fn, *cell.abstract_args),
+             sharded_step_costs(cell.fn, cell.abstract_args, cell.in_shardings, mesh))
+    monkeypatch.setattr(steps, "_loop_counter", lambda batch: None)
+    every = (step_costs(cell.fn, *cell.abstract_args),
+             sharded_step_costs(cell.fn, cell.abstract_args, cell.in_shardings, mesh))
+    assert trips == every
+
+
+@torch.library.custom_op("repro_torch_test::row_sums", mutates_args=())
+def _row_sums(x: torch.Tensor) -> torch.Tensor:
+    return x.sum(-1)
+
+
+@_row_sums.register_fake
+def _row_sums_fake(x):
+    return x.new_empty(x.shape[:-1])
+
+
+def test_operator_without_strategy_runs_replicated():
+    """An operator DTensor has no sharding strategy for (here a custom one,
+    as ``aten.diagonal_backward`` is in some torch releases) runs on each
+    rank's whole copy of its gathered operands, and is listed."""
+    from repro_torch.launch.hlo_cost import sharded_step_costs
+    from repro_torch.parallel.sharding import Sharding
+
+    mesh = LeafMesh((4, 4), ("data", "model"), ["meta"] * 16)
+    got = sharded_step_costs(lambda x: _row_sums(x * 2.0), (torch.empty((64, 32), device="meta"),),
+                             (Sharding(mesh, ("data", "model")),), mesh)
+    assert got["replicated"] == {"repro_torch_test.row_sums.default": 1}
+    # the [16, 8] piece gathered whole: over data and model, or at once
+    assert got["counts"]["all-gather"] >= 1
+    assert got["collectives"]["all-gather"] >= 64 * 32 * 4 * 15 / 16 - 16 * 8 * 4

@@ -3,9 +3,10 @@
 Importing every module of ``repro_torch`` must load neither ``jax`` nor
 the reference package ``repro``; entry points default to the card and
 raise when there is none (no silent fall back to the CPU). The one entry
-point that does not is the dry run (``launch/dryrun.py``): it runs on the
-meta device by design, as the reference's runs on fake host devices, and
-touches no card and no CPU data.
+point that does not is the dry run (``launch/dryrun.py``, and
+``launch/hillclimb.py`` on the same cost model): it runs on the meta
+device by design, over a fake process group, as the reference's runs on
+fake host devices, and touches no card and no CPU data.
 """
 
 import os
@@ -79,7 +80,8 @@ for name in ("repro_torch.index.engine", "repro_torch.launch.mesh",
              "repro_torch.configs.archs.llama3_2_1b", "repro_torch.configs.archs.meshgraphnet",
              "repro_torch.train.compression", "repro_torch.parallel.sharding",
              "repro_torch.configs.cells", "repro_torch.launch.hlo_cost",
-             "repro_torch.launch.dryrun"):
+             "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+             "repro_torch.parallel.spmd"):
     assert name in names, name
 """
 
