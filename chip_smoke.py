@@ -254,7 +254,15 @@ that fails:
      identical scores and ids with inverse norms of 0 and below planted,
      and every sdc_topk call is held exactly against its plain version;
      (c) meanwhile, in worker processes, hillclimb's 26 variants dry on
-     16x16 (the meta device, a fake process group), every record ok.
+     16x16 (the meta device, a fake process group), every record ok; each
+     LM record, with phase 13's llama3-405b decode_32k and prefill_32k
+     records on 16x16, held against the JAX reference's GSPMD record
+     committed in tests/_torch_hillclimb_ref_lm.json (no JAX here): FLOPs
+     a device equal for the 12 llama3-405b train variants and decode, at
+     most the reference's for the three prefill records, wire at most the
+     reference's, nothing replicated, the peak at most twice the
+     reference's; (d) the BEBR scan's library yardstick, torch._int_mm +
+     the epilogue + torch.topk, with the query padded to 17 rows.
 
 Its last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Phases 3-9 use seeded, untrained
@@ -421,6 +429,9 @@ HILLCLIMB_WORKERS = 8
 RATE_COPY_BYTES, RATE_MM_N, RATE_REPS = 4 << 30, 8192, 10
 HC_CANDIDATES, HC_CODE_DIM, HC_LEVELS, HC_K = 1_000_000, 64, 4, 100
 HC_TIME_REPS = 5
+# the reference's records phase 14 holds every LM record to
+HC_LM_RECORDS = "tests/_torch_hillclimb_ref_lm.json"
+INT_MM_MIN_ROWS = 17  # torch._int_mm on the card takes more than 16 rows
 HC_PLANTED = {5: 0.0, 250_001: -0.0, 500_002: -0.5, 999_999: 0.0,
               **{i: -50.0 for i in range(17, 1_000_000, 41_667)}}
 
@@ -3834,7 +3845,7 @@ def tooling_phase(seed, device, name, smi):
     of every cell on both production meshes (worker processes, while the
     card works), five cells at their production shapes on the card, and
     llama3.2-1b's parameters laid out over a (4, 2) mesh and gathered back.
-    Adds no kernel."""
+    Adds no kernel. Returns the dry run's records."""
     import multiprocessing
 
     import torch
@@ -4034,6 +4045,7 @@ def tooling_phase(seed, device, name, smi):
             f"{top['memory']['argument_bytes'] / 1e9:.3f} GB ({top['arch']}/{top['shape']} on "
             f"{top['mesh']}); FLOPs a step: {flops}")
     log(f"[tools] phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return records
 
 
 def _hillclimb_variant(item):
@@ -4061,6 +4073,50 @@ def _hillclimb_order(variants):
     then the two-tower cell."""
     rank = {"llama405b_train": 0, "grok_prefill": 1, "gnn_ogb": 2, "tt_retrieval": 3}
     return sorted(((c, v) for c in variants for v in variants[c]), key=lambda cv: rank[cv[0]])
+
+
+def _dry_as_hillclimb(r):
+    """A dry-run record (``launch/dryrun.run_cell``) as (cell, variant,
+    record) under hillclimb's keys, as the reference's records are kept."""
+    coll = r["collectives"]
+    return r["arch"], r["shape"], {
+        "flops": r["cost"]["flops_per_device"],
+        "wire_bytes": sum(coll["wire_bytes_per_device"].values()),
+        "peak_gib": r["memory"]["peak_bytes_per_device"] / 2**30,
+        "replicated": coll["replicated"], "replicated_at": coll["replicated_at"]}
+
+
+def _hold_lm_records(records) -> None:
+    """Each LM record beside the JAX reference's GSPMD record of the same
+    cell (``HC_LM_RECORDS``, full depth, 16x16), held: FLOPs a device equal
+    (train, decode) or at most the reference's (prefill), wire at most the
+    reference's, nothing replicated, the peak at most twice the reference's."""
+    with open(os.path.join(ROOT, HC_LM_RECORDS)) as f:
+        refs = json.load(f)
+    held = 0
+    for c, v, r in records:
+        key = f"{c}|{v}|16x16"
+        if key not in refs:
+            continue
+        ref = refs[key]
+        exact = c == "llama405b_train" or v == "decode_32k"
+        log(f"[hillclimb] {key} beside the reference: FLOPs {r['flops']:.6e} / "
+            f"{ref['flops']:.6e} ({r['flops'] / ref['flops']:.4f}x), wire {r['wire_bytes']:.4e} / "
+            f"{ref['wire_bytes']:.4e} B ({r['wire_bytes'] / ref['wire_bytes']:.4f}x), peak "
+            f"{r['peak_gib']:.3f} / {ref['peak_gib']:.3f} GiB ({r['peak_gib'] / ref['peak_gib']:.3f}x), "
+            f"replicated {r['replicated'] or 'none'}")
+        check(r["flops"] == ref["flops"] if exact else r["flops"] <= ref["flops"],
+              f"hillclimb {key}: {r['flops']} FLOPs a device against the reference's "
+              f"{ref['flops']:.0f} ({'equal' if exact else 'at most'} wanted)")
+        check(r["wire_bytes"] <= ref["wire_bytes"],
+              f"hillclimb {key}: wire {r['wire_bytes']} B above the reference's {ref['wire_bytes']}")
+        check(r["replicated"] == {}, f"hillclimb {key}: replicated {r['replicated_at']}")
+        check(r["peak_gib"] <= 2 * ref["peak_gib"],
+              f"hillclimb {key}: peak {r['peak_gib']:.3f} GiB over twice the reference's "
+              f"{ref['peak_gib']:.3f}")
+        held += 1
+    check(held == len(refs), f"hillclimb: {held} of the {len(refs)} LM records held")
+    log(f"[hillclimb] {held} LM records held against the reference's GSPMD records")
 
 
 def _tt_variant_args(abstract, cfg, device, gen):
@@ -4102,12 +4158,14 @@ def _tt_variant_args(abstract, cfg, device, gen):
     return params, batch
 
 
-def hillclimb_phase(seed, device, name, smi):
+def hillclimb_phase(seed, device, name, smi, dry_records):
     """Phase 14: the card's rates beside the roofline constants, the
     two-tower cell's five variants at production shapes on the card (three
     BEBR variants identical, every sdc_topk call held against its plain
-    version), and hillclimb's 26 variants dry in worker processes. Returns
-    the kernels JSON row of the BEBR variants' sdc_topk."""
+    version), and hillclimb's 26 variants dry in worker processes; its LM
+    records and phase 13's llama3-405b ones (``dry_records``) held against
+    the reference's. Returns the kernels JSON row of the BEBR variants'
+    sdc_topk."""
     import multiprocessing
 
     import torch
@@ -4235,16 +4293,39 @@ def hillclimb_phase(seed, device, name, smi):
         nbytes = HC_CANDIDATES * (HC_CODE_DIM + 4) + HC_CODE_DIM + HC_K * 8
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         ops_ms = 1e3 * (2 * HC_CANDIDATES * HC_CODE_DIM * 2) / INT8_OPS_PER_S
+        # (d) the library yardstick (timed only): the query padded with zero
+        # rows to torch._int_mm's least row count, the product, the epilogue
+        # and torch.topk of the query's row
+        from repro_torch.core.binarize_lib import sdc_affine_epilogue
+
+        q_pad = torch.zeros((INT_MM_MIN_ROWS, HC_CODE_DIM), dtype=torch.int8, device=device)
+        q_pad[0] = q[0]
+        sq = q.to(torch.int32).sum(-1, keepdim=True)
+        sd = codes.to(torch.int32).sum(-1)[None, :]
+
+        def library():
+            dot = torch._int_mm(q_pad, codes.t())[:1]
+            s = sdc_affine_epilogue(dot, sq + sd, dim=HC_CODE_DIM, n_levels=HC_LEVELS,
+                                    inv_norm=inv[None, :])
+            return torch.topk(s, HC_K)
+
+        lib_v = library().values
+        check(bool(torch.isfinite(lib_v).all())
+              and torch.allclose(lib_v.sort(-1).values, v.sort(-1).values, rtol=1e-6, atol=0),
+              "the library yardstick's top k scores differ from sdc_topk's")
+        library_ms = cuda_ms(library, 50)
         log(f"[time] sdc_topk int8 Q=1 N={HC_CANDIDATES} D={HC_CODE_DIM} k={HC_K} (the BEBR "
             f"variants' scan) on {name} ({smi}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"HBM bound {bytes_ms:.5f} ms, int8 op bound {ops_ms:.5f} ms, library n/a "
-            f"(torch._int_mm takes no single query)")
+            f"HBM bound {bytes_ms:.5f} ms, int8 op bound {ops_ms:.5f} ms, library "
+            f"{library_ms:.4f} ms (torch._int_mm over the query padded to {INT_MM_MIN_ROWS} "
+            f"rows + the epilogue + torch.topk; its scores the kernel's)")
         row = dict(name="sdc_topk_int8_bebr", route="cuda", source=SOURCE,
                    replaces=REPLACES[False], launches=launches,
                    max_abs_err=float((v - pv).abs().max()), ms=ms, plain_ms=plain_ms,
                    bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
-        del codes, inv, q
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   library_ms=library_ms)
+        del codes, inv, q, q_pad
         torch.cuda.empty_cache()
 
         # -- (c) the dry records -------------------------------------------------------
@@ -4269,6 +4350,8 @@ def hillclimb_phase(seed, device, name, smi):
     check(merge["flops"] == bebr["flops"] == 18_064_384
           and merge["collectives"]["all-gather"] == 12_000,
           "hillclimb tt_retrieval: the merge's FLOPs or all-gather wire moved")
+    _hold_lm_records(records + [_dry_as_hillclimb(r) for r in dry_records
+                                if r["mesh"] == "16x16" and r["arch"] == "llama3-405b"])
     log(f"[hillclimb] 26 variants dry on 16x16 in {dry_s:.1f} s over {HILLCLIMB_WORKERS} "
         f"processes ({sum(r['run_s'] for r in rec.values()):.1f} s of steps; {waited:.1f} s "
         f"waited after (a) and (b))")
@@ -4792,11 +4875,11 @@ def main() -> None:
 
     # -- 13. compression, the dry run of every cell, cells and sharded state on the card --
     torch.cuda.empty_cache()
-    tooling_phase(args.seed, device, name, smi)
+    dry_records = tooling_phase(args.seed, device, name, smi)
 
     # -- 14. the hillclimb: rates, the two-tower variants on the card, 26 variants dry ------
     torch.cuda.empty_cache()
-    kernels.append(hillclimb_phase(args.seed, device, name, smi))
+    kernels.append(hillclimb_phase(args.seed, device, name, smi, dry_records))
 
     log("kernels: " + ", ".join(f"{k['name']} matched, launches={k['launches']}"
                                 for k in kernels))

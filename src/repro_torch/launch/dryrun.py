@@ -34,7 +34,8 @@ Per cell it records the reference's keys (``arch``, ``shape``, ``kind``,
   * ``collectives``: per device, the wire bytes of each collective kind
     (``wire_bytes_per_device``, the reference's ring model) and their
     ``counts``, from the sharded step, and ``replicated``: operators whose
-    sharding DTensor could not propagate, run on replicated operands.
+    sharding DTensor could not propagate, run on replicated operands
+    (``replicated_at``: where each was called, and its operands' layouts).
 
 The unsharded step runs once for a cell whose arguments have the same
 shapes and dtypes on both meshes (all but meshgraphnet's, whose graph
@@ -122,6 +123,7 @@ def run_cell(arch_id: str, shape_id: str, multi_pod: bool,
             "wire_bytes_per_device": sharded["collectives"],
             "counts": sharded["counts"],
             "replicated": sharded["replicated"],
+            "replicated_at": sharded["replicated_at"],
         },
         "meta": cell.meta,
     }

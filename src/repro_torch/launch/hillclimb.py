@@ -20,8 +20,9 @@ A record keeps the reference's keys (``flops``, ``bytes``, ``wire_bytes``,
 ``collectives``, ``compute_ms``, ``memory_ms``, ``collective_ms``,
 ``peak_gib``), all per device, priced with the H100 roofline constants of
 ``kernels/sdc/defaults.py``; ``run_s`` takes the place of ``compile_s``.
-It adds ``counts`` (collectives by kind) and ``replicated`` (operators
-whose sharding DTensor could not propagate, run on replicated operands).
+It adds ``counts`` (collectives by kind), ``replicated`` (operators
+whose sharding DTensor could not propagate, run on replicated operands)
+and ``replicated_at`` (where each was called, and its operands' layouts).
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ def _measure(fn, shardings, args, mesh) -> dict:
         "collective_ms": 1e3 * wire / (N_LINKS * LINK_BW),
         "peak_gib": costs["peak_bytes"] / 2**30,
         "replicated": costs["replicated"],
+        "replicated_at": costs["replicated_at"],
     }
 
 

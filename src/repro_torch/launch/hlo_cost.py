@@ -38,6 +38,8 @@ DTensor inserts from the process-group operators it issues).
 from __future__ import annotations
 
 import contextlib
+import os
+import traceback
 import weakref
 from typing import Any, Dict
 
@@ -306,7 +308,10 @@ class _ShardedCounter(_Counter):
     that takes are counted) and it runs whole on each rank's local copies,
     its results replicated, as GSPMD falls back to replicating an operand
     it cannot partition. A written operand
-    is laid out again as it was. ``replicated`` counts these operators."""
+    is laid out again as it was. ``replicated`` counts these operators, and
+    ``replicated_at`` says, for each, where it was first called from (the
+    innermost line outside torch and the counter), its DTensor operands'
+    shapes and placements, and why DTensor could not place it."""
 
     @contextlib.contextmanager
     def repeat(self, n: int):
@@ -316,6 +321,7 @@ class _ShardedCounter(_Counter):
     def __init__(self, log: "spmd.CollectiveLog", device_type: str):
         super().__init__()
         self.replicated: Dict[str, int] = {}
+        self.replicated_at: Dict[str, str] = {}
         self._through = False
         self.log = log
         self.device_type = device_type
@@ -494,6 +500,8 @@ class _ShardedCounter(_Counter):
                              out_spec)
         name = str(func)
         self.replicated[name] = self.replicated.get(name, 0) + 1
+        if name not in self.replicated_at:
+            self.replicated_at[name] = _replicated_note(flat, first)
         if not func._schema.is_mutable:
             return out
         # put every written operand back in its own layout
@@ -505,6 +513,22 @@ class _ShardedCounter(_Counter):
                 orig._local_tensor.copy_(_laid_out(rep, orig.placements)._local_tensor)
                 flat_out = [orig if o is rep else o for o in flat_out]
         return tree_unflatten(flat_out, out_spec)
+
+
+def _replicated_note(operands, err) -> str:
+    """Where the operator that DTensor could not place was called from, its
+    DTensor operands' shapes and placements, and DTensor's error."""
+    from torch.distributed.tensor import DTensor
+
+    own = (os.sep + "torch" + os.sep, os.path.join("launch", "hlo_cost.py"),
+           os.path.join("parallel", "spmd.py"))
+    where = next((f"{os.path.basename(f.filename)}:{f.lineno} {f.line}"
+                  for f in reversed(traceback.extract_stack())
+                  if not any(o in f.filename for o in own)), "?")
+    placed = [(tuple(x.shape), tuple(str(p) for p in x.placements))
+              for x in operands if isinstance(x, DTensor)]
+    why = str(err).splitlines()[0][:200] if str(err) else type(err).__name__
+    return f"at {where}; operands {placed}; {why}"
 
 
 def _replicated(local, mesh):
@@ -547,7 +571,7 @@ def sharded_step_costs(fn, args, shardings, mesh) -> Dict[str, Any]:
     ``collectives`` (per-device wire bytes by kind) and ``counts``
     (collectives by kind); ``ops`` (operators run on local pieces); and
     ``replicated`` (operators run on replicated operands, by name, see
-    ``_ShardedCounter``)."""
+    ``_ShardedCounter``) and ``replicated_at`` (where each was called)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     owned = contextlib.nullcontext() if spmd.is_bound(mesh) else spmd.fake_mesh(
@@ -574,6 +598,7 @@ def sharded_step_costs(fn, args, shardings, mesh) -> Dict[str, Any]:
         "counts": dict(log.counts),
         "ops": counter.ops,
         "replicated": dict(sorted(counter.replicated.items())),
+        "replicated_at": dict(sorted(counter.replicated_at.items())),
     }
 
 

@@ -22,9 +22,11 @@ The reference's ``remat`` (``jax.checkpoint`` of each layer) is
 Its ``constrain`` hooks are GSPMD sharding constraints, applied where the
 reference applies them: under a sharded step (``parallel/spmd.py``) they
 redistribute the residual stream, on one device they are identities. The
-projections (``spmd.matmul``) and the heads' split and merge
-(``spmd.split_dim``, ``merge_dims``) are plain products and reshapes on
-one device and place DTensors where DTensor cannot by itself. A decode cache is a dictionary of tensors and a
+projections (``spmd.matmul``), the heads' split (``spmd.split_dim``), the
+attention split by query heads (``spmd.by_heads``, ``decode_by_heads``)
+and the cache's writes (``spmd.write_at``) are plain products, reshapes,
+calls and slice writes on one device and place DTensors where DTensor
+cannot by itself. A decode cache is a dictionary of tensors and a
 host integer ``length`` (the reference's int32 scalar): ``decode_step``
 writes the new token's keys and values into the cache's tensors in place
 and returns the cache with ``length`` advanced, so a step reads nothing
@@ -34,6 +36,7 @@ back from the device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -202,10 +205,48 @@ def _causal_chunk_attn(qh, kh, vh, q_offset, S_kv, chunk, dtype):
     return torch.cat(ctxs, dim=3)
 
 
+def _attend(qt, kh, vh, cfg: TransformerConfig, mask, dtype):
+    """Causal attention of query heads ``qt`` [B, H, S, hd] with their
+    key/value heads ``kh``/``vh`` [B, KV, S, hd] (GQA via head grouping) ->
+    the context [B, S, H * hd]; query chunking bounds the logits working set
+    at [.., chunk, S]."""
+    B, _, S, hd = qt.shape
+    qh = qt.reshape(B, kh.shape[1], -1, S, hd)
+    if cfg.attn_chunk and S > cfg.attn_chunk and S % cfg.attn_chunk == 0 and mask is None:
+        ctx = _causal_chunk_attn(qh, kh, vh, 0, S, cfg.attn_chunk, dtype)
+    else:
+        logits = torch.einsum("bkgqh,bkth->bkgqt", qh, kh)
+        causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=qt.device))
+        if mask is not None:
+            causal = causal & mask
+        logits = torch.where(causal, logits, -1e30)
+        probs = torch.softmax(logits.to(torch.float32), -1).to(dtype)
+        ctx = torch.einsum("bkgqt,bkth->bkgqh", probs, vh)
+    return ctx.permute(0, 3, 1, 2, 4).reshape(B, S, -1)
+
+
+def _decode_attend(qt, keys, vals, t0, softmax, length):
+    """One decode step's attention of query heads ``qt`` [B, H, S, hd] over
+    the cache's key/value heads ``keys``/``vals`` [B, KV, T, hd] at positions
+    ``t0`` .. ``t0 + T - 1`` (those past ``length`` masked) -> the context
+    [B, S, H * hd]; ``softmax`` normalises float32 logits over the positions."""
+    B, H, S, hd = qt.shape
+    KV, T = keys.shape[1], keys.shape[2]
+    qg = qt.reshape(B, KV, H // KV * S, hd)
+    logits = torch.einsum("bkqh,bkth->bkqt", qg, keys)
+    valid = torch.arange(t0, t0 + T, device=qt.device) <= length
+    logits = torch.where(valid, logits, -1e30)
+    probs = softmax(logits.to(torch.float32)).to(qt.dtype)
+    ctx = torch.einsum("bkqt,bkth->bkqh", probs, vals)
+    return ctx.reshape(B, KV, H // KV, S, hd).permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
+
+
 def _attention(lp, x, positions, cfg: TransformerConfig, mask=None, kv_cache=None):
     """x: [B, S, d]. ``kv_cache``: optional dict with k/v [B, KV, T, hd]
     (views into the stacked cache) and ``length`` — decode mode writes the
-    new keys and values at ``length`` and attends to the cache."""
+    new keys and values at ``length`` and attends to the cache. Under a
+    sharded step the attention runs split by query heads (``spmd.by_heads``,
+    ``spmd.decode_by_heads``)."""
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = spmd.split_dim(spmd.matmul(x, lp["wq"]), 2, (H, hd))
@@ -225,42 +266,23 @@ def _attention(lp, x, positions, cfg: TransformerConfig, mask=None, kv_cache=Non
         if "k_scale" in kv_cache:
             kq, ks = _quantize_kv(k_new)
             vq, vs = _quantize_kv(v_new)
-            ck[:, :, length:length + S] = kq
-            cv[:, :, length:length + S] = vq
-            kv_cache["k_scale"][:, :, length:length + S] = ks
-            kv_cache["v_scale"][:, :, length:length + S] = vs
+            spmd.write_at(ck, 2, length, kq)
+            spmd.write_at(cv, 2, length, vq)
+            spmd.write_at(kv_cache["k_scale"], 2, length, ks)
+            spmd.write_at(kv_cache["v_scale"], 2, length, vs)
             keys = ck.to(q.dtype) * kv_cache["k_scale"].to(q.dtype)
             vals = cv.to(q.dtype) * kv_cache["v_scale"].to(q.dtype)
         else:
-            ck[:, :, length:length + S] = k_new.to(ck.dtype)
-            cv[:, :, length:length + S] = v_new.to(cv.dtype)
+            spmd.write_at(ck, 2, length, k_new.to(ck.dtype))
+            spmd.write_at(cv, 2, length, v_new.to(cv.dtype))
             keys, vals = ck.to(q.dtype), cv.to(q.dtype)
-        T = keys.shape[2]
-        qg = spmd.split_dim(q.transpose(1, 2), 1, (KV, groups)).reshape(B, KV, groups * S, hd)
-        logits = torch.einsum("bkqh,bkth->bkqt", qg, keys)
-        valid = torch.arange(T, device=x.device) <= length
-        logits = torch.where(valid, logits, -1e30)
-        probs = torch.softmax(logits.to(torch.float32), -1).to(q.dtype)
-        ctx = torch.einsum("bkqt,bkth->bkqh", probs, vals)
-        ctx = spmd.merge_dims(spmd.split_dim(ctx, 2, (groups, S)).permute(0, 3, 1, 2, 4), 2, 3)
+        ctx = spmd.decode_by_heads(functools.partial(_decode_attend, length=length),
+                                   q.transpose(1, 2), keys, vals, groups)
         return spmd.matmul(ctx, lp["wo"]), new_cache
 
-    # training / prefill: causal attention, GQA via head grouping; query
-    # chunking bounds the logits working set at [.., chunk, S]
-    qh = spmd.split_dim(q.transpose(1, 2), 1, (KV, groups))
-    kh = k.transpose(1, 2)  # [B, KV, S, hd]
-    vh = v.transpose(1, 2)
-    if cfg.attn_chunk and S > cfg.attn_chunk and S % cfg.attn_chunk == 0 and mask is None:
-        ctx = _causal_chunk_attn(qh, kh, vh, 0, S, cfg.attn_chunk, x.dtype)
-    else:
-        logits = torch.einsum("bkgqh,bkth->bkgqt", qh, kh)
-        causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=x.device))
-        if mask is not None:
-            causal = causal & mask
-        logits = torch.where(causal, logits, -1e30)
-        probs = torch.softmax(logits.to(torch.float32), -1).to(x.dtype)
-        ctx = torch.einsum("bkgqt,bkth->bkgqh", probs, vh)
-    ctx = spmd.merge_dims(ctx.permute(0, 3, 1, 2, 4), 2, 3)  # [B, S, H * hd]
+    # training / prefill: causal attention, GQA via head grouping
+    attend = functools.partial(_attend, cfg=cfg, mask=mask, dtype=x.dtype)
+    ctx = spmd.by_heads(attend, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), groups)
     return spmd.matmul(ctx, lp["wo"]), None
 
 
@@ -288,13 +310,15 @@ def _moe_ffn(lp, x, cfg: TransformerConfig):
     capacity C = max(int(capacity_factor * S * k / E), 4); a token's slot
     past C is dropped. Returns (out [B, S, d], Switch aux loss)."""
     B0, S0, d = x.shape
-    if cfg.moe_group and S0 > cfg.moe_group and S0 % cfg.moe_group == 0:
+    grouped = cfg.moe_group and S0 > cfg.moe_group and S0 % cfg.moe_group == 0
+    if grouped:
         if is_dtensor(x):  # a split sequence is gathered first
             x = spmd.whole_dims(x, (1,))
-        x = x.reshape(B0 * S0 // cfg.moe_group, cfg.moe_group, d)
+            layout = spmd.summed(x.placements)
+        x = spmd.reshape(x, (B0 * S0 // cfg.moe_group, cfg.moe_group, d))
     B, S, _ = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    logits = x @ lp["router"]  # [B, S, E]
+    logits = spmd.matmul(x, lp["router"])  # [B, S, E]
     probs = torch.softmax(logits.to(torch.float32), -1)
     gate_vals, gate_idx = _route_topk(probs, k)  # [B, S, k]
     gate_vals = gate_vals / (torch.sum(gate_vals, -1, keepdim=True) + 1e-9)
@@ -315,30 +339,57 @@ def _moe_ffn(lp, x, cfg: TransformerConfig):
     expert_in = torch.einsum("bsd,bskec->becd", x, disp)  # [B, E, C, d]
     gate = torch.einsum("becd,edf->becf", expert_in, lp["w_gate"])
     up = torch.einsum("becd,edf->becf", expert_in, lp["w_up"])
-    expert_out = torch.einsum("becf,efd->becd", F.silu(gate) * up, lp["w_down"])
-    out = torch.einsum("becd,bskec->bsd", expert_out, disp_comb)
+    act = F.silu(gate) * up
+    if is_dtensor(act):
+        # the einsums leave it permuted; DTensor decides the reshape inside
+        # the next einsum by the whole tensor's strides, which its pieces'
+        # need not share (decode's split batch): lay it out plainly first
+        act = act.contiguous()
+    # with the experts' hidden dim split (w_down's rows), each rank holds a
+    # partial sum: scattered over d, so the combine runs split, not whole
+    expert_out = spmd.partial_scattered(torch.einsum("becf,efd->becd", act, lp["w_down"]), -1)
+    # the combine as one product over (expert, slot), expert major: a
+    # token's k slots meet k distinct experts, so summing them first is
+    # exact, and DTensor merges split experts behind the slot dim this way
+    comb = torch.sum(disp_comb, 2).reshape(B, S, E * cap)
+    out = torch.bmm(comb, expert_out.reshape(B, E * cap, d))
 
     # load-balancing auxiliary loss (Switch-style)
     me = torch.mean(probs, dim=(0, 1))
     ce = torch.mean(_one_hot(gate_idx[..., 0], E, torch.float32), dim=(0, 1))
     aux = E * torch.sum(me * ce)
-    return out.reshape(B0, S0, d), aux
+    if grouped and is_dtensor(out):
+        # DTensor may split the routing groups over more axes than the batch
+        # rows were, which the merge back cannot keep: lay them out as the
+        # rows were first
+        out = out.redistribute(out.device_mesh, layout)
+    return spmd.reshape(out, (B0, S0, d)), aux
 
 
 def _layer(lp, x, positions, cfg: TransformerConfig, kv_cache=None, constrain=None):
     h, new_cache = _attention(lp, rms_norm(x, lp["attn_norm"]), positions, cfg,
                               kv_cache=kv_cache)
-    x = x + h
+    x = x + spmd.laid_out_as(h, x)
     if constrain is not None:  # Megatron-SP: the residual stream after each add
         x = constrain(x)
     if cfg.is_moe:
         h, aux = _moe_ffn(lp, rms_norm(x, lp["ffn_norm"]), cfg)
     else:
         h, aux = _dense_ffn(lp, rms_norm(x, lp["ffn_norm"])), 0.0
-    x = x + h
+    x = x + spmd.laid_out_as(h, x)
     if constrain is not None:
         x = constrain(x)
     return x, aux, new_cache
+
+
+def _input_layout(x):
+    """With no constraint given (prefill, decode): a constraint that keeps
+    the residual stream of a sharded step laid out as the embedded tokens
+    are, as GSPMD propagates the input's layout; None on one device."""
+    if not is_dtensor(x):
+        return None
+    layout = x.placements
+    return lambda y: y.redistribute(y.device_mesh, layout)
 
 
 def _layer_params(params: Params):
@@ -368,11 +419,8 @@ def backbone(params: Params, tokens, cfg: TransformerConfig,
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    if constrain is None and is_dtensor(x):
-        # no constraint given (prefill): keep the residual stream laid out as
-        # the embedded tokens are, as GSPMD propagates the input's layout
-        layout = x.placements
-        constrain = lambda y: y.redistribute(y.device_mesh, layout)  # noqa: E731
+    if constrain is None:
+        constrain = _input_layout(x)
     inner = constrain if cfg.activation_sharding == "seq_residual" else None
     for lp in _layer_params(params):
         if constrain is not None and inner is None:
@@ -436,9 +484,12 @@ def decode_step(params: Params, token, cache: Dict[str, Any],
     length = int(cache["length"])
     pos = torch.full((1, 1), length, dtype=torch.int32, device=x.device)
     planes = [p for p in ("k", "v", "k_scale", "v_scale") if p in cache]
+    constrain = _input_layout(x)
     for i, lp in enumerate(_layer_params(params)):
         lc = {p: cache[p][i] for p in planes}
         lc["length"] = length
+        if constrain is not None:
+            x = constrain(x)
         x, _, _ = _layer(lp, x, pos, cfg, kv_cache=lc)
     x = rms_norm(x, params["final_norm"])
     logits = spmd.matmul(x, embed.T.to(cfg.dtype))[:, 0, :]

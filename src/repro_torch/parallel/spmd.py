@@ -343,6 +343,29 @@ def constrain(x, sharding: Sharding):
     return x.redistribute(x.device_mesh, placements(sharding))
 
 
+def laid_out_as(y, x):
+    """``y`` laid out as ``x`` is, for an elementwise op of the two: a
+    partial sum reduced where ``x`` is whole and scattered where ``x`` is
+    split, as GSPMD lays out a row-parallel product's output for the
+    residual add. DTensor leaves the choice to its strategies, which
+    differ between torch releases. ``y`` itself on one device."""
+    if not (is_dtensor(y) and is_dtensor(x)) or list(y.placements) == list(x.placements):
+        return y
+    return y.redistribute(y.device_mesh, x.placements)
+
+
+def partial_scattered(x, dim: int):
+    """DTensor ``x`` with each partial sum reduce-scattered over ``dim``
+    (a row-parallel product's output, split for the next product rather
+    than reduced whole); ``x`` itself when it holds none."""
+    from torch.distributed.tensor import Shard
+
+    if not (is_dtensor(x) and any(p.is_partial() for p in x.placements)):
+        return x
+    places = [Shard(dim % x.dim()) if p.is_partial() else p for p in x.placements]
+    return x.redistribute(x.device_mesh, places)
+
+
 def shard_map(fn, mesh: LeafMesh, in_specs: Sequence[tuple], out_specs: Union[tuple, Sequence]):
     """``jax.experimental.shard_map(fn, mesh, in_specs, out_specs,
     check_rep=False)`` over ``torch.distributed.tensor.experimental.local_map``:
@@ -552,9 +575,14 @@ def _as_dtensor(x, dm):
 def _from_local(local, dm, places, shape):
     from torch.distributed.tensor import DTensor
 
-    stride = torch.empty(shape, device="meta").stride()
+    # the whole shape's contiguous strides, computed (an empty tensor of the
+    # whole shape would count as memory under a cost counter)
+    stride, step = [], 1
+    for n in reversed(shape):
+        stride.insert(0, step)
+        step *= max(n, 1)
     return DTensor.from_local(local, dm, places, run_check=False, shape=torch.Size(shape),
-                              stride=stride)
+                              stride=tuple(stride))
 
 
 class _MaskedTake(torch.autograd.Function):
@@ -602,7 +630,7 @@ def sharded_take(table, ids):
 
     dm = table.device_mesh
     ids = _as_dtensor(ids, dm)
-    t_pl, i_pl, o_pl, final = [], [], [], []
+    t_pl, i_pl, o_pl, g_pl, final = [], [], [], [], []
     for tp, ip in zip(table.placements, ids.placements):
         final.append(ip if isinstance(ip, Shard) else None)
         if isinstance(tp, Shard) and tp.dim == 0:
@@ -617,10 +645,14 @@ def sharded_take(table, ids):
             t_pl.append(Replicate())
             i_pl.append(ip)
             o_pl.append(ip)
+        # a whole table looked up by split ids: each rank's gradient is its
+        # own ids' share, summed over the ranks
+        g_pl.append(Partial() if isinstance(t_pl[-1], Replicate) and isinstance(ip, Shard)
+                    else t_pl[-1])
     table = table.redistribute(dm, t_pl)
     ids = ids.redistribute(dm, i_pl)
     _, offset = compute_local_shape_and_global_offset(table.shape, dm, t_pl)
-    local = _MaskedTake.apply(table.to_local(), ids.to_local(), offset[0])
+    local = _MaskedTake.apply(table.to_local(grad_placements=g_pl), ids.to_local(), offset[0])
     out = _from_local(local, dm, o_pl, tuple(ids.shape) + (table.shape[1],))
     back = [(f or Replicate()) if isinstance(o, Partial) else o for o, f in zip(o_pl, final)]
     return out if back == o_pl else out.redistribute(dm, back)
@@ -669,51 +701,199 @@ def split_dim(x, dim: int, sizes: Sequence[int]):
     return x.reshape(shape)
 
 
-class _MergeDims(torch.autograd.Function):
-    """A reshape that merges dims of a DTensor, whose gradient splits them
-    again through ``split_dim`` (DTensor cannot split a sharded dim whose
-    shards do not divide the first new dim, as the gradient of the
-    attention heads merge must)."""
-
-    @staticmethod
-    def forward(ctx, x, dim, n):
-        ctx.dim, ctx.sizes = dim, tuple(x.shape[dim:dim + n])
-        return x.reshape(tuple(x.shape[:dim]) + (-1,) + tuple(x.shape[dim + n:]))
-
-    @staticmethod
-    def backward(ctx, grad):
-        return split_dim(grad, ctx.dim, ctx.sizes), None, None
+def _rank_over(dm, dims) -> int:
+    """This rank's index over the ``DeviceMesh`` dims ``dims`` (in mesh
+    order, the first major), as DTensor nests a dim split over several."""
+    idx = 0
+    for i in dims:
+        idx = idx * dm.size(i) + dm.get_local_rank(i)
+    return idx
 
 
-def merge_dims(x, dim: int, n: int):
-    """``x`` with its dims ``dim`` .. ``dim + n - 1`` merged into one (a
-    reshape; on a DTensor, with the gradient of ``_MergeDims``)."""
-    dim = dim % x.dim()
-    if is_dtensor(x):
-        return _MergeDims.apply(x, dim, n)
-    return x.reshape(tuple(x.shape[:dim]) + (-1,) + tuple(x.shape[dim + n:]))
+def _kv_for_heads(kl, vl, h0: int, n: int, groups: int):
+    """The key/value heads that query heads ``h0`` .. ``h0 + n - 1`` use
+    (head h uses key/value head h // groups), from ``kl``/``vl`` [B, KV, T,
+    hd] holding every key/value head: a slice where the query heads are
+    whole groups or lie within one, else one key/value head a query head."""
+    first, last = h0 // groups, (h0 + n - 1) // groups
+    if n % groups == 0 or groups % n == 0:
+        return kl.narrow(1, first, last - first + 1), vl.narrow(1, first, last - first + 1)
+    idx = torch.div(torch.arange(h0, h0 + n, device=kl.device), groups, rounding_mode="floor")
+    return kl[:, idx], vl[:, idx]
+
+
+def _reduce_dims(x, dm, dims, op: str):
+    """``x`` all-reduced with ``op`` over each ``DeviceMesh`` dim of ``dims``."""
+    from torch.distributed._functional_collectives import all_reduce
+
+    for i in dims:
+        record("all-reduce", x.numel() * x.element_size(), dm.size(i))
+        with _explicit():
+            x = _wait(all_reduce(x.contiguous(), op, dm.get_group(i)))
+    return x
+
+
+def _heads_layout(q) -> list:
+    """The placements of ``q`` [B, H, ...] with only its batch and heads
+    left split, the heads whole where their split is uneven."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dm = q.device_mesh
+    keep = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate() for p in q.placements]
+    if q.shape[1] % math.prod(dm.size(i) for i, p in enumerate(keep) if p == Shard(1)):
+        keep = [Replicate() if p == Shard(1) else p for p in keep]
+    return keep
+
+
+def by_heads(attend, q, k, v, groups: int):
+    """Grouped-query attention split by query heads: ``attend(q, k, v)``
+    with ``q`` [B, H, S, hd] and ``k``/``v`` [B, KV, S, hd] (query head h
+    attends with key/value head h // ``groups``) returns the context [B, S,
+    H' * hd] of the H' query heads it was given, in their order.
+
+    On plain tensors it is ``attend(q, k, v)``. On DTensors each rank keeps
+    its own query heads (the mesh axes that split the heads of ``q`` stay
+    split; the batch stays split as it is), gathers ``k`` and ``v`` whole
+    over those axes (KV heads are fewer than the query heads, and DTensor
+    cannot split 8 of them over 16 shards), takes the key/value heads its
+    query heads use and runs ``attend`` on its local pieces. The context
+    comes back split over the heads as ``q`` was, ready for the row-parallel
+    output projection; the gradients of ``k`` and ``v`` are partial sums
+    over the heads' axes, reduced where DTensor next needs them."""
+    if not is_dtensor(q):
+        return attend(q, k, v)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    dm = q.device_mesh
+    B, H, S, hd = q.shape
+    keep = _heads_layout(q)
+    hdims = [i for i, p in enumerate(keep) if p == Shard(1)]
+    q = q.redistribute(dm, keep)
+    kv = [Replicate() if i in hdims else p for i, p in enumerate(keep)]
+    k, v = k.redistribute(dm, kv), v.redistribute(dm, kv)
+    grad_kv = [Partial() if i in hdims else p for i, p in enumerate(kv)]
+    ql = q.to_local()
+    n = ql.shape[1]
+    kl, vl = _kv_for_heads(k.to_local(grad_placements=grad_kv),
+                           v.to_local(grad_placements=grad_kv), _rank_over(dm, hdims) * n, n,
+                           groups)
+    out = [Shard(2) if p == Shard(1) else p for p in keep]
+    return _from_local(attend(ql, kl, vl), dm, out, (B, S, H * hd))
+
+
+def decode_by_heads(attend, q, keys, vals, groups: int):
+    """One decode step's grouped-query attention over a cache:
+    ``attend(q, keys, vals, t0, softmax)`` with ``q`` [B, H, S, hd] and
+    ``keys``/``vals`` [B, KV, T, hd] holding cache positions ``t0`` ..
+    ``t0 + T - 1`` returns the context [B, S, H' * hd] of the H' query heads
+    it was given, with ``softmax(logits)`` over the cache's positions.
+
+    On plain tensors it is ``attend(q, keys, vals, 0, softmax over the last
+    dim)``. On DTensors, per mesh axis: where the cache's positions are
+    split (the decode cell lays T over the model axis), ``q`` is gathered
+    there, each rank attends over its own positions, the softmax's max and
+    sum are all-reduced, and the context's partial sums are reduce-scattered
+    back to the heads' split (or all-reduced where the heads were whole);
+    where only the heads are split, each rank keeps its query heads and
+    takes the key/value heads they use, as ``by_heads`` does; the batch
+    stays split as it is. The cache is never moved."""
+    if not is_dtensor(q):
+        return attend(q, keys, vals, 0, lambda x: torch.softmax(x, -1))
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    dm = q.device_mesh
+    B, H, S, hd = q.shape
+    tdims = [i for i, p in enumerate(keys.placements) if p == Shard(2)]
+    qp = _heads_layout(q)
+    hdims = [i for i, p in enumerate(qp) if p == Shard(1) and i not in tdims]
+    ql = q.redistribute(dm, [Replicate() if i in tdims else p for i, p in enumerate(qp)]).to_local()
+    kv = [Shard(2) if i in tdims else (Replicate() if i in hdims else qp[i])
+          for i in range(dm.ndim)]
+    keys, vals = keys.redistribute(dm, kv), vals.redistribute(dm, kv)
+    _, offset = compute_local_shape_and_global_offset(keys.shape, dm, kv)
+    n = ql.shape[1]
+    kl, vl = _kv_for_heads(keys.to_local(), vals.to_local(), _rank_over(dm, hdims) * n, n, groups)
+
+    def softmax(x):
+        e = torch.exp(x - _reduce_dims(torch.amax(x, -1, keepdim=True), dm, tdims, "max"))
+        return e / _reduce_dims(torch.sum(e, -1, keepdim=True), dm, tdims, "sum")
+
+    ctx = attend(ql, kl, vl, offset[2], softmax if tdims else lambda x: torch.softmax(x, -1))
+    for i in tdims:
+        if qp[i] == Shard(1):
+            g = dm.size(i)
+            record("reduce-scatter", ctx.numel() * ctx.element_size() // g, g)
+            with _explicit():
+                ctx = _reduce_scatter(ctx, dm.get_group(i), 2)
+        else:
+            ctx = _reduce_dims(ctx, dm, [i], "sum")
+    out = [Shard(2) if p == Shard(1) else p for p in qp]
+    return _from_local(ctx, dm, out, (B, S, H * hd))
+
+
+def write_at(dst, dim: int, start: int, src) -> None:
+    """``dst[..., start:start + n, ...] = src`` along ``dim`` (n =
+    ``src.shape[dim]``), in place: a decode step's keys and values written
+    into the cache. On a DTensor ``dst`` whose ``dim`` is split (the cache's
+    positions), each rank writes the part that falls in its own positions,
+    from ``src`` laid out as ``dst`` but whole along ``dim``; nothing else
+    moves."""
+    index = (slice(None),) * dim + (slice(start, start + src.shape[dim]),)
+    if not is_dtensor(dst):
+        dst[index] = src
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    dm = dst.device_mesh
+    src = _as_dtensor(src, dm).redistribute(
+        dm, [Replicate() if p == Shard(dim) else p for p in dst.placements])
+    shape, offset = compute_local_shape_and_global_offset(dst.shape, dm, dst.placements)
+    lo, hi = max(start, offset[dim]), min(start + src.shape[dim], offset[dim] + shape[dim])
+    if lo < hi:
+        dst.to_local().narrow(dim, lo - offset[dim], hi - lo).copy_(
+            src.to_local().narrow(dim, lo - start, hi - lo))
 
 
 def class_nll(logits, labels):
     """``-log_softmax(logits)[..., label]`` in float32 for DTensor ``logits``
-    [..., V], without gathering the class dim where it is sharded (the
-    vocabulary-parallel cross-entropy): the log-sum-exp reduces over the
-    shards (DTensor's partial max and sum), and the label's logit is picked
-    by a one-hot laid out as the logits' class dim is."""
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    [..., V]: the label's logit is picked on each rank from its own
+    classes where the class dim is sharded (the vocabulary-parallel
+    cross-entropy), by a one-hot laid out as the logits are, and summed
+    over the shards; the log-sum-exp is DTensor's, which gathers the class
+    dim."""
+    from torch.distributed.tensor import Replicate, Shard
 
     dm = logits.device_mesh
-    x = logits.to(torch.float32)
+    x = reduced(logits.to(torch.float32))
     last = x.dim() - 1
-    classes = torch.arange(x.shape[-1], device=x._local_tensor.device)
-    places = [Shard(0) if isinstance(p, Shard) and p.dim == last else Replicate()
-              for p in x.placements]
-    classes = distribute_tensor(classes, dm, places, src_data_rank=None)
-    labels = _as_dtensor(labels, dm)
-    picked = torch.sum(torch.where(labels.unsqueeze(-1) == classes, x, 0.0), -1)
+    split = [i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == last]
+    lead = [p if isinstance(p, Shard) and p.dim < last else Replicate() for p in x.placements]
+    labels = _as_dtensor(labels, dm).redistribute(dm, lead).to_local()
+    n_local = x._local_tensor.shape[-1]
+    width = -(-x.shape[-1] // math.prod(dm.size(i) for i in split))  # DTensor's chunk
+    first = _rank_over(dm, split) * width
+    classes = torch.arange(first, first + n_local, device=labels.device)
+    onehot = _from_local(labels.unsqueeze(-1) == classes, dm, x.placements, x.shape)
+    picked = reduced(torch.sum(torch.where(onehot, x, 0.0), -1))
     return torch.logsumexp(x, -1) - picked
 
 
+def reduced(x):
+    """DTensor ``x`` with each partial sum reduced (``Replicate()``), where
+    torch releases would reduce it at different operators; ``x`` itself
+    when it holds none or is a plain tensor."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, summed(x.placements))
+
+
+def summed(placements) -> list:
+    """``placements`` with each partial sum reduced (``Replicate()``)."""
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate() if p.is_partial() else p for p in placements]
 
 
 def whole_dims(x, dims):
@@ -740,11 +920,23 @@ def matmul(x, w):
 
     if not (is_dtensor(x) and is_dtensor(w)):
         return x @ w
+    # the input's gradient (a partial sum where the weight's output dim is
+    # split) reduced as the input is laid out, before other gradients of
+    # the input add to it: torch releases differ in where they reduce a sum
+    # of a partial and a whole gradient
+    _grad_as(x)
     last = x.dim() - 1
     # the product flattens x's leading dims, which DTensor does only where
     # no dim past the first is split: a sequence split (Megatron-SP) is
     # gathered before the product, as Megatron gathers it
     x = whole_dims(x, range(1, last))
+    # partial sums are reduced, and features split where the weight's rows
+    # are not are gathered: a column-parallel product takes its input whole
+    places = [Replicate() if p.is_partial() or (
+        isinstance(p, Shard) and p.dim == last and not (isinstance(wp, Shard) and wp.dim == 0))
+        else p for p, wp in zip(x.placements, w.placements)]
+    if places != list(x.placements):
+        x = x.redistribute(x.device_mesh, places)
     keep = []
     for wp, xp in zip(w.placements, x.placements):
         row = isinstance(wp, Shard) and wp.dim == 0 and isinstance(xp, Shard) and xp.dim == last
@@ -752,4 +944,24 @@ def matmul(x, w):
         keep.append(wp if row or col else Replicate())
     if keep != list(w.placements):
         w = w.redistribute(w.device_mesh, keep)
-    return x @ w
+    return _grad_as(x @ w)
+
+
+def _grad_as(y):
+    """DTensor ``y`` whose gradient is laid out as ``y`` is (partial sums
+    reduced) before it reaches the operator that made ``y``. A gradient
+    arrives laid out as the next layer's input wants it (a split sequence
+    under Megatron-SP), and the backward of a reshape cannot flatten a split
+    dim behind another on every torch (2.11 refuses what 2.13 places)."""
+    if y.requires_grad:
+        places = summed(y.placements)
+        y.register_hook(lambda g: g if list(g.placements) == places
+                        else g.redistribute(g.device_mesh, places))
+    return y
+
+
+def reshape(x, shape):
+    """``x.reshape(shape)``; on a DTensor, with its gradient laid out as the
+    result is before the reshape's backward (``_grad_as``)."""
+    y = x.reshape(shape)
+    return _grad_as(y) if is_dtensor(y) else y

@@ -50,9 +50,10 @@ class AdamConfig:
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum of squares, summed leaf by leaf in the tree's order."""
-    total = 0
+    total = None  # the first leaf's sum as it is (a DTensor's partial sum kept)
     for leaf in tree.values():
-        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+        part = torch.sum(torch.square(leaf.to(torch.float32)))
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 

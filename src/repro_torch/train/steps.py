@@ -37,6 +37,7 @@ from repro_torch.models.recsys import dlrm as dlrm_lib
 from repro_torch.models.recsys import mind as mind_lib
 from repro_torch.models.recsys import two_tower as tt_lib
 from repro_torch.models.recsys.embedding import embedding_lookup
+from repro_torch.parallel import spmd
 from repro_torch.train import optim
 from repro_torch.train.checkpoint import flatten_tree, unflatten_tree
 
@@ -66,8 +67,11 @@ def _value_and_grad(loss_fn, params, batch):
     leaves = [t.detach().requires_grad_(True) for t in flat.values()]
     loss = loss_fn(unflatten_tree(params, leaves), batch)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    return loss.detach(), dict(zip(flat, grads))
+    # each gradient laid out as its parameter (a partial sum reduced here,
+    # where torch releases would otherwise reduce it at different adds)
+    grads = [torch.zeros_like(p) if g is None else spmd.laid_out_as(g, p)
+             for p, g in zip(leaves, grads)]
+    return spmd.reduced(loss.detach()), dict(zip(flat, grads))
 
 
 def _accumulate_grads(loss_fn, params, batch, microbatches: int):
@@ -86,17 +90,27 @@ def _accumulate_grads(loss_fn, params, batch, microbatches: int):
     for i in range(microbatches) if counter is None else [0, 1]:
         trips = 1 if counter is None or i == 0 else microbatches - 1
         with _each_trip(counter, trips):
-            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            mb = {k: _rows_like(v, i * n, n) for k, v in batch.items()}
             loss, grads = _value_and_grad(loss_fn, params, mb)
             if loss_acc is None:
                 loss_acc = torch.zeros((), dtype=torch.float32, device=loss.device)
-                grad_acc = {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                # zeros laid out as each gradient is (a DTensor's pieces, not
+                # its whole shape on every rank)
+                grad_acc = {k: torch.zeros_like(g, dtype=torch.float32,
+                                                memory_format=torch.contiguous_format)
                             for k, g in grads.items()}
             loss_acc = loss_acc + loss
             grad_acc = {k: grad_acc[k] + grads[k] for k in grad_acc}
         del grads
     inv = 1.0 / microbatches
     return loss_acc * inv, {k: g * inv for k, g in grad_acc.items()}
+
+
+def _rows_like(v, start: int, n: int):
+    """Rows ``start`` .. ``start + n - 1`` of ``v``; of a DTensor batch, laid
+    out again as the batch is (DTensor gathers a sliced split dim whole)."""
+    rows = v[start:start + n]
+    return rows.redistribute(v.device_mesh, v.placements) if is_dtensor(v) else rows
 
 
 def _loop_counter(batch):

@@ -1,48 +1,95 @@
 """The JAX reference's hillclimb records (``repro/launch/hillclimb.py``'s
 ``_measure``) of a few variants, dumped to JSON by one subprocess with 512
 forced host devices (the device count locks at JAX's first use, so the
-test process stays single-device). Used by ``tests/test_torch_hillclimb.py``.
+test process stays single-device). Used by ``tests/test_torch_hillclimb*.py``
+and, through the committed file below, by ``chip_smoke.py``'s phase 14.
 
 Each record is the reference's ``_measure`` output without ``compile_s``,
-keyed ``cell|variant|mesh``.
+keyed ``cell|variant|mesh``. A wanted entry is ``(cell, variant,
+multi_pod)``: a cell of the reference's ``VARIANTS`` (variant ``"*"`` for
+all of them), or ``LM_ARCH`` with a shape of ``configs/cells.LM_SHAPES``
+for that cell as the dry run builds it. With ``n_layers`` every LM cell is
+built at that depth (``configs/cells.lm_cell`` patched), widths unchanged.
+
+Run as a script, it writes ``LM_RECORDS``: the full-depth 16x16 records of
+the LM cells (``LM_WANTED``: llama3-405b train_4k's and grok-1's prefill
+variants, and llama3-405b's decode_32k and prefill_32k), ~1 min on 8 cores:
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_hillclimb_ref.py
 """
 
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import textwrap
 
-SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "..", "src")
+LM_RECORDS = os.path.join(HERE, "_torch_hillclimb_ref_lm.json")
+LM_ARCH = "llama3-405b"
+LM_WANTED = [["llama405b_train", "*", False], ["grok_prefill", "*", False],
+             [LM_ARCH, "decode_32k", False], [LM_ARCH, "prefill_32k", False]]
 
 _SCRIPT = r"""
-import json, sys
+import dataclasses, json, sys
+from repro.configs import cells as cells_mod
+from repro.configs.archs.llama3_405b import CONFIG
 from repro.launch import hillclimb as hc
 from repro.launch.mesh import make_production_mesh
 
-out_path, wanted = sys.argv[1], json.loads(sys.argv[2])
+out_path, wanted, n_layers, lm_arch = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+if n_layers:
+    lm_cell = cells_mod.lm_cell
+    cells_mod.lm_cell = lambda cfg, shape_id, mesh: lm_cell(
+        dataclasses.replace(cfg, n_layers=n_layers), shape_id, mesh)
 out = {}
 for cell, variant, multi_pod in wanted:
     mesh = make_production_mesh(multi_pod=multi_pod)
-    fn, shardings, abstract = hc.VARIANTS[cell][variant](mesh)
-    res = hc._measure(fn, shardings, abstract, mesh, mesh.devices.size)
-    res.pop("compile_s")
-    out[f"{cell}|{variant}|{'2x16x16' if multi_pod else '16x16'}"] = res
+    names = sorted(hc.VARIANTS[cell]) if variant == "*" else [variant]
+    for name in names:
+        if cell == lm_arch:
+            spec = cells_mod.lm_cell(CONFIG, name, mesh)
+            fn, shardings, abstract = spec.fn, spec.in_shardings, spec.abstract_args
+        else:
+            fn, shardings, abstract = hc.VARIANTS[cell][name](mesh)
+        res = hc._measure(fn, shardings, abstract, mesh, mesh.devices.size)
+        res.pop("compile_s")
+        out[f"{cell}|{name}|{'2x16x16' if multi_pod else '16x16'}"] = res
 out["variants"] = {c: sorted(v) for c, v in hc.VARIANTS.items()}
 with open(out_path, "w") as f:
     json.dump(out, f)
 """
 
 
-def run_reference(tmp_path, wanted) -> dict:
+def run_reference(tmp_path, wanted, n_layers: int = 0) -> dict:
     """The reference's records of ``wanted``, a list of (cell, variant,
     multi_pod), plus ``variants``: each cell's variant names."""
     out = os.path.join(str(tmp_path), "hillclimb_ref.json")
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=512")
     proc = subprocess.run([sys.executable, "-c", textwrap.dedent(_SCRIPT), out,
-                           json.dumps(wanted)],
+                           json.dumps(wanted), str(n_layers), LM_ARCH],
                           capture_output=True, text=True, env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     with open(out) as f:
         return json.load(f)
+
+
+def lm_records(tmp_path) -> dict:
+    """``LM_WANTED``'s full-depth records as ``LM_RECORDS`` holds them: the
+    per-device counts (FLOPs, bytes, wire by kind, peak), without the
+    reference's milliseconds (priced with its own accelerator's constants)."""
+    recs = run_reference(tmp_path, LM_WANTED)
+    recs.pop("variants")
+    return {k: {f: v for f, v in r.items() if not f.endswith("_ms")} for k, r in recs.items()}
+
+
+if __name__ == "__main__":
+    with tempfile.TemporaryDirectory() as tmp:
+        records = lm_records(tmp)
+    with open(LM_RECORDS, "w") as f:
+        json.dump(records, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(f"{len(records)} records -> {LM_RECORDS}")

@@ -328,6 +328,12 @@ def test_operator_without_strategy_runs_replicated():
     got = sharded_step_costs(lambda x: _row_sums(x * 2.0), (torch.empty((64, 32), device="meta"),),
                              (Sharding(mesh, ("data", "model")),), mesh)
     assert got["replicated"] == {"repro_torch_test.row_sums.default": 1}
+    # where it was called, and its operand's layout over (data, model)
+    at = got["replicated_at"]["repro_torch_test.row_sums.default"]
+    assert "test_torch_dryrun.py" in at and "_row_sums(x * 2.0)" in at
+    from torch.distributed.tensor import Shard
+
+    assert f"operands [((64, 32), ('{Shard(0)}', '{Shard(1)}'))]" in at
     # the [16, 8] piece gathered whole: over data and model, or at once
     assert got["counts"]["all-gather"] >= 1
     assert got["collectives"]["all-gather"] >= 64 * 32 * 4 * 15 / 16 - 16 * 8 * 4
