@@ -256,13 +256,18 @@ that fails:
      (c) meanwhile, in worker processes, hillclimb's 26 variants dry on
      16x16 (the meta device, a fake process group), every record ok; each
      LM record, with phase 13's llama3-405b decode_32k and prefill_32k
-     records on 16x16, held against the JAX reference's GSPMD record
-     committed in tests/_torch_hillclimb_ref_lm.json (no JAX here): FLOPs
-     a device equal for the 12 llama3-405b train variants and decode, at
-     most the reference's for the three prefill records, wire at most the
-     reference's, nothing replicated, the peak at most twice the
-     reference's; (d) the BEBR scan's library yardstick, torch._int_mm +
-     the epilogue + torch.topk, with the query padded to 17 rows.
+     records and its eight llama4-scout and grok-1 records on 16x16, 24 in
+     all, held against the JAX reference's GSPMD record committed in
+     tests/_torch_hillclimb_ref_lm.json (no JAX here): FLOPs a device equal
+     for the 12 llama3-405b train variants and decode, at most the
+     reference's for the three prefill records, and for the MoE cells at
+     most HC_MOE_TARGETS (the whole step's share, 1.2x it where
+     llama4-scout's 40 query heads split 3 or 2 a model shard, or the
+     reference's), each printed beside the share and the reference; wire
+     at most the reference's, nothing replicated, the peak at most twice
+     the reference's; (d) the BEBR scan's library yardstick,
+     torch._int_mm + the epilogue + torch.topk, with the query padded to
+     17 rows.
 
 Its last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Phases 3-9 use seeded, untrained
@@ -431,6 +436,20 @@ HC_CANDIDATES, HC_CODE_DIM, HC_LEVELS, HC_K = 1_000_000, 64, 4, 100
 HC_TIME_REPS = 5
 # the reference's records phase 14 holds every LM record to
 HC_LM_RECORDS = "tests/_torch_hillclimb_ref_lm.json"
+# the MoE dry-run cells' FLOPs a device at most (a multiple of the whole
+# step's share, flops_per_step / 256; a multiple of the reference's), None
+# where not bounded; llama4-scout's 1.2 is 40 query heads over 16 model
+# shards, 3 a shard at most against a share of 2.5 (tests/_torch_hillclimb_ref.py)
+HC_MOE_TARGETS = {
+    ("llama4-scout-17b-a16e", "train_4k"): (1.2, None),
+    ("llama4-scout-17b-a16e", "prefill_32k"): (1.2, None),
+    ("llama4-scout-17b-a16e", "decode_32k"): (None, 1.0),
+    ("llama4-scout-17b-a16e", "long_500k"): (1.2, None),
+    ("grok-1-314b", "train_4k"): (None, 1.0),
+    ("grok-1-314b", "prefill_32k"): (1.229, 1.0),
+    ("grok-1-314b", "decode_32k"): (1.001, None),
+    ("grok-1-314b", "long_500k"): (1.001, None),
+}
 INT_MM_MIN_ROWS = 17  # torch._int_mm on the card takes more than 16 rows
 HC_PLANTED = {5: 0.0, 250_001: -0.0, 500_002: -0.5, 999_999: 0.0,
               **{i: -50.0 for i in range(17, 1_000_000, 41_667)}}
@@ -4080,7 +4099,7 @@ def _dry_as_hillclimb(r):
     record) under hillclimb's keys, as the reference's records are kept."""
     coll = r["collectives"]
     return r["arch"], r["shape"], {
-        "flops": r["cost"]["flops_per_device"],
+        "flops": r["cost"]["flops_per_device"], "whole": r["cost"]["flops_per_step"],
         "wire_bytes": sum(coll["wire_bytes_per_device"].values()),
         "peak_gib": r["memory"]["peak_bytes_per_device"] / 2**30,
         "replicated": coll["replicated"], "replicated_at": coll["replicated_at"]}
@@ -4089,8 +4108,11 @@ def _dry_as_hillclimb(r):
 def _hold_lm_records(records) -> None:
     """Each LM record beside the JAX reference's GSPMD record of the same
     cell (``HC_LM_RECORDS``, full depth, 16x16), held: FLOPs a device equal
-    (train, decode) or at most the reference's (prefill), wire at most the
-    reference's, nothing replicated, the peak at most twice the reference's."""
+    (llama3-405b train, decode) or at most the reference's (prefill), or for
+    the MoE cells at most ``HC_MOE_TARGETS``'s multiples of the whole step's
+    share (the record's ``whole`` / 256) and of the reference's; wire at most
+    the reference's, nothing replicated, the peak at most twice the
+    reference's."""
     with open(os.path.join(ROOT, HC_LM_RECORDS)) as f:
         refs = json.load(f)
     held = 0
@@ -4099,15 +4121,28 @@ def _hold_lm_records(records) -> None:
         if key not in refs:
             continue
         ref = refs[key]
-        exact = c == "llama405b_train" or v == "decode_32k"
+        moe = HC_MOE_TARGETS.get((c, v))
+        share = r["whole"] / 256 if moe else None
         log(f"[hillclimb] {key} beside the reference: FLOPs {r['flops']:.6e} / "
-            f"{ref['flops']:.6e} ({r['flops'] / ref['flops']:.4f}x), wire {r['wire_bytes']:.4e} / "
+            f"{ref['flops']:.6e} ({r['flops'] / ref['flops']:.4f}x"
+            + (f"; {r['flops'] / share:.4f}x the step's share {share:.6e}" if moe else "")
+            + f"), wire {r['wire_bytes']:.4e} / "
             f"{ref['wire_bytes']:.4e} B ({r['wire_bytes'] / ref['wire_bytes']:.4f}x), peak "
             f"{r['peak_gib']:.3f} / {ref['peak_gib']:.3f} GiB ({r['peak_gib'] / ref['peak_gib']:.3f}x), "
             f"replicated {r['replicated'] or 'none'}")
-        check(r["flops"] == ref["flops"] if exact else r["flops"] <= ref["flops"],
-              f"hillclimb {key}: {r['flops']} FLOPs a device against the reference's "
-              f"{ref['flops']:.0f} ({'equal' if exact else 'at most'} wanted)")
+        if moe:
+            at_share, at_ref = moe
+            check(at_share is None or r["flops"] <= at_share * share,
+                  f"hillclimb {key}: {r['flops']} FLOPs a device over {at_share}x the step's "
+                  f"share {share:.0f}")
+            check(at_ref is None or r["flops"] <= at_ref * ref["flops"],
+                  f"hillclimb {key}: {r['flops']} FLOPs a device over {at_ref}x the "
+                  f"reference's {ref['flops']:.0f}")
+        else:
+            exact = c == "llama405b_train" or v == "decode_32k"
+            check(r["flops"] == ref["flops"] if exact else r["flops"] <= ref["flops"],
+                  f"hillclimb {key}: {r['flops']} FLOPs a device against the reference's "
+                  f"{ref['flops']:.0f} ({'equal' if exact else 'at most'} wanted)")
         check(r["wire_bytes"] <= ref["wire_bytes"],
               f"hillclimb {key}: wire {r['wire_bytes']} B above the reference's {ref['wire_bytes']}")
         check(r["replicated"] == {}, f"hillclimb {key}: replicated {r['replicated_at']}")
@@ -4115,7 +4150,7 @@ def _hold_lm_records(records) -> None:
               f"hillclimb {key}: peak {r['peak_gib']:.3f} GiB over twice the reference's "
               f"{ref['peak_gib']:.3f}")
         held += 1
-    check(held == len(refs), f"hillclimb: {held} of the {len(refs)} LM records held")
+    check(held == len(refs) == 24, f"hillclimb: {held} of the {len(refs)} LM records held")
     log(f"[hillclimb] {held} LM records held against the reference's GSPMD records")
 
 
@@ -4163,9 +4198,9 @@ def hillclimb_phase(seed, device, name, smi, dry_records):
     two-tower cell's five variants at production shapes on the card (three
     BEBR variants identical, every sdc_topk call held against its plain
     version), and hillclimb's 26 variants dry in worker processes; its LM
-    records and phase 13's llama3-405b ones (``dry_records``) held against
-    the reference's. Returns the kernels JSON row of the BEBR variants'
-    sdc_topk."""
+    records and phase 13's llama3-405b, llama4-scout and grok-1 ones on
+    16x16 (``dry_records``) held against the reference's. Returns the
+    kernels JSON row of the BEBR variants' sdc_topk."""
     import multiprocessing
 
     import torch
@@ -4350,8 +4385,9 @@ def hillclimb_phase(seed, device, name, smi, dry_records):
     check(merge["flops"] == bebr["flops"] == 18_064_384
           and merge["collectives"]["all-gather"] == 12_000,
           "hillclimb tt_retrieval: the merge's FLOPs or all-gather wire moved")
-    _hold_lm_records(records + [_dry_as_hillclimb(r) for r in dry_records
-                                if r["mesh"] == "16x16" and r["arch"] == "llama3-405b"])
+    _hold_lm_records(records + [_dry_as_hillclimb(r) for r in dry_records if r["mesh"] == "16x16"
+                                and (r["arch"] == "llama3-405b"
+                                     or (r["arch"], r["shape"]) in HC_MOE_TARGETS)])
     log(f"[hillclimb] 26 variants dry on 16x16 in {dry_s:.1f} s over {HILLCLIMB_WORKERS} "
         f"processes ({sum(r['run_s'] for r in rec.values()):.1f} s of steps; {waited:.1f} s "
         f"waited after (a) and (b))")

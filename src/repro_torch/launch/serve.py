@@ -12,6 +12,7 @@ replicated tier.
         --router least-outstanding --chaos r1.fail@2 --probe-every 0.05 --swap-after 4
     PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2 --upgrade-after 4
     PYTHONPATH=src python -m repro_torch.launch.serve --autotune [--tune-cache DIR]
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend auto|pallas|xla
 
 End to end on the card: a clustered synthetic corpus -> the recurrent
 binarizer, trained emb2emb for ``--steps`` steps with the reference CLI's
@@ -48,6 +49,12 @@ mode serves that builder's closure over a snapshot of the codes.
 for the live shapes before serving and persists the winners
 (``launch/autotune.py``, ``--tune-cache``); the encode is one CUDA-graph
 replay a batch on the card (``binarize_lib.make_encode_fn``).
+``--backend`` takes the reference CLI's names (``CLI_BACKENDS``): auto
+(the CUDA kernels for tensors on the card), pallas (the CUDA kernels,
+refused off the card before anything runs) and xla (the plain PyTorch
+versions, only because they were asked for); interpret, Pallas's
+interpreter, is refused with a message. ``main`` returns the routed run
+(``RoutedRun``: each batch's scores and ids).
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ from repro_torch.index import hnsw_lite, ivf
 from repro_torch.index.flat import FlatFloat, FlatSDC
 from repro_torch.kernels.sdc import ref as sdc_ref
 from repro_torch.kernels.sdc.defaults import plan_for
+from repro_torch.kernels.sdc.ops import resolve_backend
 from repro_torch.launch import (
     autoscale,
     binarizer_cache,
@@ -137,18 +145,26 @@ def _next_version(tag: str) -> str:
     return tag + "+1"
 
 
+# The reference CLI's --backend names as the port's SDC backends: "pallas"
+# (the hand-written kernels; raises without CUDA tensors), "xla" (the plain
+# PyTorch versions, only where asked for) and "auto" (the kernels for CUDA
+# tensors). Its "interpret" (Pallas's interpreter) has no counterpart.
+CLI_BACKENDS = {"auto": "auto", "pallas": "cuda", "xla": "torch"}
+
+
 def cli_builder(index: str, *, k: int = 10, packed: bool = False, ef: int = 64, beam: int = 8,
                 coarse_levels=None, k_coarse=None, probe_budget=None, block_plan=None,
-                device="cuda"):
+                backend: str = "auto", device="cuda"):
     """The lifecycle builder the CLI serves ``index`` from, with the
     reference CLI's parameters (``repro/launch/serve.py``: IVF nlist 64,
     nprobe 32, seed 1; HNSW M 16, ef_construction 64; the builders'
     defaults otherwise). Its ``params`` are the single source of the build
     parameters: every branch of the CLI reads them, so the index served and
     a rebuild from a snapshot are the same index. ``block_plan`` is
-    ``--autotune``'s ``{kind: plan}``."""
+    ``--autotune``'s ``{kind: plan}``; ``backend`` the port's name of the
+    SDC backend (``CLI_BACKENDS``)."""
     kw = dict(k=k, packed=packed, coarse_levels=coarse_levels, k_coarse=k_coarse,
-              block_plan=block_plan, device=device)
+              block_plan=block_plan, backend=backend, device=device)
     if index == "flat":
         return lifecycle.FlatBuilder(**kw)
     if index == "ivf":
@@ -293,6 +309,12 @@ def main(argv=None):
     ap.add_argument("--packed", action="store_true",
                     help="int4 nibble-packed code storage (2 dims/byte; "
                          "halves scan bytes, bit-identical scores)")
+    ap.add_argument("--backend", default="auto", choices=["auto", "pallas", "interpret", "xla"],
+                    help="SDC scoring backend, the reference CLI's names: auto (the "
+                         "CUDA kernels for tensors on the card, the plain PyTorch "
+                         "versions on the CPU), pallas (the CUDA kernels; raises "
+                         "without the card), xla (the plain PyTorch versions); "
+                         "interpret (Pallas's interpreter) is refused")
     ap.add_argument("--autotune", action="store_true",
                     help="sweep launch plans for the live corpus/kernel "
                          "signatures on startup and serve with the winners "
@@ -406,6 +428,11 @@ def main(argv=None):
                  f"(got {args.coarse_levels} of --levels {args.levels})")
     if args.probe_budget and args.index != "ivf":
         ap.error("--probe-budget only applies to --index ivf")
+    if args.backend == "interpret":
+        ap.error("--backend interpret runs the Pallas kernels in Pallas's interpreter, "
+                 "which has no CUDA counterpart: use pallas (the CUDA kernels) or xla "
+                 "(the plain PyTorch versions)")
+    backend = CLI_BACKENDS[args.backend]
 
     # Declarative tier spec: ONE artifact describes the tier's desired
     # state; the flags it covers are overridden so an operator cannot
@@ -429,6 +456,7 @@ def main(argv=None):
               f"cooldown={spec.cooldown_s}s window={spec.window_s}s")
     device = resolve_device(args.device)
     where = device_name(device)
+    resolve_backend(backend, device)  # --backend pallas off the card raises here
 
     print(f"[data] {args.docs} docs, {args.queries} queries, dim={args.dim}")
     docs, queries, gt = synthetic.clustered_corpus(args.seed, args.docs, args.queries, args.dim)
@@ -465,8 +493,8 @@ def main(argv=None):
         for kind in ("scan", "rerank"):
             tp = autotune.tuned_block_plan(
                 kind, code_dim=args.code_dim, n_shard=args.docs, packed=args.packed,
-                k=(kc or args.k), n_levels=args.levels, cache_dir=args.tune_cache,
-                sample_q=args.batch or args.queries, device=device)
+                k=(kc or args.k), n_levels=args.levels, backend=backend,
+                cache_dir=args.tune_cache, sample_q=args.batch or args.queries, device=device)
             block_plan[kind] = tp.plan
             print(f"[tune] {kind}: block_q={tp.plan.block_q} "
                   f"block_n={tp.plan.block_n} ({tp.plan.source}"
@@ -480,7 +508,7 @@ def main(argv=None):
         builder = cli_builder(args.index, k=args.k, packed=args.packed, ef=args.ef,
                               beam=args.beam, coarse_levels=cl, k_coarse=kc,
                               probe_budget=args.probe_budget or None, block_plan=block_plan,
-                              device=device)
+                              backend=backend, device=device)
     p = builder.params
     snapshot = None
     if cl is not None or args.swap_after or spec is not None:
@@ -681,6 +709,7 @@ def main(argv=None):
         fired = ", ".join(f"{s}#{n}:{k}" for s, n, k in inj.log) or "none"
         print(f"[chaos] replica {i}: {len(inj.log)} fault(s) fired "
               f"({fired})")
+    return run
 
 if __name__ == "__main__":
     main()

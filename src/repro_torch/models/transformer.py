@@ -23,10 +23,11 @@ Its ``constrain`` hooks are GSPMD sharding constraints, applied where the
 reference applies them: under a sharded step (``parallel/spmd.py``) they
 redistribute the residual stream, on one device they are identities. The
 projections (``spmd.matmul``), the heads' split (``spmd.split_dim``), the
-attention split by query heads (``spmd.by_heads``, ``decode_by_heads``)
-and the cache's writes (``spmd.write_at``) are plain products, reshapes,
-calls and slice writes on one device and place DTensors where DTensor
-cannot by itself. A decode cache is a dictionary of tensors and a
+attention split by query heads (``spmd.by_heads``, ``decode_by_heads``),
+the cache's writes (``spmd.write_at``) and the MoE's one-hots, dispatch,
+experts and combine (``spmd.one_hot``, ``einsum``, ``weight_einsum``)
+are plain products, reshapes, calls and slice writes on one device and
+place DTensors where DTensor cannot by itself. A decode cache is a dictionary of tensors and a
 host integer ``length`` (the reference's int32 scalar): ``decode_step``
 writes the new token's keys and values into the cache's tensors in place
 and returns the cache with ``length`` advanced, so a step reads nothing
@@ -292,29 +293,33 @@ def _dense_ffn(lp, x):
     return spmd.matmul(gate * up, lp["w_down"])
 
 
-def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
-    """``jax.nn.one_hot``: a comparison, so nothing reads the device to size it."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
-
-
 def _route_topk(probs: torch.Tensor, k: int):
     """``jax.lax.top_k`` over the experts: a stable descending sort, so
-    ties go to the lower expert index (``torch.topk`` orders them otherwise)."""
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    ties go to the lower expert index (``torch.topk`` orders them otherwise);
+    on a sharded step on each rank's own tokens (``spmd.rowwise``)."""
+    def topk(p):
+        vals, idx = torch.sort(p, dim=-1, descending=True, stable=True)
+        return vals[..., :k], idx[..., :k]
+
+    return spmd.rowwise(topk, probs, k, k)
 
 
 def _moe_ffn(lp, x, cfg: TransformerConfig):
     """Grouped dense-dispatch top-k MoE (GShard-style einsum routing): each
     routing group (a batch row, or ``moe_group`` tokens) has its own
     capacity C = max(int(capacity_factor * S * k / E), 4); a token's slot
-    past C is dropped. Returns (out [B, S, d], Switch aux loss)."""
+    past C is dropped. Returns (out [B, S, d], Switch aux loss).
+
+    Under a sharded step the dispatch and the combine run split as the
+    experts are (``spmd.one_hot``, ``spmd.split_as``, ``spmd.einsum``):
+    where the experts are split (expert parallel), a rank dispatches to its
+    own experts only and its combine is a partial sum; where their hidden
+    dim is split (tensor parallel inside the experts), a rank dispatches a
+    slice of every token's features, the experts gather them, and the
+    combine stays split over the features."""
     B0, S0, d = x.shape
-    grouped = cfg.moe_group and S0 > cfg.moe_group and S0 % cfg.moe_group == 0
-    if grouped:
-        if is_dtensor(x):  # a split sequence is gathered first
-            x = spmd.whole_dims(x, (1,))
-            layout = spmd.summed(x.placements)
+    x = spmd.whole_dims(x, (1,))  # a split sequence is gathered first
+    if cfg.moe_group and S0 > cfg.moe_group and S0 % cfg.moe_group == 0:
         x = spmd.reshape(x, (B0 * S0 // cfg.moe_group, cfg.moe_group, d))
     B, S, _ = x.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -325,44 +330,36 @@ def _moe_ffn(lp, x, cfg: TransformerConfig):
 
     cap = max(int(cfg.capacity_factor * S * k / E), 4)
     # position of each (token, slot) within its expert's per-group buffer
-    onehot = _one_hot(gate_idx, E, torch.int32)  # [B, S, k, E]
+    onehot = spmd.one_hot(gate_idx, E, torch.int32)  # [B, S, k, E]
     flat = onehot.reshape(B, S * k, E)
     pos_in_expert = (torch.cumsum(flat, dim=1, dtype=torch.int32) - flat).reshape(B, S, k, E)
     pos = torch.sum(pos_in_expert * onehot, -1, dtype=torch.int32)  # [B, S, k]
     keep = pos < cap
-    gate_vals = torch.where(keep, gate_vals, 0.0)
+    # its gradient, a partial sum where the combine is split, reduced here
+    gate_vals = spmd.grad_as(torch.where(keep, gate_vals, 0.0))
 
     # dispatch [B, S, k, E, C] one-hot -> combine via einsums
-    disp = (_one_hot(gate_idx, E, x.dtype)[..., None]
-            * _one_hot(torch.where(keep, pos, cap), cap + 1, x.dtype)[..., None, :])[..., :cap]
+    disp = (spmd.one_hot(gate_idx, E, x.dtype, lp["w_gate"], 0)[..., None]
+            * spmd.one_hot(torch.where(keep, pos, cap), cap + 1, x.dtype)[..., None, :])[..., :cap]
     disp_comb = disp * gate_vals[..., None, None].to(x.dtype)
-    expert_in = torch.einsum("bsd,bskec->becd", x, disp)  # [B, E, C, d]
-    gate = torch.einsum("becd,edf->becf", expert_in, lp["w_gate"])
-    up = torch.einsum("becd,edf->becf", expert_in, lp["w_up"])
+    expert_in = spmd.einsum("bsd,bskec->becd", spmd.split_as(x, -1, lp["w_gate"], 2), disp)
+    expert_in = spmd.whole_dims(expert_in, (-1,))  # [B, E, C, d]
+    # (a partial sum where the tokens are too few to split: decode at batch 1)
+    gate = spmd.reduced(spmd.weight_einsum("becd,edf->becf", expert_in, lp["w_gate"]))
+    up = spmd.reduced(spmd.weight_einsum("becd,edf->becf", expert_in, lp["w_up"]))
     act = F.silu(gate) * up
-    if is_dtensor(act):
-        # the einsums leave it permuted; DTensor decides the reshape inside
-        # the next einsum by the whole tensor's strides, which its pieces'
-        # need not share (decode's split batch): lay it out plainly first
-        act = act.contiguous()
     # with the experts' hidden dim split (w_down's rows), each rank holds a
     # partial sum: scattered over d, so the combine runs split, not whole
-    expert_out = spmd.partial_scattered(torch.einsum("becf,efd->becd", act, lp["w_down"]), -1)
-    # the combine as one product over (expert, slot), expert major: a
-    # token's k slots meet k distinct experts, so summing them first is
-    # exact, and DTensor merges split experts behind the slot dim this way
-    comb = torch.sum(disp_comb, 2).reshape(B, S, E * cap)
-    out = torch.bmm(comb, expert_out.reshape(B, E * cap, d))
+    expert_out = spmd.partial_scattered(spmd.weight_einsum("becf,efd->becd", act, lp["w_down"]),
+                                        -1)
+    # the combine as one product over (expert, slot): a token's k slots meet
+    # k distinct experts, so summing them first is exact
+    out = spmd.einsum("bsec,becd->bsd", torch.sum(disp_comb, 2), expert_out)
 
     # load-balancing auxiliary loss (Switch-style)
-    me = torch.mean(probs, dim=(0, 1))
-    ce = torch.mean(_one_hot(gate_idx[..., 0], E, torch.float32), dim=(0, 1))
+    me = spmd.reduced(torch.mean(probs, dim=(0, 1)))  # means over split tokens reduced here
+    ce = spmd.reduced(torch.mean(spmd.one_hot(gate_idx[..., 0], E, torch.float32), dim=(0, 1)))
     aux = E * torch.sum(me * ce)
-    if grouped and is_dtensor(out):
-        # DTensor may split the routing groups over more axes than the batch
-        # rows were, which the merge back cannot keep: lay them out as the
-        # rows were first
-        out = out.redistribute(out.device_mesh, layout)
     return spmd.reshape(out, (B0, S0, d)), aux
 
 

@@ -745,6 +745,40 @@ def _heads_layout(q) -> list:
     return keep
 
 
+def _more_heads(dm, places, n_heads: int, skip=()) -> list:
+    """The mesh dims, in mesh order, over which a rank's ``n_heads`` query
+    heads are split further by hand: those where the heads are whole
+    (``Replicate()`` in ``places``; not in ``skip``) while every rank there
+    keeps at least one head (40 heads over 16 model shards, which DTensor
+    cannot split: 3 or 2 a shard)."""
+    from torch.distributed.tensor import Replicate
+
+    dims, n = [], 1
+    for i, p in enumerate(places):
+        if isinstance(p, Replicate) and i not in skip and n * dm.size(i) <= n_heads:
+            dims.append(i)
+            n *= dm.size(i)
+    return dims
+
+
+def _my_heads(dm, dims, n_heads: int) -> Tuple[int, int]:
+    """(first, count) of this rank's run of ``n_heads`` heads split over the
+    mesh dims ``dims``: the first ``n_heads % g`` ranks (g the dims' size)
+    take one more, so rank 0's run is the longest."""
+    g = math.prod(dm.size(i) for i in dims)
+    r = _rank_over(dm, dims)
+    base, extra = divmod(n_heads, g)
+    return r * base + min(r, extra), base + (r < extra)
+
+
+def _padded_heads(ctx, first: int, n_heads: int, hd: int):
+    """A rank's context [B, S, n * hd] of heads ``first`` .. ``first + n - 1``
+    in place among ``n_heads`` heads, zeros elsewhere: its share of a sum
+    over the ranks that split the heads by hand."""
+    n = ctx.shape[-1] // hd
+    return torch.nn.functional.pad(ctx, (first * hd, (n_heads - first - n) * hd))
+
+
 def by_heads(attend, q, k, v, groups: int):
     """Grouped-query attention split by query heads: ``attend(q, k, v)``
     with ``q`` [B, H, S, hd] and ``k``/``v`` [B, KV, S, hd] (query head h
@@ -759,7 +793,14 @@ def by_heads(attend, q, k, v, groups: int):
     query heads use and runs ``attend`` on its local pieces. The context
     comes back split over the heads as ``q`` was, ready for the row-parallel
     output projection; the gradients of ``k`` and ``v`` are partial sums
-    over the heads' axes, reduced where DTensor next needs them."""
+    over the heads' axes, reduced where DTensor next needs them.
+
+    Where the heads are whole on a mesh axis (40 query heads over 16 model
+    shards, gathered by ``split_dim``), they are split there by hand
+    (``_more_heads``, ``_my_heads``): each rank attends with its own run
+    and its context is placed among all the heads with zeros elsewhere, a
+    partial sum there that the output projection reduce-scatters onto its
+    rows (``matmul``)."""
     if not is_dtensor(q):
         return attend(q, k, v)
     from torch.distributed.tensor import Partial, Replicate, Shard
@@ -769,16 +810,22 @@ def by_heads(attend, q, k, v, groups: int):
     keep = _heads_layout(q)
     hdims = [i for i, p in enumerate(keep) if p == Shard(1)]
     q = q.redistribute(dm, keep)
+    n_local = H // math.prod(dm.size(i) for i in hdims)
+    more = _more_heads(dm, keep, n_local)
     kv = [Replicate() if i in hdims else p for i, p in enumerate(keep)]
     k, v = k.redistribute(dm, kv), v.redistribute(dm, kv)
-    grad_kv = [Partial() if i in hdims else p for i, p in enumerate(kv)]
-    ql = q.to_local()
-    n = ql.shape[1]
+    grad_kv = [Partial() if i in hdims + more else p for i, p in enumerate(kv)]
+    ql = q.to_local(grad_placements=[Partial() if i in more else p for i, p in enumerate(keep)])
+    h0 = _rank_over(dm, hdims) * n_local
+    first, n = _my_heads(dm, more, n_local) if more else (0, n_local)
     kl, vl = _kv_for_heads(k.to_local(grad_placements=grad_kv),
-                           v.to_local(grad_placements=grad_kv), _rank_over(dm, hdims) * n, n,
-                           groups)
-    out = [Shard(2) if p == Shard(1) else p for p in keep]
-    return _from_local(attend(ql, kl, vl), dm, out, (B, S, H * hd))
+                           v.to_local(grad_placements=grad_kv), h0 + first, n, groups)
+    ctx = attend(ql.narrow(1, first, n) if more else ql, kl, vl)
+    out = [Shard(2) if p == Shard(1) else Partial() if i in more else p
+           for i, p in enumerate(keep)]
+    if more:
+        ctx = _padded_heads(ctx, first, n_local, hd)
+    return _from_local(ctx, dm, out, (B, S, H * hd))
 
 
 def decode_by_heads(attend, q, keys, vals, groups: int):
@@ -793,13 +840,19 @@ def decode_by_heads(attend, q, keys, vals, groups: int):
     split (the decode cell lays T over the model axis), ``q`` is gathered
     there, each rank attends over its own positions, the softmax's max and
     sum are all-reduced, and the context's partial sums are reduce-scattered
-    back to the heads' split (or all-reduced where the heads were whole);
+    back to the heads' split (or, where the heads were whole, left to the
+    output projection, ``matmul``, which reduces them or reduce-scatters
+    them onto its rows);
     where only the heads are split, each rank keeps its query heads and
     takes the key/value heads they use, as ``by_heads`` does; the batch
-    stays split as it is. The cache is never moved."""
+    stays split as it is. The cache is never moved.
+
+    Where the heads are whole on an axis that does not split the positions
+    (heads that do not split evenly, gathered by ``split_dim``), they are
+    split there by hand as ``by_heads`` splits them."""
     if not is_dtensor(q):
         return attend(q, keys, vals, 0, lambda x: torch.softmax(x, -1))
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     dm = q.device_mesh
@@ -808,28 +861,171 @@ def decode_by_heads(attend, q, keys, vals, groups: int):
     qp = _heads_layout(q)
     hdims = [i for i, p in enumerate(qp) if p == Shard(1) and i not in tdims]
     ql = q.redistribute(dm, [Replicate() if i in tdims else p for i, p in enumerate(qp)]).to_local()
-    kv = [Shard(2) if i in tdims else (Replicate() if i in hdims else qp[i])
+    n_local = ql.shape[1]
+    more = _more_heads(dm, qp, n_local, skip=tdims)
+    kv = [Shard(2) if i in tdims else (Replicate() if i in hdims + more else qp[i])
           for i in range(dm.ndim)]
     keys, vals = keys.redistribute(dm, kv), vals.redistribute(dm, kv)
     _, offset = compute_local_shape_and_global_offset(keys.shape, dm, kv)
-    n = ql.shape[1]
-    kl, vl = _kv_for_heads(keys.to_local(), vals.to_local(), _rank_over(dm, hdims) * n, n, groups)
+    first, n = _my_heads(dm, more, n_local) if more else (0, n_local)
+    kl, vl = _kv_for_heads(keys.to_local(), vals.to_local(),
+                           _rank_over(dm, hdims) * n_local + first, n, groups)
 
     def softmax(x):
         e = torch.exp(x - _reduce_dims(torch.amax(x, -1, keepdim=True), dm, tdims, "max"))
         return e / _reduce_dims(torch.sum(e, -1, keepdim=True), dm, tdims, "sum")
 
-    ctx = attend(ql, kl, vl, offset[2], softmax if tdims else lambda x: torch.softmax(x, -1))
+    ctx = attend(ql.narrow(1, first, n) if more else ql, kl, vl, offset[2],
+                 softmax if tdims else lambda x: torch.softmax(x, -1))
+    out = [Shard(2) if p == Shard(1) else Partial() if i in tdims + more else p
+           for i, p in enumerate(qp)]
     for i in tdims:
         if qp[i] == Shard(1):
             g = dm.size(i)
             record("reduce-scatter", ctx.numel() * ctx.element_size() // g, g)
             with _explicit():
                 ctx = _reduce_scatter(ctx, dm.get_group(i), 2)
-        else:
-            ctx = _reduce_dims(ctx, dm, [i], "sum")
-    out = [Shard(2) if p == Shard(1) else p for p in qp]
+    if more:
+        ctx = _padded_heads(ctx, first, n_local, hd)
     return _from_local(ctx, dm, out, (B, S, H * hd))
+
+
+def split_as(x, dim: int, w, wdim: int):
+    """DTensor ``x`` with dim ``dim`` split over the mesh axes that split dim
+    ``wdim`` of DTensor ``w`` where ``x`` is whole (each rank keeps its own
+    slice: nothing moves); ``x`` itself on plain tensors or where there is
+    no such axis."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x
+    places = [Shard(dim % x.dim()) if wp == Shard(wdim % w.dim()) and isinstance(p, Replicate)
+              else p for p, wp in zip(x.placements, w.placements)]
+    return x if places == list(x.placements) else x.redistribute(x.device_mesh, places)
+
+
+def one_hot(idx, n: int, dtype, like=None, dim: int = 0):
+    """``jax.nn.one_hot(idx, n)``: a comparison with ``arange(n)``, so
+    nothing reads the device to size it. For DTensor ``idx`` and ``like``
+    the classes are split over the mesh axes that split dim ``dim`` of
+    ``like`` where ``idx`` is whole (a rank compares its local ``idx`` with
+    its own classes only: the experts a rank holds), and the result is laid
+    out as ``idx`` elsewhere."""
+    if not (is_dtensor(idx) and is_dtensor(like)):
+        return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    dm = idx.device_mesh
+    split = [i for i, (p, lp) in enumerate(zip(idx.placements, like.placements))
+             if lp == Shard(dim % like.dim()) and isinstance(p, Replicate)]
+    cls = [Shard(0) if i in split else Replicate() for i in range(dm.ndim)]
+    (count,), (first,) = compute_local_shape_and_global_offset((n,), dm, cls)
+    local = idx.to_local()
+    out = (local[..., None] == torch.arange(first, first + count, device=local.device)).to(dtype)
+    places = [Shard(idx.dim()) if i in split else p for i, p in enumerate(idx.placements)]
+    return _from_local(out, dm, places, tuple(idx.shape) + (n,))
+
+
+def einsum(eq: str, a, b):
+    """``torch.einsum(eq, a, b)``; on DTensors, on each rank's local pieces
+    as they are laid out (the MoE's dispatch and combine, which DTensor's
+    own strategies would gather). On each mesh axis the operands split at
+    most one index between them (an index of both split in both); the
+    result is split where that index is kept, a partial sum where it is
+    summed over, and whole where neither operand is split. An operand whole
+    on an axis where the other is split gets a partial sum of its gradient
+    there."""
+    if not (is_dtensor(a) or is_dtensor(b)):
+        return torch.einsum(eq, a, b)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    dm = (a if is_dtensor(a) else b).device_mesh
+    a, b = _as_dtensor(a, dm), _as_dtensor(b, dm)
+    ins, out = eq.replace(" ", "").split("->")
+    subs = ins.split(",")
+    sizes = {c: n for sub, t in zip(subs, (a, b)) for c, n in zip(sub, t.shape)}
+    places, grads = [], ([], [])
+    for i in range(dm.ndim):
+        split = {sub[p.dim] for sub, t in zip(subs, (a, b))
+                 for p in [t.placements[i]] if isinstance(p, Shard)}
+        if len(split) > 1 or any(p.is_partial() for p in (a.placements[i], b.placements[i])) or (
+                split and any(c in sub and not isinstance(t.placements[i], Shard)
+                              for sub, t in zip(subs, (a, b)) for c in split)):
+            raise ValueError(f"einsum {eq!r}: operands laid out {a.placements} and "
+                             f"{b.placements} split different indices on mesh dim {i}")
+        c = next(iter(split), None)
+        places.append(Replicate() if c is None else Shard(out.index(c)) if c in out else Partial())
+        for g, t in zip(grads, (a, b)):
+            g.append(Partial() if c is not None and isinstance(t.placements[i], Replicate)
+                     else t.placements[i])
+    local = torch.einsum(eq, a.to_local(grad_placements=grads[0]),
+                         b.to_local(grad_placements=grads[1]))
+    return _from_local(local, dm, places, tuple(sizes[c] for c in out))
+
+
+def weight_einsum(eq: str, x, w):
+    """``einsum(eq, x, w)`` of an activation ``x`` and a weight ``w`` (the
+    experts' products), with the weight laid out as FSDP x tensor
+    parallelism runs it, as ``matmul`` lays out a projection's weight: on
+    each mesh axis ``w`` keeps its split where ``x`` is split alike, or
+    whole there (``x`` then takes the same split of a contracted index,
+    its local slice, and the product is a partial sum; or the index is
+    ``w``'s own, and the product is split over it); where ``x`` splits
+    another index, ``w`` is split over it too if it has it and gathered
+    otherwise (the FSDP all-gather), unless ``w``'s piece is the larger:
+    then ``x`` takes ``w``'s split and the product is laid out back as
+    ``x`` was (reduce-scattered, or moved by an all-to-all). ``x``'s partial
+    sums are reduced first."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return torch.einsum(eq, x, w)
+    from torch.distributed.tensor import Replicate, Shard
+
+    ins, out = eq.replace(" ", "").split("->")
+    xs, ws = ins.split(",")
+    x = reduced(x)
+    x_pl, w_pl, back = list(x.placements), list(w.placements), {}
+    # a weight's piece larger than the activation's (decode's few tokens):
+    # the activation moves to the weight's split and its product back
+    move_x = w._local_tensor.numel() * w.element_size() > \
+        x._local_tensor.numel() * x.element_size()
+    for i, (xp, wp) in enumerate(zip(x.placements, w.placements)):
+        a = xs[xp.dim] if isinstance(xp, Shard) else None
+        c = ws[wp.dim] if isinstance(wp, Shard) else None
+        if a is None and c is not None and c in xs:
+            x_pl[i] = Shard(xs.index(c))
+        elif a is not None and a != c and c is not None and move_x:
+            x_pl[i] = Shard(xs.index(c)) if c in xs else Replicate()
+            back[i] = Shard(out.index(a))
+        elif a is not None and a != c:
+            w_pl[i] = Shard(ws.index(a)) if a in ws else Replicate()
+    if x_pl != list(x.placements):
+        x = x.redistribute(x.device_mesh, x_pl)
+    if w_pl != list(w.placements):
+        w = w.redistribute(w.device_mesh, w_pl)
+    y = einsum(eq, x, w)
+    if back:
+        y = y.redistribute(y.device_mesh, [back.get(i, p) for i, p in enumerate(y.placements)])
+    return y
+
+
+def rowwise(fn, x, *sizes: int):
+    """``fn(x)``, a function of each row of the last dim on its own (a sort,
+    a top-k) returning tensors whose last dims are ``sizes``; on a DTensor
+    whose last dim is whole, run on each rank's local piece, each result
+    laid out as ``x`` (DTensor's strategies for the sort's backward scatter
+    differ between torch releases: 2.11 gathers the batch)."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import Shard
+
+    last = x.dim() - 1
+    if any(isinstance(p, Shard) and p.dim == last for p in x.placements) or any(
+            p.is_partial() for p in x.placements):
+        raise ValueError(f"rowwise needs the last dim whole and no partial sums, not {x.placements}")
+    outs = fn(x.to_local())
+    return tuple(_from_local(o, x.device_mesh, x.placements, tuple(x.shape[:-1]) + (n,))
+                 for o, n in zip(outs, sizes))
 
 
 def write_at(dst, dim: int, start: int, src) -> None:
@@ -861,8 +1057,8 @@ def class_nll(logits, labels):
     [..., V]: the label's logit is picked on each rank from its own
     classes where the class dim is sharded (the vocabulary-parallel
     cross-entropy), by a one-hot laid out as the logits are, and summed
-    over the shards; the log-sum-exp is DTensor's, which gathers the class
-    dim."""
+    over the shards; the log-sum-exp gathers the class dim, as DTensor
+    does (``_logsumexp``)."""
     from torch.distributed.tensor import Replicate, Shard
 
     dm = logits.device_mesh
@@ -877,7 +1073,36 @@ def class_nll(logits, labels):
     classes = torch.arange(first, first + n_local, device=labels.device)
     onehot = _from_local(labels.unsqueeze(-1) == classes, dm, x.placements, x.shape)
     picked = reduced(torch.sum(torch.where(onehot, x, 0.0), -1))
-    return torch.logsumexp(x, -1) - picked
+    return _logsumexp(x) - picked
+
+
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp(x, 0)`` of a DTensor ``x`` split over dim 0: dim 0
+    is gathered for the forward, and the gradient, ``exp(x - result)``
+    times the incoming one, is computed on each rank's own slice of dim 0
+    (nothing gathered for it, one temporary of the slice's size)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.logsumexp(whole_dims(x, (0,)), 0)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (x - out.unsqueeze(0)).exp_().mul_(grad.unsqueeze(0))
+
+
+def _logsumexp(x):
+    """``torch.logsumexp(x, -1)`` of DTensor ``x`` whose last dim (the
+    classes) is gathered for it, as DTensor gathers it, but moved to the
+    front first: the gathered rows land in place, where a gather along the
+    last dim concatenates them again, and the gathered logits are let go
+    after the forward (``_LogSumExp``): one copy of them alive at once
+    besides the gather's own buffer, not three (llama4-scout's 202,048
+    classes)."""
+    return _LogSumExp.apply(x.movedim(-1, 0))
 
 
 def reduced(x):
@@ -898,9 +1123,12 @@ def summed(placements) -> list:
 
 def whole_dims(x, dims):
     """DTensor ``x`` with every mesh axis that splits one of ``dims``
-    gathered (``Replicate()``); ``x`` itself when none does."""
+    gathered (``Replicate()``); ``x`` itself when none does or on a plain
+    tensor."""
     from torch.distributed.tensor import Replicate, Shard
 
+    if not is_dtensor(x):
+        return x
     dims = {d % x.dim() for d in dims}
     places = [Replicate() if isinstance(p, Shard) and p.dim in dims else p
               for p in x.placements]
@@ -909,13 +1137,16 @@ def whole_dims(x, dims):
 
 def matmul(x, w):
     """``x @ w`` for a DTensor activation ``x`` [..., K] and weight ``w``
-    [K, N], with the weight laid out as FSDP x tensor parallelism runs it:
+    [K, N], with the weight laid out as FSDP x tensor parallelism runs it
+    (a partial ``x``, the context of heads split by hand, reduce-scattered
+    onto the weight's split rows):
     on each mesh axis ``w`` keeps its split only where the product can use
     it as it is (the contraction dim where ``x``'s last dim is split alike:
     row parallel; the output dim where ``x`` is whole: column parallel) and
     is gathered elsewhere (the FSDP all-gather of the axes the batch is
-    split over). DTensor's own choice weighs communication alone and may
-    gather the activation, or keep the weight whole over every axis."""
+    split over); where both are whole, the weight's columns are split.
+    DTensor's own choice weighs communication alone and may gather the
+    activation, or keep the weight whole over every axis."""
     from torch.distributed.tensor import Replicate, Shard
 
     if not (is_dtensor(x) and is_dtensor(w)):
@@ -924,36 +1155,49 @@ def matmul(x, w):
     # split) reduced as the input is laid out, before other gradients of
     # the input add to it: torch releases differ in where they reduce a sum
     # of a partial and a whole gradient
-    _grad_as(x)
+    grad_as(x)
     last = x.dim() - 1
     # the product flattens x's leading dims, which DTensor does only where
     # no dim past the first is split: a sequence split (Megatron-SP) is
     # gathered before the product, as Megatron gathers it
     x = whole_dims(x, range(1, last))
-    # partial sums are reduced, and features split where the weight's rows
-    # are not are gathered: a column-parallel product takes its input whole
-    places = [Replicate() if p.is_partial() or (
-        isinstance(p, Shard) and p.dim == last and not (isinstance(wp, Shard) and wp.dim == 0))
-        else p for p, wp in zip(x.placements, w.placements)]
+    # partial sums are reduce-scattered onto the features where the weight's
+    # rows are split (a row-parallel product takes them split) and reduced
+    # elsewhere, and features split where the weight's rows are not are
+    # gathered: a column-parallel product takes its input whole
+    places = [(Shard(last) if rows else Replicate()) if p.is_partial() else
+              Replicate() if isinstance(p, Shard) and p.dim == last and not rows else p
+              for p, wp in zip(x.placements, w.placements)
+              for rows in [isinstance(wp, Shard) and wp.dim == 0]]
     if places != list(x.placements):
         x = x.redistribute(x.device_mesh, places)
-    keep = []
-    for wp, xp in zip(w.placements, x.placements):
+    keep, n_cols = [], w.shape[1]
+    for i, (wp, xp) in enumerate(zip(w.placements, x.placements)):
         row = isinstance(wp, Shard) and wp.dim == 0 and isinstance(xp, Shard) and xp.dim == last
         col = isinstance(wp, Shard) and wp.dim == 1 and isinstance(xp, Replicate)
         keep.append(wp if row or col else Replicate())
+    # where both are whole (a router's weight), the weight's columns are split
+    # (its local slice) where they divide: no rank repeats another's product
+    n_cols //= math.prod(w.device_mesh.size(i) for i, p in enumerate(keep) if p == Shard(1))
+    for i, (wp, xp) in enumerate(zip(keep, x.placements)):
+        if isinstance(wp, Replicate) and isinstance(xp, Replicate) \
+                and n_cols % w.device_mesh.size(i) == 0:
+            keep[i] = Shard(1)
+            n_cols //= w.device_mesh.size(i)
     if keep != list(w.placements):
         w = w.redistribute(w.device_mesh, keep)
-    return _grad_as(x @ w)
+    return grad_as(x @ w)
 
 
-def _grad_as(y):
+def grad_as(y):
     """DTensor ``y`` whose gradient is laid out as ``y`` is (partial sums
-    reduced) before it reaches the operator that made ``y``. A gradient
-    arrives laid out as the next layer's input wants it (a split sequence
-    under Megatron-SP), and the backward of a reshape cannot flatten a split
-    dim behind another on every torch (2.11 refuses what 2.13 places)."""
-    if y.requires_grad:
+    reduced) before it reaches the operator that made ``y``; ``y`` itself
+    on a plain tensor. A gradient arrives laid out as the next layer's
+    input wants it (a split sequence under Megatron-SP), or as a partial
+    sum that torch releases reduce at different operators (the MoE's gate
+    values), and the backward of a reshape cannot flatten a split dim
+    behind another on every torch (2.11 refuses what 2.13 places)."""
+    if is_dtensor(y) and y.requires_grad:
         places = summed(y.placements)
         y.register_hook(lambda g: g if list(g.placements) == places
                         else g.redistribute(g.device_mesh, places))
@@ -962,6 +1206,6 @@ def _grad_as(y):
 
 def reshape(x, shape):
     """``x.reshape(shape)``; on a DTensor, with its gradient laid out as the
-    result is before the reshape's backward (``_grad_as``)."""
+    result is before the reshape's backward (``grad_as``)."""
     y = x.reshape(shape)
-    return _grad_as(y) if is_dtensor(y) else y
+    return grad_as(y) if is_dtensor(y) else y

@@ -1,19 +1,22 @@
 """The JAX reference's hillclimb records (``repro/launch/hillclimb.py``'s
 ``_measure``) of a few variants, dumped to JSON by one subprocess with 512
 forced host devices (the device count locks at JAX's first use, so the
-test process stays single-device). Used by ``tests/test_torch_hillclimb*.py``
-and, through the committed file below, by ``chip_smoke.py``'s phase 14.
+test process stays single-device). Used by ``tests/test_torch_hillclimb*.py``,
+``tests/test_torch_moe_sharded.py`` and, through the committed file below,
+by ``chip_smoke.py``'s phase 14.
 
 Each record is the reference's ``_measure`` output without ``compile_s``,
 keyed ``cell|variant|mesh``. A wanted entry is ``(cell, variant,
 multi_pod)``: a cell of the reference's ``VARIANTS`` (variant ``"*"`` for
-all of them), or ``LM_ARCH`` with a shape of ``configs/cells.LM_SHAPES``
-for that cell as the dry run builds it. With ``n_layers`` every LM cell is
-built at that depth (``configs/cells.lm_cell`` patched), widths unchanged.
+all of them), or an LM arch id of the registry (``configs/registry``) with
+a shape of ``configs/cells.LM_SHAPES`` for that arch's cell as the dry run
+builds it. With ``n_layers`` every LM cell is built at that depth
+(``configs/cells.lm_cell`` patched), widths unchanged.
 
 Run as a script, it writes ``LM_RECORDS``: the full-depth 16x16 records of
 the LM cells (``LM_WANTED``: llama3-405b train_4k's and grok-1's prefill
-variants, and llama3-405b's decode_32k and prefill_32k), ~1 min on 8 cores:
+variants, llama3-405b's decode_32k and prefill_32k, and the four shapes of
+each MoE arch, ``MOE_ARCHS``), ~1.5 min on 8 cores:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_hillclimb_ref.py
 """
@@ -29,17 +32,51 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")
 LM_RECORDS = os.path.join(HERE, "_torch_hillclimb_ref_lm.json")
 LM_ARCH = "llama3-405b"
-LM_WANTED = [["llama405b_train", "*", False], ["grok_prefill", "*", False],
-             [LM_ARCH, "decode_32k", False], [LM_ARCH, "prefill_32k", False]]
+MOE_ARCHS = ("llama4-scout-17b-a16e", "grok-1-314b")
+LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+# what each MoE cell's FLOPs a device must be at most, on 16x16 at any
+# depth: (a multiple of the whole step's share, the port's own whole-step
+# FLOPs over 256; a multiple of the reference's GSPMD record), None where
+# not bounded. 1.2 is llama4-scout's ceiling of 40 query heads over 16 model
+# shards (3 a shard at most, against a share of 2.5); 1.229 grok-1
+# prefill's figure before its dispatch was split.
+MOE_TARGETS = {
+    ("llama4-scout-17b-a16e", "train_4k"): (1.2, None),
+    ("llama4-scout-17b-a16e", "prefill_32k"): (1.2, None),
+    ("llama4-scout-17b-a16e", "decode_32k"): (None, 1.0),
+    ("llama4-scout-17b-a16e", "long_500k"): (1.2, None),
+    ("grok-1-314b", "train_4k"): (None, 1.0),
+    ("grok-1-314b", "prefill_32k"): (1.229, 1.0),
+    ("grok-1-314b", "decode_32k"): (1.001, None),
+    ("grok-1-314b", "long_500k"): (1.001, None),
+}
+
+
+def hold_moe_record(arch, shape, rec, whole, ref) -> None:
+    """Assert a port record of an MoE cell (``hillclimb._measure``) against
+    ``MOE_TARGETS`` (``whole``: the step's FLOPs on one device) and the
+    reference's record ``ref``: wire at most the reference's, the peak at
+    most twice its, nothing replicated."""
+    share, at_ref = MOE_TARGETS[(arch, shape)]
+    assert rec["replicated"] == {}, rec["replicated_at"]
+    if share is not None:
+        assert rec["flops"] <= share * whole / 256, (rec["flops"], whole / 256)
+    if at_ref is not None:
+        assert rec["flops"] <= at_ref * ref["flops"], (rec["flops"], ref["flops"])
+    assert rec["wire_bytes"] <= ref["wire_bytes"], (rec["wire_bytes"], ref["wire_bytes"])
+    assert rec["peak_gib"] <= 2 * ref["peak_gib"], (rec["peak_gib"], ref["peak_gib"])
+LM_WANTED = ([["llama405b_train", "*", False], ["grok_prefill", "*", False],
+              [LM_ARCH, "decode_32k", False], [LM_ARCH, "prefill_32k", False]]
+             + [[arch, shape, False] for arch in MOE_ARCHS for shape in LM_SHAPES])
 
 _SCRIPT = r"""
 import dataclasses, json, sys
 from repro.configs import cells as cells_mod
-from repro.configs.archs.llama3_405b import CONFIG
+from repro.configs.registry import get_arch
 from repro.launch import hillclimb as hc
 from repro.launch.mesh import make_production_mesh
 
-out_path, wanted, n_layers, lm_arch = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+out_path, wanted, n_layers = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3])
 if n_layers:
     lm_cell = cells_mod.lm_cell
     cells_mod.lm_cell = lambda cfg, shape_id, mesh: lm_cell(
@@ -49,8 +86,8 @@ for cell, variant, multi_pod in wanted:
     mesh = make_production_mesh(multi_pod=multi_pod)
     names = sorted(hc.VARIANTS[cell]) if variant == "*" else [variant]
     for name in names:
-        if cell == lm_arch:
-            spec = cells_mod.lm_cell(CONFIG, name, mesh)
+        if cell not in hc.VARIANTS:  # an LM arch id and one of its shapes
+            spec = cells_mod.lm_cell(get_arch(cell).config, name, mesh)
             fn, shardings, abstract = spec.fn, spec.in_shardings, spec.abstract_args
         else:
             fn, shardings, abstract = hc.VARIANTS[cell][name](mesh)
@@ -70,7 +107,7 @@ def run_reference(tmp_path, wanted, n_layers: int = 0) -> dict:
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=512")
     proc = subprocess.run([sys.executable, "-c", textwrap.dedent(_SCRIPT), out,
-                           json.dumps(wanted), str(n_layers), LM_ARCH],
+                           json.dumps(wanted), str(n_layers)],
                           capture_output=True, text=True, env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     with open(out) as f:

@@ -14,9 +14,9 @@ counts rank 0 of a fake process group on meta tensors. Held:
     decode (each the whole step's over the device count: nothing runs
     twice); at most the reference's for the prefill cells, where GSPMD runs
     the projections over the whole batch on every data shard (llama: 4.8x
-    the whole step's share; the port's is that share), and grok's MoE
-    dispatch einsum runs whole on each model shard in the port (the
-    routing groups split over data only);
+    the whole step's share; the port's is that share; grok's within 0.1%
+    of it, its 8 experts' dispatch split over the features on the 16 model
+    shards);
   * wire a device at most the reference's (whose CPU compile moves the
     bf16 weights as float32);
   * no operator replicated;
@@ -28,7 +28,13 @@ sharded, chunked attention, 2 microbatches, remat), prefill and 6 decode
 steps over a bf16 and an int8 cache laid out by positions (the decode
 cell's layout) and by batch only, and SMOKE grok's prefill with routing
 groups: loss, gradients and logits equal the unsharded ones within float32
-reduction-order tolerances. The reference runs the same steps on the same
+reduction-order tolerances. Two MoE variants (``MOE``) run the same way:
+SMOKE llama4-scout with 6 query heads, which the model axis of 4 does not
+divide (split by hand, 2 or 1 a shard; 4 experts, expert parallel), its
+train step, prefill and decode over caches laid out by positions, by batch
+and by positions over the data axis (long_500k's layout); and SMOKE grok
+with 2 experts, fewer than the model shards (tensor parallel inside the
+experts), its train step and prefill, both with routing groups. The reference runs the same steps on the same
 weights and layouts under GSPMD over 8 host devices, and the gloo ranks'
 results equal its too: the loss within 1e-5 relative, each gradient leaf
 and the prefill and float-cache logits within 1e-5 of their largest
@@ -51,7 +57,7 @@ torch = pytest.importorskip("torch")
 
 from _torch_hillclimb_ref import LM_ARCH, run_reference  # noqa: E402
 from repro_torch.configs import cells as cells_mod  # noqa: E402
-from repro_torch.configs.archs import llama3_405b  # noqa: E402
+from repro_torch.configs.archs import grok_1_314b, llama3_405b, llama4_scout  # noqa: E402
 from repro_torch.launch import hillclimb as hc  # noqa: E402
 from repro_torch.launch import hlo_cost  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
@@ -102,6 +108,8 @@ def port():
             out[key] = hc._measure(fn, shardings, args, mesh)
             if key == f"{LM_ARCH}|prefill_32k|16x16":
                 out["prefill whole"] = hlo_cost.step_costs(fn, *args)["flops"]
+            if cell == "grok_prefill":
+                out[key + " whole"] = hlo_cost.step_costs(fn, *args)["flops"]
     return out
 
 
@@ -117,8 +125,8 @@ def test_prefill_flops_at_most_the_reference(ref, port, key):
     if key.startswith(LM_ARCH):  # the whole step's share: nothing runs twice
         assert port[key]["flops"] == port["prefill whole"] // 256
         assert ref[key]["flops"] > 4.7 * port[key]["flops"]
-    else:  # the MoE dispatch einsum whole on each of the 16 model shards
-        assert port[key]["flops"] == 41_554_009_915_392
+    else:  # the whole step's share but the router's columns (8 over 16 shards)
+        assert port[key]["flops"] <= 1.001 * port[key + " whole"] / 256
         assert ref[key]["flops"] == 148_240_997_548_032
 
 
@@ -168,6 +176,13 @@ def test_kv_for_heads(n, groups):
 # ---------------------------------------------------------------------------
 
 B, S, T, STEPS = 4, 32, 16, 6
+# the MoE variants, as both scripts build them: 6 query heads over the model
+# axis of 4 (split by hand, 2 or 1 a shard) with 4 experts (expert
+# parallel), and 2 experts (tensor parallel inside the experts)
+MOE = {"scout": dataclasses.replace(llama4_scout.SMOKE, n_heads=6, n_kv_heads=2, attn_chunk=8,
+                                    microbatches=2, remat=True, moe_group=8),
+       "grok2": dataclasses.replace(grok_1_314b.SMOKE, n_experts=2, microbatches=2, remat=True,
+                                    moe_group=8)}
 
 # the world's weights (flat "<model>/<leaf>" arrays) as a model's tree
 _TREE = """
@@ -181,7 +196,7 @@ _REF = _TREE + """
 import dataclasses, sys
 import numpy as np, jax, jax.numpy as jnp
 from jax.sharding import Mesh
-from repro.configs.archs import grok_1_314b, llama3_405b
+from repro.configs.archs import grok_1_314b, llama3_405b, llama4_scout
 from repro.models import transformer as tf
 from repro.parallel import sharding as shd
 from repro.train import steps
@@ -190,39 +205,67 @@ world, out_path = dict(np.load(sys.argv[1])), sys.argv[2]
 mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
 cfg = dataclasses.replace(llama3_405b.SMOKE, attn_chunk=8, microbatches=2, remat=True)
 grok = dataclasses.replace(grok_1_314b.SMOKE, moe_group=8)
+moe = {"scout": dataclasses.replace(llama4_scout.SMOKE, n_heads=6, n_kv_heads=2, attn_chunk=8,
+                                    microbatches=2, remat=True, moe_group=8),
+       "grok2": dataclasses.replace(grok_1_314b.SMOKE, n_experts=2, microbatches=2, remat=True,
+                                    moe_group=8)}
 params, gparams = tree(world, "llama", jnp.asarray), tree(world, "grok", jnp.asarray)
 tokens, steps_tok = world["tokens"], world["steps_tok"]
 batch = {"tokens": tokens, "labels": world["labels"]}
 dp = shd.dp_axes(mesh)
-param_sh = shd.lm_param_sharding(mesh, cfg)
 tok_sh = shd.lm_batch_sharding(mesh)
-constrain = shd.lm_activation_constraint(mesh, cfg)
-loss_fn = lambda p, b: tf.lm_loss(p, b["tokens"], b["labels"], cfg, constrain=constrain)
 layouts = {"positions": shd.ns(mesh, None, dp, None, "model", None),
-           "batch": shd.ns(mesh, None, dp, None, None, None)}
+           "batch": shd.ns(mesh, None, dp, None, None, None),
+           "long": shd.ns(mesh, None, None, None, dp, None)}
 res = {}
-with mesh:
-    loss, grads = jax.jit(lambda p, b: steps._accumulate_grads(loss_fn, p, b, cfg.microbatches),
-                          in_shardings=(param_sh, {"tokens": tok_sh, "labels": tok_sh}))(
-                              params, batch)
-    res["loss"] = loss
-    res["grad/['embed']"], res["grad/['final_norm']"] = grads["embed"], grads["final_norm"]
-    res.update({f"grad/['layers']/['{k}']": g for k, g in grads["layers"].items()})
-    for name, c, p in (("prefill", cfg, params), ("grok", grok, gparams)):
-        res[name] = jax.jit(steps.lm_prefill_step(c), in_shardings=(
-            shd.lm_param_sharding(mesh, c), {"tokens": tok_sh}))(p, {"tokens": tokens})
+
+
+def train(prefix, c, p):
+    constrain = shd.lm_activation_constraint(mesh, c)
+    loss_fn = lambda p, b: tf.lm_loss(p, b["tokens"], b["labels"], c, constrain=constrain)
+    loss, grads = jax.jit(lambda p, b: steps._accumulate_grads(loss_fn, p, b, c.microbatches),
+                          in_shardings=(shd.lm_param_sharding(mesh, c),
+                                        {"tokens": tok_sh, "labels": tok_sh}))(p, batch)
+    res[prefix + "loss"] = loss
+    res[prefix + "grad/['embed']"], res[prefix + "grad/['final_norm']"] = (grads["embed"],
+                                                                         grads["final_norm"])
+    res.update({f"{prefix}grad/['layers']/['{k}']": g for k, g in grads["layers"].items()})
+
+
+def decode(prefix, c, p, names):
+    param_sh = shd.lm_param_sharding(mesh, c)
     for dtype in (jnp.bfloat16, jnp.int8):
-        for name, spec in layouts.items():
-            cache = tf.init_kv_cache(cfg, tokens.shape[0], int(world["T"]), dtype)
+        for name in names:
+            spec = layouts[name]
+            cache = tf.init_kv_cache(c, tokens.shape[0], int(world["T"]), dtype)
             cache_sh = {k: spec for k in cache if k != "length"}
             cache_sh["length"] = shd.ns(mesh)
-            step = jax.jit(lambda p, t, c: tf.decode_step(p, t, c, cfg))
-            dparams, out = jax.device_put(params, param_sh), []
+            step = jax.jit(lambda p, t, cc: tf.decode_step(p, t, cc, c))
+            dparams, out = jax.device_put(p, param_sh), []
             for t in range(steps_tok.shape[0]):  # each step's cache laid out again
                 logits, cache = step(dparams, jax.device_put(steps_tok[t], shd.ns(mesh, dp)),
                                      jax.device_put(cache, cache_sh))
                 out.append(logits)
-            res[f"decode/{jnp.dtype(dtype).name}/{name}"] = jnp.stack(out)
+            res[f"{prefix}decode/{jnp.dtype(dtype).name}/{name}"] = jnp.stack(out)
+        if prefix:  # the same steps on one device
+            cache, out = tf.init_kv_cache(c, tokens.shape[0], int(world["T"]), dtype), []
+            step = jax.jit(lambda p, t, cc: tf.decode_step(p, t, cc, c))
+            for t in range(steps_tok.shape[0]):
+                logits, cache = step(p, steps_tok[t], cache)
+                out.append(logits)
+            res[f"{prefix}decode/{jnp.dtype(dtype).name}/u"] = jnp.stack(out)
+
+
+with mesh:
+    train("", cfg, params)
+    for name, c, p in (("prefill", cfg, params), ("grok", grok, gparams)) + tuple(
+            (f"{m}/prefill", c, tree(world, m, jnp.asarray)) for m, c in moe.items()):
+        res[name] = jax.jit(steps.lm_prefill_step(c), in_shardings=(
+            shd.lm_param_sharding(mesh, c), {"tokens": tok_sh}))(p, {"tokens": tokens})
+    decode("", cfg, params, ("positions", "batch"))
+    for m, c in moe.items():
+        train(f"{m}/", c, tree(world, m, jnp.asarray))
+    decode("scout/", moe["scout"], tree(world, "scout", jnp.asarray), tuple(layouts))
 np.savez(out_path, **{k: np.asarray(v, np.float32) for k, v in res.items()})
 """
 
@@ -231,7 +274,7 @@ import dataclasses, sys
 import numpy as np, torch
 import torch.distributed as dist
 from torch.distributed.tensor.experimental import implicit_replication
-from repro_torch.configs.archs import grok_1_314b, llama3_405b
+from repro_torch.configs.archs import grok_1_314b, llama3_405b, llama4_scout
 from repro_torch.launch.mesh import LeafMesh
 from repro_torch.models import transformer as tf
 from repro_torch.parallel import sharding as shd, spmd
@@ -246,58 +289,75 @@ try:
     mesh = LeafMesh((2, 4), ("data", "model"), ["cpu"] * 8)
     cfg = dataclasses.replace(llama3_405b.SMOKE, attn_chunk=8, microbatches=2, remat=True)
     grok = dataclasses.replace(grok_1_314b.SMOKE, moe_group=8)
+    moe = {"scout": dataclasses.replace(llama4_scout.SMOKE, n_heads=6, n_kv_heads=2,
+                                        attn_chunk=8, microbatches=2, remat=True, moe_group=8),
+           "grok2": dataclasses.replace(grok_1_314b.SMOKE, n_experts=2, microbatches=2,
+                                        remat=True, moe_group=8)}
     params, gparams = tree(world, "llama", torch.from_numpy), tree(world, "grok", torch.from_numpy)
+    mparams = {m: tree(world, m, torch.from_numpy) for m in moe}
     tokens, labels, steps_tok = (torch.from_numpy(world[k])
                                  for k in ("tokens", "labels", "steps_tok"))
     B, T, STEPS = tokens.shape[0], int(world["T"]), steps_tok.shape[0]
     dp = shd.dp_axes(mesh)
-    param_sh = shd.lm_param_sharding(mesh, cfg)
     batch_sh = {"tokens": shd.lm_batch_sharding(mesh), "labels": shd.lm_batch_sharding(mesh)}
-    constrain = shd.lm_activation_constraint(mesh, cfg)
-    loss_fn = lambda p, b: tf.lm_loss(p, b["tokens"], b["labels"], cfg, constrain=constrain)
-    grads_fn = lambda p, b: steps._accumulate_grads(loss_fn, p, b, cfg.microbatches)
     batch = {"tokens": tokens, "labels": labels}
     layouts = {"positions": shd.ns(mesh, None, dp, None, "model", None),
-               "batch": shd.ns(mesh, None, dp, None, None, None)}
+               "batch": shd.ns(mesh, None, dp, None, None, None),
+               "long": shd.ns(mesh, None, None, None, dp, None)}
 
-    def decode(params, cache, sharded):
+    def grads_fn(c):
+        constrain = shd.lm_activation_constraint(mesh, c)
+        loss_fn = lambda p, b: tf.lm_loss(p, b["tokens"], b["labels"], c, constrain=constrain)
+        return lambda p, b: steps._accumulate_grads(loss_fn, p, b, c.microbatches)
+
+    def decode(c, params, cache, sharded):
         out = []
         for t in range(STEPS):
             tok = steps_tok[t]
             if sharded:
                 tok = spmd.distribute(tok, shd.ns(mesh, dp))
-            logits, cache = tf.decode_step(params, tok, cache, cfg)
+            logits, cache = tf.decode_step(params, tok, cache, c)
             out.append(logits.full_tensor() if sharded else logits)
         return torch.stack(out)
 
+    def prefill(c):
+        return lambda p, b: steps.lm_prefill_step(c)(p, b)
+
+    # (prefix, config, parameters, decode layouts) of each model
+    models = [("", cfg, params, ("positions", "batch")), ("scout/", moe["scout"],
+              mparams["scout"], tuple(layouts)), ("grok2/", moe["grok2"], mparams["grok2"], ())]
     if rank == 0:  # unsharded
-        loss, grads = grads_fn(params, batch)
-        res["loss/u"] = loss
-        res.update({f"grad/{k}/u": g for k, g in grads.items()})
+        for prefix, c, p, names in models:
+            loss, grads = grads_fn(c)(p, batch)
+            res[f"{prefix}loss/u"] = loss
+            res.update({f"{prefix}grad/{k}/u": g for k, g in grads.items()})
+            for dtype in (torch.bfloat16, torch.int8) if names else ():
+                cache = tf.init_kv_cache(c, B, T, dtype, device="cpu")
+                res[f"{prefix}decode/{dtype}/u"] = decode(c, p, cache, False)
         res["prefill/u"] = steps.lm_prefill_step(cfg)(params, {"tokens": tokens})
         res["grok/u"] = steps.lm_prefill_step(grok)(gparams, {"tokens": tokens})
-        for dtype in (torch.bfloat16, torch.int8):
-            cache = tf.init_kv_cache(cfg, B, T, dtype, device="cpu")
-            res[f"decode/{dtype}/u"] = decode(params, cache, False)
+        for m, c in moe.items():
+            res[f"{m}/prefill/u"] = steps.lm_prefill_step(c)(mparams[m], {"tokens": tokens})
     with spmd.bind(mesh):
-        loss, grads = spmd.run(grads_fn, (params, batch), (param_sh, batch_sh))
-        res["loss/s"] = loss.full_tensor()
-        res.update({f"grad/{k}/s": g.full_tensor() for k, g in grads.items()})
-        prefill = lambda c: (lambda p, b: steps.lm_prefill_step(c)(p, b))
-        res["prefill/s"] = spmd.run(prefill(cfg), (params, {"tokens": tokens}),
-                                    (param_sh, {"tokens": batch_sh["tokens"]})).full_tensor()
-        res["grok/s"] = spmd.run(prefill(grok), (gparams, {"tokens": tokens}),
-                                 (shd.lm_param_sharding(mesh, grok),
-                                  {"tokens": batch_sh["tokens"]})).full_tensor()
-        dparams = spmd.distribute_tree(params, param_sh)
-        for dtype in (torch.bfloat16, torch.int8):
-            for name, spec in layouts.items():
-                cache = tf.init_kv_cache(cfg, B, T, dtype, device="cpu")
-                cache_sh = {k: spec for k in cache if k != "length"}
-                cache_sh["length"] = shd.ns(mesh)
-                with implicit_replication():
-                    res[f"decode/{dtype}/{name}"] = decode(
-                        dparams, spmd.distribute_tree(cache, cache_sh), True)
+        for prefix, c, p, names in models:
+            param_sh = shd.lm_param_sharding(mesh, c)
+            loss, grads = spmd.run(grads_fn(c), (p, batch), (param_sh, batch_sh))
+            res[f"{prefix}loss/s"] = loss.full_tensor()
+            res.update({f"{prefix}grad/{k}/s": g.full_tensor() for k, g in grads.items()})
+            dparams = spmd.distribute_tree(p, param_sh)
+            for dtype in (torch.bfloat16, torch.int8) if names else ():
+                for name in names:
+                    cache = tf.init_kv_cache(c, B, T, dtype, device="cpu")
+                    cache_sh = {k: layouts[name] for k in cache if k != "length"}
+                    cache_sh["length"] = shd.ns(mesh)
+                    with implicit_replication():
+                        res[f"{prefix}decode/{dtype}/{name}"] = decode(
+                            c, dparams, spmd.distribute_tree(cache, cache_sh), True)
+        for name, c, p in (("prefill", cfg, params), ("grok", grok, gparams)) + tuple(
+                (f"{m}/prefill", c, mparams[m]) for m, c in moe.items()):
+            res[f"{name}/s"] = spmd.run(prefill(c), (p, {"tokens": tokens}),
+                                        (shd.lm_param_sharding(mesh, c),
+                                         {"tokens": batch_sh["tokens"]})).full_tensor()
     if rank == 0:
         np.savez(out_path, **{k: v.detach().to(torch.float32).numpy() for k, v in res.items()})
 finally:
@@ -312,14 +372,15 @@ def _free_port() -> int:
 
 
 def _world(path):
-    """SMOKE llama's and SMOKE grok's weights from seeded generators, the
-    tokens, labels and decode tokens from a seeded numpy generator."""
-    from repro_torch.configs.archs import grok_1_314b, llama3_405b
+    """SMOKE llama's, SMOKE grok's and the two MoE variants' (``MOE``)
+    weights from seeded generators, the tokens, labels and decode tokens
+    from a seeded numpy generator."""
     from repro_torch.models import transformer as tf
     from repro_torch.train.checkpoint import flatten_tree
 
     world = {}
-    for name, cfg, seed in (("llama", llama3_405b.SMOKE, 1), ("grok", grok_1_314b.SMOKE, 2)):
+    for name, cfg, seed in (("llama", llama3_405b.SMOKE, 1), ("grok", grok_1_314b.SMOKE, 2)) + tuple(
+            (name, cfg, seed) for seed, (name, cfg) in enumerate(MOE.items(), 3)):
         params = tf.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
         for key, leaf in flatten_tree(params).items():
             world[f"{name}/" + key.replace("['", "").replace("']", "")] = leaf.numpy()
@@ -423,3 +484,79 @@ def test_sharded_decode_equals_the_reference(gloo, gspmd, layout, dtype):
         assert bool((np.abs(got - want) <= 5e-3 * row_max).all())
     else:
         _close(got, want, 1e-5)
+
+
+def _grad_names(res, prefix, tag=""):
+    return sorted(k[len(prefix + "grad/"):len(k) - len(tag)] for k in res
+                  if k.startswith(prefix + "grad/") and k.endswith(tag))
+
+
+@pytest.mark.parametrize("model", sorted(MOE))
+def test_moe_sharded_train_step_equals_unsharded(gloo, model):
+    """The MoE variants' train step (2 microbatches, remat, chunked
+    attention, routing groups of 8): loss and every gradient leaf, the
+    router's and the experts' included."""
+    p = model + "/"
+    np.testing.assert_allclose(gloo[p + "loss/s"], gloo[p + "loss/u"], rtol=1e-6)
+    names = _grad_names(gloo, p, "/u")
+    assert len(names) == 12  # embed, final norm and the 10 stacked layer leaves
+    for name in names:
+        got, want = gloo[f"{p}grad/{name}/s"], gloo[f"{p}grad/{name}/u"]
+        assert np.abs(want).max() > 0, name
+        _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("model", sorted(MOE))
+def test_moe_sharded_train_step_equals_the_reference(gloo, gspmd, model):
+    p = model + "/"
+    np.testing.assert_allclose(gloo[p + "loss/s"], gspmd[p + "loss"], rtol=1e-5)
+    names = _grad_names(gspmd, p)
+    assert names == _grad_names(gloo, p, "/s")
+    for name in names:
+        _close(gloo[f"{p}grad/{name}/s"], gspmd[f"{p}grad/{name}"], 1e-5)
+
+
+@pytest.mark.parametrize("model", sorted(MOE))
+def test_moe_sharded_prefill_equals_unsharded(gloo, model):
+    _close(gloo[f"{model}/prefill/s"], gloo[f"{model}/prefill/u"], 1e-5)
+
+
+@pytest.mark.parametrize("model", sorted(MOE))
+def test_moe_sharded_prefill_equals_the_reference(gloo, gspmd, model):
+    _close(gloo[f"{model}/prefill/s"], gspmd[f"{model}/prefill"], 1e-5)
+
+
+def _row_close(got, want, rtol):
+    """Equal within ``rtol`` of each row's largest magnitude."""
+    row_max = np.abs(want).max(-1, keepdims=True)
+    assert bool((np.abs(got - want) <= rtol * row_max).all())
+
+
+@pytest.mark.parametrize("layout", ["positions", "batch", "long"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_moe_sharded_decode_equals_unsharded(gloo, layout, dtype):
+    """The expert-parallel variant's six decode steps over a cache laid out
+    by positions over the model axis (the decode cell's layout), by batch
+    only, and by positions over the data axis (long_500k's layout), against
+    the same steps unsharded. Both caches are held to the int8 bound: a
+    float32 difference can round a cache entry to the next bfloat16 step as
+    well, and does here in the reference itself (its unsharded and GSPMD
+    logits differ by 6.4e-5 of the largest over the bfloat16 cache; the
+    next test holds each side to the reference's own within 1e-5)."""
+    got, unsharded = (gloo[f"scout/decode/torch.{dtype}/{k}"] for k in (layout, "u"))
+    _row_close(got, unsharded, 5e-3)
+
+
+@pytest.mark.parametrize("layout", ["positions", "batch", "long"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_moe_sharded_decode_equals_the_reference(gloo, gspmd, layout, dtype):
+    """The sharded steps against the reference's under GSPMD, and the
+    unsharded ones against the reference's on one device: within the float
+    bound for the bfloat16 cache, the int8 bound for the int8 one."""
+    pairs = [(gloo[f"scout/decode/torch.{dtype}/{layout}"], gspmd[f"scout/decode/{dtype}/{layout}"]),
+             (gloo[f"scout/decode/torch.{dtype}/u"], gspmd[f"scout/decode/{dtype}/u"])]
+    for got, want in pairs:
+        if dtype == "int8":
+            _row_close(got, want, 5e-3)
+        else:
+            _close(got, want, 1e-5)

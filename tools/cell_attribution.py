@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""Where a dry-run LM cell's per-device FLOPs, wire and peak come from.
+
+    PYTHONPATH=src python tools/cell_attribution.py ARCH SHAPE [--layers 2] [--top 20]
+
+Builds ``configs/cells.lm_cell`` for a registry arch id and a shape of
+``LM_SHAPES`` (at ``--layers`` layers, widths unchanged; 0 keeps the
+config's depth) on 16x16 and counts its sharded step as
+``launch/hillclimb._measure`` does, on the meta device over a fake
+process group (no card), with three tallies added:
+
+  * FLOPs by the model's line that ran them (the innermost frame of
+    ``models/transformer.py`` or ``train/steps.py``, with the
+    ``parallel/spmd.py`` line under it; a backward operator counts under
+    ``steps.py``'s call of the backward);
+  * wire bytes by that line and the collective's kind;
+  * at the peak, the live bytes by the line that allocated them.
+
+Each figure is rank 0's, beside the whole step's FLOPs over 256 (the
+share). The signature memo of ``launch/hlo_cost`` is off while it runs,
+so every operator is seen; the totals equal the record's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import os
+import sys
+import traceback
+
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "src"))
+
+from repro_torch.configs import cells as cells_mod  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.launch import hillclimb as hc  # noqa: E402
+from repro_torch.launch import hlo_cost  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.parallel import spmd  # noqa: E402
+
+MODEL_FILES = ("transformer.py", "steps.py")
+
+
+def _site() -> str:
+    """The innermost model line on the stack, and the spmd line under it."""
+    stack = traceback.extract_stack()
+    model = [f for f in stack if os.path.basename(f.filename) in MODEL_FILES]
+    inner = [f for f in stack if os.path.basename(f.filename) == "spmd.py"]
+    where = f"{os.path.basename(model[-1].filename)}:{model[-1].lineno}" if model else "?"
+    return where + (f" (spmd.py:{inner[-1].lineno})" if inner else "")
+
+
+class _Tally:
+    """The three tallies, filled by the patches ``tallied`` installs."""
+
+    def __init__(self):
+        self.flops = collections.Counter()
+        self.wire = collections.Counter()
+        self.born = {}
+        self.at_peak = {}
+        self.peak = 0
+
+
+def _patched(tally: _Tally):
+    count, track, add = hlo_cost._Counter._count, hlo_cost._Counter.track, spmd.CollectiveLog.add
+
+    def counted(self, func, args, kwargs, out):
+        before = self.flops
+        count(self, func, args, kwargs, out)
+        if self.flops != before and isinstance(self, hlo_cost._ShardedCounter):
+            tally.flops[f"{_site()} {func._overloadpacket.__name__}"] += self.flops - before
+
+    def tracked(self, t):
+        key = id(t.untyped_storage())
+        new = key not in self._alive
+        track(self, t)
+        if new:
+            tally.born[key] = _site()
+        if isinstance(self, hlo_cost._ShardedCounter) and self.live > tally.peak:
+            tally.peak = self.live
+            by = collections.Counter()
+            for k, (n, _) in self._alive.items():
+                by[tally.born.get(k, "arguments")] += n
+            tally.at_peak = dict(by)
+
+    def added(self, kind, nbytes, g):
+        if g > 1:
+            tally.wire[f"{_site()} {kind}"] += self.mult * spmd.wire_bytes(kind, nbytes, g)
+        add(self, kind, nbytes, g)
+
+    return {(hlo_cost._Counter, "_count"): counted, (hlo_cost._Counter, "track"): tracked,
+            (spmd.CollectiveLog, "add"): added,
+            (hlo_cost._ShardedCounter, "_dtensor_call"):
+                lambda self, func, args, kwargs: self._dtensor_run(func, args, kwargs)}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("arch")
+    ap.add_argument("shape", choices=sorted(cells_mod.LM_SHAPES))
+    ap.add_argument("--layers", type=int, default=2, help="0 keeps the config's depth")
+    ap.add_argument("--top", type=int, default=20)
+    args = ap.parse_args(argv)
+
+    torch.set_num_threads(1)
+    cfg = get_arch(args.arch).config
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    mesh = make_production_mesh(multi_pod=False, devices=["meta"] * 256)
+    cell = cells_mod.lm_cell(cfg, args.shape, mesh)
+    tally = _Tally()
+    saved = {k: getattr(*k) for k in _patched(tally)}
+    for (owner, name), fn in _patched(tally).items():
+        setattr(owner, name, fn)
+    try:
+        rec = hc._measure(cell.fn, cell.in_shardings, cell.abstract_args, mesh)
+    finally:
+        for (owner, name), fn in saved.items():
+            setattr(owner, name, fn)
+    share = hlo_cost.step_costs(cell.fn, *cell.abstract_args)["flops"] / 256
+    print(f"{args.arch} {args.shape} at {cfg.n_layers} layers on 16x16: FLOPs a device "
+          f"{rec['flops']:.6e} ({rec['flops'] / share:.4f}x the share {share:.6e}), wire "
+          f"{rec['wire_bytes']:.4e} B, peak {rec['peak_gib']:.3f} GiB, replicated "
+          f"{rec['replicated'] or 'none'}")
+    total = sum(tally.flops.values()) or 1
+    print("FLOPs by line:")
+    for k, v in tally.flops.most_common(args.top):
+        print(f"  {v:.4e} ({v / total:.3f})  {k}")
+    print("wire by line (B a device):")
+    for k, v in tally.wire.most_common(args.top):
+        print(f"  {v:.4e}  {k}")
+    print(f"live at the peak ({tally.peak / 2**30:.3f} GiB) by the line that allocated it:")
+    for k, v in sorted(tally.at_peak.items(), key=lambda kv: -kv[1])[:args.top]:
+        print(f"  {v / 2**30:8.3f} GiB  {k}")
+
+
+if __name__ == "__main__":
+    main()
