@@ -265,7 +265,12 @@ that fails:
      llama4-scout's 40 query heads split 3 or 2 a model shard, or the
      reference's), each printed beside the share and the reference; wire
      at most the reference's, nothing replicated, the peak at most twice
-     the reference's; (d) the BEBR scan's library yardstick,
+     the reference's; and by the same rules (FLOPs a device at most the
+     reference's, no strided layout redistributed) phase 13's 20 other
+     records on 16x16 (the recsys archs x RS_SHAPES, meshgraphnet x
+     GNN_SHAPES) and the 7 gnn_ogb variants, against
+     tests/_torch_hillclimb_ref_cells.json: 51 records held;
+     (d) the BEBR scan's library yardstick,
      torch._int_mm + the epilogue + torch.topk, with the query padded to
      17 rows.
 
@@ -434,8 +439,10 @@ HILLCLIMB_WORKERS = 8
 RATE_COPY_BYTES, RATE_MM_N, RATE_REPS = 4 << 30, 8192, 10
 HC_CANDIDATES, HC_CODE_DIM, HC_LEVELS, HC_K = 1_000_000, 64, 4, 100
 HC_TIME_REPS = 5
-# the reference's records phase 14 holds every LM record to
+# the reference's records phase 14 holds every LM record to, and those of the
+# 20 other dry-run cells and the gnn_ogb variants
 HC_LM_RECORDS = "tests/_torch_hillclimb_ref_lm.json"
+HC_CELL_RECORDS = "tests/_torch_hillclimb_ref_cells.json"
 # the MoE dry-run cells' FLOPs a device at most (a multiple of the whole
 # step's share, flops_per_step / 256; a multiple of the reference's), None
 # where not bounded; llama4-scout's 1.2 is 40 query heads over 16 model
@@ -4102,20 +4109,24 @@ def _dry_as_hillclimb(r):
         "flops": r["cost"]["flops_per_device"], "whole": r["cost"]["flops_per_step"],
         "wire_bytes": sum(coll["wire_bytes_per_device"].values()),
         "peak_gib": r["memory"]["peak_bytes_per_device"] / 2**30,
-        "replicated": coll["replicated"], "replicated_at": coll["replicated_at"]}
+        "replicated": coll["replicated"], "replicated_at": coll["replicated_at"],
+        "strided": coll["strided"]}
 
 
-def _hold_lm_records(records) -> None:
-    """Each LM record beside the JAX reference's GSPMD record of the same
-    cell (``HC_LM_RECORDS``, full depth, 16x16), held: FLOPs a device equal
-    (llama3-405b train, decode) or at most the reference's (prefill), or for
-    the MoE cells at most ``HC_MOE_TARGETS``'s multiples of the whole step's
-    share (the record's ``whole`` / 256) and of the reference's; wire at most
-    the reference's, nothing replicated, the peak at most twice the
-    reference's."""
+def _hold_records(records) -> None:
+    """Each record beside the JAX reference's GSPMD record of the same cell
+    (``HC_LM_RECORDS`` and ``HC_CELL_RECORDS``, full depth, 16x16), held:
+    FLOPs a device equal (llama3-405b train, decode) or at most the
+    reference's (prefill and every other cell), or for the MoE cells at most
+    ``HC_MOE_TARGETS``'s multiples of the whole step's share (the record's
+    ``whole`` / 256) and of the reference's; wire at most the reference's,
+    nothing replicated, no strided layout redistributed, the peak at most
+    twice the reference's."""
     with open(os.path.join(ROOT, HC_LM_RECORDS)) as f:
-        refs = json.load(f)
-    held = 0
+        lm_refs = json.load(f)
+    with open(os.path.join(ROOT, HC_CELL_RECORDS)) as f:
+        refs = dict(json.load(f), **lm_refs)
+    held, lm = 0, 0
     for c, v, r in records:
         key = f"{c}|{v}|16x16"
         if key not in refs:
@@ -4129,7 +4140,7 @@ def _hold_lm_records(records) -> None:
             + f"), wire {r['wire_bytes']:.4e} / "
             f"{ref['wire_bytes']:.4e} B ({r['wire_bytes'] / ref['wire_bytes']:.4f}x), peak "
             f"{r['peak_gib']:.3f} / {ref['peak_gib']:.3f} GiB ({r['peak_gib'] / ref['peak_gib']:.3f}x), "
-            f"replicated {r['replicated'] or 'none'}")
+            f"replicated {r['replicated'] or 'none'}, strided {r['strided'] or 'none'}")
         if moe:
             at_share, at_ref = moe
             check(at_share is None or r["flops"] <= at_share * share,
@@ -4139,19 +4150,23 @@ def _hold_lm_records(records) -> None:
                   f"hillclimb {key}: {r['flops']} FLOPs a device over {at_ref}x the "
                   f"reference's {ref['flops']:.0f}")
         else:
-            exact = c == "llama405b_train" or v == "decode_32k"
+            exact = c == "llama405b_train" or (c, v) == ("llama3-405b", "decode_32k")
             check(r["flops"] == ref["flops"] if exact else r["flops"] <= ref["flops"],
                   f"hillclimb {key}: {r['flops']} FLOPs a device against the reference's "
                   f"{ref['flops']:.0f} ({'equal' if exact else 'at most'} wanted)")
         check(r["wire_bytes"] <= ref["wire_bytes"],
               f"hillclimb {key}: wire {r['wire_bytes']} B above the reference's {ref['wire_bytes']}")
         check(r["replicated"] == {}, f"hillclimb {key}: replicated {r['replicated_at']}")
+        check(r["strided"] == {}, f"hillclimb {key}: strided layouts redistributed {r['strided']}")
         check(r["peak_gib"] <= 2 * ref["peak_gib"],
               f"hillclimb {key}: peak {r['peak_gib']:.3f} GiB over twice the reference's "
               f"{ref['peak_gib']:.3f}")
         held += 1
-    check(held == len(refs) == 24, f"hillclimb: {held} of the {len(refs)} LM records held")
-    log(f"[hillclimb] {held} LM records held against the reference's GSPMD records")
+        lm += key in lm_refs
+    check(held == len(refs) == 51 and lm == len(lm_refs) == 24,
+          f"hillclimb: {held} of the {len(refs)} records held ({lm} of the 24 LM ones)")
+    log(f"[hillclimb] {held} records held against the reference's GSPMD records: {lm} LM, "
+        f"{held - lm} of the other dry-run cells and the gnn_ogb variants")
 
 
 def _tt_variant_args(abstract, cfg, device, gen):
@@ -4385,9 +4400,7 @@ def hillclimb_phase(seed, device, name, smi, dry_records):
     check(merge["flops"] == bebr["flops"] == 18_064_384
           and merge["collectives"]["all-gather"] == 12_000,
           "hillclimb tt_retrieval: the merge's FLOPs or all-gather wire moved")
-    _hold_lm_records(records + [_dry_as_hillclimb(r) for r in dry_records if r["mesh"] == "16x16"
-                                and (r["arch"] == "llama3-405b"
-                                     or (r["arch"], r["shape"]) in HC_MOE_TARGETS)])
+    _hold_records(records + [_dry_as_hillclimb(r) for r in dry_records if r["mesh"] == "16x16"])
     log(f"[hillclimb] 26 variants dry on 16x16 in {dry_s:.1f} s over {HILLCLIMB_WORKERS} "
         f"processes ({sum(r['run_s'] for r in rec.values()):.1f} s of steps; {waited:.1f} s "
         f"waited after (a) and (b))")

@@ -35,7 +35,9 @@ Per cell it records the reference's keys (``arch``, ``shape``, ``kind``,
     (``wire_bytes_per_device``, the reference's ring model) and their
     ``counts``, from the sharded step, and ``replicated``: operators whose
     sharding DTensor could not propagate, run on replicated operands
-    (``replicated_at``: where each was called, and its operands' layouts).
+    (``replicated_at``: where each was called, and its operands' layouts),
+    and ``strided``: redistributions of DTensor's strided layout, by the
+    step's line that asked for each.
 
 The unsharded step runs once for a cell whose arguments have the same
 shapes and dtypes on both meshes (all but meshgraphnet's, whose graph
@@ -124,6 +126,7 @@ def run_cell(arch_id: str, shape_id: str, multi_pod: bool,
             "counts": sharded["counts"],
             "replicated": sharded["replicated"],
             "replicated_at": sharded["replicated_at"],
+            "strided": sharded["strided"],
         },
         "meta": cell.meta,
     }

@@ -21,8 +21,10 @@ A record keeps the reference's keys (``flops``, ``bytes``, ``wire_bytes``,
 ``peak_gib``), all per device, priced with the H100 roofline constants of
 ``kernels/sdc/defaults.py``; ``run_s`` takes the place of ``compile_s``.
 It adds ``counts`` (collectives by kind), ``replicated`` (operators
-whose sharding DTensor could not propagate, run on replicated operands)
-and ``replicated_at`` (where each was called, and its operands' layouts).
+whose sharding DTensor could not propagate, run on replicated operands),
+``replicated_at`` (where each was called, and its operands' layouts) and
+``strided`` (redistributions of DTensor's strided layout, by the line
+that asked for each).
 """
 
 from __future__ import annotations
@@ -36,7 +38,6 @@ import time
 import traceback
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import cells as cells_mod
 from repro_torch.configs.archs import grok_1_314b, llama3_405b
@@ -75,6 +76,7 @@ def _measure(fn, shardings, args, mesh) -> dict:
         "peak_gib": costs["peak_bytes"] / 2**30,
         "replicated": costs["replicated"],
         "replicated_at": costs["replicated_at"],
+        "strided": costs["strided"],
     }
 
 
@@ -307,7 +309,12 @@ def gnn_ogb_partitioned(mesh, gather_dtype=None):
     device owning receiver[e] (standard partition-aware graph loading).
     Then: one all-gather of node states per layer (senders may be remote),
     the segment sum is fully local (no all-reduce), the node MLP runs on the
-    local node shard; the all-gather's reduce-scatter in the backward."""
+    local node shard; the all-gather's reduce-scatter in the backward.
+
+    Each layer is checkpointed keeping its all-gather and its products
+    (``spmd.checkpoint(save_products=True)``): the reference's compiled
+    record of this variant runs no recompute of them (its FLOPs a device
+    within 1% of the step without a checkpoint)."""
     cfg, N, E, axes, (params_s, rep, opt_s, opt_sh), batch_s, batch_sh = _partitioned_setup(mesh)
     n_loc = N // mesh.n_leaves
     keys = ("node_feat", "edge_feat", "senders", "receivers", "edge_mask", "targets")
@@ -331,7 +338,8 @@ def gnn_ogb_partitioned(mesh, gather_dtype=None):
         v = mlp_apply(params["node_enc"], nf)  # [n_loc, h]
         e = mlp_apply(params["edge_enc"], ef) * msk[:, None]
         for lp in params["layers"]:
-            v, e = checkpoint(layer_fn, lp, v, e, snd, rcv, msk, base, use_reentrant=False)
+            v, e = spmd.checkpoint(layer_fn, lp, v, e, snd, rcv, msk, base,
+                                   save_products=True)
         out = mlp_apply(params["decoder"], v)
         return torch.sum(torch.square(out - tgt)), 1.0 / (N * cfg.d_out)
 
@@ -385,11 +393,12 @@ def gnn_ogb_halo(mesh, slack: float = 2.0):
         pos_in_bucket = torch.arange(e_loc, device=snd.device) - group_start[own_sorted]
         keep = pos_in_bucket < bucket
         slot = pos_in_bucket.clamp(0, bucket - 1)
-        req = torch.full((n_all, bucket), -1, dtype=torch.int64, device=snd.device)
-        req = req.index_put((own_sorted, slot),
-                            torch.where(keep, torch.remainder(snd_sorted, n_loc), -1))
+        # int32 requests, as the reference sends them
+        req = torch.full((n_all, bucket), -1, dtype=torch.int32, device=snd.device)
+        req = req.index_put((own_sorted, slot), torch.where(
+            keep, torch.remainder(snd_sorted, n_loc), -1).to(torch.int32))
         req_recv = spmd.all_to_all(req.reshape(n_all, 1, bucket), mesh, axes, split_axis=0,
-                                   concat_axis=1).reshape(n_all, bucket)
+                                   concat_axis=1).reshape(n_all, bucket).long()
         fetch = _halo_fetch(mesh, axes, req_recv, n_all, bucket)
         flat_idx = own_sorted * bucket + slot
 
@@ -405,7 +414,7 @@ def gnn_ogb_halo(mesh, slack: float = 2.0):
             return v, e
 
         for lp in params["layers"]:
-            v, e = checkpoint(layer_fn, lp, v, e, use_reentrant=False)
+            v, e = spmd.checkpoint(layer_fn, lp, v, e)
         out = mlp_apply(params["decoder"], v)
         return torch.sum(torch.square(out - tgt)), 1.0 / (N * cfg.d_out)
 
@@ -453,7 +462,7 @@ def gnn_ogb_halo_hostplan(mesh, slack: float = 2.0):
             return v, e
 
         for lp in params["layers"]:
-            v, e = checkpoint(layer_fn, lp, v, e, use_reentrant=False)
+            v, e = spmd.checkpoint(layer_fn, lp, v, e)
         out = mlp_apply(params["decoder"], v)
         return torch.sum(torch.square(out - tgt)), 1.0 / (N * cfg.d_out)
 

@@ -515,16 +515,22 @@ class _ShardedCounter(_Counter):
         return tree_unflatten(flat_out, out_spec)
 
 
+def _step_line() -> str:
+    """The innermost line of the stack outside torch, this module and
+    ``parallel/spmd.py``: the step's line that is running."""
+    own = (os.sep + "torch" + os.sep, os.path.join("launch", "hlo_cost.py"),
+           os.path.join("parallel", "spmd.py"))
+    return next((f"{os.path.basename(f.filename)}:{f.lineno} {f.line}"
+                 for f in reversed(traceback.extract_stack())
+                 if not any(o in f.filename for o in own)), "?")
+
+
 def _replicated_note(operands, err) -> str:
     """Where the operator that DTensor could not place was called from, its
     DTensor operands' shapes and placements, and DTensor's error."""
     from torch.distributed.tensor import DTensor
 
-    own = (os.sep + "torch" + os.sep, os.path.join("launch", "hlo_cost.py"),
-           os.path.join("parallel", "spmd.py"))
-    where = next((f"{os.path.basename(f.filename)}:{f.lineno} {f.line}"
-                  for f in reversed(traceback.extract_stack())
-                  if not any(o in f.filename for o in own)), "?")
+    where = _step_line()
     placed = [(tuple(x.shape), tuple(str(p) for p in x.placements))
               for x in operands if isinstance(x, DTensor)]
     why = str(err).splitlines()[0][:200] if str(err) else type(err).__name__
@@ -571,13 +577,17 @@ def sharded_step_costs(fn, args, shardings, mesh) -> Dict[str, Any]:
     ``collectives`` (per-device wire bytes by kind) and ``counts``
     (collectives by kind); ``ops`` (operators run on local pieces); and
     ``replicated`` (operators run on replicated operands, by name, see
-    ``_ShardedCounter``) and ``replicated_at`` (where each was called)."""
+    ``_ShardedCounter``) and ``replicated_at`` (where each was called); and
+    ``strided`` (redistributions of a strided layout, by the step's line,
+    ``_strided_redistributions``)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     owned = contextlib.nullcontext() if spmd.is_bound(mesh) else spmd.fake_mesh(
         mesh, spmd.axis_groups(mesh, shardings))
     log = spmd.CollectiveLog()
-    with owned, implicit_replication(), spmd.recording(log), _alltoall_as_one():
+    strided: Dict[str, int] = {}
+    with owned, implicit_replication(), spmd.recording(log), _alltoall_as_one(), \
+            _strided_redistributions(strided):
         dargs = tuple(spmd.distribute_tree(a, s) for a, s in zip(args, shardings))
         locals_ = [t._local_tensor if is_dtensor(t) else t
                    for t in tree_flatten(dargs)[0] if isinstance(t, torch.Tensor)]
@@ -599,7 +609,40 @@ def sharded_step_costs(fn, args, shardings, mesh) -> Dict[str, Any]:
         "ops": counter.ops,
         "replicated": dict(sorted(counter.replicated.items())),
         "replicated_at": dict(sorted(counter.replicated_at.items())),
+        "strided": dict(sorted(strided.items())),
     }
+
+
+@contextlib.contextmanager
+def _strided_redistributions(seen: Dict[str, int]):
+    """While active, each redistribution from or to a strided layout
+    (DTensor's ``_StridedShard``: what a view that flattens a split dim into
+    the dim before it gives, and what later operators gather whole) is
+    counted in ``seen`` under the step's line that asked for it, with the
+    two layouts."""
+    import sys
+
+    from torch.distributed.tensor import _redistribute
+
+    original = _redistribute.redistribute_local_tensor
+
+    def redistribute_local_tensor(local, current_spec, target_spec, *args, **kwargs):
+        layouts = (current_spec.placements, target_spec.placements)
+        if any(type(p).__name__ == "_StridedShard" for pl in layouts for p in pl):
+            key = f"{_step_line()}: {tuple(map(str, layouts[0]))} -> {tuple(map(str, layouts[1]))}"
+            seen[key] = seen.get(key, 0) + 1
+        return original(local, current_spec, target_spec, *args, **kwargs)
+
+    holders = [m for name, m in list(sys.modules.items())
+               if name.startswith("torch.distributed.tensor") and m is not None
+               and getattr(m, "redistribute_local_tensor", None) is original]
+    for m in holders:
+        m.redistribute_local_tensor = redistribute_local_tensor
+    try:
+        yield
+    finally:
+        for m in holders:
+            m.redistribute_local_tensor = original
 
 
 @contextlib.contextmanager

@@ -14,11 +14,12 @@ bits: the gathers (the reference's ``jnp.take``) are
 ``scatter_add_`` sums by atomics in an order that changes from run to
 run). The ``max`` aggregator is ``scatter_reduce`` with ``amax``, an
 order-free reduction; an empty segment's -inf becomes 0 as in the
-reference. ``remat`` is ``torch.utils.checkpoint`` of each layer while
-gradients are recorded; ``node_constrain`` (a GSPMD sharding constraint
-in the reference) is applied where the reference applies it, to each
-layer's aggregate and node states: it redistributes a DTensor
-(``parallel/spmd.constrain``) and is an identity on one device.
+reference. ``remat`` checkpoints each layer while gradients are recorded
+(``spmd.checkpoint``: on a sharded step its collectives' results are
+kept, not run again in the backward pass); ``node_constrain`` (a GSPMD
+sharding constraint in the reference) is applied where the reference
+applies it, to each layer's aggregate and node states: it redistributes a
+DTensor (``parallel/spmd.constrain``) and is an identity on one device.
 A parameter tree is the reference's: ``{"node_enc", "edge_enc",
 "decoder": [{"w", "b"}, ...], "layers": [{"edge_mlp", "node_mlp"}, ...]}``.
 """
@@ -30,15 +31,15 @@ import math
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import full_fp32_matmul, resolve_device
+from repro_torch.device import full_fp32_matmul, is_dtensor, resolve_device
 from repro_torch.models.recsys.embedding import (
     embedding_lookup,
     mlp_apply,
     segment_sum,
     tree_from_numpy,
 )
+from repro_torch.parallel import spmd
 
 Params = Dict[str, Any]
 
@@ -114,10 +115,19 @@ def segment_max(rows: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     return out.scatter_reduce(0, idx, rows, "amax", include_self=True)
 
 
+def _endpoints(v, senders, receivers):
+    """(v[senders], v[receivers]). On DTensors the two are looked up together,
+    [E, 2] ids in one lookup, so a layer's node states move once for both
+    (GSPMD gathers them once for the two)."""
+    if not is_dtensor(v):
+        return embedding_lookup(v, senders), embedding_lookup(v, receivers)
+    both = embedding_lookup(v, spmd.stack_alike([senders, receivers]))
+    return both[:, 0], both[:, 1]
+
+
 def _layer(lp, v, e, senders, receivers, edge_mask, n_nodes, aggregator, node_constrain=None):
     # edge update: concat(e, v_s, v_r) -> MLP, residual
-    vs = embedding_lookup(v, senders)
-    vr = embedding_lookup(v, receivers)
+    vs, vr = _endpoints(v, senders, receivers)
     e_new = mlp_apply(lp["edge_mlp"], torch.cat([e, vs, vr], dim=-1))
     if edge_mask is not None:
         e_new = e_new * edge_mask[:, None].to(e.dtype)
@@ -152,7 +162,7 @@ def forward(params: Params, node_feat, edge_feat, senders, receivers, edge_mask=
     remat = cfg is not None and cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
         args = (lp, v, e, senders, receivers, edge_mask, n_nodes, aggregator, node_constrain)
-        v, e = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
+        v, e = spmd.checkpoint(_layer, *args) if remat else _layer(*args)
     return mlp_apply(params["decoder"], v)
 
 

@@ -17,7 +17,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.device import full_fp32_matmul, resolve_device
+from repro_torch.device import full_fp32_matmul, is_dtensor, resolve_device
 from repro_torch.models.recsys.dlrm import bce_logits
 from repro_torch.models.recsys.embedding import (
     TableConfig,
@@ -127,18 +127,38 @@ def _behavior_embed(params, item_ids, cate_ids):
     return torch.cat([it, ct], dim=-1)
 
 
+def _embed(params, hist_items, hist_cates, target_item, target_cate):
+    """(the behaviors' embeddings [B, L, 2e], the target's [B, 2e]). On
+    DTensors the history and the target are looked up together, [B, L + 1]
+    ids a table, so a table's rows move once for both (GSPMD gathers a
+    table's rows once for the two lookups)."""
+    if not is_dtensor(params["item_table"]):
+        return (_behavior_embed(params, hist_items, hist_cates),
+                _behavior_embed(params, target_item, target_cate))
+    L = hist_items.shape[1]
+    both = _behavior_embed(params, torch.cat([hist_items, target_item[:, None]], 1),
+                           torch.cat([hist_cates, target_cate[:, None]], 1))
+    return both[:, :L], both[:, L]
+
+
+def _zero_state(mask, width: int):
+    """A recurrent state of zeros [B, width] laid out as the batch rows of
+    ``mask`` [B, L] (``torch.zeros`` of the whole shape would be a plain
+    tensor of every row on each rank of a sharded step)."""
+    return torch.zeros_like(mask[:, :1]).expand(-1, width)
+
+
 def forward(params, hist_items, hist_cates, hist_mask, target_item, target_cate,
             cfg: DIENConfig) -> torch.Tensor:
     """CTR logits [B]. Two stages: a GRU over the behaviors, then an AUGRU
     weighted by target attention."""
     full_fp32_matmul()
-    B, L = hist_items.shape
-    beh = _behavior_embed(params, hist_items, hist_cates)  # [B, L, 2e]
-    tgt = _behavior_embed(params, target_item, target_cate)  # [B, 2e]
+    L = hist_items.shape[1]
+    beh, tgt = _embed(params, hist_items, hist_cates, target_item, target_cate)
     mask = torch.as_tensor(hist_mask, device=beh.device).to(beh.dtype)
 
     # Stage 1: interest extraction GRU over time.
-    h = torch.zeros((B, cfg.gru_dim), dtype=beh.dtype, device=beh.device)
+    h = _zero_state(mask, cfg.gru_dim)
     states = []
     for t in range(L):
         m = mask[:, t, None]
@@ -154,7 +174,7 @@ def forward(params, hist_items, hist_cates, hist_mask, target_item, target_cate,
     att = torch.softmax(att, dim=-1)
 
     # Stage 2: interest evolution AUGRU.
-    h = torch.zeros((B, cfg.gru_dim), dtype=beh.dtype, device=beh.device)
+    h = _zero_state(mask, cfg.gru_dim)
     for t in range(L):
         m = mask[:, t, None]
         h = m * _augru_cell(params["augru"], states[:, t], h, att[:, t]) + (1 - m) * h

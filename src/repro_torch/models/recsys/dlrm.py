@@ -29,10 +29,10 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.dot_interact.ops import dot_interaction
 from repro_torch.models.recsys.embedding import (
     TableConfig,
-    embedding_lookup,
     init_table,
     mlp_apply,
     mlp_params,
+    stacked_lookup,
     tree_from_numpy,
     tree_to_numpy,
 )
@@ -132,9 +132,7 @@ def features(params, dense, sparse_ids, cfg: DLRMConfig) -> Tuple[torch.Tensor, 
     dense = torch.as_tensor(dense, dtype=cfg.dtype, device=dev)
     ids = torch.as_tensor(sparse_ids, device=dev).long()
     x = mlp_apply(params["bot"], dense)
-    F, V, D = tables.shape
-    rows = ids + torch.arange(F, device=dev) * V  # field f's table starts at row f * V
-    emb = embedding_lookup(tables.reshape(F * V, D), rows)  # [B, F, D]
+    emb = stacked_lookup(tables, ids)  # [B, F, D]: field f from table f
     return x, torch.cat([x[:, None, :], emb], dim=1)
 
 

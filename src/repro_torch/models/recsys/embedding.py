@@ -54,20 +54,22 @@ def init_table(generator: torch.Generator, cfg: TableConfig, dtype=torch.float32
 
 
 class _GatherRows(torch.autograd.Function):
-    """``table[ids]`` whose backward is ``index_put_(accumulate=True)``."""
+    """``table[idx]`` (one index tensor a leading dim of ``table``, all
+    broadcast together) whose backward is ``index_put_(accumulate=True)``."""
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, *idx):
         ctx.shape = table.shape
-        ctx.save_for_backward(ids)
-        return table[ids]
+        ctx.save_for_backward(*idx)
+        return table[idx]
 
     @staticmethod
     def backward(ctx, grad):
-        (ids,) = ctx.saved_tensors
+        idx = torch.broadcast_tensors(*ctx.saved_tensors)
         out = torch.zeros(ctx.shape, dtype=grad.dtype, device=grad.device)
-        out.index_put_((ids.reshape(-1),), grad.reshape(-1, ctx.shape[-1]), accumulate=True)
-        return out, None
+        out.index_put_(tuple(i.reshape(-1) for i in idx), grad.reshape(-1, ctx.shape[-1]),
+                       accumulate=True)
+        return (out,) + (None,) * len(idx)
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -81,6 +83,20 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
         return spmd.sharded_take(table, ids)
     return _GatherRows.apply(table, torch.as_tensor(ids, device=table.device).long())
+
+
+def stacked_lookup(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The reference's ``vmap`` of ``embedding_lookup`` over the table axis:
+    field f of ``ids`` [..., F] looked up in table f of ``tables`` [F, V, D]
+    -> [..., F, D], with the same deterministic gradient. A DTensor's tables
+    are looked up where their rows lie (``spmd.sharded_take``), with no
+    view that flattens the split row dim into the table axis."""
+    if is_dtensor(tables):
+        from repro_torch.parallel import spmd
+
+        return spmd.sharded_take(tables, ids)
+    ids = torch.as_tensor(ids, device=tables.device).long()
+    return _GatherRows.apply(tables, torch.arange(tables.shape[0], device=tables.device), ids)
 
 
 def segment_sum(rows: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):

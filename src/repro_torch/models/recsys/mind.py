@@ -84,12 +84,13 @@ def interest_capsules(params, hist_ids, hist_mask, cfg: MINDConfig,
     """
     full_fp32_matmul()
     table = params["item_table"]
-    B, L = hist_ids.shape
     beh = embedding_lookup(table, hist_ids)  # [B, L, D]
     beh_mapped = beh @ params["S"]  # bilinear map
     mask = torch.as_tensor(hist_mask, device=table.device).to(beh.dtype)  # [B, L]
     if routing_logits_init is None:
-        blog = torch.zeros((B, cfg.n_interests, L), dtype=beh.dtype, device=beh.device)
+        # zeros laid out as the batch rows (a whole-shape torch.zeros would be
+        # a plain tensor of every row on each rank of a sharded step)
+        blog = torch.zeros_like(mask[:, None, :]).expand(-1, cfg.n_interests, -1)
     else:
         blog = torch.as_tensor(routing_logits_init, dtype=beh.dtype, device=beh.device)
     caps = None

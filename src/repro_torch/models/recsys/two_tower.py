@@ -19,7 +19,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.device import full_fp32_matmul, resolve_device
+from repro_torch.device import full_fp32_matmul, is_dtensor, resolve_device
 from repro_torch.models.recsys.embedding import (
     TableConfig,
     embedding_bag_fixed,
@@ -99,9 +99,15 @@ def sampled_softmax_loss(params, hist_ids, hist_mask, pos_items, item_logq,
     q = query_embed(params, hist_ids, hist_mask, cfg)  # [B, D]
     it = item_embed(params, pos_items, cfg)  # [B, D]
     logq = torch.as_tensor(item_logq, device=q.device)
-    logits = (q @ it.T) / temperature - logq[None, :]
-    logp = torch.log_softmax(logits, dim=-1)
-    return -torch.mean(torch.diagonal(logp))
+
+    def score(q, it, logq):
+        return (q @ it.T) / temperature - logq[None, :]
+
+    if is_dtensor(q):  # each rank's block of the [B, B] logits (spmd)
+        from repro_torch.parallel import spmd
+
+        return -torch.mean(spmd.diagonal_log_softmax(score, q, it, logq))
+    return -torch.mean(torch.diagonal(torch.log_softmax(score(q, it, logq), dim=-1)))
 
 
 def score_candidates(params, hist_ids, hist_mask, cand_ids, cfg) -> torch.Tensor:

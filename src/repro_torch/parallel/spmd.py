@@ -56,6 +56,7 @@ COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
 _BOUND: Dict[LeafMesh, Any] = {}  # LeafMesh -> (DeviceMesh, its dims' groups of axes)
 _RECORDERS: list = []
 _EXPLICIT = [0]  # depth of the hand-written collectives being run
+_REPLAYING = [0]  # depth of checkpointed regions being recomputed
 
 
 def wire_bytes(kind: str, nbytes: float, g: int) -> float:
@@ -113,6 +114,14 @@ def record(kind: str, nbytes: float, g: int) -> None:
     """Add one collective to every active ``CollectiveLog``."""
     for log in _RECORDERS:
         log.add(kind, nbytes, g)
+
+
+def _record_own(kind: str, nbytes: float, g: int) -> None:
+    """``record`` for a collective that this module issues, except while a
+    checkpointed region is replayed (``checkpoint``): the process group's
+    operators then return the outputs saved in the forward pass."""
+    if not _REPLAYING[0]:
+        record(kind, nbytes, g)
 
 
 def in_explicit() -> bool:
@@ -458,14 +467,14 @@ class _AllGather(torch.autograd.Function):
     def forward(ctx, x, mesh, axes, axis):
         ctx.mesh, ctx.axes, ctx.axis = mesh, axes, axis
         g = group_size(mesh, axes)
-        record("all-gather", x.numel() * x.element_size() * g, g)
+        _record_own("all-gather", x.numel() * x.element_size() * g, g)
         with _explicit():
             return _gather(x, _group(mesh, axes), axis)
 
     @staticmethod
     def backward(ctx, grad):
         g = group_size(ctx.mesh, ctx.axes)
-        record("reduce-scatter", grad.numel() * grad.element_size() // g, g)
+        _record_own("reduce-scatter", grad.numel() * grad.element_size() // g, g)
         with _explicit():
             return _reduce_scatter(grad, _group(ctx.mesh, ctx.axes), ctx.axis), None, None, None
 
@@ -484,7 +493,7 @@ def psum(x: torch.Tensor, mesh: LeafMesh, axes: Axes) -> torch.Tensor:
     from torch.distributed._functional_collectives import all_reduce
 
     g = group_size(mesh, axes)
-    record("all-reduce", x.numel() * x.element_size(), g)
+    _record_own("all-reduce", x.numel() * x.element_size(), g)
     with _explicit():
         return _wait(all_reduce(x.contiguous(), "sum", _group(mesh, axes)))
 
@@ -526,14 +535,14 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, split_axis, concat_axis):
         ctx.args = (mesh, axes, split_axis, concat_axis)
-        record("all-to-all", x.numel() * x.element_size(), group_size(mesh, axes))
+        _record_own("all-to-all", x.numel() * x.element_size(), group_size(mesh, axes))
         with _explicit():
             return _exchange(x, mesh, axes, split_axis, concat_axis)
 
     @staticmethod
     def backward(ctx, grad):
         mesh, axes, split_axis, concat_axis = ctx.args
-        record("all-to-all", grad.numel() * grad.element_size(), group_size(mesh, axes))
+        _record_own("all-to-all", grad.numel() * grad.element_size(), group_size(mesh, axes))
         with _explicit():
             return _exchange(grad, mesh, axes, concat_axis, split_axis), None, None, None, None
 
@@ -546,6 +555,57 @@ def all_to_all(x: torch.Tensor, mesh: LeafMesh, axes: Axes, split_axis: int,
     gradient is the all-to-all back). The reference's ``tiled=False`` call
     on [g, 1, b] pieces is this one with the same layout of the result."""
     return _AllToAll.apply(x, mesh, _axes(axes), split_axis, concat_axis)
+
+
+@contextlib.contextmanager
+def _replaying(ctx):
+    _REPLAYING[0] += 1
+    try:
+        with ctx:
+            yield
+    finally:
+        _REPLAYING[0] -= 1
+
+
+_PRODUCTS = ("mm", "addmm", "bmm", "baddbmm")
+
+
+def _policy(save_products: bool):
+    """The selective-checkpoint policy: the process group's operators'
+    outputs saved, and the products' where ``save_products``; the rest
+    recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    def policy(ctx, op, *args, **kwargs):
+        if op.namespace in ("_c10d_functional", "_dtensor") or (
+                save_products and op.namespace == "aten"
+                and op._overloadpacket.__name__ in _PRODUCTS):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def checkpoint(fn, *args, save_products: bool = False):
+    """``torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)``
+    whose recompute in the backward pass runs no collective again: a
+    selective-checkpoint policy saves the outputs of the process group's
+    operators (the gathered node states of a layer, a halo's rows), as XLA
+    keeps a rematerialised layer's collectives' results, and recomputes the
+    rest; the collectives this module issues record nothing while the
+    recompute replays them. With ``save_products`` the matrix products'
+    outputs are saved too, and only elementwise work is recomputed (where
+    the reference's compiled step keeps them). On one device, without
+    ``save_products``, it recomputes everything, as the plain checkpoint
+    does."""
+    from torch.utils.checkpoint import checkpoint as plain
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    def contexts():
+        forward, recompute = create_selective_checkpoint_contexts(_policy(save_products))
+        return forward, _replaying(recompute)
+
+    return plain(fn, *args, use_reentrant=False, context_fn=contexts)
 
 
 # ---------------------------------------------------------------------------
@@ -585,59 +645,206 @@ def _from_local(local, dm, places, shape):
                               stride=tuple(stride))
 
 
-class _MaskedTake(torch.autograd.Function):
-    """A rank's share of ``table[ids]`` when it holds rows [offset, offset +
-    n) of the table: those rows where an id falls in them, zeros elsewhere
-    (the sum over the ranks is the lookup). Its gradient goes into the
-    rank's own rows by ``index_put_(accumulate=True)``."""
+def _row_index(table, rows) -> tuple:
+    """The index of ``table[...]`` that looks up ``rows``: ``(rows,)`` for a
+    table [V, D]; for stacked tables [F, V, D] and ``rows`` [..., F], field f
+    in table f."""
+    if table.dim() == 2:
+        return (rows,)
+    return (torch.arange(table.shape[0], device=rows.device), rows)
+
+
+def _locate_rows(ids, n_rows: int, sizes: Sequence[int]):
+    """Where rows ``ids`` of a dim of ``n_rows`` lie when it is split over
+    mesh dims of ``sizes`` (in mesh order, the first major, each piece split
+    again as ``torch.chunk`` splits it, as DTensor nests them): each id's
+    piece coordinate on every such dim, and its offset in its piece."""
+    coords, rem, n = [], ids, n_rows
+    for size in sizes:
+        chunk = (n + size - 1) // size
+        k = torch.div(rem, chunk, rounding_mode="floor")
+        coords.append(k)
+        rem = rem - k * chunk
+        n = torch.clamp(n - k * chunk, max=chunk)
+    return coords, rem
+
+
+class _RowTake(torch.autograd.Function):
+    """A rank's share of ``table[ids]`` (``_row_index``) when the table's
+    rows are split over the mesh dims ``plan.dims`` and it holds ``piece``:
+    its piece is first gathered over the dims ``plan.gathered`` (each padded
+    to the largest piece, ``plan.pad`` rows), so it holds every piece whose
+    coordinates on the other dims are its own; then the ids that fall in
+    those rows are looked up, zeros for the others (the sum over the ranks
+    of the other dims is the lookup). The gradient goes into those rows by
+    ``index_put_(accumulate=True)`` and is reduce-scattered back onto each
+    rank's own piece over ``plan.gathered``."""
 
     @staticmethod
-    def forward(ctx, table, ids, offset):
-        n = table.shape[0]
-        rel = ids.long() - offset
-        mask = ((rel >= 0) & (rel < n)).unsqueeze(-1)
-        rel = rel.clamp(0, max(n - 1, 0))
-        ctx.save_for_backward(rel, mask)
-        ctx.shape = table.shape
-        return table[rel] * mask.to(table.dtype)
+    def forward(ctx, piece, ids, plan):
+        rows = piece.dim() - 2
+        table = piece
+        if plan.gathered:
+            g = math.prod(plan.dm.size(i) for i in plan.gathered)
+            pad = [0, 0] * (piece.dim() - 1 - rows) + [0, plan.pad - piece.shape[rows]]
+            table = torch.nn.functional.pad(piece, pad)
+            _record_own("all-gather", table.numel() * table.element_size() * g, g)
+            with _explicit():
+                table = _gather(table, _mesh_group(plan.dm, plan.gathered), rows)
+        coords, rem = _locate_rows(ids.long(), plan.n_rows, [plan.dm.size(i) for i in plan.dims])
+        mine = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+        pos = torch.zeros_like(rem)
+        for i, k in zip(plan.dims, coords):
+            if i in plan.gathered:
+                pos = pos * plan.dm.size(i) + k
+            else:
+                mine = mine & (k == plan.dm.get_local_rank(i))
+        local = torch.where(mine, pos * plan.pad + rem, 0)
+        mask = mine.unsqueeze(-1)
+        ctx.save_for_backward(local, mask)
+        ctx.plan, ctx.shape, ctx.piece = plan, table.shape, piece.shape
+        return table[_row_index(table, local)] * mask.to(table.dtype)
 
     @staticmethod
     def backward(ctx, grad):
-        rel, mask = ctx.saved_tensors
+        local, mask = ctx.saved_tensors
+        plan, rows = ctx.plan, len(ctx.shape) - 2
         out = torch.zeros(ctx.shape, dtype=grad.dtype, device=grad.device)
+        idx = torch.broadcast_tensors(*_row_index(out, local))
         g = (grad * mask.to(grad.dtype)).reshape(-1, ctx.shape[-1])
-        out.index_put_((rel.reshape(-1),), g, accumulate=True)
+        out.index_put_(tuple(i.reshape(-1) for i in idx), g, accumulate=True)
+        if plan.gathered:
+            g = math.prod(plan.dm.size(i) for i in plan.gathered)
+            _record_own("reduce-scatter", out.numel() * out.element_size() // g, g)
+            with _explicit():
+                out = _reduce_scatter(out, _mesh_group(plan.dm, plan.gathered), rows)
+            out = out.narrow(rows, 0, ctx.piece[rows])
         return out, None, None
+
+
+class _TakePlan:
+    """How ``_RowTake`` finds the rows: the ``DeviceMesh`` ``dm``, the mesh
+    dims that split the table's ``n_rows`` rows (mesh order), those of them
+    over which the pieces are gathered, and the largest piece's rows."""
+
+    def __init__(self, dm, n_rows: int, dims: Sequence[int], gathered: Sequence[int]):
+        self.dm, self.n_rows, self.dims, self.gathered = dm, n_rows, list(dims), list(gathered)
+        self.pad = n_rows
+        for i in self.dims:
+            self.pad = -(-self.pad // dm.size(i))
+
+
+def _mesh_group(dm, dims):
+    """The process group of the ``DeviceMesh`` dims ``dims`` (several
+    flattened, the first major)."""
+    if len(dims) == 1:
+        return dm.get_group(dims[0])
+    return dm[tuple(dm.mesh_dim_names[i] for i in dims)]._flatten()
+
+
+class _SumPartials(torch.autograd.Function):
+    """A rank's partial sums summed over the ranks: reduce-scattered along
+    ``axis`` over the mesh dims ``scatter`` (one collective over all of
+    them), then all-reduced over the dims ``summed`` (one collective over
+    all of them). The gradient, laid out as the result, is gathered back
+    along ``axis`` over ``scatter``."""
+
+    @staticmethod
+    def forward(ctx, x, dm, scatter, axis, summed):
+        ctx.dm, ctx.scatter, ctx.axis = dm, scatter, axis
+        with _explicit():
+            if scatter:
+                g = math.prod(dm.size(i) for i in scatter)
+                _record_own("reduce-scatter", x.numel() * x.element_size() // g, g)
+                x = _reduce_scatter(x, _mesh_group(dm, scatter), axis)
+            if summed:
+                from torch.distributed._functional_collectives import all_reduce
+
+                _record_own("all-reduce", x.numel() * x.element_size(),
+                            math.prod(dm.size(i) for i in summed))
+                x = _wait(all_reduce(x.contiguous(), "sum", _mesh_group(dm, summed)))
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.scatter:
+            g = math.prod(ctx.dm.size(i) for i in ctx.scatter)
+            _record_own("all-gather", grad.numel() * grad.element_size() * g, g)
+            with _explicit():
+                grad = _gather(grad, _mesh_group(ctx.dm, ctx.scatter), ctx.axis)
+        return grad, None, None, None, None
+
+
+def _sum_partials(local, dm, places, back, shape):
+    """The DTensor of global ``shape`` whose pieces ``local`` lie as
+    ``places``, with each partial sum there summed into ``back``'s
+    placement: reduce-scattered where ``back`` splits a dim, then reduced
+    over the merged group of the others, one collective each (DTensor
+    reduces one mesh dim at a time). An uneven split is left to DTensor."""
+    from torch.distributed.tensor import Shard
+
+    partial = [i for i, p in enumerate(places) if p.is_partial()]
+    scatter = [i for i in partial if isinstance(back[i], Shard)]
+    axes = {back[i].dim for i in scatter}
+    if not partial:
+        return _from_local(local, dm, places, shape)
+    if len(axes) > 1 or (scatter and shape[back[scatter[0]].dim] % math.prod(
+            dm.size(i) for i in scatter)):
+        return _from_local(local, dm, places, shape).redistribute(dm, back)
+    axis = back[scatter[0]].dim if scatter else 0
+    out = _SumPartials.apply(local, dm, scatter, axis, [i for i in partial if i not in scatter])
+    return _from_local(out, dm, back, shape)
 
 
 def sharded_take(table, ids):
     """``table[ids]`` for a DTensor ``table`` [V, D] (the rows of an embedding
-    table or of node states), the counterpart of GSPMD's gather from a
+    table or of node states), or for stacked tables [F, V, D] with ``ids``
+    [..., F], field f looked up in table f (the reference's ``vmap`` of the
+    lookup over the table axis): the counterpart of GSPMD's gather from a
     row-sharded operand. Per mesh axis:
 
-      * rows sharded: the ids are gathered whole on that axis, each rank
-        looks up the ids that fall in its rows (zeros for the others) and the
-        result is a partial sum there, reduced at once, as GSPMD reduces its
-        masked gather: reduce-scattered back to the ids' sharding where the
-        ids were sharded on that axis, else all-reduced (so the work after
-        the lookup is split as the ids are, and no further);
-      * columns sharded: with ids whole there, the result's last dim stays
-        sharded; with ids sharded there too, the table is gathered (FSDP);
-      * replicated: the result follows the ids.
+      * rows split, ids whole: each rank looks up the ids that fall in its
+        rows (zeros for the others), a partial sum there;
+      * rows and ids split: the smaller piece moves. Where a rank's piece of
+        the table is the smaller, the pieces are gathered there (each rank
+        then holds the rows of every rank that differs from it only there,
+        and looks up its own ids; the gradient is reduce-scattered back);
+        else the ids are gathered whole, each rank looks up those in its
+        rows, and the partial result is reduce-scattered back to the ids'
+        split;
+      * columns split and ids whole: the result's last dim stays split;
+      * otherwise the table is whole there (gathered if split): the result
+        follows the ids, and a whole table looked up by split ids has a
+        partial gradient.
+
+    The partial sums are summed at once (``_sum_partials``): one
+    reduce-scatter, then one all-reduce over every other such axis (the
+    reference's GSPMD reduces a lookup over the whole mesh in one).
     """
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     dm = table.device_mesh
+    rows, last = table.dim() - 2, table.dim() - 1
     ids = _as_dtensor(ids, dm)
-    t_pl, i_pl, o_pl, g_pl, final = [], [], [], [], []
-    for tp, ip in zip(table.placements, ids.placements):
-        final.append(ip if isinstance(ip, Shard) else None)
-        if isinstance(tp, Shard) and tp.dim == 0:
+    # a rank's piece of the table and of the result (at the ids' split)
+    table_piece = table._local_tensor.numel()
+    result_piece = ids._local_tensor.numel() * table.shape[-1]
+    t_pl, i_pl, o_pl, g_pl, final, dims, gathered = [], [], [], [], [], [], []
+    for i, (tp, ip) in enumerate(zip(table.placements, ids.placements)):
+        final.append(ip if isinstance(ip, Shard) else Replicate())
+        if tp == Shard(rows):
+            dims.append(i)
             t_pl.append(tp)
-            i_pl.append(Replicate())
-            o_pl.append(Partial())
-        elif isinstance(tp, Shard) and isinstance(ip, Replicate):
+            if isinstance(ip, Shard) and table_piece < result_piece:
+                gathered.append(i)
+                i_pl.append(ip)
+                o_pl.append(ip)
+            else:
+                i_pl.append(Replicate())
+                o_pl.append(Partial())
+            g_pl.append(tp)
+            continue
+        if tp == Shard(last) and isinstance(ip, Replicate):
             t_pl.append(tp)
             i_pl.append(ip)
             o_pl.append(Shard(ids.dim()))
@@ -645,17 +852,27 @@ def sharded_take(table, ids):
             t_pl.append(Replicate())
             i_pl.append(ip)
             o_pl.append(ip)
-        # a whole table looked up by split ids: each rank's gradient is its
-        # own ids' share, summed over the ranks
         g_pl.append(Partial() if isinstance(t_pl[-1], Replicate) and isinstance(ip, Shard)
                     else t_pl[-1])
     table = table.redistribute(dm, t_pl)
     ids = ids.redistribute(dm, i_pl)
-    _, offset = compute_local_shape_and_global_offset(table.shape, dm, t_pl)
-    local = _MaskedTake.apply(table.to_local(grad_placements=g_pl), ids.to_local(), offset[0])
-    out = _from_local(local, dm, o_pl, tuple(ids.shape) + (table.shape[1],))
-    back = [(f or Replicate()) if isinstance(o, Partial) else o for o, f in zip(o_pl, final)]
-    return out if back == o_pl else out.redistribute(dm, back)
+    plan = _TakePlan(dm, table.shape[rows], dims, gathered)
+    local = _RowTake.apply(table.to_local(grad_placements=g_pl), ids.to_local(), plan)
+    back = [f if isinstance(o, Partial) else o for o, f in zip(o_pl, final)]
+    return _sum_partials(local, dm, o_pl, back, tuple(ids.shape) + (table.shape[-1],))
+
+
+def stack_alike(xs):
+    """``torch.stack(xs, -1)`` of tensors laid out alike; on DTensors, their
+    local pieces stacked and laid out as they are, the new last dim whole
+    (torch releases' own strategies for the stack differ)."""
+    if not is_dtensor(xs[0]):
+        return torch.stack(xs, -1)
+    x = xs[0]
+    if any(list(t.placements) != list(x.placements) for t in xs):
+        raise ValueError(f"stack_alike of layouts {[t.placements for t in xs]}")
+    local = torch.stack([t.to_local() for t in xs], -1)
+    return _from_local(local, x.device_mesh, x.placements, tuple(x.shape) + (len(xs),))
 
 
 def sharded_segment_sum(rows, segment_ids, num_segments: int):
@@ -727,7 +944,7 @@ def _reduce_dims(x, dm, dims, op: str):
     from torch.distributed._functional_collectives import all_reduce
 
     for i in dims:
-        record("all-reduce", x.numel() * x.element_size(), dm.size(i))
+        _record_own("all-reduce", x.numel() * x.element_size(), dm.size(i))
         with _explicit():
             x = _wait(all_reduce(x.contiguous(), op, dm.get_group(i)))
     return x
@@ -882,7 +1099,7 @@ def decode_by_heads(attend, q, keys, vals, groups: int):
     for i in tdims:
         if qp[i] == Shard(1):
             g = dm.size(i)
-            record("reduce-scatter", ctx.numel() * ctx.element_size() // g, g)
+            _record_own("reduce-scatter", ctx.numel() * ctx.element_size() // g, g)
             with _explicit():
                 ctx = _reduce_scatter(ctx, dm.get_group(i), 2)
     if more:
@@ -1074,6 +1291,49 @@ def class_nll(logits, labels):
     onehot = _from_local(labels.unsqueeze(-1) == classes, dm, x.placements, x.shape)
     picked = reduced(torch.sum(torch.where(onehot, x, 0.0), -1))
     return _logsumexp(x) - picked
+
+
+def diagonal_log_softmax(score, q, items, *cols):
+    """``torch.diagonal(torch.log_softmax(score(q, items, *cols), -1))`` for
+    DTensors ``q`` [B, ...] and ``items`` [B, ...], where ``score`` gives the
+    [B, B] matrix whose entry (i, j) depends on row i of ``q`` and on row j
+    of ``items`` and of each of ``cols`` (an in-batch softmax: each row's
+    positive is the item on the diagonal).
+
+    Each rank scores its own block of the matrix, nothing gathered: rows of
+    ``q`` split as they are, columns (the items) split over every other
+    mesh dim; the softmax's max and sum are all-reduced over the columns'
+    dims, and each rank picks the diagonal entries that lie in its block, as
+    ``class_nll`` picks its own classes. The result [B] is laid out as
+    ``q``'s rows; the gradients of ``q`` and ``items`` are partial sums over
+    the dims that split the other."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    dm = q.device_mesh
+    q = reduced(q)
+    rdims = [i for i, p in enumerate(q.placements) if p == Shard(0)]
+    cdims = [i for i in range(dm.ndim) if i not in rdims]
+    qp = [Shard(0) if i in rdims else Replicate() for i in range(dm.ndim)]
+    ip = [Shard(0) if i in cdims else Replicate() for i in range(dm.ndim)]
+    q = q.redistribute(dm, qp)
+    items, cols = reduced(_as_dtensor(items, dm)).redistribute(dm, ip), [
+        reduced(_as_dtensor(c, dm)).redistribute(dm, ip) for c in cols]
+    qg = [Partial() if i in cdims else p for i, p in enumerate(qp)]
+    ig = [Partial() if i in rdims else p for i, p in enumerate(ip)]
+    block = score(q.to_local(grad_placements=qg), items.to_local(grad_placements=ig),
+                  *(c.to_local(grad_placements=ig) for c in cols))
+    (n_rows,), (row0,) = compute_local_shape_and_global_offset((q.shape[0],), dm, qp)
+    (n_cols,), (col0,) = compute_local_shape_and_global_offset((items.shape[0],), dm, ip)
+    m = _reduce_dims(torch.amax(block.detach(), -1, keepdim=True), dm, cdims, "max")
+    rows = torch.arange(row0, row0 + n_rows, device=block.device)
+    diag = rows[:, None] == torch.arange(col0, col0 + n_cols, device=block.device)
+    sums = torch.cat([torch.sum(torch.exp(block - m), -1, keepdim=True),
+                      torch.sum(torch.where(diag, block, 0.0), -1, keepdim=True)], -1)
+    if cdims:
+        sums = _SumPartials.apply(sums, dm, [], 0, cdims)
+    logp = sums[:, 1] - (torch.log(sums[:, 0]) + m[:, 0])
+    return _from_local(logp, dm, qp, (q.shape[0],))
 
 
 class _LogSumExp(torch.autograd.Function):

@@ -2,21 +2,24 @@
 ``_measure``) of a few variants, dumped to JSON by one subprocess with 512
 forced host devices (the device count locks at JAX's first use, so the
 test process stays single-device). Used by ``tests/test_torch_hillclimb*.py``,
-``tests/test_torch_moe_sharded.py`` and, through the committed file below,
-by ``chip_smoke.py``'s phase 14.
+``tests/test_torch_*_dryrun_sharded.py`` and, through the committed files
+below, by ``chip_smoke.py``'s phase 14.
 
 Each record is the reference's ``_measure`` output without ``compile_s``,
 keyed ``cell|variant|mesh``. A wanted entry is ``(cell, variant,
 multi_pod)``: a cell of the reference's ``VARIANTS`` (variant ``"*"`` for
-all of them), or an LM arch id of the registry (``configs/registry``) with
-a shape of ``configs/cells.LM_SHAPES`` for that arch's cell as the dry run
-builds it. With ``n_layers`` every LM cell is built at that depth
+all of them), or an arch id of the registry (``configs/registry``) with
+one of its shapes, for that arch's cell as the dry run builds it
+(``build_cell``). With ``n_layers`` every LM cell is built at that depth
 (``configs/cells.lm_cell`` patched), widths unchanged.
 
 Run as a script, it writes ``LM_RECORDS``: the full-depth 16x16 records of
 the LM cells (``LM_WANTED``: llama3-405b train_4k's and grok-1's prefill
 variants, llama3-405b's decode_32k and prefill_32k, and the four shapes of
-each MoE arch, ``MOE_ARCHS``), ~1.5 min on 8 cores:
+each MoE arch, ``MOE_ARCHS``), ~1.5 min on 8 cores; and ``CELL_RECORDS``:
+the 16x16 records of the 20 other dry-run cells (the recsys archs x
+``RS_SHAPES``, meshgraphnet x ``GNN_SHAPES``) and of the ``gnn_ogb``
+variants (``CELL_WANTED``), ~4 min:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_hillclimb_ref.py
 """
@@ -31,9 +34,16 @@ import textwrap
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")
 LM_RECORDS = os.path.join(HERE, "_torch_hillclimb_ref_lm.json")
+CELL_RECORDS = os.path.join(HERE, "_torch_hillclimb_ref_cells.json")
 LM_ARCH = "llama3-405b"
 MOE_ARCHS = ("llama4-scout-17b-a16e", "grok-1-314b")
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+RS_ARCHS = ("dlrm-rm2", "two-tower-retrieval", "mind", "dien")
+RS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+RS_WANTED = [[arch, shape, False] for arch in RS_ARCHS for shape in RS_SHAPES]
+GNN_WANTED = [["meshgraphnet", shape, False] for shape in GNN_SHAPES] + [["gnn_ogb", "*", False]]
+CELL_WANTED = RS_WANTED + GNN_WANTED
 # what each MoE cell's FLOPs a device must be at most, on 16x16 at any
 # depth: (a multiple of the whole step's share, the port's own whole-step
 # FLOPs over 256; a multiple of the reference's GSPMD record), None where
@@ -52,19 +62,32 @@ MOE_TARGETS = {
 }
 
 
-def hold_moe_record(arch, shape, rec, whole, ref) -> None:
-    """Assert a port record of an MoE cell (``hillclimb._measure``) against
-    ``MOE_TARGETS`` (``whole``: the step's FLOPs on one device) and the
-    reference's record ``ref``: wire at most the reference's, the peak at
-    most twice its, nothing replicated."""
-    share, at_ref = MOE_TARGETS[(arch, shape)]
+def hold_record(cell, variant, rec, ref, whole=None) -> None:
+    """Assert a port record of a dry-run cell or hillclimb variant
+    (``hillclimb._measure``) against the reference's record ``ref`` of the
+    same: nothing replicated and no strided layout redistributed (a view
+    that flattens a split dim), wire at most the reference's, the peak at
+    most twice its, and the FLOPs a device at most the reference's, or for
+    an entry of ``MOE_TARGETS`` as it says (``whole``: the step's FLOPs on
+    one device, for a bound by the share)."""
+    share, at_ref = MOE_TARGETS.get((cell, variant), (None, 1.0))
     assert rec["replicated"] == {}, rec["replicated_at"]
+    assert rec["strided"] == {}, rec["strided"]
     if share is not None:
         assert rec["flops"] <= share * whole / 256, (rec["flops"], whole / 256)
     if at_ref is not None:
         assert rec["flops"] <= at_ref * ref["flops"], (rec["flops"], ref["flops"])
     assert rec["wire_bytes"] <= ref["wire_bytes"], (rec["wire_bytes"], ref["wire_bytes"])
     assert rec["peak_gib"] <= 2 * ref["peak_gib"], (rec["peak_gib"], ref["peak_gib"])
+
+
+def ratios(rec, ref) -> str:
+    """Port / reference of a record's FLOPs, wire and peak, for a test's output."""
+    return (f"FLOPs {rec['flops']:.6e} ({rec['flops'] / ref['flops']:.4f}x the reference's), "
+            f"wire {rec['wire_bytes']:.4e} B ({rec['wire_bytes'] / ref['wire_bytes']:.4f}x), "
+            f"peak {rec['peak_gib']:.3f} GiB ({rec['peak_gib'] / ref['peak_gib']:.4f}x)")
+
+
 LM_WANTED = ([["llama405b_train", "*", False], ["grok_prefill", "*", False],
               [LM_ARCH, "decode_32k", False], [LM_ARCH, "prefill_32k", False]]
              + [[arch, shape, False] for arch in MOE_ARCHS for shape in LM_SHAPES])
@@ -72,7 +95,7 @@ LM_WANTED = ([["llama405b_train", "*", False], ["grok_prefill", "*", False],
 _SCRIPT = r"""
 import dataclasses, json, sys
 from repro.configs import cells as cells_mod
-from repro.configs.registry import get_arch
+from repro.configs.registry import build_cell, get_arch
 from repro.launch import hillclimb as hc
 from repro.launch.mesh import make_production_mesh
 
@@ -86,8 +109,10 @@ for cell, variant, multi_pod in wanted:
     mesh = make_production_mesh(multi_pod=multi_pod)
     names = sorted(hc.VARIANTS[cell]) if variant == "*" else [variant]
     for name in names:
-        if cell not in hc.VARIANTS:  # an LM arch id and one of its shapes
-            spec = cells_mod.lm_cell(get_arch(cell).config, name, mesh)
+        if cell not in hc.VARIANTS:  # a registry arch id and one of its shapes
+            entry = get_arch(cell)
+            spec = (cells_mod.lm_cell(entry.config, name, mesh) if entry.family == "lm"
+                    else build_cell(cell, name, mesh))
             fn, shardings, abstract = spec.fn, spec.in_shardings, spec.abstract_args
         else:
             fn, shardings, abstract = hc.VARIANTS[cell][name](mesh)
@@ -114,19 +139,26 @@ def run_reference(tmp_path, wanted, n_layers: int = 0) -> dict:
         return json.load(f)
 
 
-def lm_records(tmp_path) -> dict:
-    """``LM_WANTED``'s full-depth records as ``LM_RECORDS`` holds them: the
-    per-device counts (FLOPs, bytes, wire by kind, peak), without the
-    reference's milliseconds (priced with its own accelerator's constants)."""
-    recs = run_reference(tmp_path, LM_WANTED)
+def records(tmp_path, wanted) -> dict:
+    """The full-depth records of ``wanted`` as ``LM_RECORDS`` and
+    ``CELL_RECORDS`` hold them: the per-device counts (FLOPs, bytes, wire by
+    kind, peak), without the reference's milliseconds (priced with its own
+    accelerator's constants)."""
+    recs = run_reference(tmp_path, wanted)
     recs.pop("variants")
     return {k: {f: v for f, v in r.items() if not f.endswith("_ms")} for k, r in recs.items()}
 
 
+def lm_records(tmp_path) -> dict:
+    """``LM_WANTED``'s records, as ``LM_RECORDS`` holds them."""
+    return records(tmp_path, LM_WANTED)
+
+
 if __name__ == "__main__":
-    with tempfile.TemporaryDirectory() as tmp:
-        records = lm_records(tmp)
-    with open(LM_RECORDS, "w") as f:
-        json.dump(records, f, indent=1, sort_keys=True)
-        f.write("\n")
-    print(f"{len(records)} records -> {LM_RECORDS}")
+    for path, wanted in ((LM_RECORDS, LM_WANTED), (CELL_RECORDS, CELL_WANTED)):
+        with tempfile.TemporaryDirectory() as tmp:
+            recs = records(tmp, wanted)
+        with open(path, "w") as f:
+            json.dump(recs, f, indent=1, sort_keys=True)
+            f.write("\n")
+        print(f"{len(recs)} records -> {path}")

@@ -13,18 +13,15 @@ variants (the paper's cell; 18,064,384 for ``bebr_sdc`` and
 ``bebr_sdc_merge`` at 16x16) and of ``gnn_ogb``'s baseline, and
 ``bebr_sdc_merge``'s all-gather wire (12,000 B at 16x16, 24,800 B at
 2x16x16, where its FLOPs are 10,064,384), the all-gather wire of the
-other BEBR variants (the gathered scores) and of the baseline. The other
-figures are the port's own, each asserted here and listed with its cause
-in PERF.md:
-
-  * the two-tower lookups' all-reduce: the port reduces a row-sharded
-    lookup's partial sums one mesh axis at a time (two all-reduces of 16
-    ranks where GSPMD runs one of 256), on the [1, 256] bag (16x16: 122,880
-    B against 65,280);
-  * ``gnn_ogb`` partitioned: ``torch.utils.checkpoint`` runs each layer's
-    forward again in the backward pass, its all-gather of the node states
-    included, where XLA keeps the gathered array (the all-gather's wire and
-    the edge MLP's products twice).
+other BEBR variants (the gathered scores) and of the baseline (its
+gathered scores; where GSPMD gathers the million candidate ids, the port
+gathers the item table's rows over the data axis, ``spmd.sharded_take``),
+the two-tower lookups' all-reduce (the query bag's partial sums reduced
+over the whole mesh in one collective: 65,280 B at 16x16) and
+``gnn_ogb`` partitioned's all-gather and reduce-scatter (each layer's
+checkpoint keeps its all-gather, ``spmd.checkpoint``). ``gnn_ogb``
+partitioned's FLOPs a device are at most the reference's: the checkpoint
+keeps the layer's products too, as the reference's compiled step does.
 
 ``bebr_sdc_merge`` also runs with values over an 8-process gloo group
 (``LeafMesh((4, 2), ["cpu"] * 8)``) on the SMOKE two-tower with 0 and
@@ -97,23 +94,32 @@ def test_gathered_scores_equal_the_reference(ref, port, variant):
     """GSPMD and DTensor both gather the scores for the top k (3.75 MB of
     f32 a device for 1e6 candidates; the baseline gathers them twice, the
     candidate ids too): ``sdc_topk`` on DTensors scores the rows where they
-    lie and gathers the scores, not the 64 MB of codes."""
+    lie and gathers the scores, not the 64 MB of codes. The baseline's
+    lookup of the million candidates: GSPMD gathers the ids whole (3.75 MB)
+    and all-reduces the looked-up rows (2.04e9 B); the port gathers the
+    item table's rows over the data axis (16 pieces of 8,192 rows of 256
+    floats) and reduces the rank's own candidates' rows only."""
     key = _key("tt_retrieval", variant, False)
-    assert port[key]["collectives"]["all-gather"] == ref[key]["collectives"]["all-gather"]
+    got, want = port[key]["collectives"]["all-gather"], ref[key]["collectives"]["all-gather"]
+    if variant == "baseline":
+        got -= 8192 * 256 * 4 * 15  # the table's rows, gathered over 16 ranks
+        want -= 1_000_000 * 4 * 15 / 16  # the candidate ids, gathered over 16 ranks
+        assert port[key]["wire_bytes"] <= ref[key]["wire_bytes"]
+    assert got == want
 
 
 def test_port_own_figures(ref, port):
     tt = port[_key("tt_retrieval", "bebr_sdc", False)]
-    assert tt["collectives"]["all-reduce"] == 122_880 != \
+    assert tt["collectives"]["all-reduce"] == 65_280 == \
         ref[_key("tt_retrieval", "bebr_sdc", False)]["collectives"]["all-reduce"]
     assert tt["replicated"] == {}
     base = port[_key("gnn_ogb", "baseline", False)]
     assert base["flops"] == ref[_key("gnn_ogb", "baseline", False)]["flops"]
     part, rpart = port[_key("gnn_ogb", "partitioned", False)], \
         ref[_key("gnn_ogb", "partitioned", False)]
-    assert part["collectives"]["all-gather"] == 2 * rpart["collectives"]["all-gather"]
+    assert part["collectives"]["all-gather"] == rpart["collectives"]["all-gather"]
     assert part["collectives"]["reduce-scatter"] == rpart["collectives"]["reduce-scatter"]
-    assert part["flops"] == 2_498_705_256_192 and rpart["flops"] == 1_904_855_707_392
+    assert part["flops"] == 1_890_748_591_872 <= rpart["flops"] == 1_904_855_707_392
 
 
 def test_records_are_priced_with_the_h100_constants(port):

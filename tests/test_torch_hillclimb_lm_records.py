@@ -15,7 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_hillclimb_ref import (LM_ARCH, LM_RECORDS, MOE_TARGETS, hold_moe_record,  # noqa: E402
+from _torch_hillclimb_ref import (LM_ARCH, LM_RECORDS, MOE_TARGETS, hold_record,  # noqa: E402
                                   lm_records)
 
 with open(LM_RECORDS) as _f:
@@ -63,7 +63,7 @@ def test_port_at_full_depth(cell, variant, exact):
     if exact is None:  # an MoE cell
         needs_share = MOE_TARGETS[(cell, variant)][0] is not None
         whole = hlo_cost.step_costs(args[0], *args[2])["flops"] if needs_share else None
-        hold_moe_record(cell, variant, rec, whole, ref)
+        hold_record(cell, variant, rec, ref, whole)
         return
     assert rec["replicated"] == {}, rec["replicated_at"]
     assert rec["flops"] == ref["flops"] if exact else rec["flops"] <= ref["flops"]

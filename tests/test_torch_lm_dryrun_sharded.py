@@ -21,7 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_hillclimb_ref import MOE_ARCHS, MOE_TARGETS, hold_moe_record, run_reference  # noqa: E402
+from _torch_hillclimb_ref import MOE_ARCHS, MOE_TARGETS, hold_record, run_reference  # noqa: E402
 from repro_torch.configs import cells as cells_mod  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.launch import hillclimb as hc  # noqa: E402
@@ -67,4 +67,4 @@ def test_moe_cell_against_the_reference(ref, arch, shape):
     print(f"{arch} {shape}: FLOPs {rec['flops']:.6e} ({rec['flops'] * 256 / whole:.4f}x the "
           f"share, {rec['flops'] / r['flops']:.4f}x the reference's), wire "
           f"{rec['wire_bytes'] / r['wire_bytes']:.3f}x, peak {rec['peak_gib'] / r['peak_gib']:.3f}x")
-    hold_moe_record(arch, shape, rec, whole, r)
+    hold_record(arch, shape, rec, r, whole)

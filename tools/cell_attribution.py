@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
-"""Where a dry-run LM cell's per-device FLOPs, wire and peak come from.
+"""Where a dry-run cell's per-device FLOPs, wire and peak come from.
 
     PYTHONPATH=src python tools/cell_attribution.py ARCH SHAPE [--layers 2] [--top 20]
 
-Builds ``configs/cells.lm_cell`` for a registry arch id and a shape of
-``LM_SHAPES`` (at ``--layers`` layers, widths unchanged; 0 keeps the
-config's depth) on 16x16 and counts its sharded step as
+Builds the cell of a registry arch id and one of its shapes
+(``configs/registry.build_cell``; an LM cell at ``--layers`` layers,
+widths unchanged, 0 keeping the config's depth), or a variant of
+``launch/hillclimb.VARIANTS`` (ARCH a hillclimb cell such as ``gnn_ogb``,
+SHAPE its variant), on 16x16 and counts its sharded step as
 ``launch/hillclimb._measure`` does, on the meta device over a fake
 process group (no card), with three tallies added:
 
-  * FLOPs by the model's line that ran them (the innermost frame of
-    ``models/transformer.py`` or ``train/steps.py``, with the
-    ``parallel/spmd.py`` line under it; a backward operator counts under
-    ``steps.py``'s call of the backward);
+  * FLOPs by the model's line that ran them (the innermost frame of a
+    model file: ``models/transformer.py``, ``models/gnn.py``,
+    ``models/recsys/*.py``, ``train/steps.py`` or ``launch/hillclimb.py``,
+    with the ``parallel/spmd.py`` line under it; a backward operator
+    counts under ``steps.py``'s call of the backward);
   * wire bytes by that line and the collective's kind;
   * at the peak, the live bytes by the line that allocated them.
 
 Each figure is rank 0's, beside the whole step's FLOPs over 256 (the
-share). The signature memo of ``launch/hlo_cost`` is off while it runs,
+share; not computed for a hillclimb variant written under ``shard_map``). The signature memo of ``launch/hlo_cost`` is off while it runs,
 so every operator is seen; the totals equal the record's.
 """
 
@@ -36,19 +39,26 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
                                 "src"))
 
 from repro_torch.configs import cells as cells_mod  # noqa: E402
-from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.configs.registry import build_cell, get_arch  # noqa: E402
 from repro_torch.launch import hillclimb as hc  # noqa: E402
 from repro_torch.launch import hlo_cost  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.parallel import spmd  # noqa: E402
 
-MODEL_FILES = ("transformer.py", "steps.py")
+MODEL_FILES = ("models/transformer.py", "models/gnn.py", "train/steps.py",
+               "launch/hillclimb.py")
+
+
+def _is_model_file(path: str) -> bool:
+    path = path.replace(os.sep, "/")
+    return "repro_torch/" in path and (path.endswith(MODEL_FILES)
+                                       or "/models/recsys/" in path)
 
 
 def _site() -> str:
     """The innermost model line on the stack, and the spmd line under it."""
     stack = traceback.extract_stack()
-    model = [f for f in stack if os.path.basename(f.filename) in MODEL_FILES]
+    model = [f for f in stack if _is_model_file(f.filename)]
     inner = [f for f in stack if os.path.basename(f.filename) == "spmd.py"]
     where = f"{os.path.basename(model[-1].filename)}:{model[-1].lineno}" if model else "?"
     return where + (f" (spmd.py:{inner[-1].lineno})" if inner else "")
@@ -98,34 +108,56 @@ def _patched(tally: _Tally):
                 lambda self, func, args, kwargs: self._dtensor_run(func, args, kwargs)}
 
 
+def _nonzero(collectives: dict) -> dict:
+    return {k: f"{v:.4e}" for k, v in collectives.items() if v}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("arch")
-    ap.add_argument("shape", choices=sorted(cells_mod.LM_SHAPES))
-    ap.add_argument("--layers", type=int, default=2, help="0 keeps the config's depth")
+    ap.add_argument("arch", help="a registry arch id, or a hillclimb cell (gnn_ogb, ...)")
+    ap.add_argument("shape", help="one of the arch's shapes, or the hillclimb cell's variant")
+    ap.add_argument("--layers", type=int, default=2,
+                    help="an LM cell's depth; 0 keeps the config's")
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args(argv)
 
     torch.set_num_threads(1)
-    cfg = get_arch(args.arch).config
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     mesh = make_production_mesh(multi_pod=False, devices=["meta"] * 256)
-    cell = cells_mod.lm_cell(cfg, args.shape, mesh)
+    depth = ""
+    if args.arch in hc.VARIANTS:
+        if args.shape not in hc.VARIANTS[args.arch]:
+            ap.error(f"{args.arch}'s variants are {sorted(hc.VARIANTS[args.arch])}")
+        fn, shardings, abstract = hc.VARIANTS[args.arch][args.shape](mesh)
+    else:
+        entry = get_arch(args.arch)
+        if args.shape not in entry.shapes:
+            ap.error(f"{args.arch}'s shapes are {list(entry.shapes)}")
+        if entry.family == "lm":
+            cfg = entry.config
+            if args.layers:
+                cfg = dataclasses.replace(cfg, n_layers=args.layers)
+            cell = cells_mod.lm_cell(cfg, args.shape, mesh)
+            depth = f" at {cfg.n_layers} layers"
+        else:
+            cell = build_cell(args.arch, args.shape, mesh)
+        fn, shardings, abstract = cell.fn, cell.in_shardings, cell.abstract_args
     tally = _Tally()
     saved = {k: getattr(*k) for k in _patched(tally)}
-    for (owner, name), fn in _patched(tally).items():
-        setattr(owner, name, fn)
+    for (owner, name), patch in _patched(tally).items():
+        setattr(owner, name, patch)
     try:
-        rec = hc._measure(cell.fn, cell.in_shardings, cell.abstract_args, mesh)
+        rec = hc._measure(fn, shardings, abstract, mesh)
     finally:
-        for (owner, name), fn in saved.items():
-            setattr(owner, name, fn)
-    share = hlo_cost.step_costs(cell.fn, *cell.abstract_args)["flops"] / 256
-    print(f"{args.arch} {args.shape} at {cfg.n_layers} layers on 16x16: FLOPs a device "
-          f"{rec['flops']:.6e} ({rec['flops'] / share:.4f}x the share {share:.6e}), wire "
-          f"{rec['wire_bytes']:.4e} B, peak {rec['peak_gib']:.3f} GiB, replicated "
-          f"{rec['replicated'] or 'none'}")
+        for (owner, name), orig in saved.items():
+            setattr(owner, name, orig)
+    if args.arch in hc.VARIANTS:
+        share = ""
+    else:
+        whole = hlo_cost.step_costs(fn, *abstract)["flops"] / 256
+        share = f" ({rec['flops'] / whole:.4f}x the share {whole:.6e})"
+    print(f"{args.arch} {args.shape}{depth} on 16x16: FLOPs a device {rec['flops']:.6e}"
+          f"{share}, wire {rec['wire_bytes']:.4e} B {_nonzero(rec['collectives'])}, peak "
+          f"{rec['peak_gib']:.3f} GiB, replicated {rec['replicated'] or 'none'}")
     total = sum(tally.flops.values()) or 1
     print("FLOPs by line:")
     for k, v in tally.flops.most_common(args.top):
