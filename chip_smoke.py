@@ -254,22 +254,20 @@ that fails:
      identical scores and ids with inverse norms of 0 and below planted,
      and every sdc_topk call is held exactly against its plain version;
      (c) meanwhile, in worker processes, hillclimb's 26 variants dry on
-     16x16 (the meta device, a fake process group), every record ok; each
-     LM record, with phase 13's llama3-405b decode_32k and prefill_32k
-     records and its eight llama4-scout and grok-1 records on 16x16, 24 in
-     all, held against the JAX reference's GSPMD record committed in
-     tests/_torch_hillclimb_ref_lm.json (no JAX here): FLOPs a device equal
-     for the 12 llama3-405b train variants and decode, at most the
-     reference's for the three prefill records, and for the MoE cells at
-     most HC_MOE_TARGETS (the whole step's share, 1.2x it where
+     16x16 and on 2x16x16 (the meta device, a fake process group), every
+     record ok; these 52 and phase 13's 80 dry-run records, 132 in all,
+     each held against the JAX reference's full-depth GSPMD record of the
+     same cell on the same mesh, committed in HC_RECORDS (no JAX here):
+     nothing replicated, no strided layout redistributed, wire at most the
+     reference's, the peak at most twice its, FLOPs a device equal for the
+     12 llama3-405b train variants and decode on 16x16 and at most the
+     reference's for every other record, or for the MoE cells at most
+     HC_MOE_TARGETS (the whole step's share over 256 or 512, 1.2x it where
      llama4-scout's 40 query heads split 3 or 2 a model shard, or the
-     reference's), each printed beside the share and the reference; wire
-     at most the reference's, nothing replicated, the peak at most twice
-     the reference's; and by the same rules (FLOPs a device at most the
-     reference's, no strided layout redistributed) phase 13's 20 other
-     records on 16x16 (the recsys archs x RS_SHAPES, meshgraphnet x
-     GNN_SHAPES) and the 7 gnn_ogb variants, against
-     tests/_torch_hillclimb_ref_cells.json: 51 records held;
+     reference's), each printed beside the reference (and the share);
+     then faults A-D's figures (HC_FAULTS: the LM loss's gathered classes,
+     microbatch16 replicated on 2x16x16, two tt_retrieval peaks) beside
+     theirs before the repair;
      (d) the BEBR scan's library yardstick,
      torch._int_mm + the epilogue + torch.topk, with the query padded to
      17 rows.
@@ -421,7 +419,9 @@ TUNE_RERANK_KC, TUNE_REPS = 160, 5
 # at LM_ARCH's full size, the host check of every leaf while its first round
 # stays under COMP_HOST_S_A_ROUND (else the embedding and the stacked leaves
 # under COMP_SMALL elements); the dry run of all 40 cells on both production
-# meshes over DRYRUN_WORKERS processes; CARD_CELLS at their production shapes
+# meshes and, queued behind it, hillclimb's 26 variants on both (phase 14's),
+# on one pool of DRYRUN_WORKERS processes started with phase 13, so the
+# variants run while the card works through phases 13 and 14; CARD_CELLS at their production shapes
 # on one leaf of the card, CELL_TIME_STEPS timed steps each; the sharded
 # state's mesh
 COMP_ROUNDS, COMP_HOST_S_A_ROUND, COMP_SMALL = 3, 10.0, 1 << 26
@@ -430,23 +430,25 @@ CARD_CELLS = (("two-tower-retrieval", "retrieval_cand"), ("mind", "serve_p99"),
               ("dien", "serve_p99"), ("dlrm-rm2", "serve_bulk"), ("meshgraphnet", "minibatch_lg"))
 CELL_TIME_STEPS = 5
 SHARD_MESH = ((4, 2), ("data", "model"))
-# the hillclimb (phase 14): its variants dry over HILLCLIMB_WORKERS processes;
-# the card's rates from a RATE_COPY_BYTES copy and RATE_MM_N^3 products;
+# the hillclimb (phase 14): the card's rates from a RATE_COPY_BYTES copy and
+# RATE_MM_N^3 products;
 # tt_retrieval's variants at HC_CANDIDATES candidates, HC_TIME_REPS timed
 # calls each, the inverse norms of HC_PLANTED set to 0 and below (-50 flips a
 # negative affine score far above the rest, so planted rows reach the top k)
-HILLCLIMB_WORKERS = 8
 RATE_COPY_BYTES, RATE_MM_N, RATE_REPS = 4 << 30, 8192, 10
 HC_CANDIDATES, HC_CODE_DIM, HC_LEVELS, HC_K = 1_000_000, 64, 4, 100
 HC_TIME_REPS = 5
-# the reference's records phase 14 holds every LM record to, and those of the
-# 20 other dry-run cells and the gnn_ogb variants
-HC_LM_RECORDS = "tests/_torch_hillclimb_ref_lm.json"
-HC_CELL_RECORDS = "tests/_torch_hillclimb_ref_cells.json"
-# the MoE dry-run cells' FLOPs a device at most (a multiple of the whole
-# step's share, flops_per_step / 256; a multiple of the reference's), None
-# where not bounded; llama4-scout's 1.2 is 40 query heads over 16 model
-# shards, 3 a shard at most against a share of 2.5 (tests/_torch_hillclimb_ref.py)
+# the reference's full-depth records phase 14 holds every record to: on 16x16
+# the 20 LM cells and the LM variants (34), the 20 other dry-run cells and
+# the gnn_ogb and tt_retrieval variants (32); on 2x16x16 all 66
+HC_RECORDS = {"tests/_torch_hillclimb_ref_lm.json": 34,
+              "tests/_torch_hillclimb_ref_cells.json": 32,
+              "tests/_torch_hillclimb_ref_2x16x16.json": 66}
+# the MoE dry-run cells' FLOPs a device at most, on either mesh (a multiple
+# of the whole step's share, flops_per_step / 256 or 512; a multiple of the
+# reference's), None where not bounded; llama4-scout's 1.2 is 40 query heads
+# over 16 model shards, 3 a shard at most against a share of 2.5
+# (tests/_torch_hillclimb_ref.py)
 HC_MOE_TARGETS = {
     ("llama4-scout-17b-a16e", "train_4k"): (1.2, None),
     ("llama4-scout-17b-a16e", "prefill_32k"): (1.2, None),
@@ -458,6 +460,18 @@ HC_MOE_TARGETS = {
     ("grok-1-314b", "long_500k"): (1.001, None),
 }
 INT_MM_MIN_ROWS = 17  # torch._int_mm on the card takes more than 16 rows
+# the four faults this tree repairs, each record's figure against the
+# reference's before the repair (the parent tree's count on the CPU, torch
+# 2.13, full depth), printed beside this run's: (record, metric, before)
+HC_FAULTS = (("A", "llama3.2-1b|train_4k|16x16", "wire", 2.20),
+             ("A", "llama3.2-1b|train_4k|16x16", "peak", 6.54),
+             ("A", "llama3.2-1b|train_4k|2x16x16", "wire", 1.48),
+             ("A", "llama3.2-1b|train_4k|2x16x16", "peak", 6.38),
+             ("B", "llama405b_train|microbatch16|2x16x16", "flops", 11.41),
+             ("C", "tt_retrieval|float_index|16x16", "peak", 26.6),
+             ("C", "tt_retrieval|float_index|2x16x16", "peak", 47.7),
+             ("D", "tt_retrieval|bebr_sdc_fullmesh|16x16", "peak", 2.43),
+             ("D", "tt_retrieval|bebr_sdc_fullmesh|2x16x16", "peak", 2.59))
 HC_PLANTED = {5: 0.0, 250_001: -0.0, 500_002: -0.5, 999_999: 0.0,
               **{i: -50.0 for i in range(17, 1_000_000, 41_667)}}
 
@@ -3866,14 +3880,13 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def tooling_phase(seed, device, name, smi):
+def tooling_phase(seed, device, name, smi, dry, t_dry):
     """Phase 13: gradient compression at llama3.2-1b's full size, the dry run
-    of every cell on both production meshes (worker processes, while the
-    card works), five cells at their production shapes on the card, and
-    llama3.2-1b's parameters laid out over a (4, 2) mesh and gathered back.
-    Adds no kernel. Returns the dry run's records."""
-    import multiprocessing
-
+    of every cell on both production meshes (``dry``: its records to come
+    from the worker processes, started at ``t_dry``, while the card works),
+    five cells at their production shapes on the card, and llama3.2-1b's
+    parameters laid out over a (4, 2) mesh and gathered back. Adds no
+    kernel. Returns the dry run's records."""
     import torch
     import torch.distributed as dist
 
@@ -3887,155 +3900,147 @@ def tooling_phase(seed, device, name, smi):
     from repro_torch.train.checkpoint import flatten_tree
 
     t_phase = time.perf_counter()
-    pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
+    # (b), the dry run of all 40 cells on both meshes, runs in the workers meanwhile
+    # -- (a) gradient compression at llama3.2-1b's full size --------------------
+    cfg = registry.get_arch(LM_ARCH).config
+    shapes = {k: tuple(t.shape) for k, t in
+              flatten_tree(tf.init_params(cfg, device="meta")).items()}
+    n_elems = sum(math.prod(v) for v in shapes.values())
+    check(n_elems == cfg.param_count(), f"{LM_ARCH}: {n_elems} gradient elements")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    grads = {k: torch.empty(v, dtype=torch.float32, device=device) for k, v in shapes.items()}
+    err = comp.init_error_feedback(grads)
+    round_ms, host_s, checked = [], [], list(shapes)
+    for r in range(COMP_ROUNDS):
+        for g in grads.values():
+            g.normal_(generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, scales, new_err = comp.compress_with_feedback(grads, err)
+        torch.cuda.synchronize()
+        round_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        for k in checked:
+            hq, hs, he = comp.compress_with_feedback({"x": grads[k].cpu()}, {"x": err[k].cpu()})
+            check(_bits_equal(q[k].cpu(), hq["x"]) and _bits_equal(scales[k].cpu(), hs["x"])
+                  and _bits_equal(new_err[k].cpu(), he["x"]),
+                  f"compression round {r}, {k}: the card's payload, scale or error differs "
+                  f"from the CPU's")
+        host_s.append(time.perf_counter() - t0)
+        if r == 0 and host_s[0] > COMP_HOST_S_A_ROUND:
+            checked = [k for k in shapes if k == "['embed']"
+                       or math.prod(shapes[k]) < COMP_SMALL]
+        err = new_err
+        del q, scales, new_err
+    which = ("every leaf" if len(checked) == len(shapes) else
+             f"every leaf in round 0, then {', '.join(checked)} "
+             f"({sum(math.prod(shapes[k]) for k in checked)} elements)")
+    one_pass, two_pass = 13 * n_elems, 21 * n_elems
+    log(f"[tools] compress_with_feedback over {LM_ARCH}'s {len(shapes)} gradient leaves "
+        f"({n_elems} f32 elements) on {name} ({smi}): rounds "
+        f"{', '.join(f'{ms:.2f}' for ms in round_ms)} ms; HBM bound "
+        f"{1e3 * two_pass / HBM_BYTES_PER_S:.2f} ms ({two_pass / 1e9:.1f} GB: g and e read "
+        f"twice, once for the max, q and e written; one pass would be "
+        f"{1e3 * one_pass / HBM_BYTES_PER_S:.2f} ms, {one_pass / 1e9:.1f} GB); q, scale and "
+        f"the new error bit-identical to the CPU's ({which}; host side "
+        f"{', '.join(f'{t:.1f}' for t in host_s)} s a round)")
+    addr = f"tcp://127.0.0.1:{_free_port()}"
+    dist.init_process_group("nccl", init_method=addr, world_size=1, rank=0,
+                            device_id=torch.device(device))
     try:
-        # -- (b) the dry run starts: all 40 cells, both meshes, on the meta device --
-        t_dry = time.perf_counter()
-        dry = pool.map_async(_dryrun_cell, _dryrun_order(registry.all_cells()), chunksize=1)
-
-        # -- (a) gradient compression at llama3.2-1b's full size --------------------
-        cfg = registry.get_arch(LM_ARCH).config
-        shapes = {k: tuple(t.shape) for k, t in
-                  flatten_tree(tf.init_params(cfg, device="meta")).items()}
-        n_elems = sum(math.prod(v) for v in shapes.values())
-        check(n_elems == cfg.param_count(), f"{LM_ARCH}: {n_elems} gradient elements")
-        gen = torch.Generator(device=device).manual_seed(seed)
-        grads = {k: torch.empty(v, dtype=torch.float32, device=device) for k, v in shapes.items()}
-        err = comp.init_error_feedback(grads)
-        round_ms, host_s, checked = [], [], list(shapes)
-        for r in range(COMP_ROUNDS):
-            for g in grads.values():
-                g.normal_(generator=gen)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            q, scales, new_err = comp.compress_with_feedback(grads, err)
-            torch.cuda.synchronize()
-            round_ms.append(1e3 * (time.perf_counter() - t0))
-            t0 = time.perf_counter()
-            for k in checked:
-                hq, hs, he = comp.compress_with_feedback({"x": grads[k].cpu()}, {"x": err[k].cpu()})
-                check(_bits_equal(q[k].cpu(), hq["x"]) and _bits_equal(scales[k].cpu(), hs["x"])
-                      and _bits_equal(new_err[k].cpu(), he["x"]),
-                      f"compression round {r}, {k}: the card's payload, scale or error differs "
-                      f"from the CPU's")
-            host_s.append(time.perf_counter() - t0)
-            if r == 0 and host_s[0] > COMP_HOST_S_A_ROUND:
-                checked = [k for k in shapes if k == "['embed']"
-                           or math.prod(shapes[k]) < COMP_SMALL]
-            err = new_err
-            del q, scales, new_err
-        which = ("every leaf" if len(checked) == len(shapes) else
-                 f"every leaf in round 0, then {', '.join(checked)} "
-                 f"({sum(math.prod(shapes[k]) for k in checked)} elements)")
-        one_pass, two_pass = 13 * n_elems, 21 * n_elems
-        log(f"[tools] compress_with_feedback over {LM_ARCH}'s {len(shapes)} gradient leaves "
-            f"({n_elems} f32 elements) on {name} ({smi}): rounds "
-            f"{', '.join(f'{ms:.2f}' for ms in round_ms)} ms; HBM bound "
-            f"{1e3 * two_pass / HBM_BYTES_PER_S:.2f} ms ({two_pass / 1e9:.1f} GB: g and e read "
-            f"twice, once for the max, q and e written; one pass would be "
-            f"{1e3 * one_pass / HBM_BYTES_PER_S:.2f} ms, {one_pass / 1e9:.1f} GB); q, scale and "
-            f"the new error bit-identical to the CPU's ({which}; host side "
-            f"{', '.join(f'{t:.1f}' for t in host_s)} s a round)")
-        addr = f"tcp://127.0.0.1:{_free_port()}"
-        dist.init_process_group("nccl", init_method=addr, world_size=1, rank=0,
-                                device_id=torch.device(device))
-        try:
-            q, scales, want_err = comp.compress_with_feedback(grads, err)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mean, got_err = comp.compressed_psum(grads, err)
-            torch.cuda.synchronize()
-            psum_ms = 1e3 * (time.perf_counter() - t0)
-            for k in shapes:
-                check(_bits_equal(mean[k], comp.dequantize_int8(q[k], scales[k]))
-                      and _bits_equal(got_err[k], want_err[k]),
-                      f"compressed_psum over one NCCL rank: {k} differs from the dequantized tree")
-        finally:
-            dist.destroy_process_group()
-        del grads, err, q, scales, want_err, mean, got_err
-        torch.cuda.empty_cache()
-        log(f"[tools] compressed_psum over a one-rank NCCL group ({addr}): the mean equals the "
-            f"dequantized tree and the new error the compression's, every leaf, bit for bit "
-            f"({psum_ms:.1f} ms); group destroyed")
-
-        # -- (c) five cells at their production shapes on one leaf of the card --------
-        card = LeafMesh((1, 1), ("data", "model"), [device])
-        gen = torch.Generator(device=device).manual_seed(seed)
-        for arch, shape in CARD_CELLS:
-            cell = registry.build_cell(arch, shape, card)
-            meta = step_costs(cell.fn, *cell.abstract_args)
-            want_bytes = dryrun.argument_bytes(cell)
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            args = _cell_args(cell, device, gen)
-            leaves = [t for t in flatten_tree(args).values() if isinstance(t, torch.Tensor)]
-            got_bytes = sum(t.untyped_storage().nbytes() for t in leaves)
-            check(all(t.device == torch.device(device) for t in leaves) and got_bytes == want_bytes,
-                  f"{arch}/{shape}: its arguments take {got_bytes} bytes on the card, the dry "
-                  f"run says {want_bytes}")
-            torch.cuda.reset_peak_memory_stats()
-            costs = step_costs(cell.fn, *args)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated() - base
-            check(costs["flops"] == meta["flops"],
-                  f"{arch}/{shape}: {costs['flops']} FLOPs on the card, {meta['flops']} on meta")
-            out = cell.fn(*args)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(CELL_TIME_STEPS):
-                out = cell.fn(*args)
-            torch.cuda.synchronize()
-            ms = 1e3 * (time.perf_counter() - t0) / CELL_TIME_STEPS
-            floats = [t for t in flatten_tree(out).values()
-                      if isinstance(t, torch.Tensor) and t.dtype.is_floating_point]
-            check(floats and all(bool(torch.isfinite(t).all()) for t in floats),
-                  f"{arch}/{shape}: the step's outputs are not finite")
-            log(f"[tools] {arch}/{shape} ({cell.kind}) on one leaf of {name} ({smi}): arguments "
-                f"{got_bytes / 1e9:.3f} GB == the dry run's; {costs['flops']:.4e} FLOPs a step on "
-                f"the card == meta; {ms:.3f} ms a step ({costs['flops'] / ms / 1e9:.2f} TFLOP/s); "
-                f"peak {peak / 1e9:.3f} GB on the card beside "
-                f"{meta['unsharded_peak_bytes'] / 1e9:.3f} GB on meta (not gated)")
-            del args, leaves, out, floats
-            torch.cuda.empty_cache()
-
-        # -- (d) llama3.2-1b's parameters over a (4, 2) mesh of the card ---------------
-        params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
-                                device=device)
-        mesh = LeafMesh(*SHARD_MESH, [device] * math.prod(SHARD_MESH[0]))
-        meta_mesh = LeafMesh(*SHARD_MESH, ["meta"] * math.prod(SHARD_MESH[0]))
-        want_leaf = shd.tree_leaf_bytes(tf.init_params(cfg, device="meta"),
-                                        shd.lm_param_sharding(meta_mesh, cfg))
+        q, scales, want_err = comp.compress_with_feedback(grads, err)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sharded = shd.shard_tree(params, shd.lm_param_sharding(mesh, cfg))
+        mean, got_err = comp.compressed_psum(grads, err)
         torch.cuda.synchronize()
-        shard_s = time.perf_counter() - t0
-        pieces = list(flatten_tree(sharded).values())
-        per_leaf = [sum(v.leaf_bytes()[i] for v in pieces) for i in range(mesh.n_leaves)]
-        check(set(per_leaf) == {want_leaf},
-              f"sharded {LM_ARCH}: leaves hold {per_leaf} bytes, the dry run says {want_leaf}")
-        t0 = time.perf_counter()
-        back = shd.gather_tree(sharded, device)
-        torch.cuda.synchronize()
-        gather_s = time.perf_counter() - t0
-        check(all(_bits_equal(a, b) for a, b in zip(flatten_tree(back).values(),
-                                                    flatten_tree(params).values())),
-              f"sharded {LM_ARCH}: gather_tree did not give the parameters back bit for bit")
-        log(f"[tools] {LM_ARCH}'s parameters ({cfg.param_count()} bf16) over LeafMesh"
-            f"{SHARD_MESH[0]} on {name}: {want_leaf / 1e9:.4f} GB on each of the "
-            f"{mesh.n_leaves} leaves == the dry run's per-leaf figure; laid out in "
-            f"{shard_s:.2f} s, gathered back bit-identical in {gather_s:.2f} s")
-        del params, sharded, pieces, back
-        torch.cuda.empty_cache()
-
-        # -- (b) the dry run's records ----------------------------------------------------
-        t0 = time.perf_counter()
-        records = [r for pair in dry.get(timeout=1200) for r in pair]
-        dry_s = time.perf_counter() - t_dry
-        waited = time.perf_counter() - t0
+        psum_ms = 1e3 * (time.perf_counter() - t0)
+        for k in shapes:
+            check(_bits_equal(mean[k], comp.dequantize_int8(q[k], scales[k]))
+                  and _bits_equal(got_err[k], want_err[k]),
+                  f"compressed_psum over one NCCL rank: {k} differs from the dequantized tree")
     finally:
-        pool.terminate()
-        pool.join()
+        dist.destroy_process_group()
+    del grads, err, q, scales, want_err, mean, got_err
+    torch.cuda.empty_cache()
+    log(f"[tools] compressed_psum over a one-rank NCCL group ({addr}): the mean equals the "
+        f"dequantized tree and the new error the compression's, every leaf, bit for bit "
+        f"({psum_ms:.1f} ms); group destroyed")
+
+    # -- (c) five cells at their production shapes on one leaf of the card --------
+    card = LeafMesh((1, 1), ("data", "model"), [device])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for arch, shape in CARD_CELLS:
+        cell = registry.build_cell(arch, shape, card)
+        meta = step_costs(cell.fn, *cell.abstract_args)
+        want_bytes = dryrun.argument_bytes(cell)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        args = _cell_args(cell, device, gen)
+        leaves = [t for t in flatten_tree(args).values() if isinstance(t, torch.Tensor)]
+        got_bytes = sum(t.untyped_storage().nbytes() for t in leaves)
+        check(all(t.device == torch.device(device) for t in leaves) and got_bytes == want_bytes,
+              f"{arch}/{shape}: its arguments take {got_bytes} bytes on the card, the dry "
+              f"run says {want_bytes}")
+        torch.cuda.reset_peak_memory_stats()
+        costs = step_costs(cell.fn, *args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        check(costs["flops"] == meta["flops"],
+              f"{arch}/{shape}: {costs['flops']} FLOPs on the card, {meta['flops']} on meta")
+        out = cell.fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CELL_TIME_STEPS):
+            out = cell.fn(*args)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / CELL_TIME_STEPS
+        floats = [t for t in flatten_tree(out).values()
+                  if isinstance(t, torch.Tensor) and t.dtype.is_floating_point]
+        check(floats and all(bool(torch.isfinite(t).all()) for t in floats),
+              f"{arch}/{shape}: the step's outputs are not finite")
+        log(f"[tools] {arch}/{shape} ({cell.kind}) on one leaf of {name} ({smi}): arguments "
+            f"{got_bytes / 1e9:.3f} GB == the dry run's; {costs['flops']:.4e} FLOPs a step on "
+            f"the card == meta; {ms:.3f} ms a step ({costs['flops'] / ms / 1e9:.2f} TFLOP/s); "
+            f"peak {peak / 1e9:.3f} GB on the card beside "
+            f"{meta['unsharded_peak_bytes'] / 1e9:.3f} GB on meta (not gated)")
+        del args, leaves, out, floats
+        torch.cuda.empty_cache()
+
+    # -- (d) llama3.2-1b's parameters over a (4, 2) mesh of the card ---------------
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                            device=device)
+    mesh = LeafMesh(*SHARD_MESH, [device] * math.prod(SHARD_MESH[0]))
+    meta_mesh = LeafMesh(*SHARD_MESH, ["meta"] * math.prod(SHARD_MESH[0]))
+    want_leaf = shd.tree_leaf_bytes(tf.init_params(cfg, device="meta"),
+                                    shd.lm_param_sharding(meta_mesh, cfg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = shd.shard_tree(params, shd.lm_param_sharding(mesh, cfg))
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    pieces = list(flatten_tree(sharded).values())
+    per_leaf = [sum(v.leaf_bytes()[i] for v in pieces) for i in range(mesh.n_leaves)]
+    check(set(per_leaf) == {want_leaf},
+          f"sharded {LM_ARCH}: leaves hold {per_leaf} bytes, the dry run says {want_leaf}")
+    t0 = time.perf_counter()
+    back = shd.gather_tree(sharded, device)
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    check(all(_bits_equal(a, b) for a, b in zip(flatten_tree(back).values(),
+                                                flatten_tree(params).values())),
+          f"sharded {LM_ARCH}: gather_tree did not give the parameters back bit for bit")
+    log(f"[tools] {LM_ARCH}'s parameters ({cfg.param_count()} bf16) over LeafMesh"
+        f"{SHARD_MESH[0]} on {name}: {want_leaf / 1e9:.4f} GB on each of the "
+        f"{mesh.n_leaves} leaves == the dry run's per-leaf figure; laid out in "
+        f"{shard_s:.2f} s, gathered back bit-identical in {gather_s:.2f} s")
+    del params, sharded, pieces, back
+    torch.cuda.empty_cache()
+
+    # -- (b) the dry run's records ----------------------------------------------------
+    t0 = time.perf_counter()
+    records = [r for pair in dry.get(timeout=1200) for r in pair]
+    dry_s = time.perf_counter() - t_dry
+    waited = time.perf_counter() - t0
     bad = [f"{r['arch']}|{r['shape']}|{r['mesh']}: {r.get('error')}"
            for r in records if not r.get("ok")]
     check(len(records) == 80 and not bad, f"dry run: {len(records)} records, failed {bad}")
@@ -4075,8 +4080,8 @@ def tooling_phase(seed, device, name, smi):
 
 
 def _hillclimb_variant(item):
-    """One hillclimb variant's record on 16x16 (a worker process: the meta
-    device and a fake process group, nothing on the card)."""
+    """One hillclimb variant's record on 16x16 or 2x16x16 (a worker process:
+    the meta device and a fake process group, nothing on the card)."""
     import logging
 
     import torch
@@ -4087,25 +4092,29 @@ def _hillclimb_variant(item):
         sys.path.insert(0, SRC)
     from repro_torch.launch import hillclimb as hc
 
-    cell, variant = item
+    cell, variant, multi_pod = item
+    mesh = hc.mesh_name(multi_pod)
     try:
-        return cell, variant, hc.run_variant(cell, variant, False)
+        return cell, variant, mesh, hc.run_variant(cell, variant, multi_pod)
     except Exception as e:  # noqa: BLE001 — reported and failed by the phase
-        return cell, variant, {"ok": False, "error": f"{type(e).__name__}: {e}"}
+        return cell, variant, mesh, {"ok": False, "error": f"{type(e).__name__}: {e}"}
 
 
 def _hillclimb_order(variants):
-    """The longest first: llama3-405b's train step, grok's prefill, the GNN,
-    then the two-tower cell."""
+    """The longest first: llama3-405b's train step (2x16x16's microbatch16,
+    split over data alone on an unmerged mesh, first of all), grok's
+    prefill, the GNN, then the two-tower cell; 2x16x16 before 16x16."""
     rank = {"llama405b_train": 0, "grok_prefill": 1, "gnn_ogb": 2, "tt_retrieval": 3}
-    return sorted(((c, v) for c in variants for v in variants[c]), key=lambda cv: rank[cv[0]])
+    items = [(c, v, mp) for mp in (True, False) for c in variants for v in variants[c]]
+    return sorted(items, key=lambda it: (rank[it[0]], (it[0], it[1], it[2]) !=
+                                         ("llama405b_train", "microbatch16", True), not it[2]))
 
 
 def _dry_as_hillclimb(r):
-    """A dry-run record (``launch/dryrun.run_cell``) as (cell, variant,
+    """A dry-run record (``launch/dryrun.run_cell``) as (cell, variant, mesh,
     record) under hillclimb's keys, as the reference's records are kept."""
     coll = r["collectives"]
-    return r["arch"], r["shape"], {
+    return r["arch"], r["shape"], r["mesh"], {
         "flops": r["cost"]["flops_per_device"], "whole": r["cost"]["flops_per_step"],
         "wire_bytes": sum(coll["wire_bytes_per_device"].values()),
         "peak_gib": r["memory"]["peak_bytes_per_device"] / 2**30,
@@ -4114,26 +4123,32 @@ def _dry_as_hillclimb(r):
 
 
 def _hold_records(records) -> None:
-    """Each record beside the JAX reference's GSPMD record of the same cell
-    (``HC_LM_RECORDS`` and ``HC_CELL_RECORDS``, full depth, 16x16), held:
-    FLOPs a device equal (llama3-405b train, decode) or at most the
-    reference's (prefill and every other cell), or for the MoE cells at most
-    ``HC_MOE_TARGETS``'s multiples of the whole step's share (the record's
-    ``whole`` / 256) and of the reference's; wire at most the reference's,
-    nothing replicated, no strided layout redistributed, the peak at most
-    twice the reference's."""
-    with open(os.path.join(ROOT, HC_LM_RECORDS)) as f:
-        lm_refs = json.load(f)
-    with open(os.path.join(ROOT, HC_CELL_RECORDS)) as f:
-        refs = dict(json.load(f), **lm_refs)
-    held, lm = 0, 0
-    for c, v, r in records:
-        key = f"{c}|{v}|16x16"
+    """Each record (cell, variant, mesh, record) beside the JAX reference's
+    GSPMD record of the same cell on the same mesh (``HC_RECORDS``, full
+    depth), held: FLOPs a device equal (the llama3-405b train variants and
+    decode on 16x16, as before) or at most the reference's (every other
+    record), or for the MoE cells at most ``HC_MOE_TARGETS``'s multiples of
+    the whole step's share (the record's ``whole`` over 256 or 512) and of
+    the reference's; wire at most the reference's, nothing replicated, no
+    strided layout redistributed, the peak at most twice the reference's.
+    Faults A-D's figures are printed beside their figures before the
+    repair (``HC_FAULTS``)."""
+    refs, per_file = {}, {}
+    for path, n in HC_RECORDS.items():
+        with open(os.path.join(ROOT, path)) as f:
+            recs = json.load(f)
+        check(len(recs) == n, f"{path}: {len(recs)} records, {n} wanted")
+        per_file.update(dict.fromkeys(recs, path))
+        refs.update(recs)
+    held, got = {}, {}
+    for c, v, mesh, r in records:
+        key = f"{c}|{v}|{mesh}"
         if key not in refs:
             continue
         ref = refs[key]
+        got[key] = r
         moe = HC_MOE_TARGETS.get((c, v))
-        share = r["whole"] / 256 if moe else None
+        share = r["whole"] / (512 if mesh == "2x16x16" else 256) if moe else None
         log(f"[hillclimb] {key} beside the reference: FLOPs {r['flops']:.6e} / "
             f"{ref['flops']:.6e} ({r['flops'] / ref['flops']:.4f}x"
             + (f"; {r['flops'] / share:.4f}x the step's share {share:.6e}" if moe else "")
@@ -4150,7 +4165,8 @@ def _hold_records(records) -> None:
                   f"hillclimb {key}: {r['flops']} FLOPs a device over {at_ref}x the "
                   f"reference's {ref['flops']:.0f}")
         else:
-            exact = c == "llama405b_train" or (c, v) == ("llama3-405b", "decode_32k")
+            exact = mesh == "16x16" and (c == "llama405b_train"
+                                         or (c, v) == ("llama3-405b", "decode_32k"))
             check(r["flops"] == ref["flops"] if exact else r["flops"] <= ref["flops"],
                   f"hillclimb {key}: {r['flops']} FLOPs a device against the reference's "
                   f"{ref['flops']:.0f} ({'equal' if exact else 'at most'} wanted)")
@@ -4161,12 +4177,15 @@ def _hold_records(records) -> None:
         check(r["peak_gib"] <= 2 * ref["peak_gib"],
               f"hillclimb {key}: peak {r['peak_gib']:.3f} GiB over twice the reference's "
               f"{ref['peak_gib']:.3f}")
-        held += 1
-        lm += key in lm_refs
-    check(held == len(refs) == 51 and lm == len(lm_refs) == 24,
-          f"hillclimb: {held} of the {len(refs)} records held ({lm} of the 24 LM ones)")
-    log(f"[hillclimb] {held} records held against the reference's GSPMD records: {lm} LM, "
-        f"{held - lm} of the other dry-run cells and the gnn_ogb variants")
+        held[per_file[key]] = held.get(per_file[key], 0) + 1
+    check(held == HC_RECORDS and sum(held.values()) == len(refs) == 132,
+          f"hillclimb: {sum(held.values())} of the {len(refs)} records held, by file {held}")
+    for fault, key, metric, before in HC_FAULTS:
+        field = {"flops": "flops", "wire": "wire_bytes", "peak": "peak_gib"}[metric]
+        log(f"[hillclimb] fault {fault} {key}: {metric} {before}x the reference's before the "
+            f"repair -> {got[key][field] / refs[key][field]:.4f}x")
+    log(f"[hillclimb] {sum(held.values())} records held against the reference's GSPMD records: "
+        + ", ".join(f"{n} of {os.path.basename(p)}" for p, n in held.items()))
 
 
 def _tt_variant_args(abstract, cfg, device, gen):
@@ -4208,16 +4227,15 @@ def _tt_variant_args(abstract, cfg, device, gen):
     return params, batch
 
 
-def hillclimb_phase(seed, device, name, smi, dry_records):
+def hillclimb_phase(seed, device, name, smi, dry_records, hill, t_dry):
     """Phase 14: the card's rates beside the roofline constants, the
     two-tower cell's five variants at production shapes on the card (three
     BEBR variants identical, every sdc_topk call held against its plain
-    version), and hillclimb's 26 variants dry in worker processes; its LM
-    records and phase 13's llama3-405b, llama4-scout and grok-1 ones on
-    16x16 (``dry_records``) held against the reference's. Returns the
-    kernels JSON row of the BEBR variants' sdc_topk."""
-    import multiprocessing
-
+    version), and hillclimb's 26 variants dry on both meshes (``hill``: their
+    records to come from the worker processes, queued at ``t_dry`` behind
+    phase 13's); their records and phase 13's (``dry_records``), 132 in all,
+    held against the reference's. Returns the kernels JSON row of the BEBR
+    variants' sdc_topk."""
     import torch
     import torch.distributed as dist
 
@@ -4229,181 +4247,174 @@ def hillclimb_phase(seed, device, name, smi, dry_records):
     from repro_torch.parallel import spmd
 
     t_phase = time.perf_counter()
-    pool = multiprocessing.get_context("spawn").Pool(HILLCLIMB_WORKERS)
+    # (c), the 26 variants on both meshes, run in the workers meanwhile
+    # -- (a) the card's rates beside the constants --------------------------------
+    x = torch.empty(RATE_COPY_BYTES, dtype=torch.uint8, device=device)
+    y = torch.empty_like(x)
+    copy_ms = cuda_ms(lambda: y.copy_(x), RATE_REPS)
+    hbm = 2 * RATE_COPY_BYTES / (copy_ms / 1e3)  # read once, written once
+    del x, y
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = RATE_MM_N
+    a = torch.randn((n, n), generator=gen, device=device).to(torch.bfloat16)
+    b = torch.randn((n, n), generator=gen, device=device).to(torch.bfloat16)
+    bf16_ms = cuda_ms(lambda: torch.matmul(a, b), RATE_REPS)
+    ai = torch.randint(-128, 128, (n, n), generator=gen, device=device,
+                       dtype=torch.int32).to(torch.int8)
+    bi = torch.randint(-128, 128, (n, n), generator=gen, device=device,
+                       dtype=torch.int32).to(torch.int8)
+    int8_ms = cuda_ms(lambda: torch._int_mm(ai, bi), RATE_REPS)
+    del a, b, ai, bi
+    torch.cuda.empty_cache()
+    bf16 = 2 * n**3 / (bf16_ms / 1e3)
+    int8 = 2 * n**3 / (int8_ms / 1e3)
+    log(f"[hillclimb] rates of {name} ({smi}): HBM {hbm / 1e12:.4f} TB/s (a "
+        f"{RATE_COPY_BYTES / 2**30:.0f} GiB device-to-device copy, {copy_ms:.3f} ms) beside "
+        f"HBM_BW {defaults.HBM_BW / 1e12:.2f}; bf16 torch.matmul {n}^3 {bf16 / 1e12:.2f} "
+        f"TFLOP/s ({bf16_ms:.3f} ms) beside PEAK_FLOPS {defaults.PEAK_FLOPS / 1e12:.1f}; "
+        f"torch._int_mm {n}^3 {int8 / 1e12:.2f} TOP/s ({int8_ms:.3f} ms) beside the int8 "
+        f"peak {2 * defaults.PEAK_FLOPS / 1e12:.1f}; LINK_BW {defaults.LINK_BW / 1e9:.0f} "
+        f"GB/s x N_LINKS {defaults.N_LINKS}: not measured (one card, no NVLink peer)")
+
+    # -- (b) tt_retrieval's five variants at production shapes on the card -------
+    cfg = get_arch("two-tower-retrieval").config
+    one = LeafMesh((1, 1), ("data", "model"), [device])
+    meta_one = LeafMesh((1, 1), ("data", "model"), ["meta"])
+    terms, outs, times = {}, {}, {}
+    for variant, build in hc.VARIANTS["tt_retrieval"].items():
+        terms[variant] = hc._measure(*build(meta_one), meta_one)  # one device, on meta
+    addr = f"tcp://127.0.0.1:{_free_port()}"
+    dist.init_process_group("nccl", init_method=addr, world_size=1, rank=0,
+                            device_id=torch.device(device))
     try:
-        # -- (c) the 26 variants start, dry, in the workers ---------------------------
-        t_dry = time.perf_counter()
-        dry = pool.map_async(_hillclimb_variant, _hillclimb_order(hc.VARIANTS), chunksize=1)
-
-        # -- (a) the card's rates beside the constants --------------------------------
-        x = torch.empty(RATE_COPY_BYTES, dtype=torch.uint8, device=device)
-        y = torch.empty_like(x)
-        copy_ms = cuda_ms(lambda: y.copy_(x), RATE_REPS)
-        hbm = 2 * RATE_COPY_BYTES / (copy_ms / 1e3)  # read once, written once
-        del x, y
-        gen = torch.Generator(device=device).manual_seed(seed)
-        n = RATE_MM_N
-        a = torch.randn((n, n), generator=gen, device=device).to(torch.bfloat16)
-        b = torch.randn((n, n), generator=gen, device=device).to(torch.bfloat16)
-        bf16_ms = cuda_ms(lambda: torch.matmul(a, b), RATE_REPS)
-        ai = torch.randint(-128, 128, (n, n), generator=gen, device=device,
-                           dtype=torch.int32).to(torch.int8)
-        bi = torch.randint(-128, 128, (n, n), generator=gen, device=device,
-                           dtype=torch.int32).to(torch.int8)
-        int8_ms = cuda_ms(lambda: torch._int_mm(ai, bi), RATE_REPS)
-        del a, b, ai, bi
-        torch.cuda.empty_cache()
-        bf16 = 2 * n**3 / (bf16_ms / 1e3)
-        int8 = 2 * n**3 / (int8_ms / 1e3)
-        log(f"[hillclimb] rates of {name} ({smi}): HBM {hbm / 1e12:.4f} TB/s (a "
-            f"{RATE_COPY_BYTES / 2**30:.0f} GiB device-to-device copy, {copy_ms:.3f} ms) beside "
-            f"HBM_BW {defaults.HBM_BW / 1e12:.2f}; bf16 torch.matmul {n}^3 {bf16 / 1e12:.2f} "
-            f"TFLOP/s ({bf16_ms:.3f} ms) beside PEAK_FLOPS {defaults.PEAK_FLOPS / 1e12:.1f}; "
-            f"torch._int_mm {n}^3 {int8 / 1e12:.2f} TOP/s ({int8_ms:.3f} ms) beside the int8 "
-            f"peak {2 * defaults.PEAK_FLOPS / 1e12:.1f}; LINK_BW {defaults.LINK_BW / 1e9:.0f} "
-            f"GB/s x N_LINKS {defaults.N_LINKS}: not measured (one card, no NVLink peer)")
-
-        # -- (b) tt_retrieval's five variants at production shapes on the card -------
-        cfg = get_arch("two-tower-retrieval").config
-        one = LeafMesh((1, 1), ("data", "model"), [device])
-        meta_one = LeafMesh((1, 1), ("data", "model"), ["meta"])
-        terms, outs, times = {}, {}, {}
-        for variant, build in hc.VARIANTS["tt_retrieval"].items():
-            terms[variant] = hc._measure(*build(meta_one), meta_one)  # one device, on meta
-        addr = f"tcp://127.0.0.1:{_free_port()}"
-        dist.init_process_group("nccl", init_method=addr, world_size=1, rank=0,
-                                device_id=torch.device(device))
-        try:
-            with spmd.bind(one):
-                sdc_mod.sdc_topk.launches = 0
-                with _SdcTopkCalls() as seen:
-                    for variant, build in hc.VARIANTS["tt_retrieval"].items():
-                        fn, shardings, abstract = build(one)
-                        args = _tt_variant_args(abstract, cfg, device,
-                                                torch.Generator(device=device).manual_seed(seed))
-                        if variant == "bebr_sdc_merge":
-                            def call(fn=fn, args=args, shardings=shardings):
-                                v, i = spmd.run(fn, args, shardings)
-                                return v.to_local(), i.to_local()
-                        else:
-                            def call(fn=fn, args=args):
-                                return fn(*args)
-                        outs[variant] = call()
-                        torch.cuda.synchronize()
-                        if variant == "bebr_sdc_merge":  # the main path's launches end here
-                            launches = sdc_mod.sdc_topk.launches
-                            held = seen.check("tt_retrieval BEBR variants", launches)
-                        times[variant] = (call, args)
-                for variant, (call, args) in times.items():
-                    times[variant] = cuda_ms(call, HC_TIME_REPS)
-                del args
-        finally:
-            dist.destroy_process_group()
-        check(launches == 3, f"the three BEBR variants launched sdc_topk {launches} times")
-        (vb, ib), (vf, i_f), (vm, im) = (outs[v] for v in ("bebr_sdc", "bebr_sdc_fullmesh",
-                                                          "bebr_sdc_merge"))
-        check(_bits_equal(vb, vf) and _bits_equal(vb, vm) and torch.equal(ib, i_f)
-              and torch.equal(ib, im),
-              "bebr_sdc, bebr_sdc_fullmesh and bebr_sdc_merge differ on the card")
-        top = set(ib[0].tolist())
-        planted = sorted(d for d in HC_PLANTED if d in top)
-        check(bool(planted), "no candidate with an inverse norm <= 0 reached the top k")
-        for variant, (v, i) in outs.items():
-            check(tuple(v.shape) == (1, HC_K) and bool(torch.isfinite(v).all())
-                  and bool((v[:, :-1] >= v[:, 1:]).all()), f"tt_retrieval {variant} on the card")
-        log(f"[hillclimb] tt_retrieval on {name} ({smi}): bebr_sdc, bebr_sdc_fullmesh and "
-            f"bebr_sdc_merge (one-rank NCCL group) give identical scores and ids over "
-            f"{HC_CANDIDATES} codes, {len(planted)} candidates with an inverse norm <= 0 in "
-            f"the top {HC_K}; sdc_topk launched {launches} times ({held}), each exactly its "
-            f"plain version")
-        for variant in hc.VARIANTS["tt_retrieval"]:
-            t = terms[variant]
-            log(f"[time] hillclimb tt_retrieval|{variant} on {name} ({smi}): {times[variant]:.3f} "
-                f"ms a call (CUDA events, {HC_TIME_REPS} calls) beside its one-device roofline "
-                f"terms compute {t['compute_ms']:.4f} ms, memory {t['memory_ms']:.4f} ms "
-                f"({t['flops']:.4e} FLOPs, {t['bytes']:.4e} eager bytes)")
-        del outs
-
-        # the kernel at the variants' shape, for the kernels line
-        g = torch.Generator(device=device).manual_seed(seed)
-        codes = torch.randint(0, 2**HC_LEVELS, (HC_CANDIDATES, HC_CODE_DIM), generator=g,
-                              device=device, dtype=torch.int32).to(torch.int8)
-        from repro_torch.kernels.sdc import ref as sdc_ref
-
-        inv = sdc_ref.doc_inv_norms(codes, HC_LEVELS)
-        q = torch.randint(0, 2**HC_LEVELS, (1, HC_CODE_DIM), generator=g, device=device,
-                          dtype=torch.int32).to(torch.int8)
-        kw = dict(n_levels=HC_LEVELS, k=HC_K)
-        v, i = sdc_mod.sdc_topk(q, codes, inv, **kw)
-        pv, pi = sdc_mod.sdc_topk_torch(q, codes, inv, **kw)
-        check(torch.equal(v, pv) and torch.equal(i, pi),
-              "sdc_topk at [1, 1,000,000] differs from its plain version")
-        ms = cuda_ms(lambda: sdc_mod.sdc_topk(q, codes, inv, **kw), 50)
-        plain_ms = cuda_ms(lambda: sdc_mod.sdc_topk_torch(q, codes, inv, **kw), 5)
-        nbytes = HC_CANDIDATES * (HC_CODE_DIM + 4) + HC_CODE_DIM + HC_K * 8
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * (2 * HC_CANDIDATES * HC_CODE_DIM * 2) / INT8_OPS_PER_S
-        # (d) the library yardstick (timed only): the query padded with zero
-        # rows to torch._int_mm's least row count, the product, the epilogue
-        # and torch.topk of the query's row
-        from repro_torch.core.binarize_lib import sdc_affine_epilogue
-
-        q_pad = torch.zeros((INT_MM_MIN_ROWS, HC_CODE_DIM), dtype=torch.int8, device=device)
-        q_pad[0] = q[0]
-        sq = q.to(torch.int32).sum(-1, keepdim=True)
-        sd = codes.to(torch.int32).sum(-1)[None, :]
-
-        def library():
-            dot = torch._int_mm(q_pad, codes.t())[:1]
-            s = sdc_affine_epilogue(dot, sq + sd, dim=HC_CODE_DIM, n_levels=HC_LEVELS,
-                                    inv_norm=inv[None, :])
-            return torch.topk(s, HC_K)
-
-        lib_v = library().values
-        check(bool(torch.isfinite(lib_v).all())
-              and torch.allclose(lib_v.sort(-1).values, v.sort(-1).values, rtol=1e-6, atol=0),
-              "the library yardstick's top k scores differ from sdc_topk's")
-        library_ms = cuda_ms(library, 50)
-        log(f"[time] sdc_topk int8 Q=1 N={HC_CANDIDATES} D={HC_CODE_DIM} k={HC_K} (the BEBR "
-            f"variants' scan) on {name} ({smi}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"HBM bound {bytes_ms:.5f} ms, int8 op bound {ops_ms:.5f} ms, library "
-            f"{library_ms:.4f} ms (torch._int_mm over the query padded to {INT_MM_MIN_ROWS} "
-            f"rows + the epilogue + torch.topk; its scores the kernel's)")
-        row = dict(name="sdc_topk_int8_bebr", route="cuda", source=SOURCE,
-                   replaces=REPLACES[False], launches=launches,
-                   max_abs_err=float((v - pv).abs().max()), ms=ms, plain_ms=plain_ms,
-                   bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   library_ms=library_ms)
-        del codes, inv, q, q_pad
-        torch.cuda.empty_cache()
-
-        # -- (c) the dry records -------------------------------------------------------
-        t0 = time.perf_counter()
-        records = dry.get(timeout=1000)
-        dry_s = time.perf_counter() - t_dry
-        waited = time.perf_counter() - t0
+        with spmd.bind(one):
+            sdc_mod.sdc_topk.launches = 0
+            with _SdcTopkCalls() as seen:
+                for variant, build in hc.VARIANTS["tt_retrieval"].items():
+                    fn, shardings, abstract = build(one)
+                    args = _tt_variant_args(abstract, cfg, device,
+                                            torch.Generator(device=device).manual_seed(seed))
+                    if variant == "bebr_sdc_merge":
+                        def call(fn=fn, args=args, shardings=shardings):
+                            v, i = spmd.run(fn, args, shardings)
+                            return v.to_local(), i.to_local()
+                    else:
+                        def call(fn=fn, args=args):
+                            return fn(*args)
+                    outs[variant] = call()
+                    torch.cuda.synchronize()
+                    if variant == "bebr_sdc_merge":  # the main path's launches end here
+                        launches = sdc_mod.sdc_topk.launches
+                        held = seen.check("tt_retrieval BEBR variants", launches)
+                    times[variant] = (call, args)
+            for variant, (call, args) in times.items():
+                times[variant] = cuda_ms(call, HC_TIME_REPS)
+            del args
     finally:
-        pool.terminate()
-        pool.join()
-    bad = [f"{c}|{v}: {r.get('error')}" for c, v, r in records if not r.get("ok")]
-    check(len(records) == 26 and not bad, f"hillclimb: {len(records)} records, failed {bad}")
-    for c, v, r in records:
+        dist.destroy_process_group()
+    check(launches == 3, f"the three BEBR variants launched sdc_topk {launches} times")
+    (vb, ib), (vf, i_f), (vm, im) = (outs[v] for v in ("bebr_sdc", "bebr_sdc_fullmesh",
+                                                      "bebr_sdc_merge"))
+    check(_bits_equal(vb, vf) and _bits_equal(vb, vm) and torch.equal(ib, i_f)
+          and torch.equal(ib, im),
+          "bebr_sdc, bebr_sdc_fullmesh and bebr_sdc_merge differ on the card")
+    top = set(ib[0].tolist())
+    planted = sorted(d for d in HC_PLANTED if d in top)
+    check(bool(planted), "no candidate with an inverse norm <= 0 reached the top k")
+    for variant, (v, i) in outs.items():
+        check(tuple(v.shape) == (1, HC_K) and bool(torch.isfinite(v).all())
+              and bool((v[:, :-1] >= v[:, 1:]).all()), f"tt_retrieval {variant} on the card")
+    log(f"[hillclimb] tt_retrieval on {name} ({smi}): bebr_sdc, bebr_sdc_fullmesh and "
+        f"bebr_sdc_merge (one-rank NCCL group) give identical scores and ids over "
+        f"{HC_CANDIDATES} codes, {len(planted)} candidates with an inverse norm <= 0 in "
+        f"the top {HC_K}; sdc_topk launched {launches} times ({held}), each exactly its "
+        f"plain version")
+    for variant in hc.VARIANTS["tt_retrieval"]:
+        t = terms[variant]
+        log(f"[time] hillclimb tt_retrieval|{variant} on {name} ({smi}): {times[variant]:.3f} "
+            f"ms a call (CUDA events, {HC_TIME_REPS} calls) beside its one-device roofline "
+            f"terms compute {t['compute_ms']:.4f} ms, memory {t['memory_ms']:.4f} ms "
+            f"({t['flops']:.4e} FLOPs, {t['bytes']:.4e} eager bytes)")
+    del outs
+
+    # the kernel at the variants' shape, for the kernels line
+    g = torch.Generator(device=device).manual_seed(seed)
+    codes = torch.randint(0, 2**HC_LEVELS, (HC_CANDIDATES, HC_CODE_DIM), generator=g,
+                          device=device, dtype=torch.int32).to(torch.int8)
+    from repro_torch.kernels.sdc import ref as sdc_ref
+
+    inv = sdc_ref.doc_inv_norms(codes, HC_LEVELS)
+    q = torch.randint(0, 2**HC_LEVELS, (1, HC_CODE_DIM), generator=g, device=device,
+                      dtype=torch.int32).to(torch.int8)
+    kw = dict(n_levels=HC_LEVELS, k=HC_K)
+    v, i = sdc_mod.sdc_topk(q, codes, inv, **kw)
+    pv, pi = sdc_mod.sdc_topk_torch(q, codes, inv, **kw)
+    check(torch.equal(v, pv) and torch.equal(i, pi),
+          "sdc_topk at [1, 1,000,000] differs from its plain version")
+    ms = cuda_ms(lambda: sdc_mod.sdc_topk(q, codes, inv, **kw), 50)
+    plain_ms = cuda_ms(lambda: sdc_mod.sdc_topk_torch(q, codes, inv, **kw), 5)
+    nbytes = HC_CANDIDATES * (HC_CODE_DIM + 4) + HC_CODE_DIM + HC_K * 8
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * (2 * HC_CANDIDATES * HC_CODE_DIM * 2) / INT8_OPS_PER_S
+    # (d) the library yardstick (timed only): the query padded with zero
+    # rows to torch._int_mm's least row count, the product, the epilogue
+    # and torch.topk of the query's row
+    from repro_torch.core.binarize_lib import sdc_affine_epilogue
+
+    q_pad = torch.zeros((INT_MM_MIN_ROWS, HC_CODE_DIM), dtype=torch.int8, device=device)
+    q_pad[0] = q[0]
+    sq = q.to(torch.int32).sum(-1, keepdim=True)
+    sd = codes.to(torch.int32).sum(-1)[None, :]
+
+    def library():
+        dot = torch._int_mm(q_pad, codes.t())[:1]
+        s = sdc_affine_epilogue(dot, sq + sd, dim=HC_CODE_DIM, n_levels=HC_LEVELS,
+                                inv_norm=inv[None, :])
+        return torch.topk(s, HC_K)
+
+    lib_v = library().values
+    check(bool(torch.isfinite(lib_v).all())
+          and torch.allclose(lib_v.sort(-1).values, v.sort(-1).values, rtol=1e-6, atol=0),
+          "the library yardstick's top k scores differ from sdc_topk's")
+    library_ms = cuda_ms(library, 50)
+    log(f"[time] sdc_topk int8 Q=1 N={HC_CANDIDATES} D={HC_CODE_DIM} k={HC_K} (the BEBR "
+        f"variants' scan) on {name} ({smi}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"HBM bound {bytes_ms:.5f} ms, int8 op bound {ops_ms:.5f} ms, library "
+        f"{library_ms:.4f} ms (torch._int_mm over the query padded to {INT_MM_MIN_ROWS} "
+        f"rows + the epilogue + torch.topk; its scores the kernel's)")
+    row = dict(name="sdc_topk_int8_bebr", route="cuda", source=SOURCE,
+               replaces=REPLACES[False], launches=launches,
+               max_abs_err=float((v - pv).abs().max()), ms=ms, plain_ms=plain_ms,
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               library_ms=library_ms)
+    del codes, inv, q, q_pad
+    torch.cuda.empty_cache()
+
+    # -- (c) the dry records -------------------------------------------------------
+    t0 = time.perf_counter()
+    records = hill.get(timeout=1000)
+    dry_s = time.perf_counter() - t_dry
+    waited = time.perf_counter() - t0
+    bad = [f"{c}|{v}|{m}: {r.get('error')}" for c, v, m, r in records if not r.get("ok")]
+    check(len(records) == 52 and not bad, f"hillclimb: {len(records)} records, failed {bad}")
+    for c, v, m, r in records:
         wire = ", ".join(f"{k} {x:.4e}" for k, x in r["collectives"].items() if x)
-        log(f"[hillclimb] {c}|{v}|16x16: {r['flops']:.4e} FLOPs, {r['bytes']:.4e} bytes, wire "
+        log(f"[hillclimb] {c}|{v}|{m}: {r['flops']:.4e} FLOPs, {r['bytes']:.4e} bytes, wire "
             f"{r['wire_bytes']:.4e} B ({wire or 'none'}) a device; compute "
             f"{r['compute_ms']:.4f} ms, memory {r['memory_ms']:.4f} ms, collective "
             f"{r['collective_ms']:.4f} ms (H100 constants); peak {r['peak_gib']:.3f} GiB; "
             f"replicated {r['replicated'] or 'none'}; {r['run_s']} s")
-    rec = {(c, v): r for c, v, r in records}
-    merge, bebr = rec[("tt_retrieval", "bebr_sdc_merge")], rec[("tt_retrieval", "bebr_sdc")]
+    rec = {(c, v, m): r for c, v, m, r in records}
+    merge, bebr = (rec[("tt_retrieval", v, "16x16")] for v in ("bebr_sdc_merge", "bebr_sdc"))
     check(merge["flops"] == bebr["flops"] == 18_064_384
           and merge["collectives"]["all-gather"] == 12_000,
           "hillclimb tt_retrieval: the merge's FLOPs or all-gather wire moved")
-    _hold_records(records + [_dry_as_hillclimb(r) for r in dry_records if r["mesh"] == "16x16"])
-    log(f"[hillclimb] 26 variants dry on 16x16 in {dry_s:.1f} s over {HILLCLIMB_WORKERS} "
-        f"processes ({sum(r['run_s'] for r in rec.values()):.1f} s of steps; {waited:.1f} s "
-        f"waited after (a) and (b))")
+    _hold_records(records + [_dry_as_hillclimb(r) for r in dry_records])
+    log(f"[hillclimb] 26 variants dry on 16x16 and on 2x16x16, done {dry_s:.1f} s after "
+        f"phase 13's dry run started, over its {DRYRUN_WORKERS} processes "
+        f"({sum(r['run_s'] for r in rec.values()):.1f} s of steps; {waited:.1f} s waited after "
+        f"(a) and (b))")
     log(f"[hillclimb] phase passed in {time.perf_counter() - t_phase:.1f} s")
     return row
 
@@ -4923,12 +4934,27 @@ def main() -> None:
     lm_gnn_phase(device, name, smi)
 
     # -- 13. compression, the dry run of every cell, cells and sharded state on the card --
-    torch.cuda.empty_cache()
-    dry_records = tooling_phase(args.seed, device, name, smi)
+    # (the dry run's 80 records and, queued behind them, phase 14's 52, in the
+    # worker processes while the card works)
+    import multiprocessing
 
-    # -- 14. the hillclimb: rates, the two-tower variants on the card, 26 variants dry ------
+    from repro_torch.configs import registry
+    from repro_torch.launch import hillclimb as hc
+
     torch.cuda.empty_cache()
-    kernels.append(hillclimb_phase(args.seed, device, name, smi, dry_records))
+    pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
+    try:
+        t_dry = time.perf_counter()
+        dry = pool.map_async(_dryrun_cell, _dryrun_order(registry.all_cells()), chunksize=1)
+        hill = pool.map_async(_hillclimb_variant, _hillclimb_order(hc.VARIANTS), chunksize=1)
+        dry_records = tooling_phase(args.seed, device, name, smi, dry, t_dry)
+
+        # -- 14. the hillclimb: rates, the two-tower variants on the card, 52 records dry ---
+        torch.cuda.empty_cache()
+        kernels.append(hillclimb_phase(args.seed, device, name, smi, dry_records, hill, t_dry))
+    finally:
+        pool.terminate()
+        pool.join()
 
     log("kernels: " + ", ".join(f"{k['name']} matched, launches={k['launches']}"
                                 for k in kernels))

@@ -103,6 +103,8 @@ _PLAIN_CHUNK = 1 << 18
 # ran out of memory on the card at 1,024 queries over ten million rows).
 _UNFUSED_MEMORY_SHARE = 0.4
 _SORT_BYTES = 48
+# the columns a sharded step's top k (``select_topk`` on a DTensor) sorts at once
+_TOPK_SELECT_CHUNK = 1 << 16
 
 _SOURCE, _SCORES_SOURCE = _build.SOURCES[0], _build.SOURCES[2]
 
@@ -650,7 +652,18 @@ def select_topk(scores: torch.Tensor, k: int):
     A stable descending sort, so ties go to the lower index
     (``torch.topk`` orders them otherwise); ``k > N`` pads with
     SDC_NEG_INF, and every slot scoring SDC_NEG_INF gets id -1.
+
+    On a DTensor (a sharded step, ``parallel/spmd.py``) the score columns
+    are gathered whole, the rows kept as they lie, and each rank selects
+    from its rows' scores ``_TOPK_SELECT_CHUNK`` columns at a time
+    (``_chunked_topk``: the same ids and scores, without a sort's [Q, N]
+    values and int64 indices alive).
     """
+    if is_dtensor(scores):
+        from repro_torch.parallel import spmd
+
+        whole = spmd.whole_dims(spmd.reduced(scores), (1,))
+        return spmd.rowwise(lambda s: _chunked_topk(s, k), whole, k, k)
     Q, N = scores.shape
     if k > N:
         pad = torch.full((Q, k - N), SDC_NEG_INF, dtype=scores.dtype, device=scores.device)
@@ -658,6 +671,25 @@ def select_topk(scores: torch.Tensor, k: int):
     vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
     vals, idx = vals[:, :k], idx[:, :k].to(torch.int32)
     return vals, torch.where(vals > SDC_NEG_INF / 2, idx, -1)
+
+
+def _chunked_topk(scores: torch.Tensor, k: int):
+    """``select_topk(scores, k)`` from each ``_TOPK_SELECT_CHUNK`` columns'
+    own top k: a chunk's stable sort keeps every candidate of the whole
+    top k that lies in it, and the chunks' candidates, concatenated in
+    column order, are selected again with ties to the earlier column."""
+    N = scores.shape[1]
+    if N <= _TOPK_SELECT_CHUNK:
+        return select_topk(scores, k)
+    vals, ids = [], []
+    for c in range(0, N, _TOPK_SELECT_CHUNK):
+        v, i = torch.sort(scores[:, c:c + _TOPK_SELECT_CHUNK], dim=1, descending=True,
+                          stable=True)
+        vals.append(v[:, :k])
+        ids.append(i[:, :k] + c)
+    top, pos = select_topk(torch.cat(vals, 1), k)
+    idx = torch.gather(torch.cat(ids, 1), 1, pos.clamp(min=0).long()).to(torch.int32)
+    return top, torch.where(pos >= 0, idx, -1)
 
 
 def _plain_scores(q_codes, sq, d_codes, inv, *, n_levels: int, packed: bool):

@@ -294,6 +294,25 @@ def _dkey(x):
     return x
 
 
+class _Uncounted:
+    """One of the sharding propagator's entry points, run with the counter's
+    propagation depth raised (``_ShardedCounter.not_counting_propagation``);
+    its other attributes (a cache's ``cache_info``) are the wrapped one's."""
+
+    def __init__(self, fn, counter):
+        self._fn, self._counter = fn, counter
+
+    def __call__(self, *args, **kwargs):
+        self._counter._propagating += 1
+        try:
+            return self._fn(*args, **kwargs)
+        finally:
+            self._counter._propagating -= 1
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+
 class _ShardedCounter(_Counter):
     """``_Counter`` over a step on DTensors: an operator on DTensors is let
     through to DTensor, which runs it on the local pieces, and those
@@ -327,30 +346,44 @@ class _ShardedCounter(_Counter):
         self.device_type = device_type
         self._memo: Dict[Any, Any] = {}
         self._propagating = 0
+        # the arguments' pieces no operator has read yet: id -> bytes (each
+        # piece, alive throughout, is an operand of the first operator that
+        # reads it or a view of it)
+        self.unread: Dict[int, int] = {}
+
+    def _read(self, args, kwargs) -> None:
+        """The arguments' pieces among an operator's operands are read."""
+        for x in (*args, *kwargs.values()):
+            for t in (x if isinstance(x, (list, tuple)) else (x,)):
+                self.unread.pop(id(getattr(t, "_local_tensor", t)), None)
 
     @contextlib.contextmanager
     def not_counting_propagation(self):
         """While active, DTensor's sharding propagation runs uncounted: the
         operators it runs to learn a result's layout (fake tensors of the
-        global shapes, a shard's size and offset on meta tensors) are not
-        the step's, and they run only the first time a signature is seen."""
+        global shapes, a shard's size and offset on meta tensors, and the
+        meta tensors of the global shapes that a strategy derived from an
+        operator's decomposition runs on) are not the step's, and they run
+        only the first time a signature is seen. Each of the propagator's
+        entry points is wrapped: torch releases enter it at different ones
+        (2.13's dispatch calls the cached ``propagate_op_sharding`` or
+        ``propagate_op_sharding_non_cached`` itself)."""
         from torch.distributed.tensor import DTensor
 
         prop = DTensor._op_dispatcher.sharding_propagator
-        propagate = prop.propagate
-
-        def counted_out(op_info):
-            self._propagating += 1
-            try:
-                return propagate(op_info)
-            finally:
-                self._propagating -= 1
-
-        prop.propagate = counted_out
+        names = [n for n in ("propagate", "propagate_op_sharding",
+                             "propagate_op_sharding_non_cached") if hasattr(prop, n)]
+        own = {n: prop.__dict__[n] for n in names if n in prop.__dict__}
+        for n in names:
+            setattr(prop, n, _Uncounted(getattr(prop, n), self))
         try:
             yield
         finally:
-            del prop.propagate  # back to the class's method
+            for n in names:
+                if n in own:
+                    setattr(prop, n, own[n])
+                else:
+                    delattr(prop, n)  # back to the class's method
 
     def _totals(self):
         return (self.flops, self.bytes, self.ops, dict(self.log.wire), dict(self.log.counts),
@@ -364,9 +397,13 @@ class _ShardedCounter(_Counter):
             if self._through:  # DTensor's own dispatch of the operator
                 self._through = False
                 return NotImplemented
+            if self.unread:
+                self._read(args, kwargs)
             return self._dtensor_call(func, args, kwargs)
         if self._propagating or _is_fake(args, kwargs.values()):
             return func(*args, **kwargs)  # sharding propagation's own work
+        if self.unread:
+            self._read(args, kwargs)
         out = self._call(func, args, kwargs)
         results = out if isinstance(out, (list, tuple)) else (out,)
         if _is_fake(results) or _device_type(args, results) != self.device_type:
@@ -569,10 +606,13 @@ def sharded_step_costs(fn, args, shardings, mesh) -> Dict[str, Any]:
     and the step runs once on them. Under a fake process group when
     ``mesh`` is not bound to a group already (``spmd.bind``), the
     data-parallel axes merged into one dim where the arguments' layouts
-    allow (``spmd.axis_groups``).
+    and the step's microbatches (its ``microbatches`` attribute, as
+    ``train/steps.make_train_step`` sets it) allow (``spmd.axis_groups``).
 
     Returns ``flops``, ``bytes`` and ``peak_bytes`` (the most bytes alive
-    at once, the arguments' pieces included) per device;
+    at once, the pieces of the arguments that the step reads included, as
+    the reference's compiled step holds the arguments ``jax.jit`` keeps:
+    an unused one is pruned) per device;
     ``argument_bytes`` (one device's pieces of the arguments);
     ``collectives`` (per-device wire bytes by kind) and ``counts``
     (collectives by kind); ``ops`` (operators run on local pieces); and
@@ -583,7 +623,7 @@ def sharded_step_costs(fn, args, shardings, mesh) -> Dict[str, Any]:
     from torch.distributed.tensor.experimental import implicit_replication
 
     owned = contextlib.nullcontext() if spmd.is_bound(mesh) else spmd.fake_mesh(
-        mesh, spmd.axis_groups(mesh, shardings))
+        mesh, spmd.axis_groups(mesh, shardings, args, getattr(fn, "microbatches", 1)))
     log = spmd.CollectiveLog()
     strided: Dict[str, int] = {}
     with owned, implicit_replication(), spmd.recording(log), _alltoall_as_one(), \
@@ -592,9 +632,9 @@ def sharded_step_costs(fn, args, shardings, mesh) -> Dict[str, Any]:
         locals_ = [t._local_tensor if is_dtensor(t) else t
                    for t in tree_flatten(dargs)[0] if isinstance(t, torch.Tensor)]
         counter = _ShardedCounter(log, locals_[0].device.type if locals_ else "meta")
-        for t in tree_flatten(dargs)[0]:
-            if isinstance(t, torch.Tensor):
-                counter.track(t._local_tensor if is_dtensor(t) else t)
+        for t in locals_:
+            counter.track(t)
+            counter.unread[id(t)] = t.untyped_storage().nbytes()
         arg_bytes = counter.live
         with counter.not_counting_propagation(), counter:
             out = fn(*dargs)
@@ -602,7 +642,9 @@ def sharded_step_costs(fn, args, shardings, mesh) -> Dict[str, Any]:
     return {
         "flops": int(counter.flops),
         "bytes": int(counter.bytes),
-        "peak_bytes": int(counter.peak),
+        # the pieces of arguments the step never reads stay out, alive
+        # throughout: XLA prunes a jitted step's unused arguments
+        "peak_bytes": int(counter.peak - sum(counter.unread.values())),
         "argument_bytes": int(arg_bytes),
         "collectives": {k: float(v) for k, v in log.wire.items()},
         "counts": dict(log.counts),

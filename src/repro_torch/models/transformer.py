@@ -250,6 +250,7 @@ def _attention(lp, x, positions, cfg: TransformerConfig, mask=None, kv_cache=Non
     ``spmd.decode_by_heads``)."""
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = spmd.shared_input(x)  # gathered once for the three projections
     q = spmd.split_dim(spmd.matmul(x, lp["wq"]), 2, (H, hd))
     k = spmd.split_dim(spmd.matmul(x, lp["wk"]), 2, (KV, hd))
     v = spmd.split_dim(spmd.matmul(x, lp["wv"]), 2, (KV, hd))
@@ -288,6 +289,7 @@ def _attention(lp, x, positions, cfg: TransformerConfig, mask=None, kv_cache=Non
 
 
 def _dense_ffn(lp, x):
+    x = spmd.shared_input(x)  # gathered once for the gate and up products
     gate = F.silu(spmd.matmul(x, lp["w_gate"]))
     up = spmd.matmul(x, lp["w_up"])
     return spmd.matmul(gate * up, lp["w_down"])

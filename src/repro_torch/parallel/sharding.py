@@ -238,8 +238,9 @@ def lm_batch_sharding(mesh: LeafMesh) -> Sharding:
 def lm_activation_constraint(mesh: LeafMesh, cfg):
     """The constraint on the residual stream between layers (the
     reference's ``with_sharding_constraint``): a DTensor is redistributed
-    to the spec (``parallel/spmd.constrain``); on one device it is an
-    identity that checks the rank."""
+    to the spec (``parallel/spmd.constrain``), a batch that its axes do not
+    divide (a microbatch) split over the part of them it divides; on one
+    device it is an identity that checks the rank."""
     dp = dp_axes(mesh)
     spec = Sharding(mesh, (dp, "model", None) if cfg.activation_sharding == "seq"
                     else (dp, None, None))
@@ -247,7 +248,7 @@ def lm_activation_constraint(mesh: LeafMesh, cfg):
     def constrain(x):
         from repro_torch.parallel import spmd
 
-        return spmd.constrain(x, spec)
+        return spmd.constrain(x, spec, even=True)
 
     constrain.sharding = spec
     return constrain

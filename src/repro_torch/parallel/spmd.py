@@ -185,11 +185,16 @@ def bind(mesh: LeafMesh, device_type: Optional[str] = None, merged: Sequence[Seq
         _BOUND.pop(mesh, None)
 
 
-def axis_groups(mesh: LeafMesh, shardings: Any) -> Tuple[Tuple[str, ...], ...]:
+def axis_groups(mesh: LeafMesh, shardings: Any, args: Any = None,
+                microbatches: int = 1) -> Tuple[Tuple[str, ...], ...]:
     """``bind``'s ``merged`` for a step over ``mesh`` whose arguments are laid
     out by the trees ``shardings``: the data-parallel axes (``("pod",
     "data")`` on the multi-pod mesh, ``sharding.dp_axes``) when every spec
-    names all of them, in order, or none; else nothing."""
+    names all of them, in order, or none; else nothing. A step that cuts
+    the rows of its last argument (the batch, ``args[-1]``) into
+    ``microbatches`` gets nothing too where a microbatch's rows do not
+    divide over the merged axes: it is then split over the axes it divides
+    (``steps._rows_like``), which a merged dim cannot express."""
     from repro_torch.parallel.sharding import dp_axes
 
     dp = dp_axes(mesh)
@@ -200,6 +205,13 @@ def axis_groups(mesh: LeafMesh, shardings: Any) -> Tuple[Tuple[str, ...], ...]:
             named = sh._axes(d)
             hit = [a for a in named if a in dp]
             if hit and (tuple(hit) != dp or tuple(named[named.index(dp[0]):][:len(dp)]) != dp):
+                return ()
+    if microbatches > 1 and args is not None:
+        g = group_size(mesh, dp)
+        specs = flatten_tree(shardings[-1])
+        for key, t in flatten_tree(args[-1]).items():
+            rows = specs[key]._axes(0) if isinstance(t, torch.Tensor) and t.dim() else ()
+            if dp[0] in rows and (t.shape[0] // microbatches) % g:
                 return ()
     return (dp,)
 
@@ -342,14 +354,34 @@ def distribute_tree(tree: Any, shardings: Any) -> Any:
                                  for k, v in leaves.items()])
 
 
-def constrain(x, sharding: Sharding):
+def constrain(x, sharding: Sharding, even: bool = False):
     """The reference's ``with_sharding_constraint``: a DTensor is
     redistributed to ``sharding``; a plain tensor is returned as it is,
-    after a check that the spec fits its rank."""
+    after a check that the spec fits its rank. With ``even``, a dim that the
+    spec's mesh dims do not divide is split over the part of them it
+    divides (the major dims let go, whole), where GSPMD pads it: a
+    microbatch of 16 rows over pod x data of 32 is split over data alone."""
     sharding.shard_shape(x.shape)
     if not is_dtensor(x):
         return x
-    return x.redistribute(x.device_mesh, placements(sharding))
+    places = list(placements(sharding))
+    if even:
+        places = evenly(x.shape, places, x.device_mesh)
+    return x.redistribute(x.device_mesh, places)
+
+
+def evenly(shape, places, dm) -> list:
+    """``places`` with, for each dim of ``shape`` that its mesh dims do not
+    divide, the major ones of them let go (``Replicate()``) until the rest
+    do."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    places = list(places)
+    for d, n in enumerate(shape):
+        split = [i for i, p in enumerate(places) if p == Shard(d)]
+        while split and n % math.prod(dm.size(i) for i in split):
+            places[split.pop(0)] = Replicate()
+    return places
 
 
 def laid_out_as(y, x):
@@ -1274,8 +1306,8 @@ def class_nll(logits, labels):
     [..., V]: the label's logit is picked on each rank from its own
     classes where the class dim is sharded (the vocabulary-parallel
     cross-entropy), by a one-hot laid out as the logits are, and summed
-    over the shards; the log-sum-exp gathers the class dim, as DTensor
-    does (``_logsumexp``)."""
+    over the shards; the log-sum-exp reduces each row's max and sum over
+    the shards and never gathers the class dim (``_logsumexp``)."""
     from torch.distributed.tensor import Replicate, Shard
 
     dm = logits.device_mesh
@@ -1337,32 +1369,41 @@ def diagonal_log_softmax(score, q, items, *cols):
 
 
 class _LogSumExp(torch.autograd.Function):
-    """``torch.logsumexp(x, 0)`` of a DTensor ``x`` split over dim 0: dim 0
-    is gathered for the forward, and the gradient, ``exp(x - result)``
-    times the incoming one, is computed on each rank's own slice of dim 0
-    (nothing gathered for it, one temporary of the slice's size)."""
+    """``torch.logsumexp`` over the last dim of a rank's local piece ``x``
+    [..., n] of logits whose last dim (the classes) is split over the
+    ``DeviceMesh`` dims ``dims``: the row max over the rank's own classes
+    all-reduced (max) over ``dims``, the sum of ``exp(x - max)`` all-reduced
+    (sum), ``log(sum) + max``. The gradient, ``exp(x - result)`` times the
+    incoming one, is computed on the rank's own classes: nothing gathered,
+    one temporary of the piece's size."""
 
     @staticmethod
-    def forward(ctx, x):
-        out = torch.logsumexp(whole_dims(x, (0,)), 0)
+    def forward(ctx, x, dm, dims):
+        m = _reduce_dims(torch.amax(x, -1), dm, dims, "max")
+        s = _reduce_dims(torch.sum((x - m.unsqueeze(-1)).exp_(), -1), dm, dims, "sum")
+        out = torch.log(s) + m
         ctx.save_for_backward(x, out)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         x, out = ctx.saved_tensors
-        return (x - out.unsqueeze(0)).exp_().mul_(grad.unsqueeze(0))
+        return (x - out.unsqueeze(-1)).exp_().mul_(grad.unsqueeze(-1)), None, None
 
 
 def _logsumexp(x):
-    """``torch.logsumexp(x, -1)`` of DTensor ``x`` whose last dim (the
-    classes) is gathered for it, as DTensor gathers it, but moved to the
-    front first: the gathered rows land in place, where a gather along the
-    last dim concatenates them again, and the gathered logits are let go
-    after the forward (``_LogSumExp``): one copy of them alive at once
-    besides the gather's own buffer, not three (llama4-scout's 202,048
-    classes)."""
-    return _LogSumExp.apply(x.movedim(-1, 0))
+    """``torch.logsumexp(x, -1)`` of DTensor ``x`` (no partial sums) whose
+    last dim, the classes, may be split: the vocabulary-parallel
+    log-sum-exp of ``_LogSumExp`` on each rank's piece, laid out as ``x``'s
+    rows (whole over the dims that split the classes), as GSPMD reduces a
+    max and a sum a row for a log-softmax over split classes."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dm, last = x.device_mesh, x.dim() - 1
+    split = [i for i, p in enumerate(x.placements) if p == Shard(last)]
+    rows = [Replicate() if i in split else p for i, p in enumerate(x.placements)]
+    out = _LogSumExp.apply(x.to_local(grad_placements=x.placements), dm, split)
+    return _from_local(out, dm, rows, tuple(x.shape[:-1]))
 
 
 def reduced(x):
@@ -1395,6 +1436,24 @@ def whole_dims(x, dims):
     return x if places == list(x.placements) else x.redistribute(x.device_mesh, places)
 
 
+def shared_input(x):
+    """DTensor ``x`` [..., K] laid out for several products that read it
+    (an attention's q, k and v projections; an FFN's gate and up), as
+    ``matmul`` lays out each one's input: every dim between the first and
+    the last whole (a split sequence gathered, as Megatron-SP gathers it),
+    here once for all of them, as GSPMD gathers a shared operand once. Its
+    gradient, the products' partial sums added up, is reduce-scattered back
+    once by the gather's backward (``matmul`` leaves it as it comes). ``x``
+    itself on a plain tensor or where nothing is split there."""
+    if not is_dtensor(x):
+        return x
+    grad_as(x)
+    xg = whole_dims(x, range(1, x.dim() - 1))
+    if xg is not x:
+        xg.spmd_shared = True  # matmul leaves its gradient as it comes
+    return xg
+
+
 def matmul(x, w):
     """``x @ w`` for a DTensor activation ``x`` [..., K] and weight ``w``
     [K, N], with the weight laid out as FSDP x tensor parallelism runs it
@@ -1414,8 +1473,10 @@ def matmul(x, w):
     # the input's gradient (a partial sum where the weight's output dim is
     # split) reduced as the input is laid out, before other gradients of
     # the input add to it: torch releases differ in where they reduce a sum
-    # of a partial and a whole gradient
-    grad_as(x)
+    # of a partial and a whole gradient. An input gathered for several
+    # products (``shared_input``) sums their partial gradients first.
+    if not getattr(x, "spmd_shared", False):
+        grad_as(x)
     last = x.dim() - 1
     # the product flattens x's leading dims, which DTensor does only where
     # no dim past the first is split: a sequence split (Megatron-SP) is

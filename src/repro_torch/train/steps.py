@@ -108,9 +108,15 @@ def _accumulate_grads(loss_fn, params, batch, microbatches: int):
 
 def _rows_like(v, start: int, n: int):
     """Rows ``start`` .. ``start + n - 1`` of ``v``; of a DTensor batch, laid
-    out again as the batch is (DTensor gathers a sliced split dim whole)."""
+    out again as the batch is (DTensor gathers a sliced split dim whole),
+    over the part of the mesh dims splitting the rows that ``n`` divides:
+    the major dims are let go, whole, until the rest divide ``n`` (16 rows
+    split over data and replicated over pod where pod x data is 32), so no
+    operator after it meets an uneven split."""
     rows = v[start:start + n]
-    return rows.redistribute(v.device_mesh, v.placements) if is_dtensor(v) else rows
+    if not is_dtensor(v):
+        return rows
+    return rows.redistribute(v.device_mesh, spmd.evenly(rows.shape, v.placements, v.device_mesh))
 
 
 def _loop_counter(batch):
@@ -140,7 +146,8 @@ def _each_trip(counter, trips: int):
 
 def make_train_step(loss_fn: Callable, adam_cfg: optim.AdamConfig, microbatches: int = 1):
     """Generic ``(params, opt_state, batch) -> (params, opt_state, metrics)``,
-    ``params`` and the moments updated in place."""
+    ``params`` and the moments updated in place; ``step.microbatches`` is
+    ``microbatches``, the number of pieces the batch's rows are cut into."""
 
     def step(params, opt_state, batch):
         loss, grads = _accumulate_grads(loss_fn, params, batch, microbatches)
@@ -149,6 +156,7 @@ def make_train_step(loss_fn: Callable, adam_cfg: optim.AdamConfig, microbatches:
                                        norm=norm)
         return params, opt_state, {"loss": loss, "grad_norm": norm}
 
+    step.microbatches = microbatches  # what the dry run's mesh layout reads
     return step
 
 

@@ -255,6 +255,24 @@ def test_sharded_product_counts_the_local_flops():
     assert not torch.distributed.is_initialized()  # the fake group is gone
 
 
+def test_peak_counts_the_arguments_the_step_reads():
+    """An argument the step never reads stays out of the peak, as XLA prunes
+    a jitted step's unused arguments; ``argument_bytes`` counts every one."""
+    from repro_torch.launch.hlo_cost import sharded_step_costs
+    from repro_torch.parallel.sharding import Sharding
+
+    mesh = _mesh16()
+    x = torch.empty((512, 4096), device="meta")
+    unused = torch.empty((4096, 4096), device="meta")
+    sh = (Sharding(mesh, ("data", None)), Sharding(mesh, ("model", None)))
+    got = sharded_step_costs(lambda a, b: a * 2, (x, unused), sh, mesh)
+    piece, other = 32 * 4096 * 4, 256 * 4096 * 4
+    assert got["argument_bytes"] == piece + other
+    assert got["peak_bytes"] == 2 * piece  # the piece read and the product's
+    got = sharded_step_costs(lambda a, b: (a * 2, b + 1), (x, unused), sh, mesh)
+    assert got["peak_bytes"] == 2 * piece + 2 * other
+
+
 def test_all_to_all_is_counted_as_one_on_the_cpu_mesh():
     """Gloo has no all-to-all: on the CPU mesh type both the hand-written
     ``spmd.all_to_all`` and DTensor's shard-to-shard redistribution run as

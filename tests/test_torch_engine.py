@@ -12,7 +12,8 @@ scores (-inf included) and ids: the flat engine, int8 and packed, at k = 10
 and at k above a leaf's rows; an n_levels-1 corpus full of ties; failover
 with leaf 3 dead, and with every leaf but one dead at k above its rows, so
 that dead leaves' ids surface beside -inf; a reversed ``shard_axes`` and
-a subset of the mesh's axes; the HNSW engine, int8 and
+a subset of the mesh's axes; the merge over (8,), (4, 2) and
+("pod", "data", "model") (2, 2, 2) meshes, ties across leaves; the HNSW engine, int8 and
 packed; both snapshot closures, bi-granular at every effort level; the
 reference's errors; and ``EngineBuilder`` over two replica meshes. The
 port's ``doc_inv_norms`` may differ from the reference's by one ulp, so the
@@ -61,6 +62,12 @@ HNSW_SEARCH = dict(ef=64, beam=16)
 # shard axes other than the mesh's own order: reversed, and a subset (the
 # corpus split over "data" only, each shard on the leaf at model 0)
 AXES = (("reversed", ("model", "data")), ("subset", ("data",)))
+# the merge over one, two and three sharded axes (``test_merge_equals_one_flat_search``):
+# (name, mesh shape, axes, gather order), and its ks
+MERGE_MESHES = (("8", (8,), ("data",), list(range(8))),
+                ("4x2", (4, 2), ("data", "model"), [0, 2, 4, 6, 1, 3, 5, 7]),
+                ("2x2x2", (2, 2, 2), ("pod", "data", "model"), [0, 4, 2, 6, 1, 5, 3, 7]))
+MERGE_KS = (1, 10, 150)
 
 _REFERENCE = """
 import json, sys, types
@@ -131,6 +138,22 @@ with mesh:
     except ValueError as e:
         msgs["leaf_count"] = str(e)
 
+md, mq = inp["md"], inp["mq"]
+minv = np.asarray(R.doc_inv_norms(jnp.asarray(md), 4))
+out["minv"] = minv
+for name, shape, axes, _ in %(MERGE_MESHES)r:
+    m = jax.make_mesh(shape, axes)
+    qa, da, va = E.engine_input_shardings(m, axes)
+    with m:
+        for packed in (False, True):
+            corpus = pack_codes_nibbles(jnp.asarray(md)) if packed else jnp.asarray(md)
+            for k in %(MERGE_KS)r:
+                fn = E.make_distributed_search(m, n_levels=4, k=k, backend="xla",
+                                               packed=packed, shard_axes=axes)
+                save(f"merge/{name}/{int(packed)}/{k}", fn(
+                    jax.device_put(jnp.asarray(mq), qa), jax.device_put(corpus, da),
+                    jax.device_put(jnp.asarray(minv), va)))
+
 snap = L.CorpusSnapshot(codes=cd, n_levels=4)
 for packed in (False, True):
     save(f"snap/{int(packed)}", E.engine_search_from_snapshot(
@@ -163,17 +186,23 @@ for index, extra in (("flat", {}), ("hnsw", {}), ("flat_rr", %(RR_ARGS)r)):
 np.savez(sys.argv[2], **out)
 json.dump({"msgs": msgs, "tags": tags}, open(sys.argv[3], "w"))
 """ % dict(WIDE_K=WIDE_K, HNSW_KW=HNSW_KW, HNSW_SEARCH=HNSW_SEARCH, RR_ARGS=RR_ARGS,
-           AXES=AXES)
+           AXES=AXES, MERGE_MESHES=MERGE_MESHES, MERGE_KS=MERGE_KS)
 
 
 def _inputs(seed=20):
     rng = np.random.default_rng(seed)
-    return dict(
+    out = dict(
         cd=rng.integers(0, 2**LEVELS, (N, D)).astype(np.int8),
         cq=rng.integers(0, 2**LEVELS, (Q, D)).astype(np.int8),
         td=rng.integers(0, 2, (N, TIES_D)).astype(np.int8),
         tq=rng.integers(0, 2, (Q, TIES_D)).astype(np.int8),
     )
+    # the merge's corpus: every 7th document a copy of document 3 (ties across leaves)
+    rng = np.random.default_rng(5)
+    out["md"] = rng.integers(0, 2**LEVELS, (800, 32)).astype(np.int8)
+    out["mq"] = rng.integers(0, 2**LEVELS, (5, 32)).astype(np.int8)
+    out["md"][::7] = out["md"][3]
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -431,27 +460,22 @@ def _flat_in_gather_order(cq, cd, inv, k, order):
 
 
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("shape, axes, order", [
-    ((8,), ("data",), list(range(8))),
-    ((4, 2), ("data", "model"), [0, 2, 4, 6, 1, 3, 5, 7]),
-    ((2, 2, 2), ("pod", "data", "model"), [0, 4, 2, 6, 1, 5, 3, 7]),
-])
-def test_merge_equals_one_flat_search(shape, axes, order, packed):
+@pytest.mark.parametrize("name, shape, axes, order", MERGE_MESHES)
+def test_merge_equals_one_flat_search(ref, name, shape, axes, order, packed):
     """Duplicated documents tie across leaves: over one sharded axis the
     merge is a flat search, ties included; over several, a flat search
-    whose ties follow the gather order."""
-    rng = np.random.default_rng(5)
-    cd = _t(rng.integers(0, 2**LEVELS, (800, 32)).astype(np.int8))
-    cq = _t(rng.integers(0, 2**LEVELS, (5, 32)).astype(np.int8))
-    cd[::7] = cd[3]
-    inv = PR.doc_inv_norms(cd, LEVELS)
+    whose ties follow the gather order. On each mesh, (8,), (4, 2) and
+    (2, 2, 2), it is also bit-identical to the reference's merge over the
+    same mesh (the port takes the reference's inverse norms)."""
+    cd, cq, inv = _t(ref["md"]), _t(ref["mq"]), _t(ref["minv"])
     mesh = make_host_mesh(shape, axes, devices=["cpu"] * 8)
     assert PE.gather_order(mesh, axes) == order
     corpus = PB.pack_codes_nibbles(cd) if packed else cd
-    for k in (1, 10, 150):
+    for k in MERGE_KS:
         fn = PE.make_distributed_search(mesh, n_levels=LEVELS, k=k, shard_axes=axes,
                                         packed=packed)
         got = fn(cq, corpus, inv)
+        _same(ref, f"merge/{name}/{int(packed)}/{k}", got)
         want = _flat_in_gather_order(cq, cd, inv, k, order)
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
         if len(axes) == 1:

@@ -23,6 +23,11 @@ checkpoint keeps its all-gather, ``spmd.checkpoint``). ``gnn_ogb``
 partitioned's FLOPs a device are at most the reference's: the checkpoint
 keeps the layer's products too, as the reference's compiled step does.
 
+Each ``tt_retrieval`` variant, on 16x16 and on 2x16x16, is held by
+``hold_record`` (nothing replicated, FLOPs and wire at most the
+reference's, the peak at most twice its), and the reference's records of
+them equal the committed ones that ``chip_smoke.py``'s phase 14 reads.
+
 ``bebr_sdc_merge`` also runs with values over an 8-process gloo group
 (``LeafMesh((4, 2), ["cpu"] * 8)``) on the SMOKE two-tower with 0 and
 negative inverse norms planted: ids exactly the reference's 8-device
@@ -42,14 +47,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_hillclimb_ref import run_reference  # noqa: E402
+from _torch_hillclimb_ref import (CELL_RECORDS, MULTI_POD_RECORDS, hold_record,  # noqa: E402
+                                  ratios, run_reference)
 from repro_torch.kernels.sdc import defaults  # noqa: E402
 from repro_torch.launch import hillclimb as hc  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ROOT = os.path.dirname(SRC)
 TT = ("baseline", "float_index", "bebr_sdc", "bebr_sdc_fullmesh", "bebr_sdc_merge")
-WANTED = ([("tt_retrieval", v, False) for v in TT] + [("tt_retrieval", "bebr_sdc_merge", True)]
+WANTED = ([("tt_retrieval", v, mp) for mp in (False, True) for v in TT]
           + [("gnn_ogb", "baseline", False), ("gnn_ogb", "partitioned", False)])
 
 
@@ -120,6 +126,29 @@ def test_port_own_figures(ref, port):
     assert part["collectives"]["all-gather"] == rpart["collectives"]["all-gather"]
     assert part["collectives"]["reduce-scatter"] == rpart["collectives"]["reduce-scatter"]
     assert part["flops"] == 1_890_748_591_872 <= rpart["flops"] == 1_904_855_707_392
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("variant", TT)
+def test_tt_retrieval_against_the_reference(ref, port, variant, multi_pod):
+    """Each variant on both meshes by ``hold_record``. float_index's matrix-
+    vector product over the million candidates runs on each rank's rows;
+    the peak counts the pieces of the arguments the step reads (the BEBR
+    variants never read the item table or tower), as XLA prunes a jitted
+    step's unused arguments; a sharded top k selects from the gathered
+    scores a chunk of columns at a time (``select_topk``)."""
+    key = _key("tt_retrieval", variant, multi_pod)
+    print(f"{key}: {ratios(port[key], ref[key])}")
+    hold_record("tt_retrieval", variant, port[key], ref[key], mesh=hc.mesh_name(multi_pod))
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_committed_tt_records_equal_the_reference(ref, multi_pod):
+    with open(CELL_RECORDS if not multi_pod else MULTI_POD_RECORDS) as f:
+        committed = json.load(f)
+    for variant in TT:
+        key = _key("tt_retrieval", variant, multi_pod)
+        assert {f: v for f, v in ref[key].items() if not f.endswith("_ms")} == committed[key]
 
 
 def test_records_are_priced_with_the_h100_constants(port):

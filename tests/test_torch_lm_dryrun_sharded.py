@@ -5,46 +5,40 @@ meta device over a fake process group: DTensor places every operator
 llama3.2-1b, mistral-large-123b) each device's FLOPs are exactly the
 whole step's over 256: no product runs twice.
 
-The MoE models' cells (llama4-scout-17b-a16e, grok-1-314b) are held
-against the reference's GSPMD records of the same cells at 2 layers, run
-live in one subprocess (``tests/_torch_hillclimb_ref.py``), by
-``MOE_TARGETS``: FLOPs a device at the whole step's share, or at most 1.2x
-it where llama4-scout's 40 query heads split over 16 model shards 3 or 2 a
-shard, or at most the reference's; wire at most the reference's, the peak
-at most twice its.
+All 20 cells are held against the reference's GSPMD records of the same
+cells at 2 layers, run live in one subprocess
+(``tests/_torch_hillclimb_ref.py``), by ``hold_record``: FLOPs a device at
+most the reference's, or for the MoE models by ``MOE_TARGETS`` (at the
+whole step's share, or at most 1.2x it where llama4-scout's 40 query
+heads split over 16 model shards 3 or 2 a shard); wire at most the
+reference's, the peak at most twice its. The loss's log-sum-exp is
+vocabulary-parallel (``spmd.class_nll``): llama3.2-1b train_4k, whose
+128,256 classes a rank once gathered whole, holds. The same cells on
+2x16x16: ``tests/test_torch_lm_dryrun_2x16x16.py``.
 """
 
-import dataclasses
 import functools
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_hillclimb_ref import MOE_ARCHS, MOE_TARGETS, hold_record, run_reference  # noqa: E402
-from repro_torch.configs import cells as cells_mod  # noqa: E402
-from repro_torch.configs.registry import get_arch  # noqa: E402
-from repro_torch.launch import hillclimb as hc  # noqa: E402
-from repro_torch.launch import hlo_cost  # noqa: E402
-from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from _torch_hillclimb_ref import (DENSE_ARCHS, LM_SHAPES, MOE_ARCHS, MOE_TARGETS,  # noqa: E402
+                                  hold_record, port_record, ratios, run_reference)
 
-DENSE = ("llama3-405b", "llama3.2-1b", "mistral-large-123b")
+DENSE = DENSE_ARCHS
 MOE = MOE_ARCHS
 N_LAYERS = 2
+MESH = "16x16"
 
 
 @functools.lru_cache(maxsize=None)
 def _measured(arch, shape):
     """The cell at 2 layers: its sharded record and the whole step's FLOPs."""
-    torch.set_num_threads(1)
-    mesh = make_production_mesh(multi_pod=False, devices=["meta"] * 256)
-    cfg = dataclasses.replace(get_arch(arch).config, n_layers=N_LAYERS)
-    cell = cells_mod.lm_cell(cfg, shape, mesh)
-    rec = hc._measure(cell.fn, cell.in_shardings, cell.abstract_args, mesh)
-    return rec, hlo_cost.step_costs(cell.fn, *cell.abstract_args)["flops"]
+    return port_record(arch, shape, False, N_LAYERS, whole=True)
 
 
-@pytest.mark.parametrize("shape", sorted(cells_mod.LM_SHAPES))
+@pytest.mark.parametrize("shape", sorted(LM_SHAPES))
 @pytest.mark.parametrize("arch", DENSE + MOE)
 def test_lm_cell_sharded(arch, shape):
     rec, whole = _measured(arch, shape)
@@ -55,16 +49,23 @@ def test_lm_cell_sharded(arch, shape):
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    return run_reference(tmp_path_factory.mktemp("moe_cells"),
-                         [[arch, shape, False] for arch, shape in MOE_TARGETS],
+    return run_reference(tmp_path_factory.mktemp("lm_cells"),
+                         [[arch, shape, False] for arch in DENSE + MOE for shape in LM_SHAPES],
                          n_layers=N_LAYERS)
+
+
+def _hold(ref, arch, shape):
+    rec, whole = _measured(arch, shape)
+    r = ref[f"{arch}|{shape}|{MESH}"]
+    print(f"{arch} {shape}: {ratios(rec, r)}; {rec['flops'] * 256 / whole:.4f}x the share")
+    hold_record(arch, shape, rec, r, whole, MESH)
 
 
 @pytest.mark.parametrize("arch,shape", sorted(MOE_TARGETS))
 def test_moe_cell_against_the_reference(ref, arch, shape):
-    rec, whole = _measured(arch, shape)
-    r = ref[f"{arch}|{shape}|16x16"]
-    print(f"{arch} {shape}: FLOPs {rec['flops']:.6e} ({rec['flops'] * 256 / whole:.4f}x the "
-          f"share, {rec['flops'] / r['flops']:.4f}x the reference's), wire "
-          f"{rec['wire_bytes'] / r['wire_bytes']:.3f}x, peak {rec['peak_gib'] / r['peak_gib']:.3f}x")
-    hold_record(arch, shape, rec, r, whole)
+    _hold(ref, arch, shape)
+
+
+@pytest.mark.parametrize("arch,shape", [(a, s) for a in DENSE for s in sorted(LM_SHAPES)])
+def test_dense_cell_against_the_reference(ref, arch, shape):
+    _hold(ref, arch, shape)

@@ -134,6 +134,22 @@ def test_plain_chunking_does_not_change_results(packed):
         assert torch.equal(whole[0], part[0]) and torch.equal(whole[1], part[1])
 
 
+@pytest.mark.parametrize("k", [1, 10, 70, 300])
+def test_chunked_selection_equals_one_sort(monkeypatch, k):
+    """A sharded step's top k (``select_topk`` on a DTensor) selects a
+    chunk of columns at a time: the same scores and ids as one stable sort,
+    ties (few distinct scores, -0.0 beside 0.0, excluded documents) going to
+    the lower column across chunks, and k past the columns padded."""
+    monkeypatch.setattr(PS, "_TOPK_SELECT_CHUNK", 64)
+    rng = np.random.default_rng(3)
+    scores = torch.from_numpy(rng.integers(-3, 4, (5, 250)).astype(np.float32) * 0.5)
+    scores[1, 10:20], scores[1, 70:80] = -0.0, 0.0  # in two chunks
+    scores[:, ::9] = RB.SDC_NEG_INF
+    got, want = PS._chunked_topk(scores, k), PS.select_topk(scores, k)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
 @pytest.mark.parametrize("backend", ["auto", "torch"])
 def test_backend_dispatch_on_cpu(backend):
     q, dd, inv, k = _inputs("ragged", 4, False)

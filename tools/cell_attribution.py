@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Where a dry-run cell's per-device FLOPs, wire and peak come from.
 
-    PYTHONPATH=src python tools/cell_attribution.py ARCH SHAPE [--layers 2] [--top 20]
+    PYTHONPATH=src python tools/cell_attribution.py ARCH SHAPE [--layers 2] [--multi-pod] \
+        [--top 20]
 
 Builds the cell of a registry arch id and one of its shapes
 (``configs/registry.build_cell``; an LM cell at ``--layers`` layers,
-widths unchanged, 0 keeping the config's depth), or a variant of
-``launch/hillclimb.VARIANTS`` (ARCH a hillclimb cell such as ``gnn_ogb``,
-SHAPE its variant), on 16x16 and counts its sharded step as
-``launch/hillclimb._measure`` does, on the meta device over a fake
-process group (no card), with three tallies added:
+widths unchanged, ``--layers 0`` keeping the config's full depth), or a
+variant of ``launch/hillclimb.VARIANTS`` (ARCH a hillclimb cell such as
+``gnn_ogb``, SHAPE its variant), on 16x16 (``--multi-pod``: 2x16x16) and
+counts its sharded step as ``launch/hillclimb._measure`` does, on the meta
+device over a fake process group (no card), with three tallies added:
 
   * FLOPs by the model's line that ran them (the innermost frame of a
     model file: ``models/transformer.py``, ``models/gnn.py``,
@@ -17,11 +18,14 @@ process group (no card), with three tallies added:
     with the ``parallel/spmd.py`` line under it; a backward operator
     counts under ``steps.py``'s call of the backward);
   * wire bytes by that line and the collective's kind;
-  * at the peak, the live bytes by the line that allocated them.
+  * at the peak, the live bytes by the line that allocated them (the
+    step's arguments under ``hillclimb._measure``'s line, those it reads and
+    those it does not alike: the record's peak leaves the unread ones out).
 
-Each figure is rank 0's, beside the whole step's FLOPs over 256 (the
-share; not computed for a hillclimb variant written under ``shard_map``). The signature memo of ``launch/hlo_cost`` is off while it runs,
-so every operator is seen; the totals equal the record's.
+Each figure is rank 0's, beside the whole step's FLOPs over the device
+count, 256 or 512 (the share; not computed for a hillclimb variant written
+under ``shard_map``). The signature memo of ``launch/hlo_cost`` is off
+while it runs, so every operator is seen; the totals equal the record's.
 """
 
 from __future__ import annotations
@@ -117,12 +121,16 @@ def main(argv=None) -> None:
     ap.add_argument("arch", help="a registry arch id, or a hillclimb cell (gnn_ogb, ...)")
     ap.add_argument("shape", help="one of the arch's shapes, or the hillclimb cell's variant")
     ap.add_argument("--layers", type=int, default=2,
-                    help="an LM cell's depth; 0 keeps the config's")
+                    help="an LM cell's depth; 0 keeps the config's (full depth)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the 2x16x16 mesh (512 devices) instead of 16x16")
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args(argv)
 
     torch.set_num_threads(1)
-    mesh = make_production_mesh(multi_pod=False, devices=["meta"] * 256)
+    n = 512 if args.multi_pod else 256
+    mesh = make_production_mesh(multi_pod=args.multi_pod, devices=["meta"] * n)
+    mesh_name = hc.mesh_name(args.multi_pod)
     depth = ""
     if args.arch in hc.VARIANTS:
         if args.shape not in hc.VARIANTS[args.arch]:
@@ -153,9 +161,9 @@ def main(argv=None) -> None:
     if args.arch in hc.VARIANTS:
         share = ""
     else:
-        whole = hlo_cost.step_costs(fn, *abstract)["flops"] / 256
+        whole = hlo_cost.step_costs(fn, *abstract)["flops"] / n
         share = f" ({rec['flops'] / whole:.4f}x the share {whole:.6e})"
-    print(f"{args.arch} {args.shape}{depth} on 16x16: FLOPs a device {rec['flops']:.6e}"
+    print(f"{args.arch} {args.shape}{depth} on {mesh_name}: FLOPs a device {rec['flops']:.6e}"
           f"{share}, wire {rec['wire_bytes']:.4e} B {_nonzero(rec['collectives'])}, peak "
           f"{rec['peak_gib']:.3f} GiB, replicated {rec['replicated'] or 'none'}")
     total = sum(tally.flops.values()) or 1
