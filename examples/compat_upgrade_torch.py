@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 import repro_torch.core.losses as L
+from repro_torch import prng
 from repro_torch.core.binarize_lib import BinarizerConfig, binarize_eval, make_encode_fn
 from repro_torch.core.trainer import (
     TrainConfig,
@@ -66,7 +67,7 @@ def main(argv=None):
         return float(np.mean(np.any(idx.cpu().numpy() == gt[:, None], -1)))
 
     print("1) v1 in production: train phi_old, build the binary index")
-    old = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    old = init_train_state(cfg, prng.key(0, dev), dev)
     initial = copy.deepcopy(old.model)
     gen = pair_batches(old_docs, 1, 128, noise=0.05, device=dev)
     for _ in range(args.steps):
@@ -82,7 +83,7 @@ def main(argv=None):
           "<- regression!")
 
     print("3) BEBR-BC: train phi_new against the frozen old index (Eq. 9-10)")
-    new = init_train_state(cfg, torch.Generator(device=dev).manual_seed(7), dev)
+    new = init_train_state(cfg, prng.key(7, dev), dev)
     new = new._replace(model=copy.deepcopy(old.model), m_model=copy.deepcopy(old.model))
     rng = np.random.default_rng(11)
     for _ in range(args.bc_steps):

@@ -16,9 +16,9 @@ import copy
 import time
 
 import numpy as np
-import torch
 
 import repro_torch.core.losses as L
+from repro_torch import prng
 from repro_torch.core.binarize_lib import BinarizerConfig, make_encode_fn
 from repro_torch.core.trainer import (
     TrainConfig,
@@ -51,7 +51,7 @@ def main(argv=None):
         queue=L.QueueConfig(length=4096, dim=CODE, top_k=64),
         adam=optim.AdamConfig(lr=2e-3, clip_norm=5.0),
     )
-    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    state = init_train_state(cfg, prng.key(0, dev), dev)
     gen = pair_batches(docs, 1, 256, noise=0.08, device=dev)
     initial = copy.deepcopy(state.model)
     t0 = time.time()

@@ -25,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import losses as L
 from repro_torch.core.binarize_lib import BinarizerConfig, make_encode_fn
 from repro_torch.core.trainer import (
@@ -59,7 +60,7 @@ def main(argv=None):
                             user_vocab=20_000, item_vocab=20_000, hist_len=16)
     print(f"model: {cfg.param_count()/1e6:.1f}M params")
 
-    params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = tt.init_params(cfg, prng.key(0, dev), dev)
     opt = steps.init_opt_state(params)
     step = steps.tt_train_step(cfg, optim.AdamConfig(lr=5e-3))
 
@@ -115,7 +116,7 @@ def main(argv=None):
         queue=L.QueueConfig(length=4096, dim=64, top_k=64),
         adam=optim.AdamConfig(lr=2e-3, clip_norm=5.0),
     )
-    bstate = init_train_state(bcfg, torch.Generator(device=dev).manual_seed(1), dev)
+    bstate = init_train_state(bcfg, prng.key(1, dev), dev)
     b_initial = copy.deepcopy(bstate.model)
 
     def pairs(i):

@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch import prng
 from repro_torch.launch.mesh import LeafMesh
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import transformer as tf
@@ -152,7 +153,7 @@ GNN_SHAPES = {
 def gnn_cell(base_cfg: gnn_lib.GNNConfig, shape_id: str, mesh: LeafMesh) -> CellSpec:
     info = GNN_SHAPES[shape_id]
     cfg = dataclasses.replace(base_cfg, d_node_in=info["d_feat"], d_edge_in=8)
-    params_s = gnn_lib.init_params(cfg, torch.Generator(), device=META)
+    params_s = gnn_lib.init_params(cfg, prng.key(0, META), device=META)
     param_sh = shd.replicate_like(mesh, params_s)
     N, E = info["nodes"], info["edges"]
     # pad N/E so nodes shard over `model` and edges over dp (any mesh)
@@ -208,7 +209,7 @@ def dlrm_cell(cfg: dlrm_lib.DLRMConfig, shape_id: str, mesh: LeafMesh) -> CellSp
     info = RS_SHAPES[shape_id]
     dp = shd.dp_axes(mesh)
     params_s = tree_map(torch.Tensor.detach,
-                        dlrm_lib.init_dlrm(cfg, torch.Generator(), device=META).tree())
+                        dlrm_lib.init_dlrm(cfg, prng.key(0, META), device=META).tree())
     param_sh = shd.fill_param_sharding(mesh, params_s, (), stacked_table_keys=("tables",))
     meta = {"params": cfg.param_count(), "active_params": cfg.param_count(),
             "family": "recsys", "model": "dlrm", "batch": info["batch"],
@@ -238,7 +239,7 @@ def dlrm_cell(cfg: dlrm_lib.DLRMConfig, shape_id: str, mesh: LeafMesh) -> CellSp
 def tt_cell(cfg: tt_lib.TwoTowerConfig, shape_id: str, mesh: LeafMesh) -> CellSpec:
     info = RS_SHAPES[shape_id]
     dp = shd.dp_axes(mesh)
-    params_s = tt_lib.init_params(cfg, torch.Generator(), device=META)
+    params_s = tt_lib.init_params(cfg, prng.key(0, META), device=META)
     param_sh = shd.fill_param_sharding(mesh, params_s, table_keys=("user_table", "item_table"))
     meta = {"params": cfg.param_count(), "active_params": cfg.param_count(),
             "family": "recsys", "model": "two_tower", "batch": info["batch"],
@@ -292,7 +293,7 @@ def tt_cell(cfg: tt_lib.TwoTowerConfig, shape_id: str, mesh: LeafMesh) -> CellSp
 def mind_cell(cfg: mind_lib.MINDConfig, shape_id: str, mesh: LeafMesh) -> CellSpec:
     info = RS_SHAPES[shape_id]
     dp = shd.dp_axes(mesh)
-    params_s = mind_lib.init_params(cfg, torch.Generator(), device=META)
+    params_s = mind_lib.init_params(cfg, prng.key(0, META), device=META)
     param_sh = shd.fill_param_sharding(mesh, params_s, table_keys=("item_table",))
     meta = {"params": cfg.param_count(), "active_params": cfg.param_count(),
             "family": "recsys", "model": "mind", "batch": info["batch"],
@@ -343,7 +344,7 @@ def mind_cell(cfg: mind_lib.MINDConfig, shape_id: str, mesh: LeafMesh) -> CellSp
 def dien_cell(cfg: dien_lib.DIENConfig, shape_id: str, mesh: LeafMesh) -> CellSpec:
     info = RS_SHAPES[shape_id]
     dp = shd.dp_axes(mesh)
-    params_s = dien_lib.init_params(cfg, torch.Generator(), device=META)
+    params_s = dien_lib.init_params(cfg, prng.key(0, META), device=META)
     param_sh = shd.fill_param_sharding(mesh, params_s, table_keys=("item_table", "cate_table"))
     meta = {"params": cfg.param_count(), "active_params": cfg.param_count(),
             "family": "recsys", "model": "dien", "batch": info["batch"],

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import prng
 from repro_torch.device import full_fp32_matmul, resolve_device
 
 
@@ -331,24 +332,35 @@ class RecurrentBinarizer(nn.Module):
 
 
 def init_binarizer(
-    cfg: BinarizerConfig, generator: torch.Generator, device="cuda"
+    cfg: BinarizerConfig, key: torch.Tensor, device="cuda"
 ) -> RecurrentBinarizer:
-    """A binarizer with the reference's initialisation, drawn from ``generator``.
+    """A binarizer with the reference's initialisation from ``key``
+    (``prng.key``): the reference's keys and draws, so the weights are
+    its own (``prng.normal``'s bound).
 
-    Weights ~ N(0, 1) * sqrt(2 / d_in), biases 0, BN scale 1 / bias 0,
-    running mean 0 / var 1. The reference draws from ``jax.random``, so
-    the numbers differ; to hold the two against each other, convert the
-    reference's weights with ``binarizer_from_numpy``. ``generator``
-    must live on ``device``.
+    ``split(key, 2 n)`` gives W[t] key t and R[t] key n + t; an MLP with a
+    hidden layer splits its key between its two linears, and a linear
+    draws ``normal(split(key)[0], (d_in, d_out)) * sqrt(2 / d_in)``, the
+    scale rounded to float32 first. Biases 0, BN scale 1 / bias 0,
+    running mean 0 / var 1.
     """
     device = resolve_device(device)
     model = RecurrentBinarizer(cfg, device)
+    n = cfg.n_levels
+    keys = prng.split(key, 2 * n)
+    mlps = [(model.W[t], keys[t]) for t in range(n)]
+    mlps += [(model.R[t], keys[n + t]) for t in range(n - 1)]
     with torch.no_grad():
-        for mlp in list(model.W) + list(model.R):
-            for lin in ([mlp.inp] if mlp.hidden > 0 else []) + [mlp.out]:
+        for mlp, k in mlps:
+            linears = [(mlp.out, k)]
+            if mlp.hidden > 0:
+                k_in, k_out = prng.split(k)
+                linears = [(mlp.inp, k_in), (mlp.out, k_out)]
+            for lin, kl in linears:
                 d_out, d_in = lin.weight.shape
-                w = torch.randn(d_in, d_out, generator=generator, device=device)
-                lin.weight.copy_((w * float(np.sqrt(2.0 / d_in))).t())
+                scale = np.sqrt(np.float32(2.0 / d_in))
+                w = prng.normal(prng.split(kl)[0], (d_in, d_out), mul=scale, device=device)
+                lin.weight.copy_(w.t())
                 lin.bias.zero_()
     return model.eval()
 

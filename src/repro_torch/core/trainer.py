@@ -74,12 +74,12 @@ class TrainStateArrays(NamedTuple):
     step: np.ndarray
 
 
-def init_train_state(cfg: TrainConfig, generator: torch.Generator, device="cuda") -> TrainState:
-    """A fresh state on ``device``: ``init_binarizer`` drawn from
-    ``generator`` (which must live on ``device``), a momentum copy, zero
-    Adam moments and an empty queue."""
+def init_train_state(cfg: TrainConfig, key: torch.Tensor, device="cuda") -> TrainState:
+    """A fresh state on ``device``: ``init_binarizer`` from ``key`` (the
+    reference's ``init_train_state(key, cfg)``), a momentum copy, zero Adam
+    moments and an empty queue."""
     device = resolve_device(device)
-    model = B.init_binarizer(cfg.binarizer, generator, device)
+    model = B.init_binarizer(cfg.binarizer, key, device)
     return TrainState(
         model=model,
         m_model=copy.deepcopy(model),

@@ -7,15 +7,17 @@ the model zoo's train batches ``lm_batch``, ``gnn_batch``, ``dlrm_batch``,
 corpora), ``backbone_upgrade`` (a drifted float space) and
 ``pair_batches`` (the binarizer's training pairs) are the reference's
 numpy generators, verbatim, so the same seed gives the same arrays bit
-for bit. ``clustered_corpus_torch``
-follows the same recipe with a ``torch.Generator`` on the card, for
-corpora whose float64 numpy intermediates would not fit in host memory
-(ten million 256-dim documents); its numbers differ from the numpy ones.
+for bit. ``clustered_corpus_torch`` (the port's own, with no counterpart
+in the reference) follows the same recipe with a ``torch.Generator`` on
+the card, for corpora whose float64 numpy intermediates would not fit in
+host memory (ten million 256-dim documents); its numbers differ from the
+numpy ones.
 
-The model batches are drawn from a ``torch.Generator`` seeded by (step,
-family), so a step gives the same batch every time (what makes a resumed
-run repeat the unbroken one). The reference draws from ``jax.random``:
-tests hand its batches over as arrays.
+The model batches are the reference's: drawn from ``fold_in(key(20230713
++ family), step)`` (``prng``) with its splits and draws, so a step gives
+the reference's batch on either device, every time (what makes a resumed
+run repeat the unbroken one). Integer leaves are equal to the
+reference's; float ones carry ``prng.normal``'s bound.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.device import resolve_device
 
 
@@ -185,17 +188,20 @@ def clustered_corpus_torch(
     return docs, queries, gt
 
 
-def _generator(step: int, salt: int, device) -> torch.Generator:
-    """A generator that is a pure function of (step, salt), like the reference's ``_key``."""
-    return torch.Generator(device=device).manual_seed((20230713 + salt) * 1_000_003 + step)
+def _key(step: int, salt: int, device) -> torch.Tensor:
+    """The reference's ``_key(step, salt)``: ``fold_in(key(20230713 + salt), step)``."""
+    return prng.fold_in(prng.key(20230713 + salt, device), step)
+
+
+def _ids(k, high: int, shape) -> torch.Tensor:
+    return prng.randint(k, shape, 0, high)
 
 
 def lm_batch(step: int, batch: int, seq: int, vocab: int,
              device="cuda") -> Dict[str, torch.Tensor]:
     """An LM batch: ``seq + 1`` int32 tokens a row uniform in [0, vocab),
     split into tokens [B, seq] and the next-token labels [B, seq]."""
-    dev = resolve_device(device)
-    tokens = _ids(_generator(step, 0, dev), vocab, (batch, seq + 1), dev)
+    tokens = _ids(_key(step, 0, resolve_device(device)), vocab, (batch, seq + 1))
     return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
 
@@ -205,14 +211,14 @@ def gnn_batch(step: int, n_nodes: int, n_edges: int, cfg,
     targets [N, d_out] ~ N(0, 1), senders/receivers [E] int32 uniform over
     the nodes, edge_mask all True."""
     dev = resolve_device(device)
-    g = _generator(step, 1, dev)
+    ks = prng.split(_key(step, 1, dev), 5)
     return {
-        "node_feat": torch.randn((n_nodes, cfg.d_node_in), generator=g, device=dev),
-        "edge_feat": torch.randn((n_edges, cfg.d_edge_in), generator=g, device=dev),
-        "senders": _ids(g, n_nodes, (n_edges,), dev),
-        "receivers": _ids(g, n_nodes, (n_edges,), dev),
+        "node_feat": prng.normal(ks[0], (n_nodes, cfg.d_node_in)),
+        "edge_feat": prng.normal(ks[1], (n_edges, cfg.d_edge_in)),
+        "senders": _ids(ks[2], n_nodes, (n_edges,)),
+        "receivers": _ids(ks[3], n_nodes, (n_edges,)),
         "edge_mask": torch.ones((n_edges,), dtype=torch.bool, device=dev),
-        "targets": torch.randn((n_nodes, cfg.d_out), generator=g, device=dev),
+        "targets": prng.normal(ks[4], (n_nodes, cfg.d_out)),
     }
 
 
@@ -220,29 +226,23 @@ def dlrm_batch(step: int, batch: int, cfg, device="cuda") -> Dict[str, torch.Ten
     """A DLRM batch on ``device``: dense [B, n_dense] ~ N(0, 1), sparse_ids
     [B, n_sparse] int32 uniform in [0, table_vocab), labels [B] f32 ~
     Bernoulli(0.25)."""
-    dev = resolve_device(device)
-    g = _generator(step, 2, dev)
+    ks = prng.split(_key(step, 2, resolve_device(device)), 3)
     return {
-        "dense": torch.randn((batch, cfg.n_dense), generator=g, device=dev),
-        "sparse_ids": torch.randint(0, cfg.table_vocab, (batch, cfg.n_sparse), generator=g,
-                                    device=dev, dtype=torch.int32),
-        "labels": (torch.rand((batch,), generator=g, device=dev) < 0.25).to(torch.float32),
+        "dense": prng.normal(ks[0], (batch, cfg.n_dense)),
+        "sparse_ids": _ids(ks[1], cfg.table_vocab, (batch, cfg.n_sparse)),
+        "labels": prng.bernoulli(ks[2], 0.25, (batch,)).to(torch.float32),
     }
-
-
-def _ids(g, high: int, shape, dev) -> torch.Tensor:
-    return torch.randint(0, high, shape, generator=g, device=dev, dtype=torch.int32)
 
 
 def tt_batch(step: int, batch: int, cfg, device="cuda") -> Dict[str, torch.Tensor]:
     """A two-tower batch: hist_ids [B, hist_len] and pos_items [B] int32
     uniform over the vocabularies, hist_mask ones, item_logq zeros."""
     dev = resolve_device(device)
-    g = _generator(step, 3, dev)
+    ks = prng.split(_key(step, 3, dev), 3)
     return {
-        "hist_ids": _ids(g, cfg.user_vocab, (batch, cfg.hist_len), dev),
+        "hist_ids": _ids(ks[0], cfg.user_vocab, (batch, cfg.hist_len)),
         "hist_mask": torch.ones((batch, cfg.hist_len), device=dev),
-        "pos_items": _ids(g, cfg.item_vocab, (batch,), dev),
+        "pos_items": _ids(ks[1], cfg.item_vocab, (batch,)),
         "item_logq": torch.zeros((batch,), device=dev),
     }
 
@@ -251,12 +251,12 @@ def mind_batch(step: int, batch: int, cfg, device="cuda") -> Dict[str, torch.Ten
     """A MIND batch: hist_ids [B, hist_len], pos_items [B], neg_items [B, 8]
     int32 uniform over the vocabulary, hist_mask ones."""
     dev = resolve_device(device)
-    g = _generator(step, 4, dev)
+    ks = prng.split(_key(step, 4, dev), 3)
     return {
-        "hist_ids": _ids(g, cfg.item_vocab, (batch, cfg.hist_len), dev),
+        "hist_ids": _ids(ks[0], cfg.item_vocab, (batch, cfg.hist_len)),
         "hist_mask": torch.ones((batch, cfg.hist_len), device=dev),
-        "pos_items": _ids(g, cfg.item_vocab, (batch,), dev),
-        "neg_items": _ids(g, cfg.item_vocab, (batch, 8), dev),
+        "pos_items": _ids(ks[1], cfg.item_vocab, (batch,)),
+        "neg_items": _ids(ks[2], cfg.item_vocab, (batch, 8)),
     }
 
 
@@ -265,12 +265,12 @@ def dien_batch(step: int, batch: int, cfg, device="cuda") -> Dict[str, torch.Ten
     [B] int32 uniform over the vocabularies, hist_mask ones, labels [B] f32
     ~ Bernoulli(0.3)."""
     dev = resolve_device(device)
-    g = _generator(step, 5, dev)
+    ks = prng.split(_key(step, 5, dev), 5)
     return {
-        "hist_items": _ids(g, cfg.item_vocab, (batch, cfg.seq_len), dev),
-        "hist_cates": _ids(g, cfg.cate_vocab, (batch, cfg.seq_len), dev),
+        "hist_items": _ids(ks[0], cfg.item_vocab, (batch, cfg.seq_len)),
+        "hist_cates": _ids(ks[1], cfg.cate_vocab, (batch, cfg.seq_len)),
         "hist_mask": torch.ones((batch, cfg.seq_len), device=dev),
-        "target_item": _ids(g, cfg.item_vocab, (batch,), dev),
-        "target_cate": _ids(g, cfg.cate_vocab, (batch,), dev),
-        "labels": (torch.rand((batch,), generator=g, device=dev) < 0.3).to(torch.float32),
+        "target_item": _ids(ks[2], cfg.item_vocab, (batch,)),
+        "target_cate": _ids(ks[3], cfg.cate_vocab, (batch,)),
+        "labels": prng.bernoulli(ks[4], 0.3, (batch,)).to(torch.float32),
     }

@@ -126,8 +126,9 @@ def build_ivf(codes, *, n_levels: int, nlist: int, kmeans_iters: int = 20,
         cluster size, which never drops an entry.
       headroom: multiplier applied to max_len.
       packed: store lists nibble-packed (requires n_levels <= 4).
-      seed: seeds the k-means++ draws; the same codes and seed rebuild
-        the same index, bit for bit.
+      seed: the k-means++ draws come from ``prng.key(seed)``, the
+        reference's ``PRNGKey(seed)`` stream; the same codes and seed
+        rebuild the same index, bit for bit.
 
     Entries beyond a full list are dropped (they simply lose recall) and
     reported through ``warnings.warn`` with the dropped fraction.
@@ -332,9 +333,9 @@ def ivf_search_from_snapshot(codes, n_levels: int = None, *, k: int, nlist: int,
 
     Clusters a snapshot's codes (anything with ``.codes`` and
     ``.n_levels``, or raw codes and ``n_levels``) into a fresh IVF index
-    on ``device``. Deterministic: the k-means draws come from ``seed``,
-    so the same snapshot and parameters rebuild the same index, bit for
-    bit.
+    on ``device``. Deterministic: the k-means draws come from
+    ``prng.key(seed)`` (the reference's ``PRNGKey(seed)``), so the same
+    snapshot and parameters rebuild the same index, bit for bit.
 
     ``effort`` (anything with an int ``level``, 0 = full, e.g.
     ``launch.proxy.EffortKnob``) is read per call: level L serves with

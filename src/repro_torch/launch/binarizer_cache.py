@@ -10,12 +10,14 @@ it on every later launch with the same inputs.
 The digest covers the corpus bytes, the full ``TrainConfig`` repr (a
 frozen dataclass of scalars, so the repr is stable; it equals the
 reference's), the loop knobs, and a tag of this package and the device
-type (``repro_torch/cuda``, ``repro_torch/cpu``). The tag keeps the
-caches apart: the port draws its initial weights from a
-``torch.Generator``, not ``jax.random``, and a card's generator and
-arithmetic differ from the CPU's, so the same tuple trains other weights
-in each; without the tag one would load the other's file under the
-promise that a hit is the run that wrote it. Either package still reads
+type (``repro_torch-threefry/cuda``, ``repro_torch-threefry/cpu``). The
+initial weights are the reference's draws from ``PRNGKey(seed)``
+(``prng``) on either device, but a card's training arithmetic differs
+from the CPU's, and both from the reference's, so the same tuple trains
+other weights in each; the tag keeps the caches apart, and its
+``threefry`` keeps out the files that earlier versions of the port
+trained from torch's own generator. Without it one would load
+another's file under the promise that a hit is the run that wrote it. Either package still reads
 the other's archive by explicit path (``load_checkpoint``, and the
 reference's loader on the port's files): the layout is one.
 
@@ -39,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core.binarize_lib import (
     BinarizerConfig,
     RecurrentBinarizer,
@@ -53,7 +56,7 @@ from repro_torch.device import resolve_device
 
 CACHE_ENV = "REPRO_BEBR_CACHE"
 _DEFAULT_CACHE = os.path.join("~", ".cache", "repro-bebr")
-PACKAGE_TAG = "repro_torch"
+PACKAGE_TAG = "repro_torch-threefry"
 
 
 class BinarizerCheckpoint(NamedTuple):
@@ -136,9 +139,8 @@ def trained_binarizer(
 ) -> BinarizerCheckpoint:
     """Train a recurrent-MLP binarizer on ``device``, or reload the cached weights.
 
-    The initial weights come from ``torch.Generator(device).manual_seed(seed)``
-    and the pairs from ``pair_batches(docs, seed + 1, batch)``, as the
-    reference draws them from ``PRNGKey(seed)``. On a cache hit the model
+    The initial weights come from ``prng.key(seed)`` and the pairs from
+    ``pair_batches(docs, seed + 1, batch)``, as the reference's do. On a cache hit the model
     is bit-identical to the run that wrote the checkpoint; a stale or
     corrupt file (wrong leaf count or shape, a truncated archive) is
     treated as a miss and overwritten.
@@ -154,7 +156,7 @@ def trained_binarizer(
         except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
             pass  # fall through to retrain
 
-    state = init_train_state(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    state = init_train_state(cfg, prng.key(seed, device), device)
     gen = synthetic.pair_batches(docs, seed + 1, batch, device=device)
     for _ in range(steps):
         a, p = next(gen)

@@ -39,6 +39,7 @@ import traceback
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import cells as cells_mod
 from repro_torch.configs.archs import grok_1_314b, llama3_405b
 from repro_torch.configs.registry import build_cell, get_arch
@@ -98,7 +99,7 @@ def tt_retrieval_baseline(mesh):
 
 
 def _tt_params(cfg, mesh, binarizer=None):
-    params_s = tt.init_params(cfg, torch.Generator(), device=META)
+    params_s = tt.init_params(cfg, prng.key(0, META), device=META)
     if binarizer is not None:
         params_s["binarizer"] = binarizer
     return params_s, shd.fill_param_sharding(mesh, params_s, ("user_table", "item_table"))
@@ -239,7 +240,7 @@ def gnn_ogb_bf16_edges(mesh):
     cell = cells_mod.gnn_cell(get_arch("meshgraphnet").config, "ogb_products", mesh)
     cfg = _gnn_cfg(dtype=torch.bfloat16)
     fn = steps.gnn_train_step(cfg, cells_mod.ADAM, node_constrain=_node_constrain(mesh))
-    params_s = gnn_lib.init_params(cfg, torch.Generator(), device=META)
+    params_s = gnn_lib.init_params(cfg, prng.key(0, META), device=META)
     rep, opt_s, opt_sh = _replicated_state(mesh, params_s)
     return fn, (rep, opt_sh, cell.in_shardings[2]), (params_s, opt_s, cell.abstract_args[2])
 
@@ -254,7 +255,7 @@ def _partitioned_setup(mesh, extra=()):
     N = info["nodes"] + (-info["nodes"]) % n_all
     E = info["edges"] + (-info["edges"]) % n_all
     axes = tuple(mesh.axes)  # shard over the whole mesh
-    params_s = gnn_lib.init_params(cfg, torch.Generator(), device=META)
+    params_s = gnn_lib.init_params(cfg, prng.key(0, META), device=META)
     rep, opt_s, opt_sh = _replicated_state(mesh, params_s)
     state = (params_s, rep, opt_s, opt_sh)
     batch_s = {

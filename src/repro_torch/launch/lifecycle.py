@@ -261,8 +261,8 @@ class IVFBuilder(_SnapshotCachingBuilder):
 
     ``probe_budget`` switches the served closure to occupancy-weighted
     probe allocation; it is a scalar, so a budgeted and a flat-nprobe
-    build are never version-equivalent. The k-means draws come from a
-    torch generator seeded with ``seed``.
+    build are never version-equivalent. The k-means draws come from
+    ``prng.key(seed)``, the reference's ``PRNGKey(seed)`` stream.
     """
 
     kind = "ivf"

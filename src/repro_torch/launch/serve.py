@@ -68,6 +68,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import losses
 from repro_torch.core.binarize_lib import BinarizerConfig, RecurrentBinarizer, make_encode_fn
 from repro_torch.core.trainer import TrainConfig, TrainState, bc_train_step, init_train_state
@@ -123,7 +124,7 @@ def bc_train_binarizer(old: RecurrentBinarizer, old_docs: np.ndarray, new_docs: 
     items, so new-backbone queries can search the old binary index. The
     batches are the reference's numpy draws; ``old`` stays unchanged."""
     device = resolve_device(device)
-    state = init_train_state(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    state = init_train_state(cfg, prng.key(seed, device), device)
     state = state._replace(model=copy.deepcopy(old), m_model=copy.deepcopy(old))
     rng = np.random.default_rng(seed + 1)
     dim = old_docs.shape[-1]

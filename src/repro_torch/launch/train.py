@@ -29,8 +29,7 @@ from __future__ import annotations
 import argparse
 import time
 
-import torch
-
+from repro_torch import prng
 from repro_torch.configs.registry import get_arch
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
@@ -44,7 +43,7 @@ GNN_NODES, GNN_EDGES = 256, 1024
 
 
 def zoo(arch_id: str):
-    """(init_params(cfg, generator, device), train step builder, batch fn(step,
+    """(init_params(cfg, key, device), train step builder, batch fn(step,
     batch, cfg, device)) of an arch."""
     entry = get_arch(arch_id)
     if entry.family == "lm":
@@ -78,13 +77,13 @@ def zoo(arch_id: str):
 
 def _build(arch_id: str, smoke: bool, batch: int, device="cuda"):
     """(params, step_fn, batch_fn) for ``arch_id``: the reference's
-    initialisation drawn from a generator seeded 0 on ``device``, Adam at
+    initialisation from ``prng.key(0)`` on ``device``, Adam at
     lr 3e-4 clipped at 1.0 (``ADAM``), batches of ``batch`` examples."""
     entry = get_arch(arch_id)
     cfg = entry.smoke_config if smoke else entry.config
     device = resolve_device(device)
     init, step_builder, batch_of = zoo(arch_id)
-    params = init(cfg, torch.Generator(device=device).manual_seed(0), device)
+    params = init(cfg, prng.key(0, device), device)
     return params, step_builder(cfg, ADAM), lambda i: batch_of(i, batch, cfg, device)
 
 

@@ -27,11 +27,12 @@ A parameter tree is the reference's: ``{"node_enc", "edge_enc",
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.device import full_fp32_matmul, is_dtensor, resolve_device
 from repro_torch.models.recsys.embedding import (
     embedding_lookup,
@@ -69,33 +70,37 @@ class GNNConfig:
         return enc + proc + dec
 
 
-def _init_mlp(generator, d_in, d_h, d_out, n_layers, dtype, device):
-    """Layers ``{"w": N(0, 1) / sqrt(d_in), "b": 0}`` of widths d_in, d_h..., d_out."""
+def _init_mlp(key, d_in, d_h, d_out, n_layers, dtype, device):
+    """Layers ``{"w": N(0, 1) / sqrt(d_in), "b": 0}`` of widths d_in, d_h...,
+    d_out, layer i from ``split(key, n_layers)[i]``."""
     dims = [d_in] + [d_h] * (n_layers - 1) + [d_out]
     return [
         {
-            "w": (torch.randn((a, b), generator=generator, device=device)
-                  / math.sqrt(a)).to(dtype),
+            "w": prng.normal(k, (a, b), div=np.sqrt(np.float32(a)), dtype=dtype, device=device),
             "b": torch.zeros((b,), dtype=dtype, device=device),
         }
-        for a, b in zip(dims[:-1], dims[1:])
+        for k, a, b in zip(prng.split(key, len(dims) - 1), dims[:-1], dims[1:])
     ]
 
 
-def init_params(cfg: GNNConfig, generator: torch.Generator, device="cuda") -> Params:
-    """The reference's initialisation drawn from ``generator`` (on ``device``)."""
+def init_params(cfg: GNNConfig, key: torch.Tensor, device="cuda") -> Params:
+    """The reference's initialisation from ``key`` (``prng``, on ``device``):
+    ``split(key, 4 + 2 L)``, the encoders and decoder from keys 0-2, layer
+    i's edge and node MLPs from keys 4 + 2i and 5 + 2i."""
     device = resolve_device(device)
     h, m = cfg.d_hidden, cfg.mlp_layers
+    ks = prng.split(key, 4 + cfg.n_layers * 2)
 
-    def mlp(d_in, d_out):
-        return _init_mlp(generator, d_in, h, d_out, m + 1, cfg.dtype, device)
+    def mlp(k, d_in, d_out):
+        return _init_mlp(k, d_in, h, d_out, m + 1, cfg.dtype, device)
 
     return {
-        "node_enc": mlp(cfg.d_node_in, h),
-        "edge_enc": mlp(cfg.d_edge_in, h),
-        "decoder": mlp(h, cfg.d_out),
-        "layers": [{"edge_mlp": mlp(3 * h, h), "node_mlp": mlp(2 * h, h)}
-                   for _ in range(cfg.n_layers)],
+        "node_enc": mlp(ks[0], cfg.d_node_in, h),
+        "edge_enc": mlp(ks[1], cfg.d_edge_in, h),
+        "decoder": mlp(ks[2], h, cfg.d_out),
+        "layers": [{"edge_mlp": mlp(ks[4 + 2 * i], 3 * h, h),
+                    "node_mlp": mlp(ks[5 + 2 * i], 2 * h, h)}
+                   for i in range(cfg.n_layers)],
     }
 
 

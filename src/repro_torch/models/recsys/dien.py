@@ -12,11 +12,12 @@ uses ``lax.scan``: on the card every step is some twenty small launches
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.device import full_fp32_matmul, is_dtensor, resolve_device
 from repro_torch.models.recsys.dlrm import bce_logits
 from repro_torch.models.recsys.embedding import (
@@ -64,33 +65,42 @@ class DIENConfig:
 SHIFT_INVARIANT_LEAVES = {"['att']/[1]/['b']": "['att']/[1]/['w']"}
 
 
-def _init_gru(generator, d_in, d_h, dtype, device):
-    def gate():
-        wx = torch.randn((d_in, d_h), generator=generator, device=device) / math.sqrt(d_in)
-        wh = torch.randn((d_h, d_h), generator=generator, device=device) / math.sqrt(d_h)
-        return {"wx": wx.to(dtype), "wh": wh.to(dtype),
+def _over_sqrt(k, shape, dtype, device):
+    """``normal(k, shape) / sqrt(shape[0])``, the divisor rounded to float32."""
+    return prng.normal(k, shape, div=np.sqrt(np.float32(shape[0])), dtype=dtype, device=device)
+
+
+def _init_gru(key, d_in, d_h, dtype, device):
+    """Gates r, z, n from ``split(key, 3)``: wx from the gate's key, wh from
+    its ``fold_in(k, 1)``, as the reference's."""
+    def gate(k):
+        return {"wx": _over_sqrt(k, (d_in, d_h), dtype, device),
+                "wh": _over_sqrt(prng.fold_in(k, 1), (d_h, d_h), dtype, device),
                 "b": torch.zeros((d_h,), dtype=dtype, device=device)}
 
-    return {"r": gate(), "z": gate(), "n": gate()}
+    ks = prng.split(key, 3)
+    return {"r": gate(ks[0]), "z": gate(ks[1]), "n": gate(ks[2])}
 
 
-def init_params(cfg: DIENConfig, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
-    """The reference's initialisation drawn from ``generator`` (on ``device``)."""
+def init_params(cfg: DIENConfig, key: torch.Tensor, device="cuda") -> Dict[str, Any]:
+    """The reference's initialisation from ``key`` (``prng``, on ``device``):
+    ``split(key, 6)``, and ``target_proj`` from ``fold_in`` of the attention
+    MLP's key with 7."""
     device = resolve_device(device)
     beh = cfg.beh_dim
     mlp_in = cfg.gru_dim + 2 * beh
     E = cfg.embed_dim
-    params = {
-        "item_table": init_table(generator, TableConfig(cfg.item_vocab, E), cfg.dtype, device),
-        "cate_table": init_table(generator, TableConfig(cfg.cate_vocab, E), cfg.dtype, device),
-        "gru": _init_gru(generator, beh, cfg.gru_dim, cfg.dtype, device),
-        "augru": _init_gru(generator, cfg.gru_dim, cfg.gru_dim, cfg.dtype, device),
-        "att": mlp_tree(generator, (2 * cfg.gru_dim, 36, 1), cfg.dtype, device),
-        "mlp": mlp_tree(generator, (mlp_in,) + cfg.mlp + (1,), cfg.dtype, device),
+    ks = prng.split(key, 6)
+    return {
+        "item_table": init_table(ks[0], TableConfig(cfg.item_vocab, E), cfg.dtype, device),
+        "cate_table": init_table(ks[1], TableConfig(cfg.cate_vocab, E), cfg.dtype, device),
+        "gru": _init_gru(ks[2], beh, cfg.gru_dim, cfg.dtype, device),
+        "augru": _init_gru(ks[3], cfg.gru_dim, cfg.gru_dim, cfg.dtype, device),
+        "att": mlp_tree(ks[4], (2 * cfg.gru_dim, 36, 1), cfg.dtype, device),
+        "mlp": mlp_tree(ks[5], (mlp_in,) + cfg.mlp + (1,), cfg.dtype, device),
+        "target_proj": _over_sqrt(prng.fold_in(ks[4], 7), (beh, cfg.gru_dim), cfg.dtype,
+                                  device),
     }
-    proj = torch.randn((beh, cfg.gru_dim), generator=generator, device=device) / math.sqrt(beh)
-    params["target_proj"] = proj.to(cfg.dtype)
-    return params
 
 
 def dien_from_numpy(params: Dict[str, Any], cfg: DIENConfig, device="cuda"):

@@ -25,6 +25,7 @@ from typing import Any, Dict, Tuple
 import torch
 from torch import nn
 
+from repro_torch import prng
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dot_interact.ops import dot_interaction
 from repro_torch.models.recsys.embedding import (
@@ -159,18 +160,20 @@ def bce_loss(params, dense, sparse_ids, labels, cfg: DLRMConfig,
     return bce_logits(logits, torch.as_tensor(labels, dtype=logits.dtype, device=logits.device))
 
 
-def init_dlrm(cfg: DLRMConfig, generator: torch.Generator, device="cuda") -> DLRM:
-    """A DLRM with the reference's initialisation, drawn from ``generator``
-    (on ``device``): tables N(0, 1) / sqrt(D), MLP weights N(0, 1) *
-    sqrt(2 / d_in), biases 0. The reference draws from ``jax.random``, so
-    the numbers differ; ``dlrm_from_numpy`` carries its weights over."""
+def init_dlrm(cfg: DLRMConfig, key: torch.Tensor, device="cuda") -> DLRM:
+    """A DLRM with the reference's initialisation from ``key`` (``prng``):
+    ``split(key, F + 2)``, table f from key f (N(0, 1) / sqrt(D), drawn in
+    place a chunk at a time), the bottom MLP from key F, the top from key
+    F + 1 (N(0, 1) * sqrt(2 / d_in)), biases 0. ``dlrm_from_numpy`` carries
+    the reference's own arrays over."""
     device = resolve_device(device)
+    ks = prng.split(key, cfg.n_sparse + 2)
     tables = torch.empty((cfg.n_sparse, cfg.table_vocab, cfg.embed_dim), dtype=cfg.dtype,
                          device=device)
     for f in range(cfg.n_sparse):
-        init_table(generator, TableConfig(cfg.table_vocab, cfg.embed_dim), out=tables[f])
-    bot = mlp_params(generator, cfg.bot_mlp, cfg.dtype, device)
-    top = mlp_params(generator, cfg.top_dims, cfg.dtype, device)
+        init_table(ks[f], TableConfig(cfg.table_vocab, cfg.embed_dim), out=tables[f])
+    bot = mlp_params(ks[-2], cfg.bot_mlp, cfg.dtype, device)
+    top = mlp_params(ks[-1], cfg.top_dims, cfg.dtype, device)
     return DLRM(cfg, tables, bot, top).eval()
 
 

@@ -25,13 +25,13 @@ incomplete on both devices).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import prng
 from repro_torch.device import full_fp32_matmul, is_dtensor, resolve_device
 
 
@@ -42,15 +42,16 @@ class TableConfig:
     combiner: str = "sum"  # sum | mean
 
 
-def init_table(generator: torch.Generator, cfg: TableConfig, dtype=torch.float32,
+def init_table(key: torch.Tensor, cfg: TableConfig, dtype=torch.float32,
                device="cuda", out: torch.Tensor | None = None) -> torch.Tensor:
-    """A [vocab, dim] table ~ N(0, 1) / sqrt(dim), drawn from ``generator``
-    (which lives on ``device``); written into ``out`` when given."""
+    """A [vocab, dim] table ``normal(key) * (1 / sqrt(dim))`` in float32, cast
+    to ``dtype`` (the reference's draw), on ``device``; drawn a chunk at a
+    time into ``out`` when given."""
+    scale = np.float32(1.0) / np.sqrt(np.float32(cfg.dim))
     if out is None:
         out = torch.empty((cfg.vocab, cfg.dim), dtype=dtype, device=resolve_device(device))
     with torch.no_grad():
-        out.normal_(generator=generator).mul_(1.0 / math.sqrt(cfg.dim))
-    return out
+        return prng.normal(key, (cfg.vocab, cfg.dim), mul=scale, out=out)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -181,25 +182,26 @@ def hash_bucket(ids: torch.Tensor, vocab: int) -> torch.Tensor:
     return (h % vocab).to(torch.int32)
 
 
-def mlp_params(generator: torch.Generator, dims: Sequence[int], dtype=torch.float32,
+def mlp_params(key: torch.Tensor, dims: Sequence[int], dtype=torch.float32,
                device="cuda") -> nn.ModuleList:
-    """Layers ``{"w": N(0, 1) * sqrt(2 / d_in) [d_in, d_out], "b": 0 [d_out]}``."""
+    """Layers ``{"w": N(0, 1) * sqrt(2 / d_in) [d_in, d_out], "b": 0 [d_out]}``,
+    layer i drawn from ``split(key, len(dims) - 1)[i]``."""
     device = resolve_device(device)
     layers = nn.ModuleList()
-    for a, b in zip(dims[:-1], dims[1:]):
-        w = torch.randn((a, b), generator=generator, device=device) * math.sqrt(2.0 / a)
+    for k, a, b in zip(prng.split(key, len(dims) - 1), dims[:-1], dims[1:]):
+        w = prng.normal(k, (a, b), mul=np.sqrt(np.float32(2.0 / a)), dtype=dtype, device=device)
         layers.append(nn.ParameterDict({
-            "w": nn.Parameter(w.to(dtype)),
+            "w": nn.Parameter(w),
             "b": nn.Parameter(torch.zeros((b,), dtype=dtype, device=device)),
         }))
     return layers
 
 
-def mlp_tree(generator: torch.Generator, dims: Sequence[int], dtype=torch.float32,
+def mlp_tree(key: torch.Tensor, dims: Sequence[int], dtype=torch.float32,
              device="cuda") -> list:
     """``mlp_params`` as a parameter tree: a list of ``{"w", "b"}`` tensors."""
     return [{"w": l["w"].detach(), "b": l["b"].detach()}
-            for l in mlp_params(generator, dims, dtype, device)]
+            for l in mlp_params(key, dims, dtype, device)]
 
 
 def mlp_apply(layers, x: torch.Tensor,

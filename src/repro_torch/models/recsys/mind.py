@@ -13,11 +13,12 @@ tolerance (XLA's CPU rsqrt is not correctly rounded).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.device import full_fp32_matmul, resolve_device
 from repro_torch.models.recsys.embedding import (
     TableConfig,
@@ -49,15 +50,16 @@ class MINDConfig:
         )
 
 
-def init_params(cfg: MINDConfig, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
-    """The reference's initialisation drawn from ``generator`` (on ``device``)."""
+def init_params(cfg: MINDConfig, key: torch.Tensor, device="cuda") -> Dict[str, Any]:
+    """The reference's initialisation from ``key`` (``prng``, on ``device``)."""
     device = resolve_device(device)
     D = cfg.embed_dim
-    S = torch.randn((D, D), generator=generator, device=device) / math.sqrt(D)
+    k1, k2, k3 = prng.split(key, 3)
     return {
-        "item_table": init_table(generator, TableConfig(cfg.item_vocab, D), cfg.dtype, device),
-        "S": S.to(cfg.dtype),
-        "H": mlp_tree(generator, (D, D, D), cfg.dtype, device),
+        "item_table": init_table(k1, TableConfig(cfg.item_vocab, D), cfg.dtype, device),
+        "S": prng.normal(k2, (D, D), div=np.sqrt(np.float32(D)), dtype=cfg.dtype,
+                         device=device),
+        "H": mlp_tree(k3, (D, D, D), cfg.dtype, device),
     }
 
 

@@ -19,6 +19,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch import prng
 from repro_torch.device import full_fp32_matmul, is_dtensor, resolve_device
 from repro_torch.models.recsys.embedding import (
     TableConfig,
@@ -53,18 +54,20 @@ class TwoTowerConfig:
         return emb + 2 * tower
 
 
-def init_params(cfg: TwoTowerConfig, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
-    """The reference's initialisation drawn from ``generator`` (on ``device``):
-    tables N(0, 1) / sqrt(D), tower weights N(0, 1) * sqrt(2 / d_in), biases 0."""
+def init_params(cfg: TwoTowerConfig, key: torch.Tensor, device="cuda") -> Dict[str, Any]:
+    """The reference's initialisation from ``key`` (``prng``, split in four,
+    on ``device``): tables N(0, 1) / sqrt(D), tower weights N(0, 1) *
+    sqrt(2 / d_in), biases 0."""
     device = resolve_device(device)
     dims = (cfg.embed_dim,) + cfg.tower_mlp
+    k1, k2, k3, k4 = prng.split(key, 4)
     return {
-        "user_table": init_table(generator, TableConfig(cfg.user_vocab, cfg.embed_dim),
+        "user_table": init_table(k1, TableConfig(cfg.user_vocab, cfg.embed_dim),
                                  cfg.dtype, device),
-        "item_table": init_table(generator, TableConfig(cfg.item_vocab, cfg.embed_dim),
+        "item_table": init_table(k2, TableConfig(cfg.item_vocab, cfg.embed_dim),
                                  cfg.dtype, device),
-        "q_tower": mlp_tree(generator, dims, cfg.dtype, device),
-        "i_tower": mlp_tree(generator, dims, cfg.dtype, device),
+        "q_tower": mlp_tree(k3, dims, cfg.dtype, device),
+        "i_tower": mlp_tree(k4, dims, cfg.dtype, device),
     }
 
 

@@ -38,13 +38,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import prng
 from repro_torch.device import full_fp32_matmul, is_dtensor, resolve_device
 from repro_torch.models.recsys.embedding import embedding_lookup, tree_from_numpy
 from repro_torch.parallel import spmd
@@ -125,44 +126,50 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _init(generator, shape, dtype, device, scale=None):
+def _init(key, shape, dtype, device, scale=None):
+    """``normal(key, shape)`` in float32 times the scale (``scale``, else
+    1 / sqrt(fan_in), rounded to float32), cast to ``dtype`` a chunk at a
+    time; on the meta device the shape only."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    s = scale if scale is not None else np.float32(1.0) / np.sqrt(np.float32(fan_in))
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
-    return (torch.randn(shape, generator=generator, device=device) * s).to(dtype)
+    return prng.normal(key, shape, mul=s, dtype=dtype, device=device)
 
 
-def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
+def init_params(cfg: TransformerConfig, key: Optional[torch.Tensor] = None,
                 device="cuda") -> Params:
-    """Stacked [L, ...] parameters, the reference's tree and keys: weights
-    N(0, 1) / sqrt(fan_in) (the embedding N(0, 1) * 0.02) drawn in float32
-    from ``generator`` (on ``device``) and cast to ``cfg.dtype``, norms
-    ones. On the meta device (no generator needed) it gives the shapes only."""
+    """Stacked [L, ...] parameters, the reference's tree and keys
+    (``split(key, 12)``: wq, wk, wv, wo from keys 0-3, the router and the
+    FFN from 4-7, the embedding from 8): weights N(0, 1) / sqrt(fan_in)
+    (the embedding N(0, 1) * 0.02) drawn in float32 and cast to
+    ``cfg.dtype``, norms ones. On the meta device (no key needed) it gives
+    the shapes only."""
     device = resolve_device(device)
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.dtype
+    ks = [None] * 12 if device.type == "meta" else prng.split(key, 12)
 
-    def w(shape, scale=None):
-        return _init(generator, shape, dt, device, scale)
+    def w(i, shape, scale=None):
+        return _init(ks[i], shape, dt, device, scale)
 
     layer = {
         "attn_norm": torch.ones((L, d), dtype=dt, device=device),
-        "wq": w((L, d, H * hd)),
-        "wk": w((L, d, KV * hd)),
-        "wv": w((L, d, KV * hd)),
-        "wo": w((L, H * hd, d)),
+        "wq": w(0, (L, d, H * hd)),
+        "wk": w(1, (L, d, KV * hd)),
+        "wv": w(2, (L, d, KV * hd)),
+        "wo": w(3, (L, H * hd, d)),
         "ffn_norm": torch.ones((L, d), dtype=dt, device=device),
     }
     if cfg.is_moe:
         E = cfg.n_experts
-        layer.update(router=w((L, d, E)), w_gate=w((L, E, d, f)), w_up=w((L, E, d, f)),
-                     w_down=w((L, E, f, d)))
+        layer.update(router=w(4, (L, d, E)), w_gate=w(5, (L, E, d, f)),
+                     w_up=w(6, (L, E, d, f)), w_down=w(7, (L, E, f, d)))
     else:
-        layer.update(w_gate=w((L, d, f)), w_up=w((L, d, f)), w_down=w((L, f, d)))
+        layer.update(w_gate=w(5, (L, d, f)), w_up=w(6, (L, d, f)), w_down=w(7, (L, f, d)))
     return {
-        "embed": w((cfg.vocab, d), scale=0.02),
+        "embed": w(8, (cfg.vocab, d), scale=0.02),
         "final_norm": torch.ones((d,), dtype=dt, device=device),
         "layers": layer,
     }

@@ -27,6 +27,7 @@ import contextlib, dataclasses, json, sys
 import numpy as np, torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_flatten
+from repro_torch import prng
 from repro_torch.configs.registry import get_arch
 from repro_torch.launch.mesh import LeafMesh
 from repro_torch.models import gnn as gnn_lib
@@ -42,11 +43,11 @@ SMALL = {65536: 64, 512: 16, 262144: 128, 1_000_000: 1000, 256: 16}
 VOCAB = {"sparse_ids": "table_vocab", "pos_items": "item_vocab", "neg_items": "item_vocab",
          "cand_ids": "item_vocab", "hist_items": "item_vocab", "target_item": "item_vocab",
          "hist_cates": "cate_vocab", "target_cate": "cate_vocab"}
-INIT = {"dlrm-rm2": lambda c, g: tree_map(torch.Tensor.detach,
-                                          dlrm.init_dlrm(c, g, device="cpu").tree()),
-        "two-tower-retrieval": lambda c, g: two_tower.init_params(c, g, device="cpu"),
-        "mind": lambda c, g: mind.init_params(c, g, device="cpu"),
-        "dien": lambda c, g: dien.init_params(c, g, device="cpu")}
+INIT = {"dlrm-rm2": lambda c, k: tree_map(torch.Tensor.detach,
+                                          dlrm.init_dlrm(c, k, device="cpu").tree()),
+        "two-tower-retrieval": lambda c, k: two_tower.init_params(c, k, device="cpu"),
+        "mind": lambda c, k: mind.init_params(c, k, device="cpu"),
+        "dien": lambda c, k: dien.init_params(c, k, device="cpu")}
 
 
 def batch_for(arch, cfg, abstract, seed):
@@ -103,9 +104,9 @@ try:
         if arch == "meshgraphnet":
             cfg = dataclasses.replace(cfg, d_node_in=spec.abstract_args[2]["node_feat"].shape[1],
                                       d_edge_in=8)
-            params = gnn_lib.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+            params = gnn_lib.init_params(cfg, prng.key(seed, "cpu"), device="cpu")
         else:
-            params = INIT[arch](cfg, torch.Generator().manual_seed(seed))
+            params = INIT[arch](cfg, prng.key(seed, "cpu"))
         batch = batch_for(arch, cfg, spec.abstract_args[-1], seed)
         name = f"{arch}|{shape}"
         for tag, run in (("u", lambda a: spec.fn(*a)),

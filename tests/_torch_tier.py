@@ -149,7 +149,7 @@ def hand_over_reference_inputs(monkeypatch, seed):
         inv = RR.doc_inv_norms(jnp.asarray(codes.cpu().numpy()), n_levels)
         return torch.from_numpy(np.array(inv)).to(codes.device)
 
-    def kmeans_pp_init(generator, x, k):
+    def kmeans_pp_init(key, x, k):
         init = RK.kmeans_pp_init(jax.random.PRNGKey(seed), jnp.asarray(x.cpu().numpy()), k)
         return torch.from_numpy(np.array(init)).to(x.device)
 

@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import binarize_lib as RB  # noqa: E402
 from repro.launch import binarizer_cache as RC  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.core import binarize_lib as PB  # noqa: E402
 from repro_torch.launch import binarizer_cache as PC  # noqa: E402
 
@@ -128,8 +129,8 @@ def test_load_checkpoint_rejects_a_mismatched_config(tmp_path):
 
 def test_init_binarizer_is_seeded_and_scaled():
     cfg = PB.BinarizerConfig(input_dim=256, code_dim=128, n_levels=4, hidden_dim=512)
-    a = PB.init_binarizer(cfg, torch.Generator().manual_seed(0), device="cpu")
-    b = PB.init_binarizer(cfg, torch.Generator().manual_seed(0), device="cpu")
+    a = PB.init_binarizer(cfg, prng.key(0, "cpu"), device="cpu")
+    b = PB.init_binarizer(cfg, prng.key(0, "cpu"), device="cpu")
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     assert len(a.W) == 4 and len(a.R) == 3

@@ -23,6 +23,7 @@ import repro.core as RC  # noqa: E402
 import repro.core.losses as RL  # noqa: E402
 from repro.launch import binarizer_cache as RBC  # noqa: E402
 from repro.train import optim as RO  # noqa: E402
+from repro_torch import prng  # noqa: E402
 import repro_torch.core as PC  # noqa: E402
 from repro_torch.core import binarize_lib as PB  # noqa: E402
 from repro_torch.core import losses as PL  # noqa: E402
@@ -81,7 +82,7 @@ def test_training_is_deterministic_and_moves_the_weights(tmp_path):
     b = _train(tmp_path / "b")
     assert a.trained and b.trained
     _same_weights(a.model, b.model)
-    init = PB.init_binarizer(_cfg().binarizer, torch.Generator().manual_seed(0), "cpu")
+    init = PB.init_binarizer(_cfg().binarizer, prng.key(0, "cpu"), "cpu")
     assert any(not np.array_equal(x, y)
                for x, y in zip(PB.numpy_leaves(a.model), PB.numpy_leaves(init)))
 
@@ -137,7 +138,7 @@ def test_corrupt_checkpoint_is_retrained_not_trusted(tmp_path, damage):
             f.write(data[: len(data) // 2])
     else:
         # an archive of another config's leaves under this digest's name
-        other = PB.init_binarizer(_cfg(hidden=8).binarizer, torch.Generator().manual_seed(1),
+        other = PB.init_binarizer(_cfg(hidden=8).binarizer, prng.key(1, "cpu"),
                                   "cpu")
         PBC._save(first.path, other)
     again = _train(tmp_path)

@@ -30,6 +30,7 @@ from repro.kernels.dot_interact import ops as RO  # noqa: E402
 from repro.kernels.dot_interact import ref as RR  # noqa: E402
 from repro.models.recsys import dlrm as RD  # noqa: E402
 from repro.models.recsys import embedding as RE  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.configs.archs import dlrm_rm2 as PC  # noqa: E402
 from repro_torch.data import synthetic as PS  # noqa: E402
 from repro_torch.kernels.dot_interact import kernel as PK  # noqa: E402
@@ -166,7 +167,7 @@ def test_smoke_forward_matches_reference(step, batch):
 
 
 def test_serve_step_refuses_another_config():
-    model = PD.init_dlrm(PC.SMOKE, torch.Generator().manual_seed(0), device="cpu")
+    model = PD.init_dlrm(PC.SMOKE, prng.key(0, "cpu"), device="cpu")
     batch = PS.dlrm_batch(0, 4, PC.SMOKE, device="cpu")
     for other in (dataclasses.replace(PC.SMOKE, name="other", table_vocab=PC.SMOKE.table_vocab + 1),
                   dataclasses.replace(PC.SMOKE, name="other", bot_mlp=(13, 32, 8, 16))):
@@ -176,7 +177,7 @@ def test_serve_step_refuses_another_config():
 
 def test_init_dlrm_draws_the_reference_distributions():
     cfg = dataclasses.replace(PC.SMOKE, table_vocab=4000)
-    model = PD.init_dlrm(cfg, torch.Generator().manual_seed(1), device="cpu")
+    model = PD.init_dlrm(cfg, prng.key(1, "cpu"), device="cpu")
     assert model.tables.shape == (26, 4000, 16)
     tables = model.tables.detach()
     assert abs(float(tables.std()) - 16**-0.5) < 0.01

@@ -166,10 +166,11 @@ def test_threads_sharing_one_captured_encode_get_their_own_codes():
 
 _FAILED_CAPTURE = """
 import numpy as np, torch
+from repro_torch import prng
 from repro_torch.core import binarize_lib as PB
 
 cfg = PB.BinarizerConfig(input_dim=64, code_dim=32, n_levels=4, hidden_dim=128)
-model = PB.init_binarizer(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+model = PB.init_binarizer(cfg, prng.key(0, "cuda"), "cuda")
 captured = PB.make_encode_fn(model)
 real = PB.binarize
 

@@ -27,6 +27,7 @@ from repro.data import synthetic as RS  # noqa: E402
 from repro.models import gnn as R  # noqa: E402
 from repro.train import optim as RO  # noqa: E402
 from repro.train import steps as RST  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.configs.archs import meshgraphnet as PC  # noqa: E402
 from repro_torch.models import gnn as P  # noqa: E402
 from repro_torch.train import optim as PO  # noqa: E402
@@ -150,7 +151,7 @@ def test_config_and_param_count_match_the_reference(which):
         if f != "dtype":
             assert getattr(pcfg, f) == getattr(rcfg, f), f
     assert pcfg.param_count() == rcfg.param_count()
-    tree = P.init_params(pcfg, torch.Generator().manual_seed(0), "cpu")
+    tree = P.init_params(pcfg, prng.key(0, "cpu"), "cpu")
     shapes = flatten_tree(_np(R.init_params(jax.random.PRNGKey(0), rcfg)))
     flat = flatten_tree(tree)
     assert list(flat) == list(shapes)

@@ -49,6 +49,7 @@ torch = pytest.importorskip("torch")
 
 from _torch_hillclimb_ref import (CELL_RECORDS, MULTI_POD_RECORDS, hold_record,  # noqa: E402
                                   ratios, run_reference)
+from repro_torch import prng  # noqa: E402
 from repro_torch.kernels.sdc import defaults  # noqa: E402
 from repro_torch.launch import hillclimb as hc  # noqa: E402
 
@@ -238,7 +239,7 @@ def _merge_world(path):
     from repro_torch.models.recsys import two_tower as tt
 
     cfg = tt_cfg.SMOKE
-    params = tt.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = tt.init_params(cfg, prng.key(0, "cpu"), device="cpu")
     rng = np.random.default_rng(1)
     emb = cfg.tower_mlp[-1]
     world = {"user_table": params["user_table"].numpy(),

@@ -44,6 +44,7 @@ a float32 difference can round a cache entry to the next int8 step).
 """
 
 import dataclasses
+import math
 import os
 import socket
 import subprocess
@@ -371,17 +372,46 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+def _generator_params(cfg, seed):
+    """An LM tree of ``cfg``'s shapes drawn from ``torch.Generator(seed)``:
+    each weight N(0, 1) / sqrt(fan_in) (the embedding's times 0.02) in the
+    order wq, wk, wv, wo, router, w_gate, w_up, w_down, embed; norms ones.
+    These are the arrays this file's world has always held (the weights
+    are handed to both packages, so their stream is immaterial); with the
+    reference's stream instead (``prng.key(3)`` for scout) the reference's
+    own GSPMD decode over the long_500k layout departs from its unsharded
+    decode by 4.4e-4 of the largest logit (a bfloat16 cache entry rounded
+    the other way), while the port's sharded decode stays within 3.5e-6 of
+    its unsharded one."""
+    from repro_torch.models import transformer as tf
+
+    g = torch.Generator().manual_seed(seed)
+    tree = tf.init_params(cfg, device="meta")
+    names = ["wq", "wk", "wv", "wo", "router", "w_gate", "w_up", "w_down"]
+
+    def draw(shape, scale=None):
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+        return (torch.randn(shape, generator=g) * s).to(cfg.dtype)
+
+    layers = {k: torch.ones(v.shape, dtype=cfg.dtype) for k, v in tree["layers"].items()}
+    for k in names:
+        if k in layers:
+            layers[k] = draw(tuple(tree["layers"][k].shape))
+    return {"embed": draw(tuple(tree["embed"].shape), 0.02), "layers": layers,
+            "final_norm": torch.ones(tree["final_norm"].shape, dtype=cfg.dtype)}
+
+
 def _world(path):
     """SMOKE llama's, SMOKE grok's and the two MoE variants' (``MOE``)
-    weights from seeded generators, the tokens, labels and decode tokens
-    from a seeded numpy generator."""
-    from repro_torch.models import transformer as tf
+    weights from seeded generators (``_generator_params``), the tokens,
+    labels and decode tokens from a seeded numpy generator."""
     from repro_torch.train.checkpoint import flatten_tree
 
     world = {}
     for name, cfg, seed in (("llama", llama3_405b.SMOKE, 1), ("grok", grok_1_314b.SMOKE, 2)) + tuple(
             (name, cfg, seed) for seed, (name, cfg) in enumerate(MOE.items(), 3)):
-        params = tf.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+        params = _generator_params(cfg, seed)
         for key, leaf in flatten_tree(params).items():
             world[f"{name}/" + key.replace("['", "").replace("']", "")] = leaf.numpy()
     rng = np.random.default_rng(0)

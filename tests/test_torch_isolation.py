@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro_torch import prng  # noqa: E402
 from repro_torch.core import binarize_lib as PB  # noqa: E402
 from repro_torch.data import synthetic as PS  # noqa: E402
 from repro_torch.configs.archs import dlrm_rm2  # noqa: E402
@@ -137,9 +138,9 @@ def test_zoo_entry_points_default_to_the_card(tmp_path):
     from repro_torch.models.recsys import two_tower as PTT
 
     calls = {
-        "tt init": lambda: PTT.init_params(two_tower.SMOKE, torch.Generator()),
-        "mind init": lambda: PMD.init_params(mind_cfg.SMOKE, torch.Generator()),
-        "dien init": lambda: PDN.init_params(dien_cfg.SMOKE, torch.Generator()),
+        "tt init": lambda: PTT.init_params(two_tower.SMOKE, prng.key(0, "cpu")),
+        "mind init": lambda: PMD.init_params(mind_cfg.SMOKE, prng.key(0, "cpu")),
+        "dien init": lambda: PDN.init_params(dien_cfg.SMOKE, prng.key(0, "cpu")),
         "tt batch": lambda: PS.tt_batch(0, 4, two_tower.SMOKE),
         "mind batch": lambda: PS.mind_batch(0, 4, mind_cfg.SMOKE),
         "dien batch": lambda: PS.dien_batch(0, 4, dien_cfg.SMOKE),
@@ -169,8 +170,8 @@ def test_lm_and_gnn_entry_points_default_to_the_card(tmp_path):
     from repro_torch.models import transformer as PTF
 
     calls = {
-        "lm init": lambda: PTF.init_params(llama3_2_1b.SMOKE, torch.Generator()),
-        "gnn init": lambda: PGN.init_params(meshgraphnet.SMOKE, torch.Generator()),
+        "lm init": lambda: PTF.init_params(llama3_2_1b.SMOKE, prng.key(0, "cpu")),
+        "gnn init": lambda: PGN.init_params(meshgraphnet.SMOKE, prng.key(0, "cpu")),
         "lm batch": lambda: PS.lm_batch(0, 2, 8, 256),
         "gnn batch": lambda: PS.gnn_batch(0, 8, 16, meshgraphnet.SMOKE),
         "kv cache": lambda: PTF.init_kv_cache(llama3_2_1b.SMOKE, 1, 8),
@@ -195,7 +196,7 @@ def test_autotune_and_encode_default_to_the_card():
     from repro_torch.launch import autotune as PAT
 
     cfg = PB.BinarizerConfig(input_dim=16, code_dim=8, n_levels=2, hidden_dim=8)
-    model = PB.init_binarizer(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = PB.init_binarizer(cfg, prng.key(0, "cpu"), "cpu")
     assert not isinstance(PB.make_encode_fn(model), PB.CapturedEncode)
     if torch.cuda.is_available():
         return
@@ -247,7 +248,7 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FlatFloat.build(codes.astype(np.float32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        PB.init_binarizer(cfg, torch.Generator())
+        PB.init_binarizer(cfg, prng.key(0, "cpu"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PS.clustered_corpus_torch(0, 10, 2, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -281,15 +282,15 @@ def test_new_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FlatBitwise.build(codes, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        PD.init_dlrm(cfg, torch.Generator())
+        PD.init_dlrm(cfg, prng.key(0, "cpu"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PD.dlrm_from_numpy({"tables": np.zeros((26, 1000, 16), np.float32)}, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PS.dlrm_batch(0, 4, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        PE.mlp_params(torch.Generator(), (4, 2))
+        PE.mlp_params(prng.key(0, "cpu"), (4, 2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        PE.init_table(torch.Generator(), PE.TableConfig(10, 4))
+        PE.init_table(prng.key(0, "cpu"), PE.TableConfig(10, 4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BiGranularFlat.build(codes, 4, coarse_levels=2, k_coarse=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -452,9 +453,9 @@ def test_training_entry_points_default_to_the_card(tmp_path):
                                                        hidden_dim=8),
                           queue=PLS.QueueConfig(length=32, dim=8, top_k=4))
     docs = np.random.default_rng(0).normal(size=(64, 16)).astype(np.float32)
-    old = PB.init_binarizer(cfg.binarizer, torch.Generator().manual_seed(0), "cpu")
+    old = PB.init_binarizer(cfg.binarizer, prng.key(0, "cpu"), "cpu")
     calls = {
-        "init_train_state": lambda: PTR.init_train_state(cfg, torch.Generator()),
+        "init_train_state": lambda: PTR.init_train_state(cfg, prng.key(0, "cpu")),
         "trained_binarizer": lambda: PBC.trained_binarizer(docs, cfg, steps=1, batch=8,
                                                            cache_dir=str(tmp_path)),
         "train_binarizer": lambda: serve.train_binarizer(docs, cfg, steps=1, batch=8,

@@ -28,6 +28,7 @@ from repro.core import binarize_lib as RB  # noqa: E402
 from repro.index import ivf as RI  # noqa: E402
 from repro.index import kmeans as RK  # noqa: E402
 from repro.kernels.sdc import ref as RR  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.core import binarize_lib as PB  # noqa: E402
 from repro_torch.index import ivf as PI  # noqa: E402
 from repro_torch.index import kmeans as PK  # noqa: E402
@@ -83,8 +84,8 @@ def test_kmeans_from_the_reference_init(seed):
 
 def test_kmeans_pp_init_is_deterministic_and_picks_distinct_rows():
     x = torch.from_numpy(np.array(RB.codes_to_values(jnp.asarray(_codes(3, 300, 32)), 4)))
-    a = PK.kmeans_pp_init(torch.Generator().manual_seed(5), x, NLIST)
-    b = PK.kmeans_pp_init(torch.Generator().manual_seed(5), x, NLIST)
+    a = PK.kmeans_pp_init(prng.key(5, "cpu"), x, NLIST)
+    b = PK.kmeans_pp_init(prng.key(5, "cpu"), x, NLIST)
     assert torch.equal(a, b)
     rows = [int(torch.nonzero((x == c).all(-1))[0]) for c in a]  # every pick is a row of x
     assert len({tuple(x[r].tolist()) for r in rows}) == NLIST
@@ -96,8 +97,8 @@ def test_kmeans_pp_init_is_deterministic_and_picks_distinct_rows():
 def test_draw_never_picks_a_zero_weight():
     w = torch.zeros(10_000_000)
     w[[3, 4_000_000, 9_999_999]] = torch.tensor([1.0, 2.0, 1e-6])
-    gen = torch.Generator().manual_seed(0)
-    picks = {int(PK._draw(gen, w)) for _ in range(50)}
+    keys = prng.split(prng.key(0, "cpu"), 50)
+    picks = {int(PK._draw(float(prng.uniform(k)), w)) for k in keys}
     assert picks <= {3, 4_000_000, 9_999_999} and 4_000_000 in picks
 
 

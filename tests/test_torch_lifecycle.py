@@ -72,7 +72,7 @@ def reference_norms(monkeypatch):
 def reference_draws(monkeypatch):
     """The port's k-means starts from the reference's k-means++ picks for ``seed``."""
     def hand_over(seed):
-        def kmeans_pp_init(generator, x, k):
+        def kmeans_pp_init(key, x, k):
             init = RK.kmeans_pp_init(jax.random.PRNGKey(seed), jnp.asarray(x.cpu().numpy()), k)
             return torch.from_numpy(np.array(init)).to(x.device)
 

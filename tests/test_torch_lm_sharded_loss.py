@@ -28,6 +28,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import prng  # noqa: E402
+
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 B, S = 4, 32
 # (name, mesh shape, mesh axes, microbatches)
@@ -99,7 +101,7 @@ def gloo(tmp_path_factory):
     from repro_torch.train.checkpoint import flatten_tree
 
     tmp = tmp_path_factory.mktemp("lm_loss")
-    params = tf.init_params(llama3_2_1b.SMOKE, torch.Generator().manual_seed(0), device="cpu")
+    params = tf.init_params(llama3_2_1b.SMOKE, prng.key(0, "cpu"), device="cpu")
     world = {k.replace("['", "").replace("']", ""): v.numpy()
              for k, v in flatten_tree(params).items()}
     rng = np.random.default_rng(0)

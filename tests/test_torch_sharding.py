@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 from _torch_cells_ref import run_reference  # noqa: E402
 
+from repro_torch import prng  # noqa: E402
 from repro_torch.configs.registry import REGISTRY, get_arch  # noqa: E402
 from repro_torch.launch.mesh import LeafMesh  # noqa: E402
 from repro_torch.models import gnn as PG  # noqa: E402
@@ -39,12 +40,12 @@ LOSS_RTOL = 2e-6
 MESHES = {"4x2": ((4, 2), ("data", "model")),
           "16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
-RECSYS = {"mind": (lambda c: mind.init_params(c, torch.Generator(), "meta"), ("item_table",), ()),
-          "dlrm-rm2": (lambda c: dlrm.init_dlrm(c, torch.Generator(), "meta").tree(), (),
+RECSYS = {"mind": (lambda c: mind.init_params(c, prng.key(0, "meta"), "meta"), ("item_table",), ()),
+          "dlrm-rm2": (lambda c: dlrm.init_dlrm(c, prng.key(0, "meta"), "meta").tree(), (),
                        ("tables",)),
-          "two-tower-retrieval": (lambda c: two_tower.init_params(c, torch.Generator(), "meta"),
+          "two-tower-retrieval": (lambda c: two_tower.init_params(c, prng.key(0, "meta"), "meta"),
                                   ("user_table", "item_table"), ()),
-          "dien": (lambda c: dien.init_params(c, torch.Generator(), "meta"),
+          "dien": (lambda c: dien.init_params(c, prng.key(0, "meta"), "meta"),
                    ("item_table", "cate_table"), ())}
 
 
@@ -84,7 +85,7 @@ def _port_specs(mesh):
                 shd.fill_param_sharding(mesh, tree, tables, stacked))
             out[f"replicate/{arch}"] = _specs(shd.replicate_like(mesh, tree))
         else:
-            tree = PG.init_params(cfg, torch.Generator(), "meta")
+            tree = PG.init_params(cfg, prng.key(0, "meta"), "meta")
             out[f"gnn_param/{arch}"] = _specs(shd.gnn_param_sharding(mesh, tree))
     for name in ("lm_batch_sharding", "recsys_table_sharding", "recsys_batch_sharding",
                  "gnn_edge_sharding", "gnn_edge_feat_sharding", "gnn_node_sharding"):
@@ -186,7 +187,7 @@ def test_shard_tree_round_trip(mesh_name):
 
 def _params(ref_dir):
     cfg = get_arch("llama3.2-1b").smoke_config
-    like = PTF.init_params(cfg, torch.Generator(), device="cpu")
+    like = PTF.init_params(cfg, prng.key(0, "cpu"), device="cpu")
     arrays = np.load(ref_dir / "ref.json.params.npz")
     return cfg, ck.unflatten_tree(like, [torch.from_numpy(arrays[k])
                                          for k in ck.flatten_tree(like)])

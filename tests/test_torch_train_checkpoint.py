@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 import repro.core as RC  # noqa: E402
 import repro.core.losses as RL  # noqa: E402
 from repro.train import checkpoint as rck  # noqa: E402
+from repro_torch import prng  # noqa: E402
 import repro_torch.core as PC  # noqa: E402
 from repro_torch.core import binarize_lib as PB  # noqa: E402
 from repro_torch.core import losses as PL  # noqa: E402
@@ -146,11 +147,11 @@ def test_training_is_restart_reproducible(tmp_path):
     gen = PS.pair_batches(docs, 42, 32, device="cpu")
     hist = [next(gen) for _ in range(10)]
 
-    st = PC.init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    st = PC.init_train_state(cfg, prng.key(0, "cpu"), "cpu")
     for a, p in hist:
         st, _ = PC.train_step(st, a, p, cfg)
 
-    st2 = PC.init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    st2 = PC.init_train_state(cfg, prng.key(0, "cpu"), "cpu")
     for a, p in hist[:5]:
         st2, _ = PC.train_step(st2, a, p, cfg)
     ck.save(str(tmp_path), 5, PT.train_state_to_numpy(st2))
@@ -174,7 +175,7 @@ def test_restores_a_reference_train_state(tmp_path):
     st = RC.init_train_state(jax.random.PRNGKey(0), rcfg)
     rck.save(str(tmp_path), 0, st)
     template = PT.train_state_to_numpy(
-        PC.init_train_state(_cfg(), torch.Generator().manual_seed(0), "cpu"))
+        PC.init_train_state(_cfg(), prng.key(0, "cpu"), "cpu"))
     tree, _ = ck.restore(str(tmp_path), template)
     pst = PT.train_state_from_numpy(tree, _cfg(), "cpu")
     for x, y in zip(jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, st)),

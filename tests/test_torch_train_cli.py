@@ -31,6 +31,7 @@ import jax  # noqa: E402
 from repro.configs.registry import get_arch as ref_arch  # noqa: E402
 from repro.train import checkpoint as RCK  # noqa: E402
 from repro.train import optim as RO  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.launch import train as PTR  # noqa: E402
 from repro_torch.train import checkpoint as PCK  # noqa: E402
 from repro_torch.train import steps as PST  # noqa: E402
@@ -161,7 +162,7 @@ def test_bfloat16_lm_checkpoint_interchanges(tmp_path):
     from repro_torch.configs.registry import get_arch as port_arch
 
     pcfg = dataclasses.replace(port_arch("llama3.2-1b").smoke_config, dtype=torch.bfloat16)
-    tree = PT.init_params(pcfg, torch.Generator().manual_seed(0), "cpu")
+    tree = PT.init_params(pcfg, prng.key(0, "cpu"), "cpu")
     restored, at = PCK.restore(str(tmp_path / "ref"),
                                PST.train_state_tree(tree, PST.init_opt_state(tree)))
     assert at == 5

@@ -44,6 +44,7 @@ import repro.core as RC  # noqa: E402
 import repro.core.losses as RL  # noqa: E402
 from repro.data import synthetic as RS  # noqa: E402
 from repro.train import optim as RO  # noqa: E402
+from repro_torch import prng  # noqa: E402
 import repro_torch.core as PC  # noqa: E402
 from repro_torch.core import binarize_lib as PB  # noqa: E402
 from repro_torch.core import losses as PL  # noqa: E402
@@ -230,7 +231,7 @@ def test_train_state_round_trips_and_inits():
                                 jax.tree_util.tree_leaves_with_path(back)):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
         assert np.asarray(x).dtype == np.asarray(y).dtype
-    fresh = PC.init_train_state(pcfg, torch.Generator().manual_seed(0), "cpu")
+    fresh = PC.init_train_state(pcfg, prng.key(0, "cpu"), "cpu")
     assert fresh.step == 0 and fresh.opt_state.step == 0
     assert fresh.queue["ptr"] == fresh.queue["filled"] == 0
     assert fresh.queue["buf"].shape == (128, 16)
@@ -261,7 +262,7 @@ DIM, CODE = 64, 32
 
 
 def _train(cfg, docs, steps, seed, batch):
-    state = PC.init_train_state(cfg, torch.Generator().manual_seed(seed), "cpu")
+    state = PC.init_train_state(cfg, prng.key(seed, "cpu"), "cpu")
     gen = PS.pair_batches(docs, seed + 1, batch, device="cpu")
     for _ in range(steps):
         state, _ = PC.train_step(state, *next(gen), cfg)

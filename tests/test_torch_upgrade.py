@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 import repro.core as RC  # noqa: E402
 from repro.data import synthetic as RS  # noqa: E402
 from repro.launch import serve as rserve  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.core import binarize_lib as PB  # noqa: E402
 from repro_torch.data import synthetic as PS  # noqa: E402
 from repro_torch.launch import lifecycle, proxy, serve, serving  # noqa: E402
@@ -65,7 +66,7 @@ def test_upgrade_through_the_routed_tier():
     replicas end on v2."""
     tcfg = serve.cli_train_config(32, 16, 3)
     docs, queries, gt = PS.clustered_corpus(0, 1500, 32, 32)
-    old = serve.init_train_state(tcfg, torch.Generator().manual_seed(0), "cpu").model
+    old = serve.init_train_state(tcfg, prng.key(0, "cpu"), "cpu").model
     new_docs = PS.backbone_upgrade(docs, 5)
     new_queries = PS.backbone_upgrade(queries, 5)
     new = serve.bc_train_binarizer(old, docs, new_docs, tcfg, steps=5, batch=64,

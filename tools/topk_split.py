@@ -121,6 +121,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("topk_split: no CUDA device")
     sys.path.insert(0, str(tree / "src"))
+    from repro_torch import prng
     from repro_torch.core.binarize_lib import BinarizerConfig, init_binarizer, make_encode_fn
     from repro_torch.data.synthetic import clustered_corpus_torch
     from repro_torch.index.flat import FlatSDC
@@ -152,7 +153,7 @@ def main() -> None:
     docs, queries, _ = clustered_corpus_torch(args.seed, args.docs, max(N_QUERIES, *batches),
                                               DIM, device=device)
     bcfg = BinarizerConfig(input_dim=DIM, code_dim=CODE_DIM, n_levels=LEVELS, hidden_dim=2 * DIM)
-    model = init_binarizer(bcfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    model = init_binarizer(bcfg, prng.key(args.seed, device), device)
     d_codes = encode_codes(model, docs, batch=1 << 17)
     del docs
     q = make_encode_fn(model)(queries)

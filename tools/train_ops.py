@@ -23,12 +23,12 @@ import copy
 import os
 import sys
 
-import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "src"))
 
+from repro_torch import prng  # noqa: E402
 from repro_torch.core import trainer as T  # noqa: E402
 from repro_torch.data import synthetic as S  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
@@ -63,13 +63,13 @@ def main() -> None:
     device = resolve_device(args.device)
     cfg = serve.cli_train_config()
     docs, _, _ = S.clustered_corpus(0, 20000, 64, 256)
-    state = T.init_train_state(cfg, torch.Generator(device=device).manual_seed(0), device)
+    state = T.init_train_state(cfg, prng.key(0, device), device)
     gen = S.pair_batches(docs, 1, 256, device=device)
     for _ in range(args.warm):
         state, _ = T.train_step(state, *next(gen), cfg)
     a, p = next(gen)
     old = copy.deepcopy(state.model)
-    bc = T.init_train_state(cfg, torch.Generator(device=device).manual_seed(7), device)
+    bc = T.init_train_state(cfg, prng.key(7, device), device)
     bc = bc._replace(model=copy.deepcopy(old), m_model=copy.deepcopy(old))
     with _Count() as c:
         T.train_step(state, a, p, cfg)
