@@ -268,11 +268,11 @@ def main(argv=None):
     print(f"sequential (1 replica): {n_q / dt_seq:.0f} QPS | routed "
           f"({args.replicas} replicas): {n_q / dt:.0f} QPS on {N_LEAVES} leaves sharing "
           f"{device} (p50 {stats['latency_p50_ms']:.1f} ms, p99 "
-          f"{stats['latency_p99_ms']:.1f} ms, device idle "
+          f"{stats['latency_p99_ms']:.1f} ms, scan waiting for input "
           f"{100 * stats['device_idle_frac']:.0f}%)")
     for srep in stats["per_replica"]:
         print(f"  replica {srep['replica']}: {srep['requests']} req "
-              f"({srep['queries']} queries), device idle "
+              f"({srep['queries']} queries), scan waiting for input "
               f"{100 * srep['device_idle_frac']:.0f}%, generation {srep['generation']}")
     if swap_report is not None:
         rep = swap_report

@@ -28,6 +28,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,6 +37,7 @@ from torch import nn
 
 from repro_torch import prng
 from repro_torch.device import full_fp32_matmul, resolve_device
+from repro_torch import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -468,7 +470,10 @@ class CapturedEncode:
     (and PyTorch's CUDA generator stays registered with the aborted
     capture, so the process's later random draws on the card fail: treat
     it as fatal). ``captures`` counts the shapes captured, ``replays`` the
-    calls.
+    calls. While spans are recorded (``repro_torch/spans.py``), ``encode.upload``
+    times the stream wait through the input's copy: a copy from pageable
+    host memory returns only once the stream, and so the caller's work
+    before it, has reached it.
     """
 
     def __init__(self, model: RecurrentBinarizer):
@@ -507,6 +512,7 @@ class CapturedEncode:
                                device=self._device)
         caller = torch.cuda.current_stream(self._device)
         with self._lock:
+            t0 = time.perf_counter_ns() if spans.on else None
             self._stream.wait_stream(caller)
             with torch.cuda.stream(self._stream):
                 entry = self._graphs.get(tuple(x.shape))
@@ -514,6 +520,8 @@ class CapturedEncode:
                     entry = self._graphs[tuple(x.shape)] = self._capture(tuple(x.shape))
                 graph, static_in, static_out = entry
                 static_in.copy_(x)
+                if t0 is not None:
+                    spans.record_here("encode.upload", t0, time.perf_counter_ns())
                 graph.replay()
                 out = static_out.clone()
             caller.wait_stream(self._stream)

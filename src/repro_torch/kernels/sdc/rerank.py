@@ -23,6 +23,8 @@ included, whatever the layout.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -31,6 +33,7 @@ from repro_torch.kernels.sdc import ref as sdc_ref
 from repro_torch.kernels.sdc.defaults import RERANK_GROUP, BlockPlan
 from repro_torch.kernels.sdc.gather import sdc_gather_topk, sdc_gather_topk_torch
 from repro_torch.kernels.sdc.ops import resolve_backend
+from repro_torch import spans
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -129,9 +132,12 @@ def host_gathered_lists(fine_codes: np.ndarray, fine_inv_norm: np.ndarray, cand_
     gathered there (the only reads of the tier). Returns ``(lists_codes
     [Q * k' / g, g, D(/2)], lists_inv [.., g], lists_ids [.., g],
     probes [Q, k' / g])`` on ``device``: an identity probe table, empty
-    slots with inverse norm 0 and id -1.
+    slots with inverse norm 0 and id -1. While spans are recorded
+    (``repro_torch/spans.py``), ``rerank.host`` times the host's part: from the
+    candidates' arrival to the last upload issued.
     """
     cand = _sort_candidates(cand_ids).cpu().numpy()
+    t0 = time.perf_counter_ns() if spans.on else None
     Q, kp = cand.shape
     g = max(1, min(int(group), kp))
     pad = (-kp) % g
@@ -148,8 +154,11 @@ def host_gathered_lists(fine_codes: np.ndarray, fine_inv_norm: np.ndarray, cand_
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     probes = torch.arange(n_lists, dtype=torch.int32, device=device).reshape(Q, kp // g)
-    return (put(g_codes.reshape(n_lists, g, g_codes.shape[-1])), put(g_inv.reshape(n_lists, g)),
-            put(cand.reshape(n_lists, g)), probes)
+    lists = (put(g_codes.reshape(n_lists, g, g_codes.shape[-1])), put(g_inv.reshape(n_lists, g)),
+             put(cand.reshape(n_lists, g)), probes)
+    if t0 is not None:
+        spans.record_here("rerank.host", t0, time.perf_counter_ns())
+    return lists
 
 
 def sdc_rerank_gathered(q_codes, fine_codes: np.ndarray, fine_inv_norm: np.ndarray, cand_ids,

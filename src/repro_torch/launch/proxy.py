@@ -103,11 +103,13 @@ import dataclasses
 import logging
 import random
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.launch.clock import SYSTEM_CLOCK, Clock
 from repro_torch.launch.serving import (
     Array,
@@ -441,8 +443,8 @@ class ProxyTicket(Ticket):
     """
 
     def __init__(self, seq: int, request: SearchRequest,
-                 deadline: Optional[float] = None):
-        super().__init__(seq, request.n_queries, deadline=deadline)
+                 deadline: Optional[float] = None, *, t_submit_ns: Optional[int] = None):
+        super().__init__(seq, request.n_queries, deadline=deadline, t_submit_ns=t_submit_ns)
         # The typed request is retained for failover re-dispatch (and
         # cleared by Ticket._resolve: a resolved ticket held by a
         # long-running client must not pin its input alongside the
@@ -632,7 +634,12 @@ class QueryRouter:
         healthy replicas that serve the wrong version with no compat
         path raise ``IncompatibleVersion`` — terminal, like
         ``AllReplicasDown``, unlike ``RequestShed``.
+
+        The ticket's ``seq`` is the request's id in its spans
+        (``repro_torch/spans.py``), kept by every replica ticket it is
+        dispatched as, failover re-dispatches included.
         """
+        t_submit_ns = time.perf_counter_ns() if spans.on else None
         req = as_search_request(queries, deadline=deadline)
         deadline = req.deadline
         if deadline is not None and self.clock.now() >= deadline:
@@ -671,7 +678,7 @@ class QueryRouter:
                 )
             seq = self._seq
             self._seq += 1
-        ticket = ProxyTicket(seq, req, deadline=deadline)
+        ticket = ProxyTicket(seq, req, deadline=deadline, t_submit_ns=t_submit_ns)
         shed_error: Optional[RequestShed] = None
         for attempt in (0, 1):
             for replica in order:
@@ -847,8 +854,8 @@ class QueryRouter:
             req, encode_override=compat_enc
         )
         try:
-            inner = pipe.submit(inner_req, force_block=force,
-                                deadline=ticket.deadline)  # may shed
+            inner = pipe.submit(inner_req, force_block=force, deadline=ticket.deadline,
+                                rid=ticket.rid, t_submit_ns=ticket.t_submit_ns)  # may shed
         except BaseException:
             with self._lock:
                 self._outstanding[replica].discard(ticket)

@@ -658,15 +658,18 @@ def main(argv=None):
           f"({n_q / dt_seq:.0f} QPS on {where}, warmed)")
     n_q_routed = sum(getattr(b, "n_queries", None) or b.shape[0] for b in stream)
     shed = f", {stats['shed']} shed" if stats["shed"] else ""
+    # ``device_idle_frac`` is the scan thread's share of time blocked for an
+    # encoded batch, a host wait; the card's idle share is the benchmark's
+    # traced ``device_idle`` (bench_port/metrics/device_idle.py).
     print(f"[serve] routed ({args.replicas} replica(s), {args.router}): "
           f"{1e3 * run.seconds / len(stream):.3f} ms/batch "
           f"({n_q_routed / run.seconds:.0f} QPS on {where}; "
           f"p50={stats['latency_p50_ms']:.3f} ms p99={stats['latency_p99_ms']:.3f} ms, "
-          f"device idle {100 * stats['device_idle_frac']:.0f}%{shed})")
+          f"scan waiting for input {100 * stats['device_idle_frac']:.0f}%{shed})")
     if args.replicas > 1:
         for s in stats["per_replica"]:
             print(f"[serve]   replica {s['replica']}: {s['requests']} req "
-                  f"({s['queries']} queries), shed {s['shed']}, device idle "
+                  f"({s['queries']} queries), shed {s['shed']}, scan waiting for input "
                   f"{100 * s['device_idle_frac']:.0f}%")
     if run.swap is not None:
         rep = run.swap

@@ -86,6 +86,8 @@ from typing import Any, Callable, List, Optional, Protocol, Sequence, Tuple
 
 import torch
 
+from repro_torch import spans
+
 Array = Any
 
 
@@ -291,11 +293,19 @@ class Ticket:
     ``deadline`` is an absolute ``time.perf_counter()`` instant (None =
     no deadline): a stage that dequeues the batch after it has passed
     sheds the ticket with ``DeadlineExpired`` instead of scanning it.
+
+    ``rid`` is the request's id in its spans (``repro_torch/spans.py``): the
+    router's ticket ``seq`` for a routed request, passed down to the
+    replica's ticket, else ``seq``. ``t_submit_ns`` is the request's entry
+    to the tier (``perf_counter_ns``), read only while spans are recorded.
     """
 
     def __init__(self, seq: int, n_queries: int,
-                 deadline: Optional[float] = None):
+                 deadline: Optional[float] = None, *, rid: Optional[int] = None,
+                 t_submit_ns: Optional[int] = None):
         self.seq = seq
+        self.rid = seq if rid is None else rid
+        self.t_submit_ns = t_submit_ns
         self.n_queries = n_queries
         self.deadline = deadline
         self.t_enqueue = time.perf_counter()
@@ -443,7 +453,8 @@ class AdmissionQueue:
         return self._closed
 
     def admit(self, payload: Any, *, force_block: bool = False,
-              deadline: Optional[float] = None) -> Ticket:
+              deadline: Optional[float] = None, rid: Optional[int] = None,
+              t_submit_ns: Optional[int] = None) -> Ticket:
         """Admit one payload; returns its ``Ticket``.
 
         block policy: waits for queue space (back-pressure).
@@ -452,6 +463,7 @@ class AdmissionQueue:
         not drop a ticket that was already admitted once).
         ``deadline``: absolute perf_counter instant after which the
         stages shed the batch at dequeue instead of serving it.
+        ``rid``, ``t_submit_ns``: the ticket's (see ``Ticket``).
         """
         with self._lock:
             if self._closed:
@@ -462,7 +474,7 @@ class AdmissionQueue:
             n = payload.n_queries
         else:
             n = int(getattr(payload, "shape", (1,))[0])
-        ticket = Ticket(seq, n, deadline=deadline)
+        ticket = Ticket(seq, n, deadline=deadline, rid=rid, t_submit_ns=t_submit_ns)
         if isinstance(payload, SearchRequest):
             ticket.request = payload
         item = (ticket, payload)
@@ -520,8 +532,7 @@ class LatencyStats:
     Retaining whole tickets (and their result arrays) would grow without
     bound on a long-running pipeline, so completions are folded into
     running counters plus a sliding window of recent latencies for
-    percentiles. ``window()`` exposes the raw window so the proxy tier
-    can merge replicas into one report.
+    percentiles; ``snapshot()`` reads the totals and the window at once.
     """
 
     def __init__(self, window: int = 4096):
@@ -539,10 +550,6 @@ class LatencyStats:
     def snapshot(self) -> Tuple[int, int, List[float]]:
         with self._lock:
             return self.n_completed, self.n_queries, list(self._latencies)
-
-    def window(self) -> List[float]:
-        with self._lock:
-            return list(self._latencies)
 
 
 class ServingPipeline:
@@ -617,8 +624,11 @@ class ServingPipeline:
         self._watchdog_thread: Optional[threading.Thread] = None
         self._watchdog_stop = threading.Event()
         self.watchdog_stalls = 0
-        # device-idle accounting (scan thread): time spent waiting for an
-        # encoded batch = the device had nothing to do.
+        # The scan thread's own time (stats()' ``device_idle_frac``):
+        # waiting for an encoded batch against waiting for a scan or
+        # dispatching one. Host waits, not the device's idle time, which
+        # only a device trace shows; the same clock readings bound the
+        # scan.* spans.
         self._scan_idle_s = 0.0
         self._scan_busy_s = 0.0
         self._encode_thread = threading.Thread(
@@ -639,7 +649,8 @@ class ServingPipeline:
         return self._admission.shed_count
 
     def submit(self, queries: Any, *, force_block: bool = False,
-               deadline: Optional[float] = None) -> Ticket:
+               deadline: Optional[float] = None, rid: Optional[int] = None,
+               t_submit_ns: Optional[int] = None) -> Ticket:
         """Admit one query batch; returns a ``Ticket``.
 
         block policy: waits for queue space (back-pressure).
@@ -656,7 +667,13 @@ class ServingPipeline:
         pre-``SearchRequest`` path) or a ``SearchRequest`` (typed path:
         codes bypass the encode stage, ``k`` truncates, the request's
         own deadline applies when the kwarg is None).
+
+        ``rid`` and ``t_submit_ns`` name the request in its spans (the
+        router passes its ticket's); while spans are recorded, a direct
+        submit reads its own entry time.
         """
+        if t_submit_ns is None and spans.on:
+            t_submit_ns = time.perf_counter_ns()
         if isinstance(queries, SearchRequest) and deadline is None:
             deadline = queries.deadline
         # Reserve the in-flight slot BEFORE admission: once admit() has
@@ -667,7 +684,8 @@ class ServingPipeline:
             self._inflight_n += 1
         try:
             ticket = self._admission.admit(
-                queries, force_block=force_block, deadline=deadline
+                queries, force_block=force_block, deadline=deadline, rid=rid,
+                t_submit_ns=t_submit_ns,
             )
         except BaseException:
             with self._idle_cond:
@@ -772,16 +790,6 @@ class ServingPipeline:
     # ------------------------------------------------------------------
     # stuck-scan watchdog
     # ------------------------------------------------------------------
-
-    def scan_oldest_age(self) -> Optional[float]:
-        """Seconds the oldest in-flight scan has been running (None when
-        no scan is in flight). The watchdog's probe — also usable by an
-        external monitor."""
-        with self._watch_lock:
-            if not self._scan_started:
-                return None
-            t0 = next(iter(self._scan_started.values()))
-        return time.perf_counter() - t0
 
     def _watch_begin(self, seq: int) -> None:
         with self._watch_lock:
@@ -896,6 +904,9 @@ class ServingPipeline:
                 self._encoded.put(_SENTINEL)
                 return
             ticket, queries = item
+            if spans.on and ticket.t_submit_ns is not None:
+                spans.record("serve.queued", ticket.rid, ticket.t_submit_ns,
+                             time.perf_counter_ns())
             if ticket.expired():
                 # Shed at dequeue: an expired batch is never encoded —
                 # the client's budget is spent, and the stage time would
@@ -916,6 +927,8 @@ class ServingPipeline:
                         if req.encode_override is not None:
                             enc = req.encode_override
                         src = req.queries
+                    if spans.on:
+                        spans.enter(ticket.rid)
                     codes = enc(src)
             except BaseException as e:  # surfaced on the ticket
                 ticket._resolve(error=e)
@@ -927,26 +940,27 @@ class ServingPipeline:
 
         def await_oldest():
             ticket, vals, ids, ready = inflight.popleft()
-            t0 = time.perf_counter()
+            error = None
+            t0 = time.perf_counter_ns()
             try:
                 _wait_ready(ready)
             except BaseException as e:
-                self._watch_end(ticket.seq)
-                # Busy-clock write BEFORE the resolve and inside the
-                # lock: the resolve wakes quiesce(), and a generation
-                # rollover must not reset the clock between them.
-                with self._record_lock:
-                    self._scan_busy_s += time.perf_counter() - t0
-                    ticket._resolve(error=e)
-                return
+                error = e
             self._watch_end(ticket.seq)
-            self._scan_busy_s += time.perf_counter() - t0
-            # One critical section for resolve + record: the resolve is
-            # what wakes quiesce(), so a generation rollover waiting on
-            # _record_lock cannot slip in before the record.
+            t1 = time.perf_counter_ns()
+            # One critical section for the busy clock, the resolve and
+            # the record: the resolve is what wakes quiesce(), so a
+            # generation rollover waiting on _record_lock cannot reset the
+            # clock or slip in before the record.
             with self._record_lock:
-                if ticket._resolve(value=(vals, ids)):
+                self._scan_busy_s += (t1 - t0) / 1e9
+                if error is not None:
+                    ticket._resolve(error=error)
+                elif ticket._resolve(value=(vals, ids)):
                     self._stats.record(ticket)
+            if spans.on:
+                spans.record("scan.wait_device", ticket.rid, t0, t1)
+                spans.record("scan.reply", ticket.rid, t1, time.perf_counter_ns())
 
         while True:
             try:
@@ -958,15 +972,18 @@ class ServingPipeline:
                 if inflight:
                     await_oldest()
                     continue
-                t0 = time.perf_counter()
+                t0 = time.perf_counter_ns()
                 gen0 = self.generation
                 item = self._encoded.get()
+                t1 = time.perf_counter_ns()
                 # An idle wait that spans a new_generation() (the blocked
                 # get sat through a drain/rebuild window) belongs to no
                 # generation: adding it would book the whole swap as the
-                # NEW generation's device idle time.
+                # NEW generation's idle time.
                 if self.generation == gen0:
-                    self._scan_idle_s += time.perf_counter() - t0
+                    self._scan_idle_s += (t1 - t0) / 1e9
+                if spans.on:
+                    spans.record("scan.wait_input", None, t0, t1)
             if item is _SENTINEL:
                 break
             ticket, codes = item
@@ -996,8 +1013,11 @@ class ServingPipeline:
             # Watchdog clock starts at dispatch: a hung search_fn blocks
             # right here, where this thread can no longer observe it.
             self._watch_begin(ticket.seq)
+            if spans.on:
+                spans.enter(ticket.rid, "scan.dispatch")
             try:
-                t0 = time.perf_counter()
+                # One reading starts the busy clock and the dispatch span.
+                t0 = time.perf_counter_ns()
                 if self._scan_gate is not None:
                     # Co-located replicas take turns. Launches are
                     # async, so serialising the dispatch alone would
@@ -1009,7 +1029,7 @@ class ServingPipeline:
                         _wait_ready(_record_ready(vals, ids))
                 else:
                     vals, ids = self.search_fn(codes)  # async dispatch
-                self._scan_busy_s += time.perf_counter() - t0
+                self._scan_busy_s += (time.perf_counter_ns() - t0) / 1e9
             except BaseException as e:
                 self._watch_end(ticket.seq)
                 ticket._resolve(error=e)
@@ -1019,17 +1039,14 @@ class ServingPipeline:
                 # of the async result — no extra device sync).
                 vals, ids = vals[:, : req.k], ids[:, : req.k]
             inflight.append((ticket, vals, ids, _record_ready(vals, ids)))
+            if spans.on:
+                spans.record("scan.dispatch", ticket.rid, t0, time.perf_counter_ns())
         while inflight:
             await_oldest()
 
     # ------------------------------------------------------------------
     # monitoring
     # ------------------------------------------------------------------
-
-    def latency_window(self) -> List[float]:
-        """Recent enqueue->reply latencies (seconds, bounded window) —
-        raw material for cross-replica percentile aggregation."""
-        return self._stats.window()
 
     def stats(self) -> dict:
         """Throughput/latency/idle summary over completed requests.
