@@ -2,10 +2,12 @@
 // b1 product of binary_dot.cu (mma_b1) and the cp.async helpers both use.
 //
 // A scan block scores one round of kThreads document rows, staged in
-// shared memory, against up to 64 query rows held there too, and writes
-// the [query][row] int32 dot tile that its per-row epilogue and selector
-// read. The product is mma.sync.m16n8k32 s8 x s8 -> s32: A is 16 rows x
-// 32 codes of the documents, row-major, and B is 32 codes x 8 queries,
+// shared memory, against up to 64 query rows held there too: tile_dots
+// writes the [query][row] int32 dot tile that gather_topk.cu's per-row
+// epilogue and selector read; warp_products leaves the products in each
+// warp's accumulators, where sdc_topk.cu's per-pair epilogue takes them.
+// The product is mma.sync.m16n8k32 s8 x s8 -> s32: A is 16 rows x 32
+// codes of the documents, row-major, and B is 32 codes x 8 queries,
 // column-major, i.e. each query's codes contiguous: both are the rows as
 // they are stored. The int32 accumulator is exact, since codes are
 // 0..2^n - 1 < 2^7 and |dot| <= D * 127^2 < 2^31 for every D the kernels
@@ -211,6 +213,69 @@ __device__ __forceinline__ void tile_dots(const unsigned* tile, const int* qs, i
       d[kDotStride] = c[1];
       d[8] = c[2];
       d[kDotStride + 8] = c[3];
+    }
+  }
+}
+
+// Word i of the staged rows that lane (g, t) of warp w feeds k-step s of
+// the product for the warp's 16-row half h (rows 32w + 16h..): packed rows
+// word 4s + t of row g (i = 0) and of row g + 8 (i = 1); int8 rows words
+// 8s + t and 8s + 4 + t (i >> 1) of rows g and g + 8 (i & 1).
+template <int D, bool PACKED>
+__device__ __forceinline__ unsigned fragment_word(const unsigned* tile, int s, int h, int i) {
+  using T = Tile<D, PACKED>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const unsigned* row = tile + ((threadIdx.x & ~31) + 16 * h + 8 * (i & 1) + g) * T::S;
+  return PACKED ? row[4 * s + t] : row[8 * s + 4 * (i >> 1) + t];
+}
+
+// The code products of warp w's staged rows 32w..32w+31 with query rows
+// 0..8NG-1 (NG <= NC groups of 8), left in the accumulators: c[h][G] is
+// the 16 x 8 tile of rows 32w + 16h.. and queries 8G.., so lane (g, t)
+// holds in c[h][G][i] the product of row 32w + 16h + 8(i >> 1) + g with
+// query 8G + 2t + (i & 1). Groups from NG on are left as they were. The
+// rows' words come from word(s, h, i) (fragment_word's, from the tile or
+// from registers loaded earlier). Each k-step takes the A fragments of
+// both halves, then each group's B fragment once for both. Called by all
+// threads of the warp.
+template <int D, bool PACKED, int NG, int NC, class Words>
+__device__ __forceinline__ void warp_products(Words word, const int* qs, int (&c)[2][NC][4]) {
+  static_assert(NG <= NC, "more groups than accumulators");
+  using T = Tile<D, PACKED>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int G = 0; G < NG; ++G) c[h][G][0] = c[h][G][1] = c[h][G][2] = c[h][G][3] = 0;
+#pragma unroll
+  for (int s = 0; s < T::KSTEPS; ++s) {
+    unsigned a[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (PACKED) {
+        const unsigned x = word(s, h, 0), y = word(s, h, 1);
+        a[h][0] = x & 0x0F0F0F0Fu;
+        a[h][1] = y & 0x0F0F0F0Fu;
+        a[h][2] = (x >> 4) & 0x0F0F0F0Fu;
+        a[h][3] = (y >> 4) & 0x0F0F0F0Fu;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[h][i] = word(s, h, i);
+      }
+    }
+#pragma unroll
+    for (int G = 0; G < NG; ++G) {
+      const int* q = qs + (8 * G + g) * T::QS;
+      unsigned b[2];
+      if constexpr (PACKED) {
+        b[0] = (unsigned)q[4 * s + t];
+        b[1] = (unsigned)q[T::R::RW + 4 * s + t];
+      } else {
+        b[0] = (unsigned)q[8 * s + t];
+        b[1] = (unsigned)q[8 * s + 4 + t];
+      }
+      mma_s8(c[0][G], a[0], b);
+      mma_s8(c[1][G], a[1], b);
     }
   }
 }

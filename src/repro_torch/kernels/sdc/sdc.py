@@ -9,15 +9,18 @@ call raises.
 
 The kernel replaces the TPU kernel ``repro/kernels/sdc/sdc.py::sdc_topk``
 (``_sdc_topk_kernel``, ``_sdc_topk_kernel_packed``,
-``_merge_running_topk``). Its bound at the serving shapes is HBM bytes
-(the corpus, N * (D + 4) bytes, dwarfs everything else). Each block
-scans one slice of the documents against a chunk of up to 16 queries
-held in shared memory; the chunks of one slice run side by side, so the
-slice is read from HBM about once. A round stages 256 rows with
-``cp.async`` and scores them with one exact int8 tensor-core product
-(``mma.sync``, ``csrc/tile_mma.cuh``); each block keeps a per-query
-top-k of its slice in the selector of ``csrc/sdc_common.cuh``, and a
-second kernel merges the slices. The source says more.
+``_merge_running_topk``). At one query its bound is HBM bytes (the
+corpus, N * (D + 4) bytes); at the serving batches, the work per (query,
+document) pair. Each block scans one slice of the documents against a
+chunk of up to 16 queries held in shared memory; the chunks of one slice
+run side by side, so the slice is read from HBM about once. A round
+stages 256 rows with ``cp.async`` and scores them with exact int8
+tensor-core products (``mma.sync``, ``csrc/tile_mma.cuh``) whose epilogue
+runs in the accumulators' registers; a pair becomes a key only where its
+score is not below the query's running k-th best (a float gate), and
+each block keeps a per-query top-k of its slice in the selector of
+``csrc/sdc_common.cuh``; a second kernel merges the slices. The source
+says more.
 
 The fused kernel is built for code dims 32, 64, 128 and 256
 (``KERNEL_DIMS``). Any other dim up to 256 runs at the next of them, its
@@ -37,7 +40,10 @@ slice of the corpus; a ``geometry=(block_q, block_n)`` (a tuned scan
 the documents a slice holds instead, checked (``check_scan_blocks``) and
 never clamped. Geometry changes no score and no id; the unfused routes
 and the plain versions take none. ``sdc_topk.last_geometry`` is the
-``(queries per block, slices, documents per slice)`` of the last launch.
+``(queries per block, slices, documents per slice)`` of the last launch,
+and ``sdc_topk.gate_counts(device)`` the kernel's running counts there:
+(query, document) pairs scored, and pairs that passed its float gate and
+so became keys (the main path never reads them).
 
 Each wrapper also runs as a custom operator (``repro_torch::sdc_topk``,
 ``repro_torch::sdc_scores``) on meta tensors and under a dispatch mode,
@@ -63,6 +69,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -90,7 +97,7 @@ SCORES_ROW_STEP = 32  # sdc_scores.cu: the score matrix's rows padded to 128 byt
 _THREADS = 256  # documents per round, as in the source
 _SCORES_QUERIES_PER_BLOCK = 64  # sdc_scores.cu: the most queries a block holds (kMaxQueries)
 _SCORES_BLOCKS_PER_SM = 2  # sdc_scores.cu: blocks an SM its shared memory is sized for
-_TOPK_QUERIES_PER_BLOCK = 16  # sdc_topk.cu: the most queries a scan block holds
+_TOPK_QUERIES_PER_BLOCK = 16  # sdc_topk.cu: the most queries a scan block holds (kMaxQueries)
 _TOPK_BLOCKS_PER_SM = 3  # sdc_topk.cu: the scan's __launch_bounds__ minimum (kMinBlocks)
 # Hopper's shared memory: 228 KB an SM, of which it keeps 1 KB for each
 # block it runs (so one block may take 227 KB).
@@ -179,8 +186,42 @@ def _sdc_topk(q_codes, d_codes, d_inv_norm, *, n_levels, k, packed, geometry=Non
                    geometry=geometry)
 
 
+# The kernel's counters a device: (pairs scored, pairs past the float gate),
+# added to by every launch on it (``sdc_topk.gate_counts``).
+_GATE_COUNTS: dict = {}
+_GATE_LOCK = threading.Lock()
+
+
+def _gate_buffer(device: torch.device) -> torch.Tensor:
+    """The two-word int64 counter the kernel adds to on ``device`` (a CUDA
+    tensor's), made at its first launch there."""
+    with _GATE_LOCK:
+        buf = _GATE_COUNTS.get(device.index)
+        if buf is None:
+            buf = _GATE_COUNTS[device.index] = torch.zeros(2, dtype=torch.int64, device=device)
+    return buf
+
+
+def gate_counts(device="cuda") -> tuple[int, int]:
+    """(pairs scored, pairs past the float gate) summed over every fused
+    scan launched on ``device`` so far: the pairs are queries x documents,
+    the gate lets through the pairs whose score is not below the query's
+    running k-th best. Reads the counter, so waits for the device; (0, 0)
+    before the first launch there, and on a device without the kernel."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0, 0
+    index = torch.cuda.current_device() if device.index is None else device.index
+    buf = _GATE_COUNTS.get(index)
+    if buf is None:
+        return 0, 0
+    torch.cuda.synchronize(index)  # launches on any stream of the device
+    return tuple(int(x) for x in buf.tolist())
+
+
 sdc_topk.launches = 0
 sdc_topk.last_geometry = None
+sdc_topk.gate_counts = gate_counts
 
 
 def _dispatch_mode_active() -> bool:
@@ -416,13 +457,14 @@ def _launch(q, d, inv, *, n_levels, k, packed, geometry=None):
     cap = cap_for(k)
     qc, n_slices, slice_docs = scan_geometry(Q, N, D, packed, k, q.device, geometry)
     partial = torch.empty((Q, n_slices, k), dtype=torch.int64, device=q.device)
+    counts = _gate_buffer(q.device)
 
     c1, c2, c3 = affine_terms(n_levels, D)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.sdc_topk_launch(
             qa.data_ptr(), qb.data_ptr(), d.data_ptr(), inv.data_ptr(),
-            partial.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+            partial.data_ptr(), counts.data_ptr(), vals.data_ptr(), ids.data_ptr(),
             Q, N, W, int(packed), k, cap, qc, n_slices, slice_docs, c1, c2, c3, stream,
         )
     if err != 0:
@@ -466,7 +508,7 @@ def _lib() -> ctypes.CDLL:
     """The kernel library (built on first use), its C functions declared."""
     lib = _build.load(_SOURCE)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sdc_topk_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+    lib.sdc_topk_launch.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
                                     F, F, F, P]
     lib.sdc_topk_launch.restype = I
     lib.sdc_topk_scan_smem.argtypes = [I, I, I, I]

@@ -312,6 +312,9 @@ CARD_CASES = [(37, 100_003, 128, 10), (5, 50, 64, 100), (64, 30_011, 128, 1024),
               (33, 20_011, 32, 10), (33, 20_011, 256, 10), (5, 3_001, 128, 1),
               (3, 9_001, 128, PS.K_MAX), (3, 9_001, 16, 5000), (9, 10_007, 264, 10),
               (5, 4_099, 300, 33), (3, 3_001, 512, 10)]
+# every fused width at k 1 to K_MAX over a corpus that is a multiple of no
+# round, 37 queries (chunks cut at 16 and 5)
+CARD_CASES += [(37, 30_011, D, k) for D in PS.KERNEL_DIMS for k in (1, 10, 160, PS.K_MAX)]
 
 
 @pytest.mark.gpu
@@ -384,3 +387,156 @@ def test_wide_dims_take_the_unfused_route_on_card():
     assert (PS.sdc_topk.launches, PS.sdc_scores.launches) == (before[0], before[1] + 1)
     pv, pi = PS.sdc_topk_torch(q, d, inv, n_levels=4, k=3)
     assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+# The scan's float gate (csrc/sdc_topk.cu): a pair becomes a key only where
+# its score is not below the query's running k-th best. The cases below hold
+# the kernel to the plain version bit for bit where the gate is at its edges.
+
+
+def _held(q, d, inv, *, n_levels, k, packed):
+    """Run the kernel once and hold it, scores bit for bit and ids, to the
+    plain version; returns the gate's (pairs, passed) of the call."""
+    before = PS.sdc_topk.gate_counts(q.device)
+    launches = PS.sdc_topk.launches
+    v, i = PS.sdc_topk(q, d, inv, n_levels=n_levels, k=k, packed=packed)
+    after = PS.sdc_topk.gate_counts(q.device)
+    assert PS.sdc_topk.launches == launches + 1
+    pv, pi = PS.sdc_topk_torch(q, d, inv, n_levels=n_levels, k=k, packed=packed)
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+    return after[0] - before[0], after[1] - before[1]
+
+
+def _codes(gen, shape, n_levels, dev):
+    return torch.randint(0, 2**n_levels, shape, generator=gen, device=dev).to(torch.int8)
+
+
+def _packed(d, packed):
+    return pack_codes_nibbles(d) if packed else d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 160])
+def test_gate_with_duplicate_rows_straddling_thresholds(packed, k):
+    """50 distinct rows repeated over 70,001 ids: every score has about
+    1,400 equal copies, across rounds of 256 rows and across slices, so a
+    query's k-th best is tied with rows on both sides of it; ties go to
+    the lower id."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(50 + k)
+    Q, N, n_levels = 23, 70_001, 4
+    q = _codes(gen, (Q, 128), n_levels, dev)
+    distinct = _codes(gen, (50, 128), n_levels, dev)
+    d = distinct[torch.randint(0, 50, (N,), generator=gen, device=dev)]
+    _held(q, _packed(d, packed), doc_inv_norms(d, n_levels), n_levels=n_levels, k=k,
+          packed=packed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("k", [10, 160, 1000])
+def test_gate_with_zero_and_negative_scores(packed, k):
+    """n_levels 1 (codes as -1/+1): every row is query 0's complement with up
+    to 16 of 32 dims flipped back, so query 0's scores are all negative or
+    exactly zero and its threshold settles at or below 0; the other queries
+    see the same rows at random. (No score is -0.0: a sum that cancels
+    exactly rounds to +0, and a kept row's norm is positive.)"""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(1 + k)
+    Q, N, D, n_levels = 9, 20_011, 32, 1
+    q = _codes(gen, (Q, D), n_levels, dev)
+    flips = torch.rand((N, D), generator=gen, device=dev).argsort(dim=1)
+    back = flips < torch.randint(0, 17, (N, 1), generator=gen, device=dev)
+    d = torch.where(back, q[0], 1 - q[0]).to(torch.int8)
+    inv = doc_inv_norms(d, n_levels)
+    v, _ = PS.sdc_topk_torch(q[:1], d, inv, n_levels=n_levels, k=N)
+    assert (v[0] <= 0).all() and (v[0] == 0).sum() > k
+    _held(q, _packed(d, packed), inv, n_levels=n_levels, k=k, packed=packed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("k", [10, 160])
+def test_gate_with_zero_inverse_norms(packed, k):
+    """Excluded rows (inverse norm 0 or -0.0) as single rows, as whole
+    rounds of 256 and as most of a slice; they are never offered."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(7 + k)
+    Q, N, n_levels = 17, 60_007, 4
+    q = _codes(gen, (Q, 64), n_levels, dev)
+    d = _codes(gen, (N, 64), n_levels, dev)
+    inv = doc_inv_norms(d, n_levels)
+    inv[::7] = 0.0
+    inv[3::11] = -0.0
+    inv[512:1024] = 0.0
+    inv[N // 2:N // 2 + 20_000] = 0.0
+    pairs, passed = _held(q, _packed(d, packed), inv, n_levels=n_levels, k=k, packed=packed)
+    assert pairs == Q * N and passed <= Q * int((inv > 0).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("Q,N,k", [(17, 150, 160), (3, 5, 10), (33, 1_000, PS.K_MAX)])
+def test_gate_open_while_queries_hold_fewer_than_k(packed, Q, N, k):
+    """N < k: no query ever holds k keys, so the threshold stays -inf and
+    every valid pair passes the gate."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(Q * N)
+    q = _codes(gen, (Q, 128), 4, dev)
+    d = _codes(gen, (N, 128), 4, dev)
+    inv = doc_inv_norms(d, 4)
+    inv[::4] = 0.0
+    pairs, passed = _held(q, _packed(d, packed), inv, n_levels=4, k=k, packed=packed)
+    assert pairs == Q * N and passed == Q * int((inv > 0).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("k", [10, 160])
+def test_gate_with_scores_rising_with_the_id(packed, k):
+    """One query 16 times over a corpus sorted by its score: each row is at
+    least as good as every earlier one, so every pair past a block's first
+    round (offered a few row slots at a time) passes the gate, and buffers
+    overflow every round."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(k)
+    N, n_levels = 400_009, 4
+    q = _codes(gen, (1, 128), n_levels, dev).expand(16, -1).contiguous()
+    d = _codes(gen, (N, 128), n_levels, dev)
+    inv = doc_inv_norms(d, n_levels)
+    s = PS.sdc_scores_torch(q[:1], d, inv, n_levels=n_levels)[0]
+    order = torch.sort(s, stable=True).indices
+    d, inv = d[order].contiguous(), inv[order].contiguous()
+    pairs, passed = _held(q, _packed(d, packed), inv, n_levels=n_levels, k=k, packed=packed)
+    _, n_slices, _ = PS.sdc_topk.last_geometry
+    assert pairs == 16 * N and passed >= 16 * (N - 256 * n_slices) > 0
+
+
+@pytest.mark.gpu
+def test_gate_counts_pairs_and_passes():
+    """gate_counts: pairs = Q * N exactly; the pairs past the gate are at
+    least the keys each query's top k needs and, on a clustered corpus,
+    a small share of the pairs."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    Q, N, k, n_levels = 64, 500_009, 10, 4
+    centers = _codes(gen, (8, 128), n_levels, dev)
+    d = centers[torch.randint(0, 8, (N,), generator=gen, device=dev)]
+    noise = torch.randint(-2, 3, d.shape, generator=gen, device=dev)
+    d = (d.to(torch.int32) + noise).clamp(0, 15).to(torch.int8)
+    q = d[torch.randint(0, N, (Q,), generator=gen, device=dev)].clone()
+    inv = doc_inv_norms(d, n_levels)
+    pairs, passed = _held(q, pack_codes_nibbles(d), inv, n_levels=n_levels, k=k, packed=True)
+    assert pairs == Q * N
+    assert Q * k <= passed < 0.05 * pairs
+
+
+def test_gate_counts_stay_zero_off_the_card():
+    """The counters count only the kernel's launches: a CPU call runs the
+    plain version and leaves a CPU device's counts at zero."""
+    q = torch.randint(0, 16, (3, 64), dtype=torch.int8)
+    d = torch.randint(0, 16, (300, 64), dtype=torch.int8)
+    PS.sdc_topk(q, d, doc_inv_norms(d, 4), n_levels=4, k=5)
+    assert PS.sdc_topk.gate_counts("cpu") == (0, 0)
+    assert PS.sdc_topk.gate_counts(torch.device("cpu")) == (0, 0)

@@ -1,77 +1,100 @@
 #!/usr/bin/env python3
 """Where the time of the ``sdc_topk`` flat scan goes, measured by kernel variants.
 
-    python3 tools/topk_split.py [--tree .] [--seed 0] [--docs 10000037] [--reps 10]
-                                [--variants full,...] [--extra] [--shapes 16,32,16x4]
+    python3 tools/topk_split.py [--tree .] [--seed 0] [--docs 0] [--rising] [--reps 10]
+                                [--variants full,...] [--extra] [--shapes 16,16x4]
                                 [--batches 64,256,1024]
 
 Run on a CUDA card from the root of a checkout; ``--tree`` names the
 checkout whose ``src/repro_torch`` is measured (another commit unpacked
-beside this one, for example). It encodes the corpus that
-``chip_smoke.py`` serves (10,000,037 clustered documents, dim 256 ->
-code_dim 128 at n_levels 4, seed 0) into the flat index, int8 and
-packed, takes its first request of 64 queries (k = 10), then compiles
-variants of the tree's ``sdc_topk.cu`` in which one part is cut out by
-text substitution and times each whole call with CUDA events:
+beside this one, for example). It makes the corpus of each benchmark cell
+from the seed, as ``bench_port/`` does (a chunk of a million documents at
+a time, encoded by the binarizer of the seed's weights), and keeps only
+what its ``sdc_topk`` call scans, nibble-packed:
+
+  web     bebr-web-flat: 100M documents, D 128 at 4 levels, k 10
+  video   bebr-video-bigranular's coarse tier: 200M documents, D 64 at
+          2 levels, k 160
+
+``--docs`` cuts both corpora to that many documents (0: the cells' own).
+``--rising`` also times each scan over its corpus sorted by the first
+query's score, against that query repeated: every row is at least as good
+as the ones before it, so nearly every pair passes the kernel's gate and
+every round overflows the selector's buffers (the kernel's worst case).
+It takes the first 64 queries of the cell's pool, then compiles variants
+of the tree's ``sdc_topk.cu`` in which one part is cut out by text
+substitution and times each whole call with CUDA events:
 
   full         the kernel as it is
-  no-product   the tile product skipped, its dot tile filled with one XOR
-               of a row word and a query word
-  no-key       dots computed, but no epilogue and no key: one integer
-               compare per (query, document) pair, and no selector
-  no-selector  every key computed, none inserted; each selector round is
-               one barrier
-  warm-up      the selector runs on each block's first round only
+  no-product   the tile product skipped, its accumulators filled with one
+               XOR of a row word and a query word
+  no-key       the product, but no epilogue and no key: one compare per
+               (query, document) pair of its accumulator, and no selector
+  no-selector  every pair's epilogue and gate, which lets none through
+               (its threshold stays -inf, and the compare is for
+               equality): no key, and each round closes on one barrier
+  warm-up      the gate and the selector run on each block's first round
+               only
   neither      no product and no selector
 
 The split follows: product = full - no-product, selector = full -
-no-selector, first-round selector work = warm-up - no-selector, keys =
-no-selector - no-key. ``full`` is timed first and last to show drift.
-Each variant's registers come from its build log, and the blocks per SM
-and queries per block from the wrapper's own query of the library; a
+no-selector (the keys past the gate and their selection), first-round
+selector work = warm-up - no-selector, keys = no-selector - no-key (the
+epilogue and the gate of every pair). ``full`` is timed first and last to
+show drift, and the kernel's counters (``sdc_topk.gate_counts``, where the
+tree has them) give the share of pairs that passed the gate. Each
+variant's registers come from its build log, and the blocks per SM and
+queries per block from the wrapper's own query of the library; a
 profiler pass gives the scan and merge kernels' own times where the
 profiler sees the card. ``--extra`` adds
 
   no-stage     no row staged (the norms still are): stale rows scored
-  stage-only   the staging and barriers alone: no product, key or selector
+  stage-only   the staging and barriers alone: no product, epilogue or
+               selector
 
 ``--shapes`` builds every variant again at each block shape named, with
 the kernel's ``kMinBlocks`` edited and the wrapper's shape set to match:
-16 (queries a block, three blocks an SM, the kernel's own), 32 (two
-blocks an SM) and 16x4 (four). ``--batches`` times every variant at
-other numbers of queries a call. The cuts are text edits of this
-kernel's source; ``--variants full`` builds none, so it times any tree
-(an earlier design of the kernel) at the same shapes.
+16 (queries a block, three blocks an SM, the kernel's own) and 16x4
+(four). ``--batches`` times every variant at other numbers of queries a
+call. The cuts are text edits of this kernel's source; ``--variants full``
+builds none, so it times any tree (an earlier design of the kernel) at
+the same shapes.
 """
 
 from __future__ import annotations
 
 import argparse
+import re
 import sys
 from pathlib import Path
 
 from split_common import build_variants, card, profiled_kernels, register_lines, time_ms
 
 ROOT = Path(__file__).resolve().parents[1]
-SERVE_Q, N_QUERIES, K = 64, 512, 10
-DIM, CODE_DIM, LEVELS = 256, 128, 4
+SERVE_Q = 64
+# scan: (the benchmark's configuration, its key of the scan's levels, of its k)
+SCANS = {"web": ("bebr-web-flat", "n_levels", "k"),
+         "video": ("bebr-video-bigranular", "coarse_levels", "k_coarse")}
 
 # Each cut is a list of edits (pattern, replacement); each pattern must be
 # found in the source.
-_INSERT_AT = "const u64 key = key_of(j);\n          if (key > sel.thresh[j]) {"
-_END_AT = "close_round(sel, nq, cut, !last, rescore);"
-_NO_PRODUCT = [("tile_dots<D, PACKED>(tile, qs, dots, nq + 1);",
-                "for (int j = 0; j < nq; ++j) dots[j * kDotStride + threadIdx.x] = "
-                "(int)(tile[threadIdx.x * T::S] ^ (unsigned)qs[j * T::QS]);")]
-_END_ROUND = [(_END_AT, "__syncthreads();")]
-_NO_SELECTOR = [(_INSERT_AT, "const u64 key = key_of(j);\n          if (key == 1ull) {")] \
-    + _END_ROUND
-_NO_KEY = [(_INSERT_AT, "const u64 key = 0ull;\n          "
-                        "if (dots[j * kDotStride + threadIdx.x] == 0x7fffffff) {")] + _END_ROUND
+_PRODUCT = "round_products<D, PACKED>(words, qs, ng, c);"
+_EPILOGUE = """              const float dot = exact_float(c[h][G][2 * hi + e]);
+              const float v = __fadd_rn(__fmul_rn(c1, dot), __fmul_rn(c2, __fadd_rn(qf[G][e], sd)));
+              const float s = __fmul_rn(__fadd_rn(v, c3), wi);"""
+_GATE = "!(s < thr[G][e]);"
+_CLOSE = "if (close_round(sel, nq, cut, lost, rescore)) read_thresholds();"
+_NO_PRODUCT = [(_PRODUCT, "for (int h = 0; h < 2; ++h) for (int G = 0; G < kGroups; ++G) "
+                          "for (int i = 0; i < 4; ++i) c[h][G][i] = (int)((tile[row0 * T::S + h] "
+                          "^ (unsigned)qs[(8 * G + 2 * t + (i & 1)) * T::QS]) & 0xFFFF);")]
+# The gate compares every score with the query's threshold, which stays
+# -inf without a selector, and lets none through.
+_NO_SELECTOR = [(_GATE, "s == thr[G][e];"), (_CLOSE, "__syncthreads();")]
+_NO_KEY = [(_EPILOGUE, "              const float s = __int_as_float(c[h][G][2 * hi + e]);")] \
+    + _NO_SELECTOR
 # `warm` is true through a block's first round.
-_WARM_UP = [(_INSERT_AT, "const u64 key = key_of(j);\n          "
-                         "if (warm ? key > sel.thresh[j] : key == 1ull) {"),
-            (_END_AT, "if (warm) { " + _END_AT + " } else { __syncthreads(); }")]
+_WARM_UP = [(_GATE, "(warm ? !(s < thr[G][e]) : s == thr[G][e]);"),
+            (_CLOSE, "if (warm) { " + _CLOSE + " } else { __syncthreads(); }")]
 VARIANTS = {
     "full": [],
     "no-product": _NO_PRODUCT,
@@ -81,14 +104,14 @@ VARIANTS = {
     "neither": _NO_PRODUCT + _NO_SELECTOR,
 }
 # No row is staged (every round scores stale rows; the norms are still
-# copied), or only the staging is left (no product, key or selector).
+# copied), or only the staging is left (no product, epilogue or selector).
 _NO_STAGE = [("    stage_rows<D, PACKED>(tile, docs + r * R::ROW_BYTES, "
               "__ballot_sync(0xFFFFFFFFu, in));\n", "")]
 EXTRA = {"no-stage": _NO_STAGE, "stage-only": _NO_PRODUCT + _NO_KEY}
 # Block shapes, name: (queries a block, blocks an SM). The blocks an SM are
 # the kernel's __launch_bounds__ minimum, edited in the source; both are
 # set in the wrapper when the variant is timed.
-SHAPES = {"16": (16, 3), "32": (32, 2), "16x4": (16, 4)}
+SHAPES = {"16": (16, 3), "16x4": (16, 4)}
 _MIN_BLOCKS = "constexpr int kMinBlocks = 3;"
 
 
@@ -96,11 +119,52 @@ def _shape_edits(shape: str):
     return [(_MIN_BLOCKS, f"constexpr int kMinBlocks = {SHAPES[shape][1]};")] if shape else []
 
 
+def scan_operands(scan: str, seed: int, docs: int, n_queries: int, device):
+    """((queries, codes, inverse norms), sdc_topk's keywords) of a cell's scan:
+    its corpus made and encoded a chunk at a time as ``bench_port/cell.py``
+    does, each chunk indexed by the tree's ``FlatSDC.build`` at the scan's
+    levels, and the first ``n_queries`` of its query pool."""
+    import torch
+
+    from bench_port import spec
+    from bench_port import weights as weights_lib
+    from bench_port.corpus import Corpus
+    from repro_torch.core.binarize_lib import (BinarizerConfig, binarizer_from_numpy,
+                                               coarse_codes, make_encode_fn)
+    from repro_torch.index.flat import FlatSDC
+
+    name, levels_key, k_key = SCANS[scan]
+    cfg = spec.config(spec.benchmark(), name)
+    cfg["n_docs"] = docs or cfg["n_docs"]
+    L, C, D = cfg["n_levels"], cfg[levels_key], cfg["code_dim"]
+    params, state = weights_lib.make(cfg, seed, device)
+    model = binarizer_from_numpy(params, state, BinarizerConfig(
+        input_dim=cfg["input_dim"], code_dim=D, n_levels=L, hidden_dim=cfg["hidden_dim"]),
+        device=device)
+    encode = make_encode_fn(model)
+    corpus = Corpus(cfg, seed, device)
+    codes = torch.empty((cfg["n_docs"], D // 2), dtype=torch.uint8, device=device)
+    inv = torch.empty((cfg["n_docs"],), dtype=torch.float32, device=device)
+    for c in range(corpus.n_chunks):
+        s, e = corpus.bounds(c)
+        raw = corpus.raw(c)
+        corpus.collect(c, raw)
+        part = FlatSDC.build(coarse_codes(encode(corpus.docs(c, raw)), L, C), C, packed=True,
+                             device=device)
+        codes[s:e], inv[s:e] = part.codes, part.inv_norm
+    pool = torch.as_tensor(corpus.queries()[:n_queries], device=device)
+    q = coarse_codes(encode(pool), L, C)
+    return (q, codes, inv), dict(n_levels=C, k=cfg[k_key], packed=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--docs", type=int, default=10_000_037)
+    ap.add_argument("--docs", type=int, default=0,
+                    help="documents of each corpus (0: the cell's own)")
+    ap.add_argument("--rising", action="store_true",
+                    help="also each scan over its corpus sorted by the first query's score")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--variants", default=",".join(VARIANTS),
                     help="comma-separated variants to build and time (" + ", ".join(VARIANTS)
@@ -121,13 +185,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("topk_split: no CUDA device")
     sys.path.insert(0, str(tree / "src"))
-    from repro_torch import prng
-    from repro_torch.core.binarize_lib import BinarizerConfig, init_binarizer, make_encode_fn
-    from repro_torch.data.synthetic import clustered_corpus_torch
-    from repro_torch.index.flat import FlatSDC
+    sys.path.insert(0, str(ROOT))
     from repro_torch.kernels import _build
     from repro_torch.kernels.sdc import sdc
-    from repro_torch.launch.serve import encode_codes
 
     device = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -144,27 +204,26 @@ def main() -> None:
                              _build.BUILD_DIR / "topk_split", "topk_split")
     for name, src in sources.items():
         for kernel, line in register_lines(_build.library_path(src).with_suffix(".log"),
-                                           r"sdc_scan_kernelILi128E"):
-            packed = kernel.split("ILi128ELb")[1][0]
-            print(f"[split] build {name}: sdc_scan_kernel D=128 packed={packed}: {line}")
+                                           r"sdc_scan_kernelILi(64|128)ELb1E"):
+            D = re.search(r"ILi(\d+)E", kernel).group(1)
+            print(f"[split] build {name}: sdc_scan_kernel D={D} packed: {line}")
 
-    # -- the serving shapes of chip_smoke.py -------------------------------
+    # -- the cells' scans ---------------------------------------------------
     batches = [int(x) for x in args.batches.split(",")]
-    docs, queries, _ = clustered_corpus_torch(args.seed, args.docs, max(N_QUERIES, *batches),
-                                              DIM, device=device)
-    bcfg = BinarizerConfig(input_dim=DIM, code_dim=CODE_DIM, n_levels=LEVELS, hidden_dim=2 * DIM)
-    model = init_binarizer(bcfg, prng.key(args.seed, device), device)
-    d_codes = encode_codes(model, docs, batch=1 << 17)
-    del docs
-    q = make_encode_fn(model)(queries)
     calls = {}
-    for packed in (False, True):
-        index = FlatSDC.build(d_codes, LEVELS, packed=packed, device=device)
+    for scan in SCANS:
+        operands, kw = scan_operands(scan, args.seed, args.docs, max(batches), device)
+        q, codes, inv = operands
+        print(f"[split] {scan}: {codes.shape[0]} documents, D {q.shape[1]}, {kw}", flush=True)
         for b in batches:
-            tag = ("packed" if packed else "int8") + (f"/Q{b}" if b != SERVE_Q else "")
-            calls[tag] = ((q[:b], index.codes, index.inv_norm),
-                          dict(n_levels=LEVELS, k=K, packed=packed))
-    del d_codes
+            calls[scan + (f"/Q{b}" if b != SERVE_Q else "")] = ((q[:b], codes, inv), kw)
+        if args.rising:
+            s = sdc.sdc_scores(q[:1], codes, inv, n_levels=kw["n_levels"], packed=True)[0]
+            order = torch.sort(s, stable=True).indices
+            del s
+            calls[scan + "/rising"] = ((q[:1].expand(SERVE_Q, -1).contiguous(),
+                                        codes[order], inv[order]), kw)
+            del order
     torch.cuda.synchronize()
 
     occupancy = {}
@@ -182,7 +241,7 @@ def main() -> None:
 
         def record(D, packed, cap, qc):
             per_sm = ask(D, packed, cap, qc)
-            occupancy[(name, packed)] = (qc, per_sm)
+            occupancy[(name, D, packed)] = (qc, per_sm)
             return per_sm
 
         lib.sdc_topk_blocks_per_sm = record
@@ -200,8 +259,17 @@ def main() -> None:
         times[key] = {tag: call_ms(tag) for tag in calls}
         print(f"[split] {key:14s} " + "  ".join(f"{t} {ms:.3f} ms" for t, ms in times[key].items()),
               flush=True)
-    for (name, packed), (qc, per_sm) in occupancy.items():
-        print(f"[split] occupancy {name} packed={packed}: {qc} queries a block, "
+    if hasattr(sdc.sdc_topk, "gate_counts"):  # an earlier design has none
+        use(names[0])
+        for tag in calls:
+            a, kw = calls[tag]
+            before = sdc.sdc_topk.gate_counts(device)
+            sdc.sdc_topk(*a, **kw)
+            pairs, passed = (x - y for x, y in zip(sdc.sdc_topk.gate_counts(device), before))
+            print(f"[split] gate {tag} ({names[0]}): {passed} of {pairs} pairs passed "
+                  f"({100 * passed / max(pairs, 1):.4f}%)", flush=True)
+    for (name, D, packed), (qc, per_sm) in occupancy.items():
+        print(f"[split] occupancy {name} D={D} packed={packed}: {qc} queries a block, "
               f"{per_sm} blocks an SM")
     if set(VARIANTS) <= set(cuts):
         for s in shapes:
