@@ -79,7 +79,7 @@ def build(sources: Sequence[Path] = SOURCES) -> List[Path]:
     outs = [library_path(Path(s)) for s in sources]
     jobs = []
     for src, out in zip(sources, outs):
-        if out.exists():
+        if out.exists() or any(out == job[2] for job in jobs):  # built, or in this build
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, *(f"-I{d}" for d in INCLUDE_DIRS), "-o", str(tmp), str(src)]

@@ -18,7 +18,8 @@
 // measures the split.
 //
 // The grid is one wave of blocks. A block owns one slice of the documents
-// and one chunk of at most kMaxQueries queries, held in shared memory.
+// and one chunk of at most kMaxQueries queries, held in shared memory (the
+// wrapper sizes the chunks, trading copies of a slice against selection).
 // The query chunk is blockIdx.x, so the chunks of one slice run side by
 // side and all but the first read the slice from the 50 MB L2. A round is
 // kThreads document rows, staged in shared memory with cp.async
@@ -47,10 +48,13 @@
 // k-th best key (-inf while the query holds fewer than k), and only a
 // score not below it becomes a 64-bit key and meets the exact test.
 // make_key orders floats as >= does, so the gate lets through every pair
-// that the exact test would take; ties and -0 against +0 fall through to
-// it. A lane tests a half-round's pairs (two rows) at once and leaves the
-// straight path only where one passes. The gate's thresholds are read
-// again after every round that cut a buffer, the only time they rise.
+// that the exact test would take; ties fall through to it, and so would -0
+// against +0, which < holds equal (no score is -0: the sum before the norm
+// adds c3 = D*beta^2 >= 0, so it is -0 only as a negative product that
+// underflows, and the codes and norms make none). A lane tests a
+// half-round's pairs (two rows) at once and leaves the straight path only
+// where one passes. The gate's thresholds are read again after every
+// round that cut a buffer, the only time they rise.
 //
 // Top-k without a sequential grid: blocks run in parallel and in no order,
 // so each block keeps, per query, a candidate buffer in shared memory of
@@ -66,12 +70,14 @@
 // scores its dropped pairs again from the rows in global memory (integer
 // dot products, the same epilogue: the same keys) and offers them in
 // sub-rounds that cannot overflow (close_round). A block's first round
-// finds every threshold at -inf: it is offered a row slot or more at a
-// time, 64 keys a query a slot and at most cap a part, each part scored
-// again from the row tile, so that its first part cannot overflow and its
-// compaction sets the threshold for the rest. Each block writes its
-// per-query top-k partials [Q, n_slices, k]; a second kernel merges them
-// with the same buffer into [Q, k]. Keys are unique (ids are), so the
+// finds every threshold at -inf; where cap < kThreads (k <= 64) it is
+// offered in two parts, each with its own product: first the row slots
+// that fill at most cap keys a query (64 keys a slot), whose compaction
+// sets the threshold, then the rest past the gate. (Offered at once, such
+// a round overflows, and remaking most of its keys from global memory
+// costs more than a second product: PERF.md section 6.) Each block writes
+// its per-query top-k partials [Q, n_slices, k]; a second kernel merges
+// them with the same buffer into [Q, k]. Keys are unique (ids are), so the
 // result depends neither on the order blocks finish in nor on how offers
 // are cut into rounds.
 //
@@ -130,18 +136,17 @@ __device__ __forceinline__ float exact_float(int x) {
   return __fsub_rn(__int_as_float(0x4B400000 + x), 12582912.0f);  // 1.5 * 2^23
 }
 
-// End a part of a round of offers, on one barrier where no buffer needs
-// more (`cut`: whether one of this thread's offers took a buffer past
-// cap / 2). Otherwise each buffer past cap / 2 is sorted and cut back to
-// its best k (Selector::compact). A buffer that overflowed kept cap keys
-// and dropped the rest: it is cut from the cap keys it kept, then offered
-// the dropped ones again, in sub-rounds of at most cap - k keys, which
-// cannot overflow. Each thread offers its own, named by `lost` (bit
-// 2 kQueryGroups p + 2G + e: its key of row slot p and query column
-// 8G + 2t + e), which rescore(q, p) makes again. No kept key is offered
-// twice, so the buffer ends as the best k of all that was offered. Returns
-// whether buffers were cut (the same in every thread): the only time the
-// thresholds rise.
+// End a round of offers, on one barrier where no buffer needs more
+// (`cut`: whether one of this thread's offers took a buffer past cap / 2).
+// Otherwise each buffer past cap / 2 is sorted and cut back to its best k
+// (Selector::compact). A buffer that overflowed kept cap keys and dropped
+// the rest: it is cut from the cap keys it kept, then offered the dropped
+// ones again in sub-rounds that cannot overflow. Each thread offers its
+// own, named by `lost` (bit 2 kQueryGroups p + 2G + e: its key of row slot
+// p and query column 8G + 2t + e), which rescore(q, p) makes again. No
+// kept key is offered twice, so the buffer ends as the best k of all that
+// was offered. Returns whether buffers were cut (the same in every
+// thread): the only time the thresholds rise.
 template <class Rescore>
 __device__ __forceinline__ bool close_round(Selector& sel, int nq, bool cut, unsigned lost,
                                             Rescore rescore) {
@@ -160,16 +165,24 @@ __device__ __forceinline__ bool close_round(Selector& sel, int nq, bool cut, uns
         for (int p = 0; p < kSlots; ++p)
           mine |= ((lost >> (2 * kQueryGroups * p + 2 * (q >> 3) + (q & 1))) & 1u) << p;
       }
-      const int S = sel.cap - sel.k;
-      for (int e0 = 0; e0 < kSlots * kOwners; e0 += S) {
+      // Each sub-round offers as many keys as the buffer has room for; the
+      // buffer is cut back only once less than half of cap - k is left,
+      // and after the last sub-round where it holds more than cap / 2.
+      for (int e0 = 0, room = sel.cap - sel.k; e0 < kSlots * kOwners;) {
         for (int p = 0; p < kSlots; ++p) {
           const int e = p * kOwners + owner - e0;
-          if (((mine >> p) & 1u) && e >= 0 && e < S) sel.insert(q, rescore(q, p));
+          if (((mine >> p) & 1u) && e >= 0 && e < room) sel.insert(q, rescore(q, p));
         }
         __syncthreads();
-        const bool full = sel.count[q] > sel.k;
+        const int n = sel.count[q];
         __syncthreads();
-        if (full) sel.compact(q);
+        e0 += room;
+        if (n > (e0 < kSlots * kOwners ? (sel.cap + sel.k) / 2 : sel.cap / 2)) {
+          sel.compact(q);
+          room = sel.cap - sel.k;
+        } else {
+          room = sel.cap - n;
+        }
       }
     } else if (c > sel.cap / 2) {
       sel.compact(q);
@@ -288,10 +301,10 @@ sdc_scan_kernel(const int* __restrict__ qa,      // int8 [Q, D]; packed: even di
   bool warm = true;
   for (long long r = begin; r < end; r += kThreads) {
     const bool more = r + kThreads < end;
-    // A block's first round is offered a few row slots at a time (at most
-    // cap keys a query a part), each part scored again from the row tile;
-    // every later round at once.
-    const int per_part = warm ? min(kSlots, cap / kOwners) : kSlots;
+    // A block's first round is offered in two parts, the first of at most
+    // cap keys a query (row slots [0, first)), each part scored from the
+    // row tile; every later round at once.
+    const int first = warm ? min(kSlots, cap / kOwners) : kSlots;
     // This thread's key of row slot p for query j, made again from the row
     // in global memory (the product and code sum as integer dot products,
     // exact as the tensor core's), for a key its buffer dropped.
@@ -315,8 +328,8 @@ sdc_scan_kernel(const int* __restrict__ qa,      // int8 [Q, D]; packed: even di
                                 __fmul_rn(c2, __fadd_rn(qsum[j], exact_float(sum))));
       return make_key(__fmul_rn(__fadd_rn(v, c3), inv[n]), (unsigned)n);
     };
-    for (int p0 = 0; p0 < kSlots; p0 += per_part) {
-      const bool last = p0 + per_part >= kSlots;
+    for (int p0 = 0, p1 = first; p0 < kSlots; p0 = p1, p1 = kSlots) {
+      const bool last = p1 == kSlots;
       // The product reads the warp's rows from registers loaded before the
       // next round's copy is started where they fit, else from the tile
       // before it is.
@@ -358,7 +371,7 @@ sdc_scan_kernel(const int* __restrict__ qa,      // int8 [Q, D]; packed: even di
       unsigned lost = 0;  // a bit a dropped key: 2 kQueryGroups p + 2G + e
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        if (2 * h + 1 < p0 || 2 * h >= p0 + per_part) continue;  // no slot of the part
+        if (2 * h + 1 < p0 || 2 * h >= p1) continue;  // no slot of the part
         int sums[2] = {0, 0};  // the code sums of rows g and g + 8, in lane t1
 #pragma unroll
         for (int G = 0; G < kGroups; ++G) {
@@ -374,8 +387,8 @@ sdc_scan_kernel(const int* __restrict__ qa,      // int8 [Q, D]; packed: even di
           const float sd = exact_float(__shfl_sync(0xFFFFFFFFu, sums[hi], (lane & ~3) | t1));
           const int p = 2 * h + hi;
           const float wi = w_inv[p];
-          live[hi] = p >= p0 && p < p0 + per_part && wi > 0.f;
-          if (p < p0 || p >= p0 + per_part) continue;
+          live[hi] = p >= p0 && p < p1 && wi > 0.f;
+          if (p < p0 || p >= p1) continue;
 #pragma unroll
           for (int G = 0; G < kQueryGroups; ++G) {
             if (8 * G >= nq) continue;

@@ -34,8 +34,9 @@ launch and counted by ``sdc_scores.launches``. The plain versions take
 any k and dim.
 
 The kernel's launch geometry is chosen on the host (``scan_geometry``):
-by default one full wave of blocks of up to 16 queries, each over one
-slice of the corpus; a ``geometry=(block_q, block_n)`` (a tuned scan
+by default one full wave of blocks, each over one slice of the corpus
+with up to 16 queries, as many as trade the copies of a slice against
+the keys each block selects (``_scan_chunks``); a ``geometry=(block_q, block_n)`` (a tuned scan
 ``BlockPlan``, ``launch/autotune.py``) sets the queries a block holds and
 the documents a slice holds instead, checked (``check_scan_blocks``) and
 never clamped. Geometry changes no score and no id; the unfused routes
@@ -69,6 +70,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 
 import numpy as np
@@ -99,6 +101,11 @@ _SCORES_QUERIES_PER_BLOCK = 64  # sdc_scores.cu: the most queries a block holds 
 _SCORES_BLOCKS_PER_SM = 2  # sdc_scores.cu: blocks an SM its shared memory is sized for
 _TOPK_QUERIES_PER_BLOCK = 16  # sdc_topk.cu: the most queries a scan block holds (kMaxQueries)
 _TOPK_BLOCKS_PER_SM = 3  # sdc_topk.cu: the scan's __launch_bounds__ minimum (kMinBlocks)
+# What a key past the gate costs a scan block (its share of the sorts that
+# cut its query's buffer back to k), in the rows the block stages in the
+# same time (fitted at D 64, k 160; a row costs about the same at D 128 or
+# as int8: PERF.md section 6).
+_TOPK_KEY_ROWS = 23
 # Hopper's shared memory: 228 KB an SM, of which it keeps 1 KB for each
 # block it runs (so one block may take 227 KB).
 SMEM_SM, SMEM_RESERVED = 228 * 1024, 1024
@@ -194,11 +201,16 @@ _GATE_LOCK = threading.Lock()
 
 def _gate_buffer(device: torch.device) -> torch.Tensor:
     """The two-word int64 counter the kernel adds to on ``device`` (a CUDA
-    tensor's), made at its first launch there."""
-    with _GATE_LOCK:
-        buf = _GATE_COUNTS.get(device.index)
-        if buf is None:
-            buf = _GATE_COUNTS[device.index] = torch.zeros(2, dtype=torch.int64, device=device)
+    tensor's), made at its first launch there: zeroed, and the device
+    waited for, before any launch on any stream can see it."""
+    buf = _GATE_COUNTS.get(device.index)
+    if buf is None:
+        with _GATE_LOCK:
+            buf = _GATE_COUNTS.get(device.index)
+            if buf is None:
+                buf = torch.zeros(2, dtype=torch.int64, device=device)
+                torch.cuda.synchronize(device)
+                _GATE_COUNTS[device.index] = buf
     return buf
 
 
@@ -389,10 +401,9 @@ def scan_geometry(Q: int, N: int, D: int, packed: bool, k: int, device,
     queries over N documents: ceil(Q / qc) x n_slices scan blocks of qc
     queries, each over slice_docs documents.
 
-    With ``blocks=None``, the default: qc as many queries as let three
-    blocks share an SM (``_queries_per_block``, at most 16), and one full
-    wave of blocks, slices a multiple of 256 documents and at least
-    ``topk_rows_min(k)``. With ``blocks=(block_q, block_n)``, qc =
+    With ``blocks=None``, the default: qc queries a block as
+    ``_scan_chunks`` picks them, and one full wave of blocks, slices a
+    multiple of 256 documents and at least ``topk_rows_min(k)``. With ``blocks=(block_q, block_n)``, qc =
     min(Q, block_q) and slice_docs = block_n, checked by
     ``check_scan_blocks``.
     """
@@ -400,24 +411,51 @@ def scan_geometry(Q: int, N: int, D: int, packed: bool, k: int, device,
         check_scan_blocks(blocks, N, D, packed, k, device)
         bq, bn = blocks
         return min(Q, bq), max(1, -(-N // bn)), bn
-    qc = min(Q, _queries_per_block(kernel_dim(D), packed, cap_for(k)))
-    per_sm = _scan_blocks_per_sm(D, packed, k, qc, device)
-    if per_sm == 0:
-        raise RuntimeError("sdc_topk cannot be scheduled: no block fits")
+    qc, per_sm = _scan_chunks(Q, N, kernel_dim(D), packed, k, torch.device(device))
     n_slices, slice_docs = _corpus_slices(N, per_sm, -(-Q // qc), device, topk_rows_min(k))
     return qc, n_slices, slice_docs
 
 
+@functools.lru_cache(maxsize=1024)
+def _scan_chunks(Q: int, N: int, W: int, packed: bool, k: int, device) -> tuple[int, int]:
+    """(queries a block, blocks an SM) of the default geometry for Q queries
+    over N documents of kernel width W.
+
+    Each query chunk copies every slice of the corpus into shared memory,
+    and each block selects, one query after another, the keys that pass
+    its gate: about k (1 + ln(n / k)) a query over a slice of n rows. More
+    chunks make more, shorter slices of one wave (or fill a wave where the
+    corpus has too few slices), fewer queries a block. Of the chunk counts
+    that a block's shared memory allows, split evenly, the one whose block
+    stages the fewest rows plus ``_TOPK_KEY_ROWS`` for each key it selects.
+    """
+    most = _queries_per_block(W, packed, cap_for(k))
+    best = None
+    for chunks in sorted({-(-Q // q) for q in range(1, min(Q, most) + 1)}):
+        qc = -(-Q // chunks)
+        per_sm = _scan_blocks_per_sm(W, packed, k, qc, device)
+        if per_sm == 0:
+            continue
+        n = min(N, _corpus_slices(N, per_sm, chunks, device, topk_rows_min(k))[1])
+        keys = n if n <= k else k * (1 + math.log(n / k))
+        cost = n + qc * keys * _TOPK_KEY_ROWS
+        if best is None or cost < best[0]:
+            best = (cost, qc, per_sm)
+    if best is None:
+        raise RuntimeError("sdc_topk cannot be scheduled: no block fits")
+    return best[1], best[2]
+
+
 def scan_candidates(Q: int, N: int, D: int, packed: bool, k: int, device) -> list:
     """The ``(block_q, block_n)`` geometries the autotuner sweeps for Q
-    queries a call, the default first (``scan_geometry``'s, with block_q the
-    queries a block may hold, not cut to Q): queries per block in {the
-    default's, 4, 8, 16} x one, two or four waves of blocks. Geometries
-    that launch the same grid at Q are listed once."""
+    queries a call, the default first (``scan_geometry``'s): queries per
+    block in {the default's, the most a block may hold, 4, 8, 16} x one,
+    two or four waves of blocks. Geometries that launch the same grid at Q
+    are listed once."""
     qpb = _queries_per_block(kernel_dim(D), packed, cap_for(k))
     qc, _, slice_docs = scan_geometry(Q, N, D, packed, k, device)
-    out, launched = [(qpb, slice_docs)], {(qc, slice_docs)}
-    for bq in (qpb, 4, 8, 16):
+    out, launched = [(qc, slice_docs)], {(qc, slice_docs)}
+    for bq in (qc, qpb, 4, 8, 16):
         per_sm = _scan_blocks_per_sm(D, packed, k, bq, device)
         if per_sm == 0:
             continue

@@ -17,6 +17,8 @@ CUDA kernels themselves are held against the plain versions by the
 ``gpu`` tests (on the card only) and by ``chip_smoke.py``.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -497,8 +499,7 @@ def test_gate_open_while_queries_hold_fewer_than_k(packed, Q, N, k):
 def test_gate_with_scores_rising_with_the_id(packed, k):
     """One query 16 times over a corpus sorted by its score: each row is at
     least as good as every earlier one, so every pair past a block's first
-    round (offered a few row slots at a time) passes the gate, and buffers
-    overflow every round."""
+    round passes the gate, and buffers overflow every round."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(k)
     N, n_levels = 400_009, 4
@@ -530,6 +531,16 @@ def test_gate_counts_pairs_and_passes():
     pairs, passed = _held(q, pack_codes_nibbles(d), inv, n_levels=n_levels, k=k, packed=True)
     assert pairs == Q * N
     assert Q * k <= passed < 0.05 * pairs
+
+
+@pytest.mark.parametrize("n_levels", [1, 2, 3, 4])
+def test_epilogue_constant_is_positive(n_levels):
+    """The gate's -0.0 edge cannot arise: the kernel adds c3 = D*beta^2 to
+    every sum before the norm, so a sum is -0.0 only where both are, and
+    c3 is +0.0 or positive at every level count and kernel width."""
+    for D in PS.KERNEL_DIMS:
+        c3 = PS.affine_terms(n_levels, D)[2]
+        assert c3 > 0 or (c3 == 0 and math.copysign(1.0, c3) == 1.0)
 
 
 def test_gate_counts_stay_zero_off_the_card():

@@ -3,7 +3,7 @@
 
     python3 tools/topk_split.py [--tree .] [--seed 0] [--docs 0] [--rising] [--reps 10]
                                 [--variants full,...] [--extra] [--shapes 16,16x4]
-                                [--batches 64,256,1024]
+                                [--batches 64,256,1024] [--int8] [--table]
 
 Run on a CUDA card from the root of a checkout; ``--tree`` names the
 checkout whose ``src/repro_torch`` is measured (another commit unpacked
@@ -21,6 +21,23 @@ what its ``sdc_topk`` call scans, nibble-packed:
 query's score, against that query repeated: every row is at least as good
 as the ones before it, so nearly every pair passes the kernel's gate and
 every round overflows the selector's buffers (the kernel's worst case).
+``--int8`` also times each scan over its codes as int8 rows, one code a
+byte (the fused kernel's other route). ``--table`` also times the kernel
+table's other shapes (PERF.md section 6, rows 1a-1d) over the first
+documents of the cells' corpora, int8 unless named packed:
+
+  1c          web's codes, 64 queries over 2,500,009 documents (the
+              engine's leaf)
+  web/N20000, web/N10000
+              64 queries over 20,000 and 10,000 (the upgrade and compat
+              searches)
+  video/k10   video's coarse corpus, packed, at k 10
+  1d          video's coarse codes, 32 queries over 20,000, k 100 (the
+              two-tower search's shape; its codes have 4 levels, these 2)
+  1d/N1M      one query over 1,000,000, k 100 (tt_retrieval_bebr_step)
+
+With ``--docs 10000000``, ``web`` and ``web/int8`` are rows 1b and 1a's
+shapes and ``video`` the bi-granular coarse scan at 10M documents.
 It takes the first 64 queries of the cell's pool, then compiles variants
 of the tree's ``sdc_topk.cu`` in which one part is cut out by text
 substitution and times each whole call with CUDA events:
@@ -43,8 +60,8 @@ selector work = warm-up - no-selector, keys = no-selector - no-key (the
 epilogue and the gate of every pair). ``full`` is timed first and last to
 show drift, and the kernel's counters (``sdc_topk.gate_counts``, where the
 tree has them) give the share of pairs that passed the gate. Each
-variant's registers come from its build log, and the blocks per SM and
-queries per block from the wrapper's own query of the library; a
+variant's registers come from its build log, and each call's geometry
+(queries a block, slices, documents a slice) from the wrapper; a
 profiler pass gives the scan and merge kernels' own times where the
 profiler sees the card. ``--extra`` adds
 
@@ -54,8 +71,10 @@ profiler sees the card. ``--extra`` adds
 
 ``--shapes`` builds every variant again at each block shape named, with
 the kernel's ``kMinBlocks`` edited and the wrapper's shape set to match:
-16 (queries a block, three blocks an SM, the kernel's own) and 16x4
-(four). ``--batches`` times every variant at other numbers of queries a
+16 (queries a block, three blocks an SM, the kernel's own), 16x4 (four),
+and 13, 11, 8 and 4 at three. A shape fixes the queries a block holds
+(fewer only where its shared memory cannot hold them), where the wrapper
+would pick them by its cost of staging and selection (``_scan_chunks``). ``--batches`` times every variant at other numbers of queries a
 call. The cuts are text edits of this kernel's source; ``--variants full``
 builds none, so it times any tree (an earlier design of the kernel) at
 the same shapes.
@@ -92,9 +111,9 @@ _NO_PRODUCT = [(_PRODUCT, "for (int h = 0; h < 2; ++h) for (int G = 0; G < kGrou
 _NO_SELECTOR = [(_GATE, "s == thr[G][e];"), (_CLOSE, "__syncthreads();")]
 _NO_KEY = [(_EPILOGUE, "              const float s = __int_as_float(c[h][G][2 * hi + e]);")] \
     + _NO_SELECTOR
-# `warm` is true through a block's first round.
-_WARM_UP = [(_GATE, "(warm ? !(s < thr[G][e]) : s == thr[G][e]);"),
-            (_CLOSE, "if (warm) { " + _CLOSE + " } else { __syncthreads(); }")]
+# A block's first round is the one at r == begin.
+_WARM_UP = [(_GATE, "(r == begin ? !(s < thr[G][e]) : s == thr[G][e]);"),
+            (_CLOSE, "if (r == begin) { " + _CLOSE + " } else { __syncthreads(); }")]
 VARIANTS = {
     "full": [],
     "no-product": _NO_PRODUCT,
@@ -111,12 +130,35 @@ EXTRA = {"no-stage": _NO_STAGE, "stage-only": _NO_PRODUCT + _NO_KEY}
 # Block shapes, name: (queries a block, blocks an SM). The blocks an SM are
 # the kernel's __launch_bounds__ minimum, edited in the source; both are
 # set in the wrapper when the variant is timed.
-SHAPES = {"16": (16, 3), "16x4": (16, 4)}
+SHAPES = {"16": (16, 3), "16x4": (16, 4), "13": (13, 3), "11": (11, 3), "8": (8, 3),
+          "4": (4, 3)}
 _MIN_BLOCKS = "constexpr int kMinBlocks = 3;"
 
 
 def _shape_edits(shape: str):
     return [(_MIN_BLOCKS, f"constexpr int kMinBlocks = {SHAPES[shape][1]};")] if shape else []
+
+
+# --table: tag, scan whose corpus it reads, queries, documents, k, int8 rows
+TABLE = [("1c", "web", 64, 2_500_009, 10, True),
+         ("web/N20000", "web", 64, 20_000, 10, True),
+         ("web/N10000", "web", 64, 10_000, 10, True),
+         ("video/k10", "video", 64, 0, 10, False),
+         ("1d", "video", 32, 20_000, 100, True),
+         ("1d/N1M", "video", 1, 1_000_000, 100, True)]
+
+
+def int8_rows(codes):
+    """Nibble-packed codes [N, D/2] as int8 rows [N, D], a million at a time."""
+    import torch
+
+    from repro_torch.core.binarize_lib import unpack_codes_nibbles
+
+    out = torch.empty((codes.shape[0], 2 * codes.shape[1]), dtype=torch.int8,
+                      device=codes.device)
+    for s in range(0, codes.shape[0], 1 << 20):
+        out[s:s + (1 << 20)] = unpack_codes_nibbles(codes[s:s + (1 << 20)])
+    return out
 
 
 def scan_operands(scan: str, seed: int, docs: int, n_queries: int, device):
@@ -177,6 +219,10 @@ def main() -> None:
     ap.add_argument("--batches", default=str(SERVE_Q),
                     help="comma-separated numbers of queries a call (the first that many of "
                          "the request queries)")
+    ap.add_argument("--int8", action="store_true",
+                    help="also each scan over its codes as int8 rows")
+    ap.add_argument("--table", action="store_true",
+                    help="also the kernel table's other shapes: " + ", ".join(t[0] for t in TABLE))
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
 
@@ -217,6 +263,14 @@ def main() -> None:
         print(f"[split] {scan}: {codes.shape[0]} documents, D {q.shape[1]}, {kw}", flush=True)
         for b in batches:
             calls[scan + (f"/Q{b}" if b != SERVE_Q else "")] = ((q[:b], codes, inv), kw)
+        rows = int8_rows(codes) if args.int8 or args.table else None
+        if args.int8:
+            calls[scan + "/int8"] = ((q[:SERVE_Q], rows, inv), dict(kw, packed=False))
+        for tag, of, nq, n, k, int8 in TABLE if args.table else ():
+            if of == scan:
+                n = n or codes.shape[0]
+                calls[tag] = ((q[:nq], (rows if int8 else codes)[:n], inv[:n]),
+                              dict(kw, k=k, packed=not int8))
         if args.rising:
             s = sdc.sdc_scores(q[:1], codes, inv, n_levels=kw["n_levels"], packed=True)[0]
             order = torch.sort(s, stable=True).indices
@@ -226,7 +280,12 @@ def main() -> None:
             del order
     torch.cuda.synchronize()
 
-    occupancy = {}
+    geometry = {}
+    pick = getattr(sdc, "_scan_chunks", None)  # an earlier design has none
+
+    def fixed(Q, N, W, packed, k, device):
+        qc = min(Q, sdc._queries_per_block(W, packed, sdc.cap_for(k)))
+        return qc, sdc._scan_blocks_per_sm(W, packed, k, qc, device)
 
     def use(name):
         sdc._SOURCE = sources[name]
@@ -234,21 +293,17 @@ def main() -> None:
         shape = name.partition("@")[2]  # none: the source's own
         if shape:
             sdc._TOPK_QUERIES_PER_BLOCK, sdc._TOPK_BLOCKS_PER_SM = SHAPES[shape]
-        if hasattr(sdc, "_queries_per_block"):  # an earlier design has none
-            sdc._queries_per_block.cache_clear()
-        lib = sdc._lib()
-        ask = lib.sdc_topk_blocks_per_sm
+        for cached in (getattr(sdc, "_queries_per_block", None), pick):  # or neither
+            if cached is not None:
+                cached.cache_clear()
+        if pick is not None:
+            sdc._scan_chunks = fixed if shape else pick
 
-        def record(D, packed, cap, qc):
-            per_sm = ask(D, packed, cap, qc)
-            occupancy[(name, D, packed)] = (qc, per_sm)
-            return per_sm
-
-        lib.sdc_topk_blocks_per_sm = record
-
-    def call_ms(tag):
+    def call_ms(name, tag):
         a, kw = calls[tag]
-        return time_ms(lambda: sdc.sdc_topk(*a, **kw), args.reps)
+        ms = time_ms(lambda: sdc.sdc_topk(*a, **kw), args.reps)
+        geometry[(name, tag)] = sdc.sdc_topk.last_geometry
+        return ms
 
     names = list(variants)
     order = names + [names[0]]
@@ -256,7 +311,7 @@ def main() -> None:
     for i, name in enumerate(order):
         use(name)
         key = name if i < len(names) else f"{name} again"
-        times[key] = {tag: call_ms(tag) for tag in calls}
+        times[key] = {tag: call_ms(name, tag) for tag in calls}
         print(f"[split] {key:14s} " + "  ".join(f"{t} {ms:.3f} ms" for t, ms in times[key].items()),
               flush=True)
     if hasattr(sdc.sdc_topk, "gate_counts"):  # an earlier design has none
@@ -268,9 +323,9 @@ def main() -> None:
             pairs, passed = (x - y for x, y in zip(sdc.sdc_topk.gate_counts(device), before))
             print(f"[split] gate {tag} ({names[0]}): {passed} of {pairs} pairs passed "
                   f"({100 * passed / max(pairs, 1):.4f}%)", flush=True)
-    for (name, D, packed), (qc, per_sm) in occupancy.items():
-        print(f"[split] occupancy {name} D={D} packed={packed}: {qc} queries a block, "
-              f"{per_sm} blocks an SM")
+    for name in names:
+        print(f"[split] geometry {name} (queries a block, slices, documents a slice): "
+              + "  ".join(f"{tag} {geometry[(name, tag)]}" for tag in calls))
     if set(VARIANTS) <= set(cuts):
         for s in shapes:
             at = f"@{s}" if s else ""
